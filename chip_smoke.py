@@ -4,12 +4,14 @@
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc. It
 builds the port's kernels from piper_tpu_torch/csrc/, checks each against
-its plain PyTorch version at the shapes the main path gives it, drives the
-main path (one medium-voice utterance, phoneme ids to PCM, through
-piper_tpu_torch.PiperRuntime) and checks the card's result against the same
-port on the CPU. Each phase prints one JSON line; any failure raises and the
-exit code is non-zero. The last line is {"ok": true, "device": {...}}.
-It imports no JAX: the machine with the card has none.
+its plain PyTorch version at the shapes the main paths give it, drives the
+main paths (utterances of a medium voice, whose narrow ResBlock1 levels run
+the resblock kernels, and of an x_low voice, whose ResBlock2 levels run
+conv1d_same; phoneme ids to PCM through piper_tpu_torch.PiperRuntime) and
+checks each voice's result on the card against the same port on the CPU.
+Each phase prints one JSON line; any failure raises and the exit code is
+non-zero. The last line is {"ok": true, "device": {...}}. It imports no
+JAX: the machine with the card has none.
 """
 
 from __future__ import annotations
@@ -24,14 +26,21 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-REPLACES = {
-    "resblock1_branch": "piper_tpu/ops/pallas/resblock.py:157",
-    "resblock1_mrf": "piper_tpu/ops/pallas/resblock.py:328",
+# kernel -> (its source, the TPU kernel it replaces, the voice whose main path runs it)
+KERNELS = {
+    "resblock1_branch": ("piper_tpu_torch/csrc/resblock1.cu",
+                         "piper_tpu/ops/pallas/resblock.py:157", "medium"),
+    "resblock1_mrf": ("piper_tpu_torch/csrc/resblock1.cu",
+                      "piper_tpu/ops/pallas/resblock.py:328", "medium"),
+    "conv1d_same": ("piper_tpu_torch/csrc/conv1d.cu",
+                    "piper_tpu/ops/pallas/conv.py:107", "x_low"),
 }
 KERNEL_ATOL = 1e-4   # C*k <= 704-term sums chained over 6 convs, cuDNN's order differs
 WAVE_ATOL = 1e-4     # the fp32 waveform bar the JAX package is held to
 FACTORS = (1, 2, 4, 8)
 REPS = 10
+# x_low's ResBlock2 convs, (kernel, dilation), one per conv of the three branches.
+X_LOW_CONVS = ((3, 1), (3, 2), (5, 2), (5, 6), (7, 3), (7, 12))
 
 
 def emit(**fields) -> None:
@@ -57,6 +66,23 @@ def median_ms(fn, torch, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def device_ms(fn, torch, reps: int = 10) -> float:
+    """Device time of fn() (ms): the sum of its kernels' times under
+    torch.profiler, per call. Where the host enqueues more slowly than the
+    card runs, the CUDA-event time of median_ms is the host's, not this."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+             for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / reps / 1e3
 
 
 def phase_device(torch) -> str:
@@ -148,27 +174,82 @@ def phase_kernels(torch) -> dict:
             results[name] = {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
             emit(phase="kernel", name=name, channels=c, samples=n, batch_timed=1,
                  max_abs_err=worst, errs=errs, ms=ms, plain_ms=plain_ms,
+                 device_ms=device_ms(lambda: run(x1, bnd1, True), torch),
+                 plain_device_ms=device_ms(lambda: run(x1, bnd1, False), torch),
                  note="ms covers the 3 branch launches of one level" if c == 64 else
                  "ms covers one launch (3 branches + mean)")
+        results["conv1d_same"] = _conv1d_same_check(torch, gen)
     return results
 
 
-def phase_main_path(torch, voice_dir: Path) -> tuple:
-    """The port's main path: synthesize() of a medium voice on the card."""
+def _conv1d_same_check(torch, gen) -> dict:
+    """K1 at x_low's levels 1 (C=64) and 2 (C=32), 128 frames: every (k, d)
+    of the ResBlock2 convs, B=2 at the level's N with act_slope 0.1 and at a
+    ragged N with act_slope 0, then B=1 timed per level (6 launches)."""
+    from piper_tpu_torch.ops.kernels import conv as K1
+
+    total = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    for level, c, n in ((1, 64, 128 * 64), (2, 32, 128 * 256)):
+        convs = [(_rand(torch, gen, c, c, k, scale=(c * k) ** -0.5),
+                  _rand(torch, gen, c, scale=0.02), k, d) for k, d in X_LOW_CONVS]
+        errs = {}
+        for case, nn, slope in (("act", n, 0.1), ("ragged_no_act", n - 77, 0.0)):
+            x2 = _rand(torch, gen, 2, c, nn, scale=0.3)
+            for w, b, k, d in convs:
+                got = K1.conv1d_same(x2, w, b, dilation=d, act_slope=slope)
+                torch.cuda.synchronize()
+                want = K1.conv1d_same_plain(x2, w, b, dilation=d, act_slope=slope)
+                if got.shape != want.shape:
+                    raise AssertionError(f"conv1d_same {case} k={k} d={d}: {got.shape}")
+                errs[f"{case}_k{k}_d{d}"] = float((got - want).abs().max())
+        worst = max(errs.values())
+        if not worst <= KERNEL_ATOL:
+            raise AssertionError(f"conv1d_same level {level}: max-abs {worst} > {KERNEL_ATOL} "
+                                 f"({errs})")
+        x1 = _rand(torch, gen, 1, c, n, scale=0.3)
+
+        def run(kernel):
+            fn = K1.conv1d_same if kernel else K1.conv1d_same_plain
+            return [fn(x1, w, b, dilation=d, act_slope=0.1) for w, b, k, d in convs]
+
+        ms = median_ms(lambda: run(True), torch)
+        plain_ms = median_ms(lambda: run(False), torch)
+        emit(phase="kernel", name="conv1d_same", level=level, channels=c, samples=n,
+             batch_timed=1, max_abs_err=worst, errs=errs, ms=ms, plain_ms=plain_ms,
+             device_ms=device_ms(lambda: run(True), torch),
+             plain_device_ms=device_ms(lambda: run(False), torch),
+             note="ms covers the 6 launches of one level")
+        total = {"max_abs_err": max(total["max_abs_err"], worst),
+                 "ms": total["ms"] + ms, "plain_ms": total["plain_ms"] + plain_ms}
+    return total
+
+
+def _counters():
+    from piper_tpu_torch.ops.kernels import conv as K1
+    from piper_tpu_torch.ops.kernels import resblock as R
+
+    return {"resblock1_branch": R.resblock1_branch, "resblock1_mrf": R.resblock1_mrf,
+            "conv1d_same": K1.conv1d_same}
+
+
+def phase_main_path(torch, quality: str, voice_dir: Path) -> tuple:
+    """The port's main path for one voice: synthesize() on the card. Every
+    launch count is set to 0 just before the timed run and read just after;
+    each kernel of this voice's path must have launched."""
     from piper_tpu.core.test_vector import FIXTURE_PHONEME_IDS
     from piper_tpu.models.vits.synthetic import make_synthetic_voice
     from piper_tpu_torch.engine.runtime import PiperRuntime
-    from piper_tpu_torch.ops.kernels import resblock as R
 
     t0 = time.perf_counter()
-    model, config = make_synthetic_voice(voice_dir, quality="medium", seed=0)
+    model, config = make_synthetic_voice(voice_dir, quality=quality, seed=0)
     rt = PiperRuntime(model, config, device="cuda")
     load_s = time.perf_counter() - t0
     for f in FACTORS:  # first call per shape: cuDNN heuristics, allocator
         rt.synthesize(FIXTURE_PHONEME_IDS * f)
 
-    R.resblock1_branch.launches = 0
-    R.resblock1_mrf.launches = 0
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
     rows = []
     for f in FACTORS:
         ids = FIXTURE_PHONEME_IDS * f
@@ -179,26 +260,30 @@ def phase_main_path(torch, voice_dir: Path) -> tuple:
             walls.append(t.wall_ms)
             timings.append(t)
             if pcm.dtype.name != "float32" or len(pcm) != t.frames * rt.hparams.hop_length:
-                raise AssertionError(f"f={f}: {pcm.dtype} length {len(pcm)} != "
+                raise AssertionError(f"{quality} f={f}: {pcm.dtype} length {len(pcm)} != "
                                      f"{t.frames} frames * {rt.hparams.hop_length}")
             if not np.isfinite(pcm).all() or not 0 < float(np.abs(pcm).max()) <= 1.0:
-                raise AssertionError(f"f={f}: output not finite / not in (0, 1]")
+                raise AssertionError(f"{quality} f={f}: output not finite / not in (0, 1]")
         t = timings[-1]
         rows.append({"factor": f, "phonemes": len(ids), "ms_median": statistics.median(walls),
                      "ms_all": walls, "encode_ms": t.encode_ms, "decode_ms": t.decode_ms,
                      "frames": t.frames, "frame_bucket": t.frame_bucket,
-                     "audio_s": t.samples / rt.sample_rate})
-    launches = {"resblock1_branch": R.resblock1_branch.launches,
-                "resblock1_mrf": R.resblock1_mrf.launches}
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"the main path launched {name} no time")
-    emit(phase="main_path", voice="synthetic medium, seed 0", load_s=load_s,
-         rows=rows, launches=launches)
+                     "audio_s": t.samples / rt.sample_rate, "rtf": t.rtf})
+    launches = {name: fn.launches for name, fn in counters.items()}
+    for name, (_, _, voice) in KERNELS.items():
+        if voice == quality and launches[name] <= 0:
+            raise AssertionError(f"the {quality} main path launched {name} no time")
+    utterances = len(FACTORS) * REPS
+    if quality == "x_low" and launches["conv1d_same"] != 12 * utterances:
+        raise AssertionError(f"x_low: {launches['conv1d_same']} conv1d_same launches for "
+                             f"{utterances} utterances, expected 12 each")
+    emit(phase="main_path", voice=f"synthetic {quality}, seed 0", load_s=load_s,
+         sample_rate=rt.sample_rate, hop=rt.hparams.hop_length, rows=rows,
+         utterances=utterances, launches=launches)
     return rt, model, config, launches
 
 
-def phase_card_vs_cpu(torch, rt, model, config) -> None:
+def phase_card_vs_cpu(torch, quality: str, rt, model, config) -> None:
     """f=1 with the same injected noise: card (kernels + fp32 cuDNN) vs the
     port on the CPU (plain versions)."""
     from piper_tpu.core.test_vector import FIXTURE_PHONEME_IDS
@@ -225,15 +310,15 @@ def phase_card_vs_cpu(torch, rt, model, config) -> None:
 
     wc_gpu, wc_cpu = w_ceil(rt), w_ceil(cpu)
     if not np.array_equal(wc_gpu, wc_cpu):
-        raise AssertionError(f"w_ceil differs: card {wc_gpu} cpu {wc_cpu}")
+        raise AssertionError(f"{quality}: w_ceil differs: card {wc_gpu} cpu {wc_cpu}")
     a_gpu = rt.synthesize(ids, dp_noise=dp_noise, main_noise=main_noise)
     a_cpu = cpu.synthesize(ids, dp_noise=dp_noise, main_noise=main_noise)
     if a_gpu.shape != a_cpu.shape:
-        raise AssertionError(f"lengths differ: card {a_gpu.shape} cpu {a_cpu.shape}")
+        raise AssertionError(f"{quality}: lengths differ: card {a_gpu.shape} cpu {a_cpu.shape}")
     err = float(np.abs(a_gpu - a_cpu).max())
     if not err <= WAVE_ATOL:
-        raise AssertionError(f"card vs cpu waveform max-abs {err} > {WAVE_ATOL}")
-    emit(phase="card_vs_cpu", factor=1, w_ceil_equal=True, frames=int(wc_gpu.sum()),
+        raise AssertionError(f"{quality}: card vs cpu waveform max-abs {err} > {WAVE_ATOL}")
+    emit(phase="card_vs_cpu", voice=quality, factor=1, w_ceil_equal=True, frames=int(wc_gpu.sum()),
          samples=int(a_gpu.shape[0]), max_abs_err=err, atol=WAVE_ATOL)
 
 
@@ -249,14 +334,17 @@ def main() -> None:
     phase_device(torch)
     phase_build()
     kernels = phase_kernels(torch)
-    rt, model, config, launches = phase_main_path(
-        torch, ROOT / "build" / "chip_smoke_voice")
-    phase_card_vs_cpu(torch, rt, model, config)
+    launches = {}
+    for quality in ("medium", "x_low"):
+        rt, model, config, counts = phase_main_path(
+            torch, quality, ROOT / "build" / f"chip_smoke_voice_{quality}")
+        launches.update({name: counts[name] for name, k in KERNELS.items() if k[2] == quality})
+        phase_card_vs_cpu(torch, quality, rt, model, config)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     emit(kernels=[
-        {"name": name, "route": "cuda", "source": "piper_tpu_torch/csrc/resblock1.cu",
-         "replaces": REPLACES[name], "launches": launches[name],
+        {"name": name, "route": "cuda", "source": KERNELS[name][0],
+         "replaces": KERNELS[name][1], "launches": launches[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"]}
         for name, r in kernels.items()])
     print(json.dumps({"ok": True, "device": {

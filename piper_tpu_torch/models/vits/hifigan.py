@@ -1,12 +1,20 @@
 """HiFi-GAN generator (the `dec.*` weights): latent frames -> waveform.
 
-Counterpart of piper_tpu.models.vits.hifigan with its routing: a ResBlock1
-level narrower than 128 channels, given per-row bounds (or no mask at all),
-goes through the fused resblock kernels — the whole-MRF kernel when it has
-at most 32 channels, one branch kernel per branch otherwise. Wider levels,
-the upsampling and the pre/post convs are PyTorch convs. On a CPU tensor the
-kernel wrappers run their plain versions, so the CPU path is the unfused
-reference with the kernels' mask semantics.
+Counterpart of piper_tpu.models.vits.hifigan with its routing, the port
+taking JAX's use_pallas=True throughout:
+
+- a ResBlock1 level narrower than 128 channels, given per-row bounds (or no
+  mask at all), goes through the fused resblock kernels: the whole-MRF
+  kernel when it has at most 32 channels, one branch kernel per branch
+  otherwise;
+- every other resblock conv that is square and narrower than 128 channels
+  (all convs of a ResBlock2 voice's narrow levels, and the unfused narrow
+  ResBlock1 convs of a masked run without bounds) goes through the
+  conv1d_same kernel, with the mask applied to its input;
+- wider levels, the upsampling and the pre/post convs are PyTorch convs.
+
+On a CPU tensor the kernel wrappers run their plain versions, so the CPU
+path is the unfused reference with the kernels' semantics.
 """
 
 from __future__ import annotations
@@ -17,27 +25,51 @@ import torch
 
 from piper_tpu.models.vits.hparams import VitsHParams
 from piper_tpu_torch.models.vits.params import Params, Prefix
-from piper_tpu_torch.ops.conv import conv1d, conv_transpose1d
-from piper_tpu_torch.ops.kernels.resblock import (
-    resblock1_branch,
-    resblock1_chain_plain,
-    resblock1_mrf,
-)
+from piper_tpu_torch.ops.conv import conv1d, conv1d_same, conv_transpose1d
+from piper_tpu_torch.ops.kernels import conv as K1
+from piper_tpu_torch.ops.kernels.resblock import resblock1_branch, resblock1_mrf
 from piper_tpu_torch.ops.nn import leaky_relu
 
 LRELU_SLOPE = 0.1
 
 
-def _branch_weights(rb: Prefix, n_d: int):
-    """(w1s, b1s, w2s, b2s) of one ResBlock1 branch, each a list over dilations."""
-    return tuple([rb[f"{conv}.{m}.{kind}"] for m in range(n_d)]
-                 for conv, kind in (("convs1", "weight"), ("convs1", "bias"),
-                                    ("convs2", "weight"), ("convs2", "bias")))
+def _lrelu_conv(x, w, b, *, dilation=1, t_mask=None):
+    """leaky_relu -> (mask ->) same-conv; through the K1 kernel for a square
+    conv narrower than 128 channels. For a 0/1 mask lrelu(x * m) equals
+    lrelu(x) * m, so the kernel gets the mask on its input."""
+    if w.shape[0] == w.shape[1] and w.shape[0] < 128:
+        xin = x if t_mask is None else x * t_mask
+        return K1.conv1d_same(xin, w, b, dilation=dilation, act_slope=LRELU_SLOPE)
+    xt = leaky_relu(x, LRELU_SLOPE)
+    if t_mask is not None:
+        xt = xt * t_mask
+    return conv1d_same(xt, w, b, dilation=dilation)
+
+
+def _resblock1(x, p: Prefix, dilations, t_mask=None):
+    """Multi-receptive-field residual block (HiFi-GAN ResBlock1), unfused."""
+    for m, d in enumerate(dilations):
+        xt = _lrelu_conv(x, p[f"convs1.{m}.weight"], p[f"convs1.{m}.bias"],
+                         dilation=d, t_mask=t_mask)
+        xt = _lrelu_conv(xt, p[f"convs2.{m}.weight"], p[f"convs2.{m}.bias"], t_mask=t_mask)
+        x = x + xt
+    return x
+
+
+def _resblock2(x, p: Prefix, dilations, t_mask=None):
+    """Single-conv residual block (HiFi-GAN ResBlock2, Piper's x_low voices)."""
+    for m, d in enumerate(dilations):
+        x = x + _lrelu_conv(x, p[f"convs.{m}.weight"], p[f"convs.{m}.bias"],
+                            dilation=d, t_mask=t_mask)
+    return x
 
 
 def _stacked(rb: Prefix, n_d: int):
-    """The same, each stacked into one (M, ...) tensor, as the kernels take them."""
-    return tuple(torch.stack(ws) for ws in _branch_weights(rb, n_d))
+    """(w1s, b1s, w2s, b2s) of one ResBlock1 branch, each stacked over the
+    dilations into one (M, ...) tensor, as the fused kernels take them."""
+    return tuple(torch.stack([rb[f"{conv}.{m}.{kind}"] for m in range(n_d)])
+                 for conv, kind in (("convs1", "weight"), ("convs1", "bias"),
+                                    ("convs2", "weight"), ("convs2", "bias")))
 
 
 def hifigan_generator(
@@ -55,15 +87,11 @@ def hifigan_generator(
     every conv, so the bucket padding behaves like the array's end.
     `t_bounds` gives each row's valid FRAME interval, (B,) [0, hi) or (B, 2)
     [lo, hi); with it the narrow ResBlock1 levels run the fused kernels,
-    which apply the same masking per row.
+    which apply the same masking per row. A ResBlock2 voice ignores it: its
+    narrow convs run the conv1d_same kernel on the masked input.
     """
     def masked(x, m):
         return x if m is None else x * m
-
-    if f"{prefix}.resblocks.0.convs.0.weight" in params:
-        raise NotImplementedError(
-            "ResBlock2 voices need the port of pallas_conv1d_same "
-            "(piper_tpu/ops/pallas/conv.py), which is not ported yet")
 
     m = t_mask
     p = Prefix(params, prefix)
@@ -72,6 +100,7 @@ def hifigan_generator(
         x = x + conv1d(g, p["cond.weight"], p["cond.bias"])
 
     num_kernels = hp.num_resblock_kernels
+    use_resblock2 = f"{prefix}.resblocks.0.convs.0.weight" in params
     bounds = None
     if t_bounds is not None:
         bounds = t_bounds.to(torch.int32)
@@ -88,7 +117,7 @@ def hifigan_generator(
         if bounds is not None:
             bounds = bounds * u
         ch_here = x.shape[1]
-        fused = ch_here < 128 and (m is None or bounds is not None)
+        fused = not use_resblock2 and ch_here < 128 and (m is None or bounds is not None)
         rbs = [p.sub(f"resblocks.{i * num_kernels + j}") for j in range(num_kernels)]
         if fused and ch_here <= 32:
             branches = [
@@ -105,9 +134,10 @@ def hifigan_generator(
             if fused:
                 y = resblock1_branch(x, *_stacked(rb, len(dils)), kernel=kernel,
                                      dilations=dils, bounds=bounds, slope=LRELU_SLOPE)
+            elif use_resblock2:
+                y = _resblock2(x, rb, dils, t_mask=m)
             else:
-                y = resblock1_chain_plain(x, *_branch_weights(rb, len(dils)), kernel, dils,
-                                          mask=m, slope=LRELU_SLOPE)
+                y = _resblock1(x, rb, dils, t_mask=m)
             acc = y if acc is None else acc + y
         x = acc / num_kernels
 

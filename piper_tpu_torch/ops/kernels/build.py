@@ -80,6 +80,8 @@ def load() -> ctypes.CDLL:
     lib.piper_resblock1_mrf.argtypes = [
         p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, i, p]
     lib.piper_resblock1_mrf.restype = i
+    lib.piper_conv1d_same.argtypes = [p, p, p, p, i, i, i, i, i, i, f, i, p]
+    lib.piper_conv1d_same.restype = i
     _lib = lib
     return lib
 

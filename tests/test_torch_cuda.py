@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from piper_tpu_torch.engine.runtime import fp32_exact
+from piper_tpu_torch.ops.kernels import conv as K1
 from piper_tpu_torch.ops.kernels import resblock as R
 
 pytestmark = pytest.mark.cuda
@@ -76,3 +77,37 @@ def test_kernel_refuses_bad_arguments(cuda):
     w, b = torch.zeros(1, 16, 16, 3, device=cuda), torch.zeros(1, 16, device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         R.resblock1_branch(x, w, b, w, b, kernel=3, dilations=(1,))
+
+
+@pytest.mark.parametrize("c,k,d,n,slope,with_bias", [
+    (64, 7, 12, 8192, 0.1, True),   # x_low level 1 at 128 frames
+    (32, 5, 6, 32768, 0.1, True),   # x_low level 2 at 128 frames
+    (64, 3, 1, 2049, 0.0, True),    # ragged N, no activation
+    (32, 7, 3, 1000, 0.1, False),
+    (16, 11, 5, 300, 0.1, True),    # one tile, the runtime tap loop
+])
+def test_conv1d_same_kernel_matches_plain(cuda, c, k, d, n, slope, with_bias):
+    gen = torch.Generator().manual_seed(c * k + d + n)
+    x = (torch.randn(2, c, n, generator=gen) * 0.3).to(cuda)
+    w = (torch.randn(c, c, k, generator=gen) * (c * k) ** -0.5).to(cuda)
+    b = (torch.randn(c, generator=gen) * 0.02).to(cuda) if with_bias else None
+    before = K1.conv1d_same.launches
+    got = K1.conv1d_same(x, w, b, dilation=d, act_slope=slope)
+    torch.cuda.synchronize()
+    assert K1.conv1d_same.launches == before + 1
+    want = K1.conv1d_same_plain(x, w, b, dilation=d, act_slope=slope)
+    assert float((got - want).abs().max()) <= ATOL
+    # Each output's sum runs in the same order whatever the tile.
+    assert torch.equal(K1.conv1d_same(x, w, b, dilation=d, act_slope=slope, tile=32), got)
+
+
+def test_conv1d_same_kernel_refuses_bad_arguments(cuda):
+    x = torch.zeros(1, 12, 64, device=cuda)  # C=12 is not a multiple of 8
+    with pytest.raises(ValueError, match="multiple of 8"):
+        K1.conv1d_same(x, torch.zeros(12, 12, 3, device=cuda))
+    x = torch.zeros(1, 16, 64, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        K1.conv1d_same(x, torch.zeros(16, 16, 3, device=cuda, dtype=torch.float64))
+    x = torch.zeros(1, 120, 64, device=cuda)  # 633 KB of weights at k=11
+    with pytest.raises(ValueError, match="shared memory"):
+        K1.conv1d_same(x, torch.zeros(120, 120, 11, device=cuda))

@@ -1,8 +1,8 @@
-"""The plain versions of the port's ResBlock1 kernels against the Pallas
-kernels they replace, run in interpret mode on the CPU (the cases of
-tests/test_pallas_kernels.py). Tolerance 1e-5 max-abs: the same float32
-conv chain, summed in another order. The CUDA kernels themselves run only
-on a card (tests/test_torch_cuda.py, chip_smoke.py).
+"""The plain versions of the port's kernels (K1 conv1d_same, the ResBlock1
+K2/K3) against the Pallas kernels they replace, run in interpret mode on the
+CPU (the cases of tests/test_pallas_kernels.py). Tolerance 1e-5 max-abs: the
+same float32 convs, summed in another order. The CUDA kernels themselves
+run only on a card (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
 import os
@@ -16,7 +16,9 @@ import torch
 
 import jax.numpy as jnp
 
+from piper_tpu.ops.pallas.conv import pallas_conv1d_same
 from piper_tpu.ops.pallas.resblock import pallas_resblock1_branch, pallas_resblock1_mrf
+from piper_tpu_torch.ops.kernels import conv as K1
 from piper_tpu_torch.ops.kernels import resblock as R
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -176,3 +178,49 @@ def test_branch_halo_figures():
     """The one-sided halo is sum((k-1)//2*d + (k-1)//2): 12, 36 and 60
     samples for k = 3, 7, 11 at dilations 1/3/5."""
     assert [R.branch_halo(k, (1, 3, 5)) for k in (3, 7, 11)] == [12, 36, 60]
+
+
+@pytest.mark.parametrize("ch,k,d,n,slope,with_bias", [
+    (32, 11, 5, 1000, 0.0, True),   # the cases of tests/test_pallas_kernels.py
+    (32, 3, 1, 300, 0.1, True),
+    (64, 7, 3, 2048, 0.1, True),
+    (64, 7, 12, 700, 0.1, True),    # x_low level 1, widest reach (36 per side)
+    (32, 5, 6, 900, 0.1, True),     # x_low level 2
+    (32, 7, 3, 333, 0.1, False),
+])
+def test_conv1d_same_plain_matches_pallas(ch, k, d, n, slope, with_bias):
+    rng = np.random.default_rng(k * 100 + d)
+    x = rng.standard_normal((2, ch, n)).astype(np.float32)
+    w = (rng.standard_normal((ch, ch, k)) * 0.05).astype(np.float32)
+    bias = rng.standard_normal((ch,)).astype(np.float32) if with_bias else None
+    got = K1.conv1d_same_plain(torch.from_numpy(x), torch.from_numpy(w),
+                               None if bias is None else torch.from_numpy(bias),
+                               dilation=d, act_slope=slope)
+    want = pallas_conv1d_same(jnp.asarray(x), jnp.asarray(w),
+                              None if bias is None else jnp.asarray(bias),
+                              dilation=d, act_slope=slope, tile=512, interpret=True)
+    assert got.shape == (2, ch, n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+
+
+def test_conv1d_same_cpu_runs_the_plain_version_and_counts_no_launch():
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.standard_normal((2, 16, 100)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((16, 16, 5)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal(16).astype(np.float32))
+    before = K1.conv1d_same.launches
+    got = K1.conv1d_same(x, w, b, dilation=2, act_slope=0.1)
+    assert torch.equal(got, K1.conv1d_same_plain(x, w, b, dilation=2, act_slope=0.1))
+    assert K1.conv1d_same.launches == before
+
+
+def test_conv1d_same_refuses_what_the_kernel_does_not_take():
+    x = torch.zeros(1, 16, 64)
+    with pytest.raises(ValueError, match="highest"):
+        K1.conv1d_same(x, torch.zeros(16, 16, 3), precision="high")
+    with pytest.raises(ValueError, match="square"):
+        K1.conv1d_same(x, torch.zeros(8, 16, 3))
+    with pytest.raises(ValueError, match="odd"):
+        K1.conv1d_same(x, torch.zeros(16, 16, 4))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        K1.conv1d_same(x.to("meta"), torch.zeros(16, 16, 3, device="meta"))

@@ -28,6 +28,7 @@ from piper_tpu_torch.models.vits.flows import flow_reverse as t_flow
 from piper_tpu_torch.models.vits.hifigan import hifigan_generator as t_hifigan
 from piper_tpu_torch.models.vits.params import params_to_torch
 from piper_tpu_torch.models.vits.text_encoder import text_encoder as t_text_encoder
+from piper_tpu_torch.ops.kernels import conv as K1
 
 SMALL = VitsHParams(
     n_vocab=40, inter_channels=32, hidden_channels=32, filter_channels=64,
@@ -44,6 +45,12 @@ ROUTES = replace(
     SMALL, upsample_initial_channel=256, upsample_rates=[2, 2, 2],
     upsample_kernel_sizes=[4, 4, 4], resblock_kernel_sizes=[3, 7, 11],
     resblock_dilation_sizes=[[1, 3, 5]] * 3,
+)
+# A ResBlock2 vocoder with x_low's kernels and dilations: C=128 plain convs,
+# C=64 and C=32 the conv1d_same kernel.
+ROUTES2 = replace(
+    ROUTES, resblock="2", resblock_kernel_sizes=[3, 5, 7],
+    resblock_dilation_sizes=[[1, 2], [2, 6], [3, 12]],
 )
 
 MODULE_ATOL, LOGW_ATOL, WAVE_ATOL = 2e-5, 5e-5, 1e-4
@@ -130,16 +137,14 @@ def _inputs(hp, b=2, p=12, frames=64, seed=5):
     return ids, lengths, dp_noise, main_noise
 
 
-def test_debug_infer_matches_reference():
-    hp = SMALL
-    w = synthetic_params(hp, seed=7)
-    ids, lengths, dp_noise, main_noise = _inputs(hp)
+def _debug_infer_both(hp, w, frames=64, seed=5):
+    ids, lengths, dp_noise, main_noise = _inputs(hp, frames=frames, seed=seed)
     want = jv.debug_infer(params_from_arrays(w), hp, jnp.asarray(ids), jnp.asarray(lengths),
-                          jnp.asarray(dp_noise), jnp.asarray(main_noise), max_frames=64)
+                          jnp.asarray(dp_noise), jnp.asarray(main_noise), max_frames=frames)
     with torch.inference_mode():
         got = tv.debug_infer(params_to_torch(w, "cpu"), hp, torch.from_numpy(ids),
                              torch.from_numpy(lengths), torch.from_numpy(dp_noise),
-                             torch.from_numpy(main_noise), max_frames=64)
+                             torch.from_numpy(main_noise), max_frames=frames)
     assert set(got) == set(want)
     exact = {"x_mask", "w_ceil", "y_lengths", "y_mask", "path"}
     for key in sorted(got):
@@ -148,12 +153,20 @@ def test_debug_infer_matches_reference():
         _close(got[key], want[key], atol)
 
 
-def test_decode_takes_all_vocoder_routes():
-    """Port decode (branch kernel at C=64, MRF kernel at C=32, plain convs
-    at C=128; plain versions on the CPU) against JAX decode without Pallas."""
-    hp = ROUTES
-    w = synthetic_params(hp, seed=3)
-    ids, lengths, dp_noise, main_noise = _inputs(hp, frames=32, seed=6)
+def test_debug_infer_matches_reference():
+    _debug_infer_both(SMALL, synthetic_params(SMALL, seed=7))
+
+
+def test_debug_infer_resblock2_matches_reference():
+    """A ResBlock2 vocoder, masked and without bounds: its narrow convs run
+    conv1d_same on the masked input, as JAX's do."""
+    _debug_infer_both(ROUTES2, synthetic_params(ROUTES2, seed=9), frames=32, seed=8)
+
+
+def _decode_both(hp, w, seed):
+    """Port decode against JAX decode without Pallas, one row ending inside
+    the 32-frame bucket."""
+    ids, lengths, dp_noise, main_noise = _inputs(hp, frames=32, seed=seed)
     jp = params_from_arrays(w)
     j_enc = jv.encode(jp, hp, jnp.asarray(ids), jnp.asarray(lengths), jnp.asarray(dp_noise))
     want, want_len = jv.decode(jp, hp, j_enc, jnp.asarray(main_noise), max_frames=32,
@@ -165,8 +178,20 @@ def test_decode_takes_all_vocoder_routes():
         _close(t_enc.w_ceil, j_enc.w_ceil, 0)
         got, got_len = tv.decode(tp, hp, t_enc, torch.from_numpy(main_noise), max_frames=32)
     _close(got_len, want_len, 0)
-    assert 0 < int(got_len.min()) < 32  # a row ends inside the bucket: the bounds matter
+    assert 0 < int(got_len.min()) < 32  # a row ends inside the bucket: the mask matters
     _close(got, want, WAVE_ATOL)
+
+
+def test_decode_takes_all_vocoder_routes():
+    """Branch kernel at C=64, MRF kernel at C=32, plain convs at C=128
+    (plain versions on the CPU)."""
+    _decode_both(ROUTES, synthetic_params(ROUTES, seed=3), seed=6)
+
+
+def test_decode_resblock2_matches_reference():
+    """conv1d_same at C=64 and C=32 (x_low's kernels and dilations), plain
+    convs at C=128."""
+    _decode_both(ROUTES2, synthetic_params(ROUTES2, seed=4), seed=6)
 
 
 def test_infer_is_encode_then_decode():
@@ -180,9 +205,22 @@ def test_infer_is_encode_then_decode():
     assert torch.equal(audio, audio2) and torch.equal(y_len, y_len2)
 
 
-def test_resblock2_voice_is_refused():
-    """ResBlock2 voices need K1 (pallas_conv1d_same), which is not ported."""
-    hp = replace(SMALL, resblock="2")
-    tp = params_to_torch(synthetic_params(hp, seed=1), "cpu")
-    with pytest.raises(NotImplementedError, match="pallas_conv1d_same"):
-        t_hifigan(torch.zeros(1, hp.inter_channels, 4), tp, hp)
+def test_hifigan_resblock2_matches_pallas(monkeypatch):
+    """The ResBlock2 vocoder against JAX's with use_pallas=True, its
+    pallas_conv1d_same calls in interpret mode; masked, with bounds, as
+    decode calls it."""
+    monkeypatch.setenv("PIPER_TPU_PALLAS_INTERPRET", "1")
+    hp = ROUTES2
+    w = synthetic_params(hp, seed=5)
+    rng = np.random.default_rng(12)
+    z = rng.standard_normal((2, hp.inter_channels, 16)).astype(np.float32)
+    lengths = np.array([16, 11], np.int32)
+    mask = np.array(sequence_mask(jnp.asarray(lengths), 16))
+    want = j_hifigan(jnp.asarray(z * mask), params_from_arrays(w), hp,
+                     t_mask=jnp.asarray(mask), use_pallas=True, t_bounds=jnp.asarray(lengths))
+    before = K1.conv1d_same.launches
+    with torch.inference_mode():
+        got = t_hifigan(torch.from_numpy(z * mask), params_to_torch(w, "cpu"), hp,
+                        t_mask=torch.from_numpy(mask), t_bounds=torch.from_numpy(lengths))
+    assert K1.conv1d_same.launches == before  # CPU tensors: the plain version
+    _close(got, want, WAVE_ATOL)

@@ -15,7 +15,7 @@ import pytest
 import torch
 
 from piper_tpu.models.vits.params import host_arrays_from_graph as j_host_arrays
-from piper_tpu.models.vits.synthetic import synthetic_params
+from piper_tpu.models.vits.synthetic import make_synthetic_voice, synthetic_params
 from piper_tpu.models.vits.hparams import PRESETS
 from piper_tpu.onnx.loader import load_model
 from piper_tpu.onnx.writer import node, save_model, tensor_from_array
@@ -97,6 +97,34 @@ def test_synthesize_matches_reference_int16(tiny_voice, tiny_runtime):
     want = ref.synthesize(IDS, dp_noise=dp_noise, main_noise=main_noise)
     assert got.dtype == np.int16 and got.shape == want.shape
     assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 4
+
+
+@pytest.fixture(scope="module")
+def x_low_voice(tmp_path_factory):
+    """A synthetic x_low voice: ResBlock2 vocoder (256 -> 128/64/32), 16 kHz,
+    hop 256; the narrow levels run conv1d_same."""
+    return make_synthetic_voice(tmp_path_factory.mktemp("x_low"), quality="x_low", seed=0)
+
+
+@pytest.mark.parametrize("output_dtype", ["float32", "int16"])
+def test_x_low_synthesize_matches_reference(x_low_voice, output_dtype):
+    from piper_tpu.engine.runtime import PiperRuntime as JaxRuntime
+    from piper_tpu.engine.runtime import RuntimeOptions as JaxOptions
+
+    rt = PiperRuntime(*x_low_voice, RuntimeOptions(output_dtype=output_dtype), device="cpu")
+    ref = JaxRuntime(*x_low_voice, JaxOptions(output_dtype=output_dtype))
+    dp_noise, main_noise = _noise(rt, seed=2)
+    got = rt.synthesize(IDS, dp_noise=dp_noise, main_noise=main_noise)
+    want = ref.synthesize(IDS, dp_noise=dp_noise, main_noise=main_noise)
+    assert got.dtype == want.dtype == np.dtype(output_dtype) and got.shape == want.shape
+    if output_dtype == "int16":
+        assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 4
+        return
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    hp, t = rt.hparams, rt.last_run_timings
+    assert (hp.resblock, hp.hop_length, rt.sample_rate) == ("2", 256, 16000)
+    assert t.samples == len(got) == t.frames * 256 and t.frame_bucket >= t.frames
+    assert t.rtf == pytest.approx(t.samples / 16000 / (t.wall_ms / 1e3))
 
 
 def test_seeded_synthesis_is_deterministic(port_rt):
