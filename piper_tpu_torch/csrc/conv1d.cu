@@ -30,10 +30,13 @@
 // the warps) up to 1.5x slower below ~200 frames. Nothing in the halo is
 // recomputed (K1 only loads it), so the tile trades the per-block staging
 // of the weights against spreading the warps over the SMs; the wrapper
-// picks it. No tensor cores: the "highest" tier is fp32.
+// picks it. No tensor cores: the products run at the tier of tiers.cuh on
+// CUDA-core FMAs, split into bf16 parts in registers at the read.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include "tiers.cuh"
 
 namespace {
 
@@ -41,7 +44,7 @@ constexpr int kMaxThreads = 512;
 constexpr int kRCo = 8;  // output channels per thread
 constexpr int kRT = 2;   // time samples per thread, strided by the row width
 
-template <int K>
+template <int K, int kTier>
 __global__ void __launch_bounds__(kMaxThreads) conv1d_same_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ bias, float* __restrict__ out, int C, int N, int k_rt,
@@ -106,11 +109,7 @@ __global__ void __launch_bounds__(kMaxThreads) conv1d_same_kernel(
       const float4 wa = *reinterpret_cast<const float4*>(wrow + j * C);
       const float4 wb = *reinterpret_cast<const float4*>(wrow + j * C + 4);
       const float wv[kRCo] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-#pragma unroll
-      for (int c = 0; c < kRCo; ++c) {
-#pragma unroll
-        for (int i = 0; i < kRT; ++i) acc[c][i] = fmaf(wv[c], v[i], acc[c][i]);
-      }
+      piper::tier_fma<kTier>(wv, v, acc);
     }
   }
   float* ob = out + (size_t)b * C * N + t0;
@@ -123,21 +122,32 @@ __global__ void __launch_bounds__(kMaxThreads) conv1d_same_kernel(
   }
 }
 
-template <int K>
-int launch(const float* x, const float* w, const float* bias, float* out, int B, int C,
-           int N, int k, int dil, int tile, float slope, int device, void* stream) {
+template <int K, int kTier>
+int launch_tier(const float* x, const float* w, const float* bias, float* out, int B, int C,
+                int N, int k, int dil, int tile, float slope, int device, void* stream) {
   const int threads = C / kRCo * ((tile + kRT - 1) / kRT);  // one pass over the tile
   if (threads > kMaxThreads) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * ((size_t)C * k * C + (size_t)C * (tile + (k - 1) * dil));
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(conv1d_same_kernel<K>,
+  e = cudaFuncSetAttribute(conv1d_same_kernel<K, kTier>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((N + tile - 1) / tile, B);
-  conv1d_same_kernel<K><<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  conv1d_same_kernel<K, kTier><<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       x, w, bias, out, C, N, k, dil, tile, slope);
   return (int)cudaGetLastError();
+}
+
+template <int K>
+int launch(const float* x, const float* w, const float* bias, float* out, int B, int C,
+           int N, int k, int dil, int tile, float slope, int tier, int device, void* stream) {
+  switch (tier) {
+    case 0: return launch_tier<K, 0>(x, w, bias, out, B, C, N, k, dil, tile, slope, device, stream);
+    case 1: return launch_tier<K, 1>(x, w, bias, out, B, C, N, k, dil, tile, slope, device, stream);
+    case 2: return launch_tier<K, 2>(x, w, bias, out, B, C, N, k, dil, tile, slope, device, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -145,19 +155,19 @@ int launch(const float* x, const float* w, const float* bias, float* out, int B,
 extern "C" {
 
 // x, out (B, C, N); w (C_in, K, C_out) contiguous and 16-byte aligned; bias
-// (C,). Returns a cudaError_t code (0 on success).
+// (C,); tier 0/1/2 (tiers.cuh). Returns a cudaError_t code (0 on success).
 int piper_conv1d_same(const float* x, const float* w, const float* bias, float* out,
                       int B, int C, int N, int k, int dil, int tile, float slope,
-                      int device, void* stream) {
+                      int tier, int device, void* stream) {
   if (C < kRCo || C % kRCo != 0 || k < 1 || k % 2 == 0 || dil < 1 || tile < 1 ||
       N < 1 || B < 1)
     return (int)cudaErrorInvalidValue;
   switch (k) {  // HiFi-GAN's kernel sizes get an unrolled tap loop
-    case 3: return launch<3>(x, w, bias, out, B, C, N, k, dil, tile, slope, device, stream);
-    case 5: return launch<5>(x, w, bias, out, B, C, N, k, dil, tile, slope, device, stream);
-    case 7: return launch<7>(x, w, bias, out, B, C, N, k, dil, tile, slope, device, stream);
-    case 11: return launch<11>(x, w, bias, out, B, C, N, k, dil, tile, slope, device, stream);
-    default: return launch<0>(x, w, bias, out, B, C, N, k, dil, tile, slope, device, stream);
+    case 3: return launch<3>(x, w, bias, out, B, C, N, k, dil, tile, slope, tier, device, stream);
+    case 5: return launch<5>(x, w, bias, out, B, C, N, k, dil, tile, slope, tier, device, stream);
+    case 7: return launch<7>(x, w, bias, out, B, C, N, k, dil, tile, slope, tier, device, stream);
+    case 11: return launch<11>(x, w, bias, out, B, C, N, k, dil, tile, slope, tier, device, stream);
+    default: return launch<0>(x, w, bias, out, B, C, N, k, dil, tile, slope, tier, device, stream);
   }
 }
 

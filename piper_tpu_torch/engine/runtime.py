@@ -3,8 +3,11 @@
 Counterpart of piper_tpu.engine.runtime's split mode: pad the phoneme ids to
 a bucket, encode, read the frame count on the host once, pick the frame
 bucket, decode, and return PCM. The device is explicit; weights go to it
-once. Synthesis runs in fp32 with TF32 off for matmuls and cuDNN convs: a
-duration error can flip a ceil() and shift the whole waveform.
+once. Encode and decode run at the `precision` tier (by default "highest",
+fp32 with TF32 off for matmuls and cuDNN convs: a duration error can flip a
+ceil() and shift the whole waveform); the reverse flows and the vocoder may
+take lower tiers of their own, as in the JAX package (`precision.py` says
+what each tier means in the kernels and around them).
 
 Seeded noise comes from a torch.Generator seeded from (seed, 0) for the
 duration predictor and (seed, 1) for the prior; each is one per-row draw
@@ -15,7 +18,6 @@ design; parity checks inject the noise instead.
 
 from __future__ import annotations
 
-import contextlib
 import math
 import sys
 import time
@@ -38,18 +40,39 @@ from piper_tpu_torch.engine.bucketing import (
 )
 from piper_tpu_torch.models.vits import model as vits
 from piper_tpu_torch.models.vits.params import host_arrays_from_graph, params_to_torch
+from piper_tpu_torch.ops.kernels.precision import TIERS, kernel_tier, tier_scope
+
+
+def parse_precision_spec(spec):
+    """Parse a precision-tier spec string, the grammar of the JAX package's
+    parse_precision_spec: 'none'/'' -> None (inherit), a single tier name,
+    or a comma list of per-level tiers with 'none'/'' items meaning 'inherit'
+    for that level. Whitespace around items is ignored."""
+    if spec is None:
+        return None
+    spec = spec.strip()
+    if spec in ("", "none"):
+        return None
+    parts = [t.strip() for t in spec.split(",")]
+    if len(parts) == 1:
+        return parts[0]
+    return tuple(None if t in ("", "none") else t for t in parts)
 
 
 @dataclass(frozen=True)
 class RuntimeOptions:
-    """The knobs of piper_tpu's RuntimeOptions that this slice carries.
+    """The knobs of piper_tpu's RuntimeOptions that the port carries.
 
-    Only the "highest" (fp32) tier and split mode exist so far; other values
-    raise, naming the later change that brings them."""
+    `precision` is the tier of encode and decode: "highest", "high" or
+    "default". `vocoder_precision` is None (inherit), one tier, or one entry
+    per upsample level (None entries run that level's kernels at "highest"
+    and its PyTorch convs at the outer tier, as in JAX); `flow_precision` is
+    None or one tier. Values that are not ported yet raise, naming the later
+    change that brings them."""
 
     seed: int = 1234
     precision: str = "highest"
-    vocoder_precision: Optional[str] = None
+    vocoder_precision: Union[str, Tuple[Optional[str], ...], None] = None
     flow_precision: Optional[str] = None
     mode: str = "split"
     phoneme_buckets: Tuple[int, ...] = tuple(DEFAULT_PHONEME_BUCKETS)
@@ -57,14 +80,16 @@ class RuntimeOptions:
     output_dtype: str = "float32"  # or "int16": clip * 32767, cast on the device
 
     def validate(self) -> None:
-        if self.precision != "highest":
-            raise ValueError(f"precision {self.precision!r}: only 'highest' (fp32) "
-                             f"is ported; lower tiers come in a later change")
-        for name in ("vocoder_precision", "flow_precision"):
-            tier = getattr(self, name)
-            if tier not in (None, "highest"):
-                raise ValueError(f"{name} {tier!r}: only None or 'highest' is "
-                                 f"ported; lower tiers come in a later change")
+        if self.precision == "bfloat16":
+            raise ValueError("precision 'bfloat16' (bf16 weights and activations end to "
+                             "end) is not ported; it comes in a later change, with the "
+                             "port of tools/calibrate_precision.py")
+        if self.precision not in TIERS:
+            raise ValueError(f"precision {self.precision!r}: the tiers are {TIERS}")
+        vp = self.vocoder_precision
+        for tier in (vp if isinstance(vp, (tuple, list)) else (vp,)):
+            kernel_tier(tier, "vocoder_precision")
+        kernel_tier(self.flow_precision, "flow_precision")
         if self.mode != "split":
             raise ValueError(f"mode {self.mode!r}: only 'split' is ported; "
                              f"fused mode comes in a later change")
@@ -85,19 +110,6 @@ class RunTimings:
     frames: int = 0
     samples: int = 0
     rtf: float = 0.0  # real-time factor (audio seconds per wall second)
-
-
-@contextlib.contextmanager
-def fp32_exact():
-    """TF32 off for matmuls and cuDNN convs within the block, restored after."""
-    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = (cudnn.allow_tf32, matmul.allow_tf32)
-    cudnn.allow_tf32 = False
-    matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
 def seeded_noise(seed: int, stream: int, shape: Tuple[int, ...], rows: int,
@@ -144,6 +156,12 @@ class PiperRuntime:
             n_speakers=self.config.num_speakers)
         if self.hparams.n_speakers > 1:
             raise NotImplementedError("multi-speaker voices are not ported yet")
+        vp = self.options.vocoder_precision
+        if isinstance(vp, (tuple, list)) and len(vp) != self.hparams.num_upsamples:
+            raise ValueError(
+                f"vocoder_precision has {len(vp)} per-level entries but this voice has "
+                f"{self.hparams.num_upsamples} upsample levels: give one tier per level "
+                f"(or a single tier name for all levels)")
         self.params = params_to_torch(host_arrays_from_graph(graph), self.device)
         self.last_run_timings: Optional[RunTimings] = None
 
@@ -200,7 +218,8 @@ class PiperRuntime:
         p_bucket = bucket_for(len(ids), self.options.phoneme_buckets, "phoneme")
         dev = self.device
 
-        with torch.inference_mode(), fp32_exact():
+        opts = self.options
+        with torch.inference_mode(), tier_scope(opts.precision, dev):
             ids_t = torch.from_numpy(pad_to(np.asarray(ids, np.int64), p_bucket)[None]).to(dev)
             lengths_t = torch.tensor([len(ids)], dtype=torch.int64, device=dev)
             if dp_noise is not None:
@@ -232,7 +251,8 @@ class PiperRuntime:
                 f_bucket = self._frame_bucket(y_total)
                 mn_t = seeded_noise(base_seed, 1, (hp.inter_channels, f_bucket), 1, dev)
             audio, _ = vits.decode(self.params, hp, enc, mn_t, max_frames=f_bucket,
-                                   noise_scale=ns)
+                                   noise_scale=ns, vocoder_precision=opts.vocoder_precision,
+                                   flow_precision=opts.flow_precision)
             if self.options.output_dtype == "int16":
                 audio = (torch.clamp(audio, -1.0, 1.0) * 32767.0).to(torch.int16)
             audio = audio.cpu().numpy()

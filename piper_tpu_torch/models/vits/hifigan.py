@@ -15,11 +15,15 @@ taking JAX's use_pallas=True throughout:
 
 On a CPU tensor the kernel wrappers run their plain versions, so the CPU
 path is the unfused reference with the kernels' semantics.
+
+`level_precisions` sets each upsample level's tier, as in JAX: the level's
+kernels run at that tier (None meaning "highest", as _pallas_precision maps
+it) and its PyTorch convs under tier_scope (None inheriting the caller's).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import torch
 
@@ -27,40 +31,44 @@ from piper_tpu.models.vits.hparams import VitsHParams
 from piper_tpu_torch.models.vits.params import Params, Prefix
 from piper_tpu_torch.ops.conv import conv1d, conv1d_same, conv_transpose1d
 from piper_tpu_torch.ops.kernels import conv as K1
+from piper_tpu_torch.ops.kernels.precision import tier_scope
 from piper_tpu_torch.ops.kernels.resblock import resblock1_branch, resblock1_mrf
 from piper_tpu_torch.ops.nn import leaky_relu
 
 LRELU_SLOPE = 0.1
 
 
-def _lrelu_conv(x, w, b, *, dilation=1, t_mask=None):
-    """leaky_relu -> (mask ->) same-conv; through the K1 kernel for a square
-    conv narrower than 128 channels. For a 0/1 mask lrelu(x * m) equals
-    lrelu(x) * m, so the kernel gets the mask on its input."""
+def _lrelu_conv(x, w, b, *, dilation=1, t_mask=None, precision=None):
+    """leaky_relu -> (mask ->) same-conv; through the K1 kernel at
+    `precision` for a square conv narrower than 128 channels. For a 0/1 mask
+    lrelu(x * m) equals lrelu(x) * m, so the kernel gets the mask on its
+    input."""
     if w.shape[0] == w.shape[1] and w.shape[0] < 128:
         xin = x if t_mask is None else x * t_mask
-        return K1.conv1d_same(xin, w, b, dilation=dilation, act_slope=LRELU_SLOPE)
+        return K1.conv1d_same(xin, w, b, dilation=dilation, act_slope=LRELU_SLOPE,
+                              precision=precision)
     xt = leaky_relu(x, LRELU_SLOPE)
     if t_mask is not None:
         xt = xt * t_mask
     return conv1d_same(xt, w, b, dilation=dilation)
 
 
-def _resblock1(x, p: Prefix, dilations, t_mask=None):
+def _resblock1(x, p: Prefix, dilations, t_mask=None, precision=None):
     """Multi-receptive-field residual block (HiFi-GAN ResBlock1), unfused."""
     for m, d in enumerate(dilations):
         xt = _lrelu_conv(x, p[f"convs1.{m}.weight"], p[f"convs1.{m}.bias"],
-                         dilation=d, t_mask=t_mask)
-        xt = _lrelu_conv(xt, p[f"convs2.{m}.weight"], p[f"convs2.{m}.bias"], t_mask=t_mask)
+                         dilation=d, t_mask=t_mask, precision=precision)
+        xt = _lrelu_conv(xt, p[f"convs2.{m}.weight"], p[f"convs2.{m}.bias"], t_mask=t_mask,
+                         precision=precision)
         x = x + xt
     return x
 
 
-def _resblock2(x, p: Prefix, dilations, t_mask=None):
+def _resblock2(x, p: Prefix, dilations, t_mask=None, precision=None):
     """Single-conv residual block (HiFi-GAN ResBlock2, Piper's x_low voices)."""
     for m, d in enumerate(dilations):
         x = x + _lrelu_conv(x, p[f"convs.{m}.weight"], p[f"convs.{m}.bias"],
-                            dilation=d, t_mask=t_mask)
+                            dilation=d, t_mask=t_mask, precision=precision)
     return x
 
 
@@ -78,10 +86,14 @@ def hifigan_generator(
     hp: VitsHParams,
     g: Optional[torch.Tensor] = None,
     prefix: str = "dec",
+    level_precisions: Optional[Union[str, Sequence[Optional[str]]]] = None,
     t_mask: Optional[torch.Tensor] = None,
     t_bounds: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """(B, C, T_frames) latent -> (B, 1, T_frames * hop_length) waveform.
+
+    `level_precisions` is one tier for every upsample level or one entry
+    per level; conv_pre runs at the first level's, conv_post at the last's.
 
     `t_mask` (B, 1, T_frames) zeroes activations outside the sequence before
     every conv, so the bucket padding behaves like the array's end.
@@ -90,14 +102,24 @@ def hifigan_generator(
     which apply the same masking per row. A ResBlock2 voice ignores it: its
     narrow convs run the conv1d_same kernel on the masked input.
     """
+    if level_precisions is None or isinstance(level_precisions, str):
+        lp = [level_precisions] * hp.num_upsamples
+    else:
+        lp = list(level_precisions)
+    if len(lp) != hp.num_upsamples:
+        raise ValueError(f"level_precisions has {len(lp)} entries for "
+                         f"{hp.num_upsamples} upsample levels")
+
     def masked(x, m):
         return x if m is None else x * m
 
+    dev = z.device
     m = t_mask
     p = Prefix(params, prefix)
-    x = conv1d(masked(z, m), p["conv_pre.weight"], p["conv_pre.bias"], padding=3)
-    if g is not None:
-        x = x + conv1d(g, p["cond.weight"], p["cond.bias"])
+    with tier_scope(lp[0], dev):
+        x = conv1d(masked(z, m), p["conv_pre.weight"], p["conv_pre.bias"], padding=3)
+        if g is not None:
+            x = x + conv1d(g, p["cond.weight"], p["cond.bias"])
 
     num_kernels = hp.num_resblock_kernels
     use_resblock2 = f"{prefix}.resblocks.0.convs.0.weight" in params
@@ -107,41 +129,52 @@ def hifigan_generator(
         if bounds.ndim == 1:
             bounds = torch.stack([torch.zeros_like(bounds), bounds], dim=1)
     for i in range(hp.num_upsamples):
-        x = leaky_relu(masked(x, m), LRELU_SLOPE)
-        k, u = hp.upsample_kernel_sizes[i], hp.upsample_rates[i]
-        x = conv_transpose1d(masked(x, m), p[f"ups.{i}.weight"], p[f"ups.{i}.bias"],
-                             stride=u, padding=(k - u) // 2)
-        if m is not None:
-            m = torch.repeat_interleave(m, u, dim=2)
-            x = x * m
-        if bounds is not None:
-            bounds = bounds * u
-        ch_here = x.shape[1]
-        fused = not use_resblock2 and ch_here < 128 and (m is None or bounds is not None)
-        rbs = [p.sub(f"resblocks.{i * num_kernels + j}") for j in range(num_kernels)]
-        if fused and ch_here <= 32:
-            branches = [
-                (*_stacked(rb, len(hp.resblock_dilation_sizes[j])),
-                 hp.resblock_kernel_sizes[j], hp.resblock_dilation_sizes[j])
-                for j, rb in enumerate(rbs)
-            ]
-            x = resblock1_mrf(x, branches, bounds=bounds, slope=LRELU_SLOPE)
-            continue
-        acc = None
-        for j, rb in enumerate(rbs):
-            kernel = hp.resblock_kernel_sizes[j]
-            dils = hp.resblock_dilation_sizes[j]
-            if fused:
-                y = resblock1_branch(x, *_stacked(rb, len(dils)), kernel=kernel,
-                                     dilations=dils, bounds=bounds, slope=LRELU_SLOPE)
-            elif use_resblock2:
-                y = _resblock2(x, rb, dils, t_mask=m)
-            else:
-                y = _resblock1(x, rb, dils, t_mask=m)
-            acc = y if acc is None else acc + y
-        x = acc / num_kernels
+        with tier_scope(lp[i], dev):
+            x, m, bounds = _level(x, m, bounds, i, p, hp, use_resblock2, lp[i])
 
-    x = leaky_relu(masked(x, m))  # final activation: torch default slope 0.01
-    x = conv1d(masked(x, m), p["conv_post.weight"], p["conv_post.bias"], padding=3)
+    with tier_scope(lp[-1], dev):
+        x = leaky_relu(masked(x, m))  # final activation: torch default slope 0.01
+        x = conv1d(masked(x, m), p["conv_post.weight"], p["conv_post.bias"], padding=3)
     out = torch.tanh(x)
     return out if m is None else out * m
+
+
+def _level(x, m, bounds, i: int, p: Prefix, hp: VitsHParams, use_resblock2: bool,
+           precision: Optional[str]):
+    """Upsample level i: leaky ReLU, conv-transpose, then the level's
+    resblocks and their mean, the kernels at `precision`. Returns (x, the
+    level's mask, its bounds)."""
+    x = leaky_relu(x if m is None else x * m, LRELU_SLOPE)
+    k, u = hp.upsample_kernel_sizes[i], hp.upsample_rates[i]
+    x = conv_transpose1d(x if m is None else x * m, p[f"ups.{i}.weight"], p[f"ups.{i}.bias"],
+                         stride=u, padding=(k - u) // 2)
+    if m is not None:
+        m = torch.repeat_interleave(m, u, dim=2)
+        x = x * m
+    if bounds is not None:
+        bounds = bounds * u
+    ch_here = x.shape[1]
+    num_kernels = hp.num_resblock_kernels
+    fused = not use_resblock2 and ch_here < 128 and (m is None or bounds is not None)
+    rbs = [p.sub(f"resblocks.{i * num_kernels + j}") for j in range(num_kernels)]
+    if fused and ch_here <= 32:
+        branches = [
+            (*_stacked(rb, len(hp.resblock_dilation_sizes[j])),
+             hp.resblock_kernel_sizes[j], hp.resblock_dilation_sizes[j])
+            for j, rb in enumerate(rbs)
+        ]
+        return resblock1_mrf(x, branches, bounds=bounds, slope=LRELU_SLOPE,
+                             precision=precision), m, bounds
+    acc = None
+    for j, rb in enumerate(rbs):
+        kernel = hp.resblock_kernel_sizes[j]
+        dils = hp.resblock_dilation_sizes[j]
+        if fused:
+            y = resblock1_branch(x, *_stacked(rb, len(dils)), kernel=kernel, dilations=dils,
+                                 bounds=bounds, slope=LRELU_SLOPE, precision=precision)
+        elif use_resblock2:
+            y = _resblock2(x, rb, dils, t_mask=m, precision=precision)
+        else:
+            y = _resblock1(x, rb, dils, t_mask=m, precision=precision)
+        acc = y if acc is None else acc + y
+    return acc / num_kernels, m, bounds

@@ -9,7 +9,7 @@ as the JAX package's, for parity checks. Single-speaker only so far.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -19,6 +19,7 @@ from piper_tpu_torch.models.vits.flows import flow_reverse
 from piper_tpu_torch.models.vits.hifigan import hifigan_generator
 from piper_tpu_torch.models.vits.params import Params
 from piper_tpu_torch.models.vits.text_encoder import text_encoder
+from piper_tpu_torch.ops.kernels.precision import tier_scope
 from piper_tpu_torch.ops.masking import generate_path, sequence_mask
 
 
@@ -78,19 +79,25 @@ def decode(
     *,
     max_frames: int,
     noise_scale: float = 0.667,
+    vocoder_precision: Union[str, Sequence[Optional[str]], None] = None,
+    flow_precision: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Durations + prior -> waveform.
 
-    main_noise: (B, C, max_frames) standard normal. Returns
-    (audio (B, max_frames * hop), y_lengths (B,) in frames).
+    main_noise: (B, C, max_frames) standard normal. `vocoder_precision`
+    (one tier, or one per upsample level) and `flow_precision` set the tiers
+    of HiFi-GAN and of the reverse flows; None inherits the caller's.
+    Returns (audio (B, max_frames * hop), y_lengths (B,) in frames).
     """
     y_lengths, y_mask, _, _, _, z_p = _expand_prior(
         enc.m_p, enc.logs_p, enc.w_ceil, enc.x_mask, max_frames, main_noise, noise_scale)
-    z = flow_reverse(z_p, y_mask, params, hp, g=enc.g)
+    with tier_scope(flow_precision, z_p.device):
+        z = flow_reverse(z_p, y_mask, params, hp, g=enc.g)
     # t_mask makes every vocoder conv see zeros beyond y_len, like a decode
     # whose array ends at y_len; the bounds route the narrow levels through
     # the fused kernels with the same per-row masking.
-    audio = hifigan_generator(z * y_mask, params, hp, g=enc.g, t_mask=y_mask,
+    audio = hifigan_generator(z * y_mask, params, hp, g=enc.g,
+                              level_precisions=vocoder_precision, t_mask=y_mask,
                               t_bounds=y_lengths.to(torch.int32))
     return audio[:, 0, :], y_lengths
 
@@ -152,9 +159,12 @@ def infer(
     noise_scale: float = 0.667,
     length_scale: float = 1.0,
     noise_w: float = 0.8,
+    vocoder_precision: Union[str, Sequence[Optional[str]], None] = None,
+    flow_precision: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Synthesis in one call: ids -> (audio, y_lengths)."""
     enc = encode(params, hp, phoneme_ids, lengths, dp_noise,
                  length_scale=length_scale, noise_w=noise_w)
     return decode(params, hp, enc, main_noise, max_frames=max_frames,
-                  noise_scale=noise_scale)
+                  noise_scale=noise_scale, vocoder_precision=vocoder_precision,
+                  flow_precision=flow_precision)

@@ -3,9 +3,11 @@
 The sources in `piper_tpu_torch/csrc/` are compiled at first use into
 `build/piper_tpu_torch/` beside the package, under a name keyed by a hash of
 the sources and flags, so an edit rebuilds and an unchanged tree reuses the
-library. The library has a plain C interface: pointers and the stream are
-passed as integers, so no PyTorch header is compiled (seconds, not minutes).
-Nothing here runs when the module is imported.
+library. Each source compiles in its own nvcc process, all started at once,
+and the objects are linked into one library. The library has a plain C
+interface: pointers and the stream are passed as integers, so no PyTorch
+header is compiled (seconds, not minutes). Nothing here runs when the
+module is imported.
 """
 
 from __future__ import annotations
@@ -20,9 +22,9 @@ from typing import Optional, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "piper_tpu_torch"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -Xptxas -v reports registers, shared memory and spills per kernel.
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+NVCC_FLAGS = [*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -54,14 +56,27 @@ def build() -> Tuple[Path, str]:
     if out.exists():
         return out, ""
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    tag = f"{out.name}.{os.getpid()}"
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    objs = [out.with_name(f"{tag}.{s.stem}.o") for s in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for s, o in zip(sources, objs)]
+    log = "".join(proc.communicate()[0] for proc in procs)
+    try:
+        failed = [s.name for s, proc in zip(sources, procs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+        tmp = out.with_name(f"{tag}.tmp")
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     return out, log
 
 
@@ -74,14 +89,17 @@ def load() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.piper_cuda_error_string.argtypes = [i]
     lib.piper_cuda_error_string.restype = ctypes.c_char_p
+    # Each entry ends in (..., tier, device, stream).
     lib.piper_resblock1_branch.argtypes = [
-        p, p, p, p, p, i, i, p, p, p, i, i, i, i, f, i, p]
-    lib.piper_resblock1_branch.restype = i
+        p, p, p, p, p, i, i, p, p, p, i, i, i, i, f, i, i, p]
     lib.piper_resblock1_mrf.argtypes = [
-        p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, i, p]
-    lib.piper_resblock1_mrf.restype = i
-    lib.piper_conv1d_same.argtypes = [p, p, p, p, i, i, i, i, i, i, f, i, p]
-    lib.piper_conv1d_same.restype = i
+        p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, i, i, p]
+    lib.piper_resblock1_mrf_folded.argtypes = [
+        p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, i, i, p]
+    lib.piper_conv1d_same.argtypes = [p, p, p, p, i, i, i, i, i, i, f, i, i, p]
+    for fn in (lib.piper_resblock1_branch, lib.piper_resblock1_mrf,
+               lib.piper_resblock1_mrf_folded, lib.piper_conv1d_same):
+        fn.restype = i
     _lib = lib
     return lib
 

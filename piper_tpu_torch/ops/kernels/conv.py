@@ -8,8 +8,8 @@ how the design answers it); it sits beside its plain PyTorch version.
 Contract, as on the TPU: out = conv1d_same(leaky_relu(x, act_slope), w, b,
 dilation=d), zero padding on both sides, odd k, square weights (C, C, k);
 act_slope 0 is the identity. No mask and no bounds: a caller that masks
-passes x * mask, and the output is not masked. Only the "highest" (fp32)
-tier exists so far.
+passes x * mask, and the output is not masked. `precision` is the tier of
+the conv's products (`precision.py`), as mxu_dot gives it on the TPU.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernel or raises. `conv1d_same.launches` counts the kernel launches.
@@ -21,9 +21,9 @@ import functools
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
-from piper_tpu_torch.ops.kernels.resblock import _SMEM_LIMIT, _THREADS, _check_precision, _stream
+from piper_tpu_torch.ops.kernels.precision import tier_code, tiered_conv1d
+from piper_tpu_torch.ops.kernels.resblock import _SMEM_LIMIT, _THREADS, _stream
 from piper_tpu_torch.ops.nn import leaky_relu
 
 _TILES = (256, 128, 64, 32)
@@ -34,10 +34,10 @@ def conv1d_same_plain(x, weight, bias=None, *, dilation: int = 1, act_slope: flo
                       tile: int = 4096, precision: str = "highest") -> torch.Tensor:
     """Plain PyTorch K1. `tile` is accepted for signature parity and has no
     effect."""
-    _check_precision(precision)
     k = weight.shape[-1]
     xin = leaky_relu(x, act_slope) if act_slope else x
-    return F.conv1d(xin, weight, bias, padding=(k - 1) // 2 * dilation, dilation=dilation)
+    return tiered_conv1d(xin, weight, bias, padding=(k - 1) // 2 * dilation,
+                         dilation=dilation, precision=precision)
 
 
 def _check_args(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> None:
@@ -82,7 +82,7 @@ def conv1d_same(x, weight, bias=None, *, dilation: int = 1, act_slope: float = 0
 
     x (B, C, N) float32; weight (C, C, k), k odd; bias (C,) or None. `tile`
     caps the kernel's time tile (the result does not depend on it)."""
-    _check_precision(precision)
+    tier = tier_code(precision)
     _check_args(x, weight, bias)
     if x.device.type == "cpu":
         return conv1d_same_plain(x, weight, bias, dilation=dilation,
@@ -111,7 +111,7 @@ def conv1d_same(x, weight, bias=None, *, dilation: int = 1, act_slope: float = 0
     # slope 1 is the identity: act_slope 0 means no activation, as on the TPU.
     code = lib.piper_conv1d_same(
         x.data_ptr(), wt.data_ptr(), bc.data_ptr(), out.data_ptr(), b, c, n, k, dilation,
-        t, act_slope if act_slope else 1.0, x.device.index or 0, _stream(x))
+        t, act_slope if act_slope else 1.0, tier, x.device.index or 0, _stream(x))
     build.check(lib, code, "piper_conv1d_same")
     conv1d_same.launches += 1
     return out

@@ -1,0 +1,106 @@
+"""Precision tiers of the vocoder kernels and of the ops around them.
+
+Counterpart of piper_tpu.ops.pallas.conv.mxu_dot and
+piper_tpu.models.vits.hifigan._pallas_precision. A kernel's tier changes
+only the products of its convs; activations, masks, bias and the fp32
+accumulation stay as they are:
+
+  "highest" (or None)      fp32 products;
+  "high"                   bf16x3: x = x_hi + x_lo and w = w_hi + w_lo, each
+                           part a bf16 value, and the sum of x_hi*w_hi,
+                           x_lo*w_hi and x_hi*w_lo (lo*lo dropped);
+  "default" (or "bfloat16") one product of the bf16-rounded x and w.
+
+Every product of two bf16 values is exact in fp32, so a kernel and its
+plain version differ only in the order of their fp32 sums.
+
+Outside the kernels a tier scopes what PyTorch may do with fp32 convs and
+matmuls on the card, as JAX's default_matmul_precision names its tiers by
+their GPU meaning ("high" is tensorfloat32, "default" bfloat16): "highest"
+is full fp32, "high" TF32 for cuDNN and matmuls, "default" TF32 for cuDNN
+(which has no bf16 mode for fp32 convs) and the "medium" matmul precision.
+On the CPU a scope changes nothing, as JAX's does not there.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+TIERS = ("highest", "high", "default")  # index = the tier code the C entries take
+_KERNEL_TIER = {None: "highest", "highest": "highest", "high": "high",
+                "default": "default", "bfloat16": "default"}
+_MATMUL = {"highest": "highest", "high": "high", "default": "medium"}
+
+
+def kernel_tier(precision: Optional[str], what: str = "precision") -> str:
+    """The kernel tier of a level's precision, as _pallas_precision maps it:
+    None means "highest"; "bfloat16" is "default". Raises on anything else,
+    naming the option as `what`."""
+    try:
+        return _KERNEL_TIER[precision]
+    except (KeyError, TypeError):
+        raise ValueError(f"{what} {precision!r}: the tiers are 'highest' (or None), "
+                         f"'high' and 'default' (or 'bfloat16')") from None
+
+
+def tier_code(precision: Optional[str]) -> int:
+    """The integer the C entries take: 0 highest, 1 high, 2 default."""
+    return TIERS.index(kernel_tier(precision))
+
+
+def split_bf16(x: torch.Tensor):
+    """(hi, lo) as fp32 tensors holding bf16 values, x ~ hi + lo."""
+    hi = x.to(torch.bfloat16).float()
+    lo = (x - hi).to(torch.bfloat16).float()
+    return hi, lo
+
+
+def tiered_conv1d(x, w, b=None, *, padding: int = 0, dilation: int = 1,
+                  precision: Optional[str] = "highest") -> torch.Tensor:
+    """F.conv1d with mxu_dot's products at `precision`, fp32 sums, the bias
+    added after. The plain version of every kernel's conv."""
+    tier = kernel_tier(precision)
+    conv = functools.partial(F.conv1d, padding=padding, dilation=dilation)
+    if tier == "highest":
+        return conv(x, w, b)
+    if tier == "high":
+        (x_hi, x_lo), (w_hi, w_lo) = split_bf16(x), split_bf16(w)
+        out = conv(x_hi, w_hi) + conv(x_lo, w_hi) + conv(x_hi, w_lo)
+    else:
+        out = conv(x.to(torch.bfloat16).float(), w.to(torch.bfloat16).float())
+    return out if b is None else out + b[:, None]
+
+
+@contextlib.contextmanager
+def _torch_flags(tf32_conv: bool, matmul: str):
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.allow_tf32, torch.get_float32_matmul_precision())
+    cudnn.allow_tf32 = tf32_conv
+    torch.set_float32_matmul_precision(matmul)
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = saved[0]
+        torch.set_float32_matmul_precision(saved[1])
+
+
+def fp32_exact():
+    """TF32 off for matmuls and cuDNN convs within the block, restored after."""
+    return _torch_flags(False, "highest")
+
+
+def tier_scope(precision: Optional[str], device):
+    """PyTorch's fp32 conv and matmul precision at `precision` within the
+    block, on a CUDA device; None (inherit the outer tier) and the CPU
+    leave everything as it is."""
+    if precision is None:
+        return contextlib.nullcontext()
+    tier = kernel_tier(precision)
+    if torch.device(device).type != "cuda":
+        return contextlib.nullcontext()
+    return _torch_flags(tier != "highest", _MATMUL[tier])

@@ -10,7 +10,8 @@ y += conv2(act(conv1_d(act(y)))), with conv1 dilated, conv2 dense, both
 same-padded with bias, and act = leaky ReLU then the row's [lo, hi) mask.
 The result is exactly zero outside [lo, hi). `bounds` is (B,) meaning
 [0, hi) or (B, 2) meaning [lo, hi), at this level's sample rate; it is
-clamped to [0, N]. Only the "highest" (fp32) tier exists so far.
+clamped to [0, N]. `precision` is the tier of the convs' products
+(`precision.py`); the activation, mask, bias and fp32 sums do not change.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernel or raises. Each wrapper's `launches` counts its kernel launches.
@@ -22,8 +23,8 @@ import ctypes
 from typing import Optional, Sequence
 
 import torch
-import torch.nn.functional as F
 
+from piper_tpu_torch.ops.kernels.precision import tier_code, tiered_conv1d
 from piper_tpu_torch.ops.nn import leaky_relu
 
 _SMEM_LIMIT = 232448  # dynamic shared memory one block may opt into on the H100
@@ -36,13 +37,6 @@ def branch_halo(kernel: int, dilations: Sequence[int]) -> int:
     """One-sided receptive field of a branch: sum((k-1)//2*d + (k-1)//2)."""
     h2 = (kernel - 1) // 2
     return sum(h2 * d + h2 for d in dilations)
-
-
-def _check_precision(precision: str) -> None:
-    if precision not in (None, "highest"):
-        raise ValueError(
-            f"precision {precision!r}: only the 'highest' (fp32) tier is ported; "
-            f"the lower tiers come in a later change")
 
 
 def _bounds_array(bounds: Optional[torch.Tensor], b: int, n: int,
@@ -68,20 +62,21 @@ def _mask(bounds: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def resblock1_chain_plain(x, w1s, b1s, w2s, b2s, kernel: int, dilations: Sequence[int],
-                          mask: Optional[torch.Tensor] = None,
-                          slope: float = 0.1) -> torch.Tensor:
-    """Unfused ResBlock1 branch with F.conv1d, output left unmasked.
-
-    act = leaky ReLU, then `mask` ((B, 1, N) float; None masks nothing).
-    w1s[m] etc. index the dilations: stacked tensors or lists of them."""
+                          mask: Optional[torch.Tensor] = None, slope: float = 0.1,
+                          precision: str = "highest") -> torch.Tensor:
+    """Unfused ResBlock1 branch with F.conv1d at `precision`, output left
+    unmasked. act = leaky ReLU, then `mask` ((B, 1, N) float; None masks
+    nothing). w1s[m] etc. index the dilations: stacked tensors or lists."""
     def act(v):
         v = leaky_relu(v, slope)
         return v if mask is None else v * mask
 
+    h = (kernel - 1) // 2
     y = x
     for m, d in enumerate(dilations):
-        t = F.conv1d(act(y), w1s[m], b1s[m], padding=(kernel - 1) // 2 * d, dilation=d)
-        y = y + F.conv1d(act(t), w2s[m], b2s[m], padding=(kernel - 1) // 2)
+        t = tiered_conv1d(act(y), w1s[m], b1s[m], padding=h * d, dilation=d,
+                          precision=precision)
+        y = y + tiered_conv1d(act(t), w2s[m], b2s[m], padding=h, precision=precision)
     return y
 
 
@@ -91,10 +86,10 @@ def resblock1_branch_plain(x, w1s, b1s, w2s, b2s, *, kernel: int,
                            precision: str = "highest") -> torch.Tensor:
     """Plain PyTorch K2: unfused F.conv1d with the kernel's mask semantics.
     `tile` is accepted for signature parity and has no effect."""
-    _check_precision(precision)
     b, _, n = x.shape
     mask = _mask(_bounds_array(bounds, b, n, x.device), n)
-    return resblock1_chain_plain(x, w1s, b1s, w2s, b2s, kernel, dilations, mask, slope) * mask
+    return resblock1_chain_plain(x, w1s, b1s, w2s, b2s, kernel, dilations, mask, slope,
+                                 precision) * mask
 
 
 def resblock1_mrf_plain(x, branches: Sequence[tuple], *, bounds=None,
@@ -102,12 +97,11 @@ def resblock1_mrf_plain(x, branches: Sequence[tuple], *, bounds=None,
                         precision: str = "highest") -> torch.Tensor:
     """Plain PyTorch K3: the mean of the branches, masked.
     `branches` holds (w1s, b1s, w2s, b2s, kernel, dilations) per branch."""
-    _check_precision(precision)
     b, _, n = x.shape
     mask = _mask(_bounds_array(bounds, b, n, x.device), n)
     acc = None
     for (w1s, b1s, w2s, b2s, k, dils) in branches:
-        y = resblock1_chain_plain(x, w1s, b1s, w2s, b2s, k, dils, mask, slope)
+        y = resblock1_chain_plain(x, w1s, b1s, w2s, b2s, k, dils, mask, slope, precision)
         acc = y if acc is None else acc + y
     return acc / len(branches) * mask
 
@@ -181,7 +175,7 @@ def resblock1_branch(x, w1s, b1s, w2s, b2s, *, kernel: int,
                                       slope=slope, tile=tile, precision=precision)
     if x.device.type != "cuda":
         raise ValueError(f"resblock1_branch runs on cpu or cuda, not {x.device}")
-    _check_precision(precision)
+    tier = tier_code(precision)
     _check_cuda_args(x, (w1s, b1s, w2s, b2s), kernel, dilations)
     from piper_tpu_torch.ops.kernels import build
 
@@ -195,13 +189,36 @@ def resblock1_branch(x, w1s, b1s, w2s, b2s, *, kernel: int,
     code = lib.piper_resblock1_branch(
         x.data_ptr(), w1t.data_ptr(), b1c.data_ptr(), w2t.data_ptr(), b2c.data_ptr(),
         kernel, len(dilations), ctypes.cast(dils, ctypes.c_void_p), bnd.data_ptr(),
-        out.data_ptr(), b, c, n, t, slope, x.device.index or 0, _stream(x))
+        out.data_ptr(), b, c, n, t, slope, tier, x.device.index or 0, _stream(x))
     build.check(lib, code, "piper_resblock1_branch")
     resblock1_branch.launches += 1
     return out
 
 
 resblock1_branch.launches = 0
+
+
+def mrf_launch_args(x, branches: Sequence[tuple], tile: int) -> tuple:
+    """Check the MRF `branches` against x (B, C, N) and build the per-branch
+    arguments of the MRF C entries: returns (time tile, the arguments from
+    n_branches to dils, what must stay alive until the call returns)."""
+    nb = len(branches)
+    if not 1 <= nb <= _MAX_BRANCHES:
+        raise ValueError(f"the MRF kernel takes 1..{_MAX_BRANCHES} branches, got {nb}")
+    ks, dils_list, weights = [], [], []
+    for (w1s, b1s, w2s, b2s, k, dils) in branches:
+        _check_cuda_args(x, (w1s, b1s, w2s, b2s), int(k), dils)
+        ks.append(int(k))
+        dils_list.append([int(d) for d in dils])
+        weights.append(_kernel_weights(w1s, b1s, w2s, b2s))
+    halo = max(branch_halo(k, d) for k, d in zip(ks, dils_list))
+    t = _pick_tile(x, halo, True, tile)
+    arrays = [(ctypes.c_void_p * nb)(*[w[i].data_ptr() for w in weights]) for i in range(4)]
+    arrays += [(ctypes.c_int * nb)(*ks), (ctypes.c_int * nb)(*[len(d) for d in dils_list]),
+               (ctypes.c_int * (nb * _MAX_DILS))(
+                   *[d[j] if j < len(d) else 0 for d in dils_list for j in range(_MAX_DILS)])]
+    args = (nb, *[ctypes.cast(a, ctypes.c_void_p) for a in arrays])
+    return t, args, (arrays, weights)
 
 
 def resblock1_mrf(x, branches: Sequence[tuple], *, bounds=None, slope: float = 0.1,
@@ -213,39 +230,16 @@ def resblock1_mrf(x, branches: Sequence[tuple], *, bounds=None, slope: float = 0
                                    tile=tile, precision=precision)
     if x.device.type != "cuda":
         raise ValueError(f"resblock1_mrf runs on cpu or cuda, not {x.device}")
-    _check_precision(precision)
-    nb = len(branches)
-    if not 1 <= nb <= _MAX_BRANCHES:
-        raise ValueError(f"the MRF kernel takes 1..{_MAX_BRANCHES} branches, got {nb}")
-    ks, dils_list, weights = [], [], []
-    for (w1s, b1s, w2s, b2s, k, dils) in branches:
-        _check_cuda_args(x, (w1s, b1s, w2s, b2s), int(k), dils)
-        ks.append(int(k))
-        dils_list.append([int(d) for d in dils])
-        weights.append(_kernel_weights(w1s, b1s, w2s, b2s))
+    tier = tier_code(precision)
+    t, args, _keep = mrf_launch_args(x, branches, tile)
     from piper_tpu_torch.ops.kernels import build
 
     lib = build.load()
     b, c, n = x.shape
     bnd = _bounds_array(bounds, b, n, x.device)
-    halo = max(branch_halo(k, d) for k, d in zip(ks, dils_list))
-    t = _pick_tile(x, halo, True, tile)
     out = torch.empty_like(x)
-
-    def ptrs(i):
-        arr = (ctypes.c_void_p * nb)(*[w[i].data_ptr() for w in weights])
-        return ctypes.cast(arr, ctypes.c_void_p), arr
-
-    (w1p, _w1), (b1p, _b1), (w2p, _w2), (b2p, _b2) = (ptrs(i) for i in range(4))
-    ks_arr = (ctypes.c_int * nb)(*ks)
-    nd_arr = (ctypes.c_int * nb)(*[len(d) for d in dils_list])
-    dl_arr = (ctypes.c_int * (nb * _MAX_DILS))(
-        *[d[j] if j < len(d) else 0 for d in dils_list for j in range(_MAX_DILS)])
-    code = lib.piper_resblock1_mrf(
-        x.data_ptr(), nb, w1p, b1p, w2p, b2p,
-        ctypes.cast(ks_arr, ctypes.c_void_p), ctypes.cast(nd_arr, ctypes.c_void_p),
-        ctypes.cast(dl_arr, ctypes.c_void_p), bnd.data_ptr(), out.data_ptr(),
-        b, c, n, t, slope, x.device.index or 0, _stream(x))
+    code = lib.piper_resblock1_mrf(x.data_ptr(), *args, bnd.data_ptr(), out.data_ptr(),
+                                   b, c, n, t, slope, tier, x.device.index or 0, _stream(x))
     build.check(lib, code, "piper_resblock1_mrf")
     resblock1_mrf.launches += 1
     return out

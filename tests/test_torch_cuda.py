@@ -5,19 +5,26 @@ a machine with a card and no JAX (where tests/conftest.py cannot load):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerance 1e-4 max-abs, as chip_smoke.py states it: up to C*k = 704-term
-fp32 sums chained over six convs, in another order than cuDNN's.
+Tolerance 1e-4 max-abs at the "highest" and "high" tiers, as chip_smoke.py
+states it: up to C*k = 704-term fp32 sums of exact products chained over six
+convs, in another order than cuDNN's. 5e-3 at "default", where one bf16
+rounding of a conv's input may flip between the two versions and the chain
+carries the flip on (measured up to 2.2e-3 for K2 at C=64, k=11 on the H100;
+chip_smoke.py says more).
 """
 
 import pytest
 import torch
 
-from piper_tpu_torch.engine.runtime import fp32_exact
 from piper_tpu_torch.ops.kernels import conv as K1
+from piper_tpu_torch.ops.kernels import folded as K4
 from piper_tpu_torch.ops.kernels import resblock as R
+from piper_tpu_torch.ops.kernels.precision import fp32_exact
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
+TIER_ATOL = {"highest": ATOL, "high": ATOL, "default": 5e-3}
+TIERS = list(TIER_ATOL)
 
 
 @pytest.fixture
@@ -111,3 +118,90 @@ def test_conv1d_same_kernel_refuses_bad_arguments(cuda):
     x = torch.zeros(1, 120, 64, device=cuda)  # 633 KB of weights at k=11
     with pytest.raises(ValueError, match="shared memory"):
         K1.conv1d_same(x, torch.zeros(120, 120, 11, device=cuda))
+
+
+def _max_err(got, want):
+    return float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("c,k,d,n", [(64, 7, 12, 8192), (32, 5, 6, 32768), (64, 11, 5, 1001)])
+def test_conv1d_same_kernel_tiers_match_plain(cuda, tier, c, k, d, n):
+    gen = torch.Generator().manual_seed(c + k + d + n)
+    x = (torch.randn(2, c, n, generator=gen) * 0.3).to(cuda)
+    w = (torch.randn(c, c, k, generator=gen) * (c * k) ** -0.5).to(cuda)
+    b = (torch.randn(c, generator=gen) * 0.02).to(cuda)
+    got = K1.conv1d_same(x, w, b, dilation=d, act_slope=0.1, precision=tier)
+    torch.cuda.synchronize()
+    want = K1.conv1d_same_plain(x, w, b, dilation=d, act_slope=0.1, precision=tier)
+    assert _max_err(got, want) <= TIER_ATOL[tier]
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_branch_kernel_tiers_match_plain(cuda, tier):
+    gen = torch.Generator().manual_seed(11)
+    c, k, dils, n = 64, 11, (1, 3, 5), 4096
+    x = (torch.randn(2, c, n, generator=gen) * 0.3).to(cuda)
+    ws = _weights(gen, c, k, len(dils), cuda)
+    bnd = torch.tensor([[37, n - 401], [0, n]], dtype=torch.int32, device=cuda)
+    got = R.resblock1_branch(x, *ws, kernel=k, dilations=dils, bounds=bnd, precision=tier)
+    torch.cuda.synchronize()
+    want = R.resblock1_branch_plain(x, *ws, kernel=k, dilations=dils, bounds=bnd, precision=tier)
+    assert _max_err(got, want) <= TIER_ATOL[tier]
+
+
+def _mrf_branches(gen, c, dev):
+    return [(*_weights(gen, c, k, 3, dev), k, (1, 3, 5)) for k in (3, 7, 11)]
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_mrf_kernel_tiers_match_plain(cuda, tier):
+    gen = torch.Generator().manual_seed(12)
+    c, n = 32, 8192
+    x = (torch.randn(2, c, n, generator=gen) * 0.3).to(cuda)
+    branches = _mrf_branches(gen, c, cuda)
+    bnd = torch.tensor([[37, n - 401], [0, n // 3]], dtype=torch.int32, device=cuda)
+    got = R.resblock1_mrf(x, branches, bounds=bnd, precision=tier)
+    torch.cuda.synchronize()
+    want = R.resblock1_mrf_plain(x, branches, bounds=bnd, precision=tier)
+    assert _max_err(got, want) <= TIER_ATOL[tier]
+
+
+@pytest.mark.parametrize("tier", ["highest", "high"])
+@pytest.mark.parametrize("fold,c,n", [(2, 64, 4097), (4, 32, 8190), (4, 16, 999)])
+def test_mrf_folded_kernel_matches_plain_and_k3(cuda, tier, fold, c, n):
+    """K4 against its plain version, and bit for bit against K3: the same
+    chain over the same windows, only the loads' and stores' addresses
+    differ. N is not a multiple of the fold; row 0 is two-sided, row 1 ends
+    early."""
+    gen = torch.Generator().manual_seed(fold * n)
+    x = (torch.randn(2, c, n, generator=gen) * 0.3).to(cuda)
+    branches = _mrf_branches(gen, c, cuda)
+    bnd = torch.tensor([[37, n - 401], [0, n // 3]], dtype=torch.int32, device=cuda)
+    before = K4.resblock1_mrf_folded.launches
+    got = K4.resblock1_mrf_folded(x, branches, fold=fold, bounds=bnd, precision=tier)
+    torch.cuda.synchronize()
+    assert K4.resblock1_mrf_folded.launches == before + 1
+    assert got.shape == x.shape and got.is_contiguous()
+    want = K4.resblock1_mrf_folded_plain(x, branches, fold=fold, bounds=bnd, precision=tier)
+    assert _max_err(got, want) <= TIER_ATOL[tier]
+    assert bool((got[1, :, n // 3:] == 0).all()) and bool((got[0, :, :37] == 0).all())
+    assert torch.equal(got, R.resblock1_mrf(x, branches, bounds=bnd, precision=tier))
+
+
+def test_mrf_folded_kernel_refuses_bad_arguments(cuda):
+    gen = torch.Generator().manual_seed(3)
+    br16 = _mrf_branches(gen, 16, cuda)
+    x = torch.zeros(1, 16, 64, device=cuda)
+    with pytest.raises(ValueError, match="fold"):
+        K4.resblock1_mrf_folded(x, br16, fold=0)
+    with pytest.raises(ValueError, match="tiers"):
+        K4.resblock1_mrf_folded(x, br16, precision="float32")
+    with pytest.raises(ValueError, match="contiguous"):
+        K4.resblock1_mrf_folded(x.transpose(1, 2).contiguous().transpose(1, 2), br16)
+    with pytest.raises(ValueError, match="1..4 branches"):
+        K4.resblock1_mrf_folded(x, br16 * 2)
+    x12 = torch.zeros(1, 12, 64, device=cuda)
+    w, b = torch.zeros(1, 12, 12, 3, device=cuda), torch.zeros(1, 12, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        K4.resblock1_mrf_folded(x12, [(w, b, w, b, 3, (1,))])

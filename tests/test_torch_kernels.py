@@ -1,8 +1,12 @@
 """The plain versions of the port's kernels (K1 conv1d_same, the ResBlock1
-K2/K3) against the Pallas kernels they replace, run in interpret mode on the
-CPU (the cases of tests/test_pallas_kernels.py). Tolerance 1e-5 max-abs: the
-same float32 convs, summed in another order. The CUDA kernels themselves
-run only on a card (tests/test_torch_cuda.py, chip_smoke.py).
+K2/K3, the folded MRF K4) against the Pallas kernels they replace, run in
+interpret mode on the CPU (the cases of tests/test_pallas_kernels.py).
+Tolerance 1e-5 max-abs at the "highest" and "high" tiers: the same exact
+products, summed in another order. 2e-3 at "default": one bf16 rounding of
+a conv's input can land on the other side of a rounding edge in the two
+versions, and the flip propagates through up to six chained convs. The CUDA
+kernels themselves run only on a card (tests/test_torch_cuda.py,
+chip_smoke.py).
 """
 
 import os
@@ -17,12 +21,20 @@ import torch
 import jax.numpy as jnp
 
 from piper_tpu.ops.pallas.conv import pallas_conv1d_same
+from piper_tpu.ops.pallas.folded import (
+    fold_time_axis as j_fold,
+    pallas_resblock1_mrf_folded,
+    unfold_time_axis as j_unfold,
+)
 from piper_tpu.ops.pallas.resblock import pallas_resblock1_branch, pallas_resblock1_mrf
 from piper_tpu_torch.ops.kernels import conv as K1
+from piper_tpu_torch.ops.kernels import folded as K4
 from piper_tpu_torch.ops.kernels import resblock as R
+from piper_tpu_torch.ops.kernels.precision import tier_code, tiered_conv1d
 
 ROOT = Path(__file__).resolve().parent.parent
 ATOL = 1e-5
+TIER_ATOL = {"highest": ATOL, "high": ATOL, "default": 2e-3}
 
 
 def _branch_weights(rng, ch, k, m):
@@ -41,12 +53,13 @@ def _t(arrs):
     return [torch.from_numpy(a) for a in arrs]
 
 
-def _branch_both(x, ws, k, dils, bounds, tile):
+def _branch_both(x, ws, k, dils, bounds, tile, precision="highest"):
     got = R.resblock1_branch_plain(torch.from_numpy(x), *_t(ws), kernel=k, dilations=dils,
-                                   bounds=None if bounds is None else torch.from_numpy(bounds))
+                                   bounds=None if bounds is None else torch.from_numpy(bounds),
+                                   precision=precision)
     want = pallas_resblock1_branch(jnp.asarray(x), *_j(ws), kernel=k, dilations=dils,
                                    bounds=None if bounds is None else jnp.asarray(bounds),
-                                   tile=tile, interpret=True)
+                                   tile=tile, interpret=True, precision=precision)
     return got.numpy(), np.asarray(want)
 
 
@@ -68,13 +81,15 @@ def test_branch_plain_matches_pallas(ch, k, dils, n, bnd):
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
 
 
-def test_branch_plain_two_sided_bounds():
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_branch_plain_two_sided_bounds(precision):
     rng = np.random.default_rng(1)
     ch, k, dils, n = 32, 7, (1, 3), 512
     x = rng.standard_normal((2, ch, n)).astype(np.float32) * 0.3
     bounds = np.array([[37, 401], [0, 512]], np.int32)
-    got, want = _branch_both(x, _branch_weights(rng, ch, k, len(dils)), k, dils, bounds, 256)
-    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    got, want = _branch_both(x, _branch_weights(rng, ch, k, len(dils)), k, dils, bounds, 256,
+                             precision)
+    np.testing.assert_allclose(got, want, atol=TIER_ATOL[precision], rtol=0)
     assert np.all(got[0, :, :37] == 0.0) and np.all(got[0, :, 401:] == 0.0)
 
 
@@ -94,8 +109,11 @@ def _mrf_branches(rng, ch, dils=(1, 3, 5)):
     return [(*_branch_weights(rng, ch, k, len(dils)), k, dils) for k in (3, 7, 11)]
 
 
-@pytest.mark.parametrize("bnd", [None, [700, 1000], [[37, 401], [0, 1000]]])
-def test_mrf_plain_matches_pallas(bnd):
+@pytest.mark.parametrize("bnd,precision", [
+    (None, "highest"), ([700, 1000], "highest"), ([[37, 401], [0, 1000]], "highest"),
+    ([[37, 401], [0, 1000]], "high"), ([[37, 401], [0, 1000]], "default"),
+])
+def test_mrf_plain_matches_pallas(bnd, precision):
     """Three branches (kernels 3/7/11, dilations 1/3/5) and their mean."""
     rng = np.random.default_rng(7)
     ch, n = 32, 1000
@@ -104,11 +122,12 @@ def test_mrf_plain_matches_pallas(bnd):
     bounds = None if bnd is None else np.asarray(bnd, np.int32)
     got = R.resblock1_mrf_plain(
         torch.from_numpy(x), [(*_t(b[:4]), b[4], b[5]) for b in branches],
-        bounds=None if bounds is None else torch.from_numpy(bounds))
+        bounds=None if bounds is None else torch.from_numpy(bounds), precision=precision)
     want = pallas_resblock1_mrf(
         jnp.asarray(x), [(*_j(b[:4]), b[4], b[5]) for b in branches],
-        bounds=None if bounds is None else jnp.asarray(bounds), tile=256, interpret=True)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+        bounds=None if bounds is None else jnp.asarray(bounds), tile=256, interpret=True,
+        precision=precision)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TIER_ATOL[precision], rtol=0)
 
 
 def test_mrf_plain_is_mean_of_branches():
@@ -140,7 +159,7 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
 
 def test_no_fallback_off_cpu_and_only_the_fp32_tier():
     """A tensor that is neither on the CPU nor on a card is refused, not
-    quietly computed elsewhere; a lower tier is refused."""
+    quietly computed elsewhere; a tier that does not exist is refused."""
     x = torch.empty((1, 16, 64), device="meta")
     w = torch.empty((1, 16, 16, 3), device="meta")
     b = torch.empty((1, 16), device="meta")
@@ -151,7 +170,9 @@ def test_no_fallback_off_cpu_and_only_the_fp32_tier():
     xc = torch.zeros((1, 16, 64))
     wc, bc = torch.zeros((1, 16, 16, 3)), torch.zeros((1, 16))
     with pytest.raises(ValueError, match="highest"):
-        R.resblock1_branch(xc, wc, bc, wc, bc, kernel=3, dilations=(1,), precision="high")
+        R.resblock1_branch(xc, wc, bc, wc, bc, kernel=3, dilations=(1,), precision="float32")
+    with pytest.raises(ValueError, match="highest"):
+        R.resblock1_mrf(xc, [(wc, bc, wc, bc, 3, (1,))], precision="tensorfloat32")
 
 
 def test_import_needs_no_nvcc_or_triton():
@@ -217,10 +238,124 @@ def test_conv1d_same_cpu_runs_the_plain_version_and_counts_no_launch():
 def test_conv1d_same_refuses_what_the_kernel_does_not_take():
     x = torch.zeros(1, 16, 64)
     with pytest.raises(ValueError, match="highest"):
-        K1.conv1d_same(x, torch.zeros(16, 16, 3), precision="high")
+        K1.conv1d_same(x, torch.zeros(16, 16, 3), precision="float32")
     with pytest.raises(ValueError, match="square"):
         K1.conv1d_same(x, torch.zeros(8, 16, 3))
     with pytest.raises(ValueError, match="odd"):
         K1.conv1d_same(x, torch.zeros(16, 16, 4))
     with pytest.raises(ValueError, match="cpu or cuda"):
         K1.conv1d_same(x.to("meta"), torch.zeros(16, 16, 3, device="meta"))
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("ch,k,d,n,slope", [
+    (32, 11, 5, 1000, 0.0),
+    (64, 7, 3, 700, 0.1),
+])
+def test_conv1d_same_plain_tiers_match_pallas(ch, k, d, n, slope, precision):
+    """mxu_dot's tiers: "high" is the bf16x3 split, "default" one bf16 pass."""
+    rng = np.random.default_rng(k * 10 + d)
+    x = rng.standard_normal((2, ch, n)).astype(np.float32)
+    w = (rng.standard_normal((ch, ch, k)) * 0.05).astype(np.float32)
+    bias = rng.standard_normal((ch,)).astype(np.float32)
+    got = K1.conv1d_same_plain(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(bias),
+                               dilation=d, act_slope=slope, precision=precision)
+    want = pallas_conv1d_same(jnp.asarray(x), jnp.asarray(w), jnp.asarray(bias), dilation=d,
+                              act_slope=slope, tile=512, interpret=True, precision=precision)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TIER_ATOL[precision], rtol=0)
+
+
+def test_tiers_and_their_codes():
+    """The tiers map as _pallas_precision maps them, and the tiers differ:
+    at "high" the error of a conv against fp32 is ~2^-16 of its terms, at
+    "default" ~2^-8."""
+    assert [tier_code(t) for t in (None, "highest", "high", "default", "bfloat16")] == \
+        [0, 0, 1, 2, 2]
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((1, 32, 200)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((32, 32, 5)) * 0.1).astype(np.float32))
+    ref = tiered_conv1d(x.double(), w.double(), padding=2).float()
+    errs = [float((tiered_conv1d(x, w, padding=2, precision=t) - ref).abs().max())
+            for t in ("highest", "high", "default")]
+    assert errs[0] < 1e-5 < errs[2] and errs[1] < 1e-4 and 10 * errs[1] < errs[2], errs
+
+
+@pytest.mark.parametrize("fold,n", [(2, 998), (3, 100), (4, 998), (4, 1000)])
+def test_fold_unfold_match_jax(fold, n):
+    x = np.random.default_rng(fold).standard_normal((2, 8, n)).astype(np.float32)
+    got = K4.fold_time_axis(torch.from_numpy(x), fold)
+    want = j_fold(jnp.asarray(x), fold)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(K4.unfold_time_axis(got, fold, n).numpy(),
+                                  np.asarray(j_unfold(want, fold, n)))
+    np.testing.assert_array_equal(K4.unfold_time_axis(got, fold, n).numpy(), x)
+
+
+def _folded_both(x, branches, fold, bounds, precision):
+    got = K4.resblock1_mrf_folded_plain(
+        torch.from_numpy(x), [(*_t(b[:4]), b[4], b[5]) for b in branches], fold=fold,
+        bounds=None if bounds is None else torch.from_numpy(bounds), precision=precision)
+    want = pallas_resblock1_mrf_folded(
+        jnp.asarray(x), [(*_j(b[:4]), b[4], b[5]) for b in branches], fold=fold,
+        bounds=None if bounds is None else jnp.asarray(bounds), interpret=True,
+        precision=precision)
+    return got.numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("precision", ["highest", "high"])
+@pytest.mark.parametrize("bnd", [None, [450, 500], [[37, 401], [0, 500]]],
+                         ids=["none", "one_sided", "two_sided"])
+@pytest.mark.parametrize("fold", [2, 4])
+def test_mrf_folded_plain_matches_pallas(fold, bnd, precision):
+    """K4's plain version against the folded Pallas kernel: C=16, two
+    branches (kernels 3/7, dilations 1/3), N = 500, not a multiple of 4 * 128
+    (so the fold pads)."""
+    rng = np.random.default_rng(fold)
+    ch, n = 16, 500
+    x = rng.standard_normal((2, ch, n)).astype(np.float32) * 0.3
+    branches = [(*_branch_weights(rng, ch, k, 2), k, (1, 3)) for k in (3, 7)]
+    bounds = None if bnd is None else np.asarray(bnd, np.int32)
+    got, want = _folded_both(x, branches, fold, bounds, precision)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    if bnd is not None:
+        assert np.all(got[1, :, bounds[1] if bounds.ndim == 1 else bounds[1, 1]:] == 0.0)
+
+
+def test_mrf_folded_plain_at_medium_level_3():
+    """Medium's last level: C=32, kernels 3/7/11 at dilations 1/3/5, fold 4
+    (F*C = 128 rows), a ragged N and two-sided bounds, at "high"."""
+    rng = np.random.default_rng(11)
+    ch, n = 32, 998
+    x = rng.standard_normal((2, ch, n)).astype(np.float32) * 0.3
+    branches = _mrf_branches(rng, ch)
+    bounds = np.array([[37, 401], [0, 998]], np.int32)
+    got, want = _folded_both(x, branches, 4, bounds, "high")
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    k3 = R.resblock1_mrf_plain(torch.from_numpy(x), [(*_t(b[:4]), b[4], b[5]) for b in branches],
+                               bounds=torch.from_numpy(bounds), precision="high")
+    assert np.array_equal(got, k3.numpy())  # fold then unfold is the identity
+
+
+def test_mrf_folded_cpu_runs_the_plain_version_and_counts_no_launch():
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((2, 16, 90)).astype(np.float32))
+    br = [(*_t(_branch_weights(rng, 16, 3, 1)), 3, (1,))]
+    before = K4.resblock1_mrf_folded.launches
+    got = K4.resblock1_mrf_folded(x, br, fold=4, bounds=torch.tensor([90, 50]))
+    assert torch.equal(got, K4.resblock1_mrf_folded_plain(x, br, fold=4,
+                                                          bounds=torch.tensor([90, 50])))
+    assert K4.resblock1_mrf_folded.launches == before
+    with pytest.raises(ValueError, match="fold"):
+        K4.resblock1_mrf_folded(x, br, fold=0)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        K4.resblock1_mrf_folded(x.to("meta"), br)
+
+
+def test_folded_probe_refuses_to_run_without_a_card():
+    """The probe times the kernels on a card and has no CPU path."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    from piper_tpu_torch.tools import folded_probe
+
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        folded_probe.main(["--b", "1", "--shapes", "16:64"])

@@ -224,3 +224,31 @@ def test_hifigan_resblock2_matches_pallas(monkeypatch):
                         t_mask=torch.from_numpy(mask), t_bounds=torch.from_numpy(lengths))
     assert K1.conv1d_same.launches == before  # CPU tensors: the plain version
     _close(got, want, WAVE_ATOL)
+
+
+def test_hifigan_level_precisions_match_pallas(monkeypatch):
+    """Per-level tiers through every route of the ROUTES vocoder: level 0
+    (C=128, "default") PyTorch convs, level 1 (C=64, None) K2, level 2
+    (C=32, "high") K3, against JAX's with use_pallas=True, its kernels in
+    interpret mode. A None entry runs the level's kernels at "highest" and
+    its other convs at the outer tier, as JAX's _pallas_precision(None) and
+    _prec_ctx(None) do."""
+    monkeypatch.setenv("PIPER_TPU_PALLAS_INTERPRET", "1")
+    lp = ("default", None, "high")
+    hp = ROUTES
+    w = synthetic_params(hp, seed=5)
+    rng = np.random.default_rng(13)
+    z = rng.standard_normal((2, hp.inter_channels, 16)).astype(np.float32)
+    lengths = np.array([16, 11], np.int32)
+    mask = np.array(sequence_mask(jnp.asarray(lengths), 16))
+    want = j_hifigan(jnp.asarray(z * mask), params_from_arrays(w), hp, level_precisions=lp,
+                     t_mask=jnp.asarray(mask), use_pallas=True, t_bounds=jnp.asarray(lengths))
+    tp = params_to_torch(w, "cpu")
+    with torch.inference_mode():
+        got = [t_hifigan(torch.from_numpy(z * mask), tp, hp, level_precisions=levels,
+                         t_mask=torch.from_numpy(mask), t_bounds=torch.from_numpy(lengths))
+               for levels in (lp, tuple("highest" if t is None else t for t in lp))]
+    _close(got[0], want, WAVE_ATOL)
+    assert torch.equal(got[0], got[1])
+    with pytest.raises(ValueError, match="2 entries for 3 upsample levels"):
+        t_hifigan(torch.from_numpy(z), tp, hp, level_precisions=("high", "high"))

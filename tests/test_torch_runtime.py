@@ -2,12 +2,15 @@
 
 Synthesis is compared with injected noise (the port's seeded noise differs
 from JAX's threefry by design) at the fp32 waveform bar, 1e-4 max-abs; in
-int16 that bar is 1e-4 * 32767 plus one truncation step, 4 LSB.
+int16 that bar is 1e-4 * 32767 plus one truncation step, 4 LSB. The bench's
+mixed-precision configuration is held to the same fp32 bar: its kernel
+tiers change only the order of exact products' sums (test_torch_kernels.py).
 """
 
 import os
 import subprocess
 import sys
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -22,10 +25,12 @@ from piper_tpu.onnx.writer import node, save_model, tensor_from_array
 from piper_tpu_torch.engine.runtime import (
     PiperRuntime,
     RuntimeOptions,
-    fp32_exact,
+    parse_precision_spec,
     seeded_noise,
 )
 from piper_tpu_torch.models.vits.params import host_arrays_from_graph, params_to_torch
+from piper_tpu_torch.ops.kernels import resblock as R
+from piper_tpu_torch.ops.kernels.precision import fp32_exact, tier_scope
 
 ROOT = Path(__file__).resolve().parent.parent
 IDS = [1, 20, 0, 12, 0, 31, 0, 24, 0, 19, 0, 10, 0, 2]
@@ -147,13 +152,31 @@ def test_seeded_noise_is_row_invariant():
     assert not torch.equal(seeded_noise(5, 0, (4, 9), 1, "cpu"), one)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("precision", "high"), ("precision", "bfloat16"), ("vocoder_precision", "default"),
-    ("flow_precision", "high"), ("mode", "fused"), ("output_dtype", "float16"),
+@pytest.mark.parametrize("field,value,match", [
+    ("precision", "bfloat16", "bf16 weights .* later change"),
+    ("precision", "float16", "the tiers are"),
+    ("vocoder_precision", ("high", None, "high"), "3 per-level entries but this voice has 2"),
+    ("flow_precision", "tensorfloat32", "flow_precision 'tensorfloat32': the tiers are"),
+    ("mode", "fused", "later change"),
+    ("output_dtype", "float16", "int16"),
 ])
-def test_unported_options_raise(tiny_voice, field, value):
-    with pytest.raises(ValueError, match="later change" if field != "output_dtype" else "int16"):
+def test_unported_options_raise(tiny_voice, field, value, match):
+    with pytest.raises(ValueError, match=match):
         PiperRuntime(*tiny_voice, RuntimeOptions(**{field: value}), device="cpu")
+
+
+def test_precision_options_accept_the_tiers():
+    for opts in (dict(precision="high"), dict(precision="default"),
+                 dict(vocoder_precision=("default", None)), dict(vocoder_precision="bfloat16"),
+                 dict(flow_precision="high", vocoder_precision="high")):
+        RuntimeOptions(**opts).validate()
+
+
+@pytest.mark.parametrize("spec", [None, "", "none", "high", " high , none,default ", "a,,b"])
+def test_parse_precision_spec_matches_reference(spec):
+    from piper_tpu.engine.runtime import parse_precision_spec as j_parse
+
+    assert parse_precision_spec(spec) == j_parse(spec)
 
 
 def test_cuda_device_without_a_card_raises(tiny_voice):
@@ -169,6 +192,81 @@ def test_fp32_exact_restores_tf32_flags():
         assert not torch.backends.cudnn.allow_tf32
         assert not torch.backends.cuda.matmul.allow_tf32
     assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == saved
+
+
+def _flags():
+    return torch.backends.cudnn.allow_tf32, torch.get_float32_matmul_precision()
+
+
+def test_tier_scope_sets_the_card_flags_and_restores_them():
+    """On a CUDA device: TF32 for cuDNN at "high" and "default", the matmul
+    precision of JAX's tier names; None inherits; on the CPU nothing
+    changes. Setting the flags needs no card."""
+    saved = _flags()
+    with fp32_exact():
+        for tier, want in (("highest", (False, "highest")), ("high", (True, "high")),
+                           ("default", (True, "medium")), ("bfloat16", (True, "medium"))):
+            with tier_scope(tier, "cuda"):
+                assert _flags() == want
+                with tier_scope(None, "cuda"), tier_scope("high", "cpu"):
+                    assert _flags() == want
+            assert _flags() == (False, "highest")
+    assert _flags() == saved
+    with pytest.raises(ValueError, match="tiers"):
+        tier_scope("float32", "cpu")
+
+
+@pytest.fixture(scope="module")
+def k2k3_voice(tmp_path_factory):
+    """The tiny test voice with a 128-channel vocoder: level 0 (C=64) runs
+    the branch kernel K2, level 1 (C=32) the MRF kernel K3."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(PRESETS, "k2k3", replace(PRESETS["test"], upsample_initial_channel=128))
+        return make_synthetic_voice(tmp_path_factory.mktemp("k2k3"), quality="k2k3", seed=0)
+
+
+BENCH_MIX = dict(precision="highest", vocoder_precision="high", flow_precision="high")
+
+
+def test_bench_mixed_precision_matches_reference(k2k3_voice, monkeypatch):
+    """bench.py's default configuration (encoder at "highest", vocoder and
+    flows at "high") against the JAX runtime with the same options and its
+    Pallas kernels in interpret mode: w_ceil equal, waveform within 1e-4,
+    and the port's K2/K3 called at the "high" tier."""
+    from piper_tpu.engine.runtime import PiperRuntime as JaxRuntime
+    from piper_tpu.engine.runtime import RuntimeOptions as JaxOptions
+    from piper_tpu.models.vits import model as jv
+    from piper_tpu.models.vits.params import params_from_arrays
+    from piper_tpu_torch.models.vits import model as tv
+
+    monkeypatch.setenv("PIPER_TPU_PALLAS_INTERPRET", "1")
+    tiers = []
+    for name in ("resblock1_branch_plain", "resblock1_mrf_plain"):
+        def spy(*args, _fn=getattr(R, name), _name=name, **kw):
+            tiers.append((_name, kw["precision"]))
+            return _fn(*args, **kw)
+        monkeypatch.setattr(R, name, spy)
+
+    rt = PiperRuntime(*k2k3_voice, RuntimeOptions(**BENCH_MIX), device="cpu")
+    ref = JaxRuntime(*k2k3_voice, JaxOptions(**BENCH_MIX, use_pallas=True))
+    dp_noise, main_noise = _noise(rt, seed=3)
+    got = rt.synthesize(IDS, dp_noise=dp_noise, main_noise=main_noise)
+    want = ref.synthesize(IDS, dp_noise=dp_noise, main_noise=main_noise)
+    assert set(tiers) == {("resblock1_branch_plain", "high"), ("resblock1_mrf_plain", "high")}
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+    hp = rt.hparams
+    ids = np.zeros((1, 16), np.int64)
+    ids[0, : len(IDS)] = IDS
+    dpn = np.zeros((1, 2, 16), np.float32)
+    dpn[0, :, : len(IDS)] = dp_noise
+    jp = params_from_arrays(j_host_arrays(load_model(k2k3_voice[0]).graph))
+    j_enc = jv.encode(jp, hp, ids.astype(np.int32), np.array([len(IDS)], np.int32), dpn)
+    with torch.inference_mode():
+        t_enc = tv.encode(rt.params, hp, torch.from_numpy(ids), torch.tensor([len(IDS)]),
+                          torch.from_numpy(dpn))
+    np.testing.assert_array_equal(t_enc.w_ceil.numpy(), np.asarray(j_enc.w_ceil))
 
 
 def test_port_never_imports_jax(tiny_voice):
