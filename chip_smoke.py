@@ -16,12 +16,22 @@ paths give it, and drives the main paths, counting each kernel's launches:
   on the card within the 1e-3 waveform gate;
 - a reduced run of the folded-kernel probe
   (piper_tpu_torch.tools.folded_probe), the path that runs the folded MRF
-  kernel.
+  kernel;
+- a reduced run of the conv-transpose probe (piper_tpu_torch.tools.ct_probe)
+  at each of the medium voice's four upsample levels, the path that runs
+  the interleave kernel (the polyphase conv-transpose's interleave), with
+  the polyphase and input-dilated conv-transposes held against PyTorch's.
 
 Each voice's result on the card is checked against the same port on the
 CPU. Each phase prints one JSON line; any failure raises and the exit code
-is non-zero. The last line is {"ok": true, "device": {...}}. It imports no
-JAX: the machine with the card has none.
+is non-zero. The line before the last lists every kernel: its launches on
+the paths, its error against its plain version, its device time (`ms`,
+torch.profiler) beside the plain version's, the least time the card could
+take for the same work (`bound_ms`, from the published H100 peaks) and the
+time of one PyTorch call that computes the same function where there is
+one (`library_ms`). The last line is {"ok": true, "device": {...}}. It
+imports neither JAX nor the JAX package (piper_tpu): the machine with the
+card has no JAX, and the port runs without that package.
 """
 
 from __future__ import annotations
@@ -48,6 +58,15 @@ KERNELS = {
                     "piper_tpu/ops/pallas/conv.py:107", ("x_low",)),
     "resblock1_mrf_folded": ("piper_tpu_torch/csrc/resblock1.cu",
                              "piper_tpu/ops/pallas/folded.py:220", ("probe",)),
+    "interleave": ("piper_tpu_torch/csrc/interleave.cu", "tools/ct_probe.py:151",
+                   ("ct_probe",)),
+}
+# Why no single PyTorch call computes a kernel's function (library_ms null).
+NO_LIBRARY_CALL = {
+    "resblock1_branch": "a masked chain of six convs, each after a leaky_relu",
+    "resblock1_mrf": "three masked chains of six convs and their mean",
+    "conv1d_same": "leaky_relu then a conv: two calls",
+    "resblock1_mrf_folded": "the MRF's chains on a folded layout",
 }
 TIERS = ("highest", "high", "default")
 # "highest"/"high": C*k <= 704-term sums of exact products chained over 6
@@ -65,6 +84,10 @@ FACTORS = (1, 2, 4, 8)
 REPS = 10
 # x_low's ResBlock2 convs, (kernel, dilation), one per conv of the three branches.
 X_LOW_CONVS = ((3, 1), (3, 2), (5, 2), (5, 6), (7, 3), (7, 12))
+# The medium voice's upsample levels: rate (the interleave's r), kernel,
+# output channels.
+MEDIUM_UPSAMPLE = ((8, 16, 256), (8, 16, 128), (2, 4, 64), (2, 4, 32))
+CT_ATOL = 1e-4  # poly_ct and native_ct vs full_ct, fp32 sums in other orders
 
 
 def emit(**fields) -> None:
@@ -129,12 +152,21 @@ def _check_zero_outside(torch, name, case, bnd, n, outs) -> None:
             raise AssertionError(f"{name} {case}: nonzero output outside [lo, hi)")
 
 
-def _tier_row(torch, name, tier, run, cases, n, x1, bnd1, **fields) -> dict:
+def _chain_work(c, n, live, ks, outputs, convs=6) -> tuple:
+    """(bytes, flops) of `convs` convs of C channels per kernel size in
+    `ks`: x (1, C, n) read once, `outputs` (1, C, n) written once, the
+    weights and biases read once; 2*C*C*k flops per conv and live sample."""
+    weights = sum(convs * (c * c * k + c) for k in ks)
+    return 4 * (c * n * (1 + outputs) + weights), sum(2 * c * c * k * convs * live for k in ks)
+
+
+def _tier_row(torch, name, tier, run, cases, n, x1, bnd1, work, **fields) -> dict:
     """Check run(x, bounds, kernel, tier) against its plain version at
     `tier` on every bounds case, then time both at a batch of one: `ms` by
     CUDA events (the host's time where it is the slower), `device_ms` under
-    torch.profiler."""
-    from piper_tpu_torch.tools.timing import device_ms, event_ms
+    torch.profiler. `work` is the timed call's (bytes, flops), for the least
+    time the card could take at the tier's rate."""
+    from piper_tpu_torch.tools.timing import TIER_FLOPS, bound_ms, device_ms, event_ms
 
     errs = {}
     for case, (x2, bnd) in cases.items():
@@ -150,6 +182,7 @@ def _tier_row(torch, name, tier, run, cases, n, x1, bnd1, **fields) -> dict:
            "plain_ms": event_ms(lambda: run(x1, bnd1, False, tier)),
            "device_ms": device_ms(lambda: run(x1, bnd1, True, tier)),
            "plain_device_ms": device_ms(lambda: run(x1, bnd1, False, tier))}
+    row["bound_ms"], row["bound_by"] = bound_ms(*work, TIER_FLOPS[tier])
     emit(phase="kernel", name=name, precision=tier, samples=n, batch_timed=1, errs=errs,
          atol=KERNEL_ATOL[tier], **row, **fields)
     return row
@@ -184,12 +217,14 @@ def phase_kernels(torch) -> dict:
             cases = {case: (x2, bnd) for case, bnd in _bounds_cases(torch, n).items()}
             x1 = x2[:1].contiguous()
             bnd1 = torch.tensor([n - 100], dtype=torch.int32, device="cuda")
+            work = _chain_work(c, n, n - 100, (3, 7, 11), outputs=3 if c == 64 else 1)
             results[name] = {tier: _tier_row(
-                torch, name, tier, run, cases, n, x1, bnd1, channels=c,
+                torch, name, tier, run, cases, n, x1, bnd1, work, channels=c,
                 note="ms covers the 3 branch launches of one level" if c == 64 else
                 "ms covers one launch (3 branches + mean)") for tier in TIERS}
         results["conv1d_same"] = _conv1d_same_check(torch, gen)
         results["resblock1_mrf_folded"] = _folded_check(torch, gen, K4, R)
+        results["interleave"] = _interleave_check(torch, gen)
     return results
 
 
@@ -217,8 +252,9 @@ def _folded_check(torch, gen, K4, R) -> dict:
                                      f"differs from resblock1_mrf on the same input")
         x1 = x2[:1].contiguous()
         bnd1 = torch.tensor([n - 100], dtype=torch.int32, device="cuda")
+        work = _chain_work(c, n, n - 100, (3, 7, 11), outputs=1)
         level = {tier: _tier_row(torch, "resblock1_mrf_folded", tier, run, cases, n, x1, bnd1,
-                                 channels=c, fold=fold, equal_to_k3=True,
+                                 work, channels=c, fold=fold, equal_to_k3=True,
                                  note="ms covers fold + one launch + unfold")
                  for tier in TIERS}
         if c == 32:
@@ -232,10 +268,10 @@ def _conv1d_same_check(torch, gen) -> dict:
     0.1 and at a ragged N with act_slope 0, then B=1 timed per level (6
     launches). Returns {tier: the two levels' worst error and summed times}."""
     from piper_tpu_torch.ops.kernels import conv as K1
-    from piper_tpu_torch.tools.timing import device_ms, event_ms
+    from piper_tpu_torch.tools.timing import TIER_FLOPS, bound_ms, device_ms, event_ms
 
     total = {t: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0,
-                 "plain_device_ms": 0.0} for t in TIERS}
+                 "plain_device_ms": 0.0, "bound_ms": 0.0} for t in TIERS}
     for level, c, n in ((1, 64, 128 * 64), (2, 32, 128 * 256)):
         convs = [(_rand(torch, gen, c, c, k, scale=(c * k) ** -0.5),
                   _rand(torch, gen, c, scale=0.02), k, d) for k, d in X_LOW_CONVS]
@@ -267,23 +303,70 @@ def _conv1d_same_check(torch, gen) -> dict:
                    "plain_ms": event_ms(lambda: run(False)),
                    "device_ms": device_ms(lambda: run(True)),
                    "plain_device_ms": device_ms(lambda: run(False))}
+            work = _chain_work(c, n, n, [k for k, _ in X_LOW_CONVS], outputs=6, convs=1)
+            row["bound_ms"], row["bound_by"] = bound_ms(*work, TIER_FLOPS[tier])
             emit(phase="kernel", name="conv1d_same", precision=tier, level=level, channels=c,
                  samples=n, batch_timed=1, errs=errs, atol=KERNEL_ATOL[tier], **row,
                  note="ms covers the 6 launches of one level")
             t = total[tier]
             t["max_abs_err"] = max(t["max_abs_err"], worst)
-            for key in ("ms", "plain_ms", "device_ms", "plain_device_ms"):
+            t["bound_by"] = row["bound_by"]
+            for key in ("ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms"):
                 t[key] += row[key]
     return total
+
+
+def _interleave_check(torch, gen) -> dict:
+    """K5 at the medium voice's four upsample levels, 128 frames: level i
+    interleaves r = rate phases of c = its output channels over q = the
+    level's input samples + kr - 1 (the polyphase conv's 'full' output).
+    Bit-equal to its plain version (a permutation) at B=1 and at B=2 with a
+    ragged q; timed as the four launches of one utterance at B=1. The plain
+    version is one PyTorch call (the copy behind permute().reshape()), so
+    its time is also the library yardstick."""
+    from piper_tpu_torch.ops.kernels import interleave as K5
+    from piper_tpu_torch.tools.timing import bound_ms, device_ms, event_ms
+
+    ys, errs, t_in = [], {}, 128
+    for level, (r, k, c) in enumerate(MEDIUM_UPSAMPLE):
+        q = t_in + -(-k // r) - 1
+        for b, qq in ((1, q), (2, q - 77)):
+            y = _rand(torch, gen, b, r, c, qq, scale=1.0)
+            got = K5.interleave(y)
+            torch.cuda.synchronize()
+            want = K5.interleave_plain(y)
+            if got.shape != want.shape or not torch.equal(got, want):
+                raise AssertionError(f"interleave level {level} B={b} q={qq}: differs from "
+                                     f"its plain version")
+            errs[f"level{level}_b{b}_q{qq}"] = float((got - want).abs().max())
+            if b == 1:
+                ys.append(y)
+        t_in *= r
+
+    def run(kernel):
+        fn = K5.interleave if kernel else K5.interleave_plain
+        return [fn(y) for y in ys]
+
+    row = {"max_abs_err": max(errs.values()), "ms": event_ms(lambda: run(True)),
+           "plain_ms": event_ms(lambda: run(False)),
+           "device_ms": device_ms(lambda: run(True)),
+           "plain_device_ms": device_ms(lambda: run(False))}
+    row["bound_ms"], row["bound_by"] = bound_ms(sum(2 * 4 * y.numel() for y in ys))
+    emit(phase="kernel", name="interleave", shapes=[list(y.shape) for y in ys], batch_timed=1,
+         errs=errs, atol=0.0, **row, note="ms covers the 4 launches of one medium utterance "
+         "at 128 frames; plain_device_ms is also library_ms (one PyTorch call)")
+    return {"highest": row}
 
 
 def _counters():
     from piper_tpu_torch.ops.kernels import conv as K1
     from piper_tpu_torch.ops.kernels import folded as K4
+    from piper_tpu_torch.ops.kernels import interleave as K5
     from piper_tpu_torch.ops.kernels import resblock as R
 
     return {"resblock1_branch": R.resblock1_branch, "resblock1_mrf": R.resblock1_mrf,
-            "conv1d_same": K1.conv1d_same, "resblock1_mrf_folded": K4.resblock1_mrf_folded}
+            "conv1d_same": K1.conv1d_same, "resblock1_mrf_folded": K4.resblock1_mrf_folded,
+            "interleave": K5.interleave}
 
 
 def _zero_counts() -> dict:
@@ -306,7 +389,7 @@ def phase_main_path(torch, path: str, model, config, options=None) -> tuple:
     """A main path: synthesize() on the card for one voice and options.
     Every launch count is set to 0 just before the timed run and read just
     after; each kernel of this path must have launched."""
-    from piper_tpu.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
     from piper_tpu_torch.engine.runtime import PiperRuntime
 
     t0 = time.perf_counter()
@@ -374,7 +457,7 @@ def phase_compare(torch, path: str, rt, other, atol: float, against: str) -> Non
     """f=1 with the same injected noise: runtime rt against `other` (the
     port on the CPU, or another configuration on the card); w_ceil equal
     and the waveform within atol."""
-    from piper_tpu.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
 
     ids = FIXTURE_PHONEME_IDS
     dp_noise, main_noise = _injected_noise(rt.hparams, len(ids))
@@ -409,16 +492,65 @@ def phase_probe() -> dict:
     return launches
 
 
+def phase_ct_probe() -> dict:
+    """The conv-transpose probe's main function at each of its four
+    levels, reduced to a batch of 2 at 128 frames and one timed window of 2
+    calls per piece, at "highest" (TF32 off), so that poly_ct and native_ct
+    must agree with full_ct within CT_ATOL. The counts are set to 0 just
+    before each level and read just after; each level must launch K5."""
+    from piper_tpu_torch.tools import ct_probe
+
+    total = {}
+    for level in range(len(MEDIUM_UPSAMPLE)):
+        counters = _zero_counts()
+        out = ct_probe.main(["--b", "2", "--frames", "128", "--iters", "2", "--reps", "1",
+                             "--level", str(level), "--precision", "highest"])
+        launches = _require_launches("ct_probe", counters)
+        pieces = [r["piece"] for r in out["rows"]]
+        if pieces != ["poly_conv_folded_out", "interleave_pair(2x)", "full_ct", "poly_ct",
+                      "native_ct_lhs_dilated", "mosaic_interleave"]:
+            raise AssertionError(f"ct_probe level {level} ran {pieces}")
+        agree = out["agreement"]
+        errs = {k: v for k, v in agree.items() if k.endswith("_vs_full_ct")}
+        if not max(errs.values()) <= CT_ATOL:
+            raise AssertionError(f"ct_probe level {level}: {errs} > {CT_ATOL}")
+        emit(phase="ct_probe", level=level, shapes=out["shapes"], errs=errs, atol=CT_ATOL,
+             ms={r["piece"]: r["ms_per_call"] for r in out["rows"]}, launches=launches)
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def _kernel_entry(name: str, tiers: dict, launches: int) -> dict:
+    """A kernel's entry in the kernels line, at the "highest" tier: `ms`
+    and `plain_ms` are device times (torch.profiler), beside `bound_ms`;
+    the CUDA-event times are `event_ms` and `plain_event_ms`."""
+    row = tiers["highest"]
+    entry = {"name": name, "route": "cuda", "source": KERNELS[name][0],
+             "replaces": KERNELS[name][1], "launches": launches,
+             "max_abs_err": row["max_abs_err"], "ms": row["device_ms"],
+             "plain_ms": row["plain_device_ms"], "bound_ms": row["bound_ms"],
+             "bound_by": row["bound_by"],
+             # K5's plain version is the one PyTorch call that computes it.
+             "library_ms": None if name in NO_LIBRARY_CALL else row["plain_device_ms"],
+             "event_ms": row["ms"], "plain_event_ms": row["plain_ms"]}
+    if name in NO_LIBRARY_CALL:
+        entry["no_library_call"] = NO_LIBRARY_CALL[name]
+    if len(tiers) > 1:
+        entry["tiers"] = tiers
+    return entry
+
+
 def main() -> None:
     import torch
 
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU and has no CPU path")
-    if not (ROOT / "piper_tpu_torch").is_dir() or not (ROOT / "piper_tpu").is_dir():
-        fail(f"run from the root of a piper-tpu checkout ({ROOT} holds no package)")
+    if not (ROOT / "piper_tpu_torch").is_dir():
+        fail(f"run from the root of a piper-tpu checkout ({ROOT} holds no piper_tpu_torch)")
     sys.path.insert(0, str(ROOT))
-    from piper_tpu.models.vits.synthetic import make_synthetic_voice
     from piper_tpu_torch.engine.runtime import PiperRuntime, RuntimeOptions
+    from piper_tpu_torch.models.vits.synthetic import make_synthetic_voice
 
     phase_device(torch)
     phase_build()
@@ -442,14 +574,12 @@ def main() -> None:
             count(counts)
             phase_compare(torch, "medium_mixed", rt_mixed, rt, MIXED_ATOL, "card highest")
     count(phase_probe())
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
-    emit(kernels=[
-        {"name": name, "route": "cuda", "source": KERNELS[name][0],
-         "replaces": KERNELS[name][1], "launches": launches[name],
-         "max_abs_err": tiers["highest"]["max_abs_err"], "ms": tiers["highest"]["ms"],
-         "plain_ms": tiers["highest"]["plain_ms"], "tiers": tiers}
-        for name, tiers in kernels.items()])
+    count(phase_ct_probe())
+    foreign = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "piper_tpu"))
+    if foreign:
+        raise AssertionError(f"imported {foreign}")
+    emit(kernels=[_kernel_entry(name, tiers, launches[name]) for name, tiers in kernels.items()])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -3,8 +3,10 @@
 The JAX package `piper_tpu` is the reference; this package mirrors its
 layout and module names (`piper_tpu_torch.models.vits.hifigan` is the
 counterpart of `piper_tpu.models.vits.hifigan`) and keeps its (B, C, T)
-layouts and parameter names at every public function. It imports torch and
-never jax. The Pallas kernels on the main path become hand-written CUDA
+layouts and parameter names at every public function. It imports torch,
+never jax and nothing of `piper_tpu`: the jax-free modules it needs
+(`onnx`, `core`, `models.vits.{hparams,synthetic}`) are its own copies.
+The Pallas kernels on the main path become hand-written CUDA
 kernels for Hopper (`csrc/`, bound in `ops/kernels/`); everything XLA
 computed outside a kernel is plain PyTorch.
 

@@ -2,10 +2,11 @@
 
 Counterpart of piper_tpu.engine.runtime's split mode: pad the phoneme ids to
 a bucket, encode, read the frame count on the host once, pick the frame
-bucket, decode, and return PCM. The device is explicit; weights go to it
-once. Encode and decode run at the `precision` tier (by default "highest",
-fp32 with TF32 off for matmuls and cuDNN convs: a duration error can flip a
-ceil() and shift the whole waveform); the reverse flows and the vocoder may
+bucket, decode, and return PCM. The device is the CUDA card unless the
+caller asks for the CPU (`device="cpu"`); weights go to it once. Encode
+and decode run at the `precision` tier (by default "highest", fp32 with
+TF32 off for matmuls and cuDNN convs: a duration error can flip a ceil()
+and shift the whole waveform); the reverse flows and the vocoder may
 take lower tiers of their own, as in the JAX package (`precision.py` says
 what each tier means in the kernels and around them).
 
@@ -28,9 +29,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from piper_tpu.core.config import VoiceConfig
-from piper_tpu.models.vits.hparams import VitsHParams, derive_hparams
-from piper_tpu.onnx.loader import load_model
+from piper_tpu_torch.core.config import VoiceConfig
 from piper_tpu_torch.engine.bucketing import (
     DEFAULT_FRAME_BUCKETS,
     DEFAULT_PHONEME_BUCKETS,
@@ -39,7 +38,9 @@ from piper_tpu_torch.engine.bucketing import (
     pad_to,
 )
 from piper_tpu_torch.models.vits import model as vits
+from piper_tpu_torch.models.vits.hparams import VitsHParams, derive_hparams
 from piper_tpu_torch.models.vits.params import host_arrays_from_graph, params_to_torch
+from piper_tpu_torch.onnx.loader import load_model
 from piper_tpu_torch.ops.kernels.precision import TIERS, kernel_tier, tier_scope
 
 
@@ -132,7 +133,9 @@ def _resolve_device(device) -> torch.device:
 
 
 class PiperRuntime:
-    """Loads a Piper voice checkpoint and synthesizes speech on one device."""
+    """Loads a Piper voice checkpoint and synthesizes speech on one device:
+    the CUDA card by default (raises where there is none), or the CPU when
+    the caller passes device="cpu"."""
 
     def __init__(
         self,
@@ -140,7 +143,7 @@ class PiperRuntime:
         config_path: Union[str, Path, None] = None,
         options: Optional[RuntimeOptions] = None,
         *,
-        device: Union[str, torch.device],
+        device: Union[str, torch.device] = "cuda",
     ):
         self.options = options or RuntimeOptions()
         self.options.validate()

@@ -11,7 +11,7 @@ from typing import Optional
 
 import torch
 
-from piper_tpu.models.vits.hparams import VitsHParams
+from piper_tpu_torch.models.vits.hparams import VitsHParams
 from piper_tpu_torch.models.vits.params import Params, Prefix
 from piper_tpu_torch.ops.conv import conv1d, conv1d_same
 from piper_tpu_torch.ops.nn import gelu_exact, layer_norm_channels

@@ -27,7 +27,7 @@ from typing import Optional, Sequence, Union
 
 import torch
 
-from piper_tpu.models.vits.hparams import VitsHParams
+from piper_tpu_torch.models.vits.hparams import VitsHParams
 from piper_tpu_torch.models.vits.params import Params, Prefix
 from piper_tpu_torch.ops.conv import conv1d, conv1d_same, conv_transpose1d
 from piper_tpu_torch.ops.kernels import conv as K1

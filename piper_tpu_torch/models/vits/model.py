@@ -13,10 +13,10 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 
-from piper_tpu.models.vits.hparams import VitsHParams
 from piper_tpu_torch.models.vits.duration_predictor import stochastic_duration_predictor_reverse
 from piper_tpu_torch.models.vits.flows import flow_reverse
 from piper_tpu_torch.models.vits.hifigan import hifigan_generator
+from piper_tpu_torch.models.vits.hparams import VitsHParams
 from piper_tpu_torch.models.vits.params import Params
 from piper_tpu_torch.models.vits.text_encoder import text_encoder
 from piper_tpu_torch.ops.kernels.precision import tier_scope

@@ -13,7 +13,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from piper_tpu.onnx.ir import OnnxGraph, TensorDataType
+from piper_tpu_torch.onnx.ir import OnnxGraph, TensorDataType
 
 Params = Dict[str, torch.Tensor]
 

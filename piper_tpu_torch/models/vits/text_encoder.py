@@ -10,7 +10,7 @@ from typing import Tuple
 
 import torch
 
-from piper_tpu.models.vits.hparams import VitsHParams
+from piper_tpu_torch.models.vits.hparams import VitsHParams
 from piper_tpu_torch.models.vits.params import Params, Prefix
 from piper_tpu_torch.ops.attention import multi_head_attention
 from piper_tpu_torch.ops.conv import conv1d, conv1d_same

@@ -97,8 +97,10 @@ def load() -> ctypes.CDLL:
     lib.piper_resblock1_mrf_folded.argtypes = [
         p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, i, i, p]
     lib.piper_conv1d_same.argtypes = [p, p, p, p, i, i, i, i, i, i, f, i, i, p]
+    # (y, out, B, r, c, q, device, stream): no tier, a permutation.
+    lib.piper_interleave.argtypes = [p, p, i, i, i, i, i, p]
     for fn in (lib.piper_resblock1_branch, lib.piper_resblock1_mrf,
-               lib.piper_resblock1_mrf_folded, lib.piper_conv1d_same):
+               lib.piper_resblock1_mrf_folded, lib.piper_conv1d_same, lib.piper_interleave):
         fn.restype = i
     _lib = lib
     return lib

@@ -1,10 +1,31 @@
-"""Timing on a CUDA card: CUDA events around calls, and the kernels' own
-device time under torch.profiler."""
+"""Timing on a CUDA card: CUDA events around calls, the kernels' own device
+time under torch.profiler, and the least time the card could take."""
 
 from __future__ import annotations
 
 import statistics
-from typing import Callable
+from typing import Callable, Tuple
+
+# One H100 SXM's published peaks (NVIDIA's data sheet; dense, at its 700 W
+# limit): HBM3 bytes/s, and FLOP/s by the type the products run in.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
+# A kernel tier's products (precision.py): fp32 on CUDA cores, or 3 passes
+# ("high") or 1 pass ("default") of bf16 products, at the tensor cores' rate.
+TIER_FLOPS = {"highest": PEAK_FLOPS["fp32"], "high": PEAK_FLOPS["bf16"] / 3,
+              "default": PEAK_FLOPS["bf16"]}
+_PROFILE_ATTEMPTS = 3
+
+
+def bound_ms(nbytes: float, flops: float = 0.0,
+             flops_per_s: float = PEAK_FLOPS["fp32"]) -> Tuple[float, str]:
+    """The least time (ms) the card could take for work that must move
+    `nbytes` (each input read once, each output written once) and do `flops`
+    at `flops_per_s`: the larger of the two times, and which one it is
+    ("bytes" or "operations")."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
+    return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
 def event_ms(fn: Callable, reps: int = 20, warmup: int = 3) -> float:
@@ -28,19 +49,24 @@ def event_ms(fn: Callable, reps: int = 20, warmup: int = 3) -> float:
 
 def device_ms(fn: Callable, reps: int = 10) -> float:
     """Device time of fn() (ms): the sum of its kernels' times under
-    torch.profiler, per call, after one warm-up call. Raises if the
-    profiler saw no device time."""
+    torch.profiler, per call, after one warm-up call. On the H100 a window
+    late in a long process has come back empty, once in some fifty; such a
+    window is profiled again, up to _PROFILE_ATTEMPTS times in all, and then
+    this raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-             for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA)
-    if us <= 0:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return us / reps / 1e3
+    for _ in range(_PROFILE_ATTEMPTS):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / reps / 1e3
+    raise RuntimeError(f"torch.profiler recorded no device time in {_PROFILE_ATTEMPTS} "
+                       f"windows")

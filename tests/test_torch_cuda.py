@@ -16,10 +16,14 @@ chip_smoke.py says more).
 import pytest
 import torch
 
+import torch.nn.functional as F
+
+from piper_tpu_torch.ops.conv import conv_transpose1d_polyphase
 from piper_tpu_torch.ops.kernels import conv as K1
 from piper_tpu_torch.ops.kernels import folded as K4
+from piper_tpu_torch.ops.kernels import interleave as K5
 from piper_tpu_torch.ops.kernels import resblock as R
-from piper_tpu_torch.ops.kernels.precision import fp32_exact
+from piper_tpu_torch.ops.kernels.precision import fp32_exact, tier_scope
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
@@ -205,3 +209,55 @@ def test_mrf_folded_kernel_refuses_bad_arguments(cuda):
     w, b = torch.zeros(1, 12, 12, 3, device=cuda), torch.zeros(1, 12, device=cuda)
     with pytest.raises(ValueError, match="multiple of 8"):
         K4.resblock1_mrf_folded(x12, [(w, b, w, b, 3, (1,))])
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("q", [2048, 3000, 129])  # a multiple of the block's 1024, ragged
+@pytest.mark.parametrize("r", [1, 2, 4, 8])
+def test_interleave_kernel_is_bit_equal_to_plain(cuda, r, q, b):
+    """K5 is a permutation: bit-equal to its plain version, and one launch."""
+    gen = torch.Generator().manual_seed(r * q + b)
+    y = torch.randn(b, r, 40, q, generator=gen).to(cuda)
+    before = K5.interleave.launches
+    got = K5.interleave(y)
+    torch.cuda.synchronize()
+    assert K5.interleave.launches == before + 1
+    assert got.shape == (b, 40, q * r) and got.is_contiguous()
+    assert torch.equal(got, K5.interleave_plain(y))
+
+
+def test_interleave_kernel_refuses_bad_arguments(cuda):
+    """A bad input raises on the card; nothing falls back to the plain
+    version, and nothing launches."""
+    before = K5.interleave.launches
+    y = torch.zeros(1, 2, 8, 64, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        K5.interleave(y.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        K5.interleave(y.transpose(2, 3))
+    with pytest.raises(ValueError, match=r"\(B, r, c, q\)"):
+        K5.interleave(y[0])
+    with pytest.raises(ValueError, match="1 to 8"):
+        K5.interleave(torch.zeros(1, 9, 8, 64, device=cuda))
+    assert K5.interleave.launches == before
+
+
+@pytest.mark.parametrize("stride,k,padding,output_padding", [
+    (8, 16, 4, 0), (2, 4, 1, 0), (4, 8, 2, 0), (2, 5, 1, 0), (1, 3, 1, 0), (3, 7, 2, 2)])
+def test_polyphase_conv_transpose_matches_pytorch(cuda, stride, k, padding, output_padding):
+    """The polyphase lowering through K5 against F.conv_transpose1d, TF32
+    off: the same products summed in another order."""
+    gen = torch.Generator().manual_seed(stride * k)
+    x = torch.randn(2, 64, 300, generator=gen).to(cuda)
+    w = (torch.randn(64, 32, k, generator=gen) / (64 * k) ** 0.5).to(cuda)
+    b = (torch.randn(32, generator=gen) * 0.02).to(cuda)
+    before = K5.interleave.launches
+    with tier_scope("highest", cuda):
+        got = conv_transpose1d_polyphase(x, w, b, stride=stride, padding=padding,
+                                         output_padding=output_padding)
+        want = F.conv_transpose1d(x, w, b, stride=stride, padding=padding,
+                                  output_padding=output_padding)
+    torch.cuda.synchronize()
+    assert K5.interleave.launches == before + (stride > 1)
+    assert got.shape == want.shape
+    assert _max_err(got, want) <= ATOL

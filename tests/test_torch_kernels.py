@@ -1,6 +1,8 @@
 """The plain versions of the port's kernels (K1 conv1d_same, the ResBlock1
-K2/K3, the folded MRF K4) against the Pallas kernels they replace, run in
-interpret mode on the CPU (the cases of tests/test_pallas_kernels.py).
+K2/K3, the folded MRF K4, the interleave K5) against the Pallas kernels they
+replace, run in interpret mode on the CPU (the cases of
+tests/test_pallas_kernels.py), or against what the kernel computes where no
+test can reach it (K5).
 Tolerance 1e-5 max-abs at the "highest" and "high" tiers: the same exact
 products, summed in another order. 2e-3 at "default": one bf16 rounding of
 a conv's input can land on the other side of a rounding edge in the two
@@ -29,6 +31,7 @@ from piper_tpu.ops.pallas.folded import (
 from piper_tpu.ops.pallas.resblock import pallas_resblock1_branch, pallas_resblock1_mrf
 from piper_tpu_torch.ops.kernels import conv as K1
 from piper_tpu_torch.ops.kernels import folded as K4
+from piper_tpu_torch.ops.kernels import interleave as K5
 from piper_tpu_torch.ops.kernels import resblock as R
 from piper_tpu_torch.ops.kernels.precision import tier_code, tiered_conv1d
 
@@ -359,3 +362,37 @@ def test_folded_probe_refuses_to_run_without_a_card():
 
     with pytest.raises(SystemExit, match="no CUDA device"):
         folded_probe.main(["--b", "1", "--shapes", "16:64"])
+
+
+@pytest.mark.parametrize("r,q", [(2, 129), (2, 2048), (4, 1000), (8, 17), (8, 4099)])
+def test_interleave_plain_matches_jax_expression(r, q):
+    """K5's plain version against the function the Pallas kernel
+    `mosaic_interleave` computes: JAX's interleave expression
+    y.transpose(0, 2, 3, 1).reshape(b, c, q * r), the same as
+    piper_tpu/ops/conv.py:121. The Pallas kernel itself sits in a closure
+    inside tools/ct_probe.py's main, which no test can reach, so the
+    expression stands in for it. A permutation: exact, ragged q included."""
+    y = np.random.default_rng(r * q).standard_normal((2, r, 24, q)).astype(np.float32)
+    b, _, c, _ = y.shape
+    want = np.asarray(jnp.asarray(y).transpose(0, 2, 3, 1).reshape(b, c, q * r))
+    got = K5.interleave_plain(torch.from_numpy(y))
+    assert got.shape == want.shape and np.array_equal(got.numpy(), want)
+    before = K5.interleave.launches
+    assert torch.equal(K5.interleave(torch.from_numpy(y)), got)  # CPU: the plain version
+    assert K5.interleave.launches == before
+
+
+def test_interleave_refuses_what_the_kernel_does_not_take():
+    """The wrapper checks dtype, rank, contiguity and r on every device, and
+    refuses a tensor that is neither on the CPU nor on a card."""
+    y = torch.zeros(1, 2, 8, 64)
+    with pytest.raises(ValueError, match="float32"):
+        K5.interleave(y.double())
+    with pytest.raises(ValueError, match=r"\(B, r, c, q\)"):
+        K5.interleave(y[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        K5.interleave(y.transpose(2, 3))
+    with pytest.raises(ValueError, match="1 to 8"):
+        K5.interleave(torch.zeros(1, 9, 8, 64))
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        K5.interleave(y.to("meta"))

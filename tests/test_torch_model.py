@@ -5,7 +5,7 @@ at the bars tests/test_vits_parity.py holds the JAX package to: module
 tensors 2e-5 max-abs, logw 5e-5, w_ceil exactly equal, waveform 1e-4.
 """
 
-from dataclasses import replace
+from dataclasses import fields, replace
 
 import numpy as np
 import pytest
@@ -17,16 +17,17 @@ from piper_tpu.models.vits import model as jv
 from piper_tpu.models.vits.duration_predictor import stochastic_duration_predictor_reverse as j_sdp
 from piper_tpu.models.vits.flows import flow_reverse as j_flow
 from piper_tpu.models.vits.hifigan import hifigan_generator as j_hifigan
-from piper_tpu.models.vits.hparams import VitsHParams
+from piper_tpu.models.vits.hparams import VitsHParams as JVitsHParams
 from piper_tpu.models.vits.params import params_from_arrays
-from piper_tpu.models.vits.synthetic import synthetic_params
 from piper_tpu.models.vits.text_encoder import text_encoder as j_text_encoder
 from piper_tpu.ops.masking import sequence_mask
 from piper_tpu_torch.models.vits import model as tv
 from piper_tpu_torch.models.vits.duration_predictor import stochastic_duration_predictor_reverse as t_sdp
 from piper_tpu_torch.models.vits.flows import flow_reverse as t_flow
 from piper_tpu_torch.models.vits.hifigan import hifigan_generator as t_hifigan
+from piper_tpu_torch.models.vits.hparams import VitsHParams
 from piper_tpu_torch.models.vits.params import params_to_torch
+from piper_tpu_torch.models.vits.synthetic import synthetic_params
 from piper_tpu_torch.models.vits.text_encoder import text_encoder as t_text_encoder
 from piper_tpu_torch.ops.kernels import conv as K1
 
@@ -56,6 +57,12 @@ ROUTES2 = replace(
 MODULE_ATOL, LOGW_ATOL, WAVE_ATOL = 2e-5, 5e-5, 1e-4
 
 
+def _jhp(hp):
+    """The JAX package's VitsHParams with the same fields as the port's hp,
+    for the JAX side of a comparison."""
+    return JVitsHParams(**{f.name: getattr(hp, f.name) for f in fields(hp)})
+
+
 @pytest.fixture(scope="module", params=[SMALL, SMALL_G], ids=["single", "cond"])
 def setup(request):
     hp = request.param
@@ -83,7 +90,7 @@ def test_text_encoder(setup, p, valid):
     hp, jp, tp, _ = setup
     ids = np.random.default_rng(0).integers(0, hp.n_vocab, size=(2, p))
     lengths = np.array(valid)
-    want = j_text_encoder(jnp.asarray(ids), jnp.asarray(lengths), jp, hp)
+    want = j_text_encoder(jnp.asarray(ids), jnp.asarray(lengths), jp, _jhp(hp))
     with torch.inference_mode():
         got = t_text_encoder(torch.from_numpy(ids), torch.from_numpy(lengths), tp, hp)
     _close(got[3], want[3], 0)
@@ -98,7 +105,7 @@ def test_sdp_reverse(setup):
     x = rng.standard_normal((b, hp.hidden_channels, p)).astype(np.float32)
     mask = np.array(sequence_mask(jnp.asarray(np.array([12, 7])), p))
     noise = rng.standard_normal((b, 2, p)).astype(np.float32)
-    want = j_sdp(jnp.asarray(x), jnp.asarray(mask), jnp.asarray(noise), jp, hp, g=_jg(g))
+    want = j_sdp(jnp.asarray(x), jnp.asarray(mask), jnp.asarray(noise), jp, _jhp(hp), g=_jg(g))
     with torch.inference_mode():
         got = t_sdp(torch.from_numpy(x), torch.from_numpy(mask), torch.from_numpy(noise),
                     tp, hp, g=_tg(g))
@@ -110,7 +117,7 @@ def test_flow_reverse(setup):
     rng = np.random.default_rng(3)
     z_p = rng.standard_normal((2, hp.inter_channels, 20)).astype(np.float32)
     mask = np.array(sequence_mask(jnp.asarray(np.array([20, 13])), 20))
-    want = j_flow(jnp.asarray(z_p), jnp.asarray(mask), jp, hp, g=_jg(g))
+    want = j_flow(jnp.asarray(z_p), jnp.asarray(mask), jp, _jhp(hp), g=_jg(g))
     with torch.inference_mode():
         got = t_flow(torch.from_numpy(z_p), torch.from_numpy(mask), tp, hp, g=_tg(g))
     _close(got, want, MODULE_ATOL)
@@ -121,7 +128,7 @@ def test_hifigan(setup):
     rng = np.random.default_rng(4)
     z = rng.standard_normal((2, hp.inter_channels, 16)).astype(np.float32)
     mask = np.array(sequence_mask(jnp.asarray(np.array([16, 11])), 16))
-    want = j_hifigan(jnp.asarray(z * mask), jp, hp, g=_jg(g), t_mask=jnp.asarray(mask))
+    want = j_hifigan(jnp.asarray(z * mask), jp, _jhp(hp), g=_jg(g), t_mask=jnp.asarray(mask))
     with torch.inference_mode():
         got = t_hifigan(torch.from_numpy(z * mask), tp, hp, g=_tg(g),
                         t_mask=torch.from_numpy(mask))
@@ -139,7 +146,7 @@ def _inputs(hp, b=2, p=12, frames=64, seed=5):
 
 def _debug_infer_both(hp, w, frames=64, seed=5):
     ids, lengths, dp_noise, main_noise = _inputs(hp, frames=frames, seed=seed)
-    want = jv.debug_infer(params_from_arrays(w), hp, jnp.asarray(ids), jnp.asarray(lengths),
+    want = jv.debug_infer(params_from_arrays(w), _jhp(hp), jnp.asarray(ids), jnp.asarray(lengths),
                           jnp.asarray(dp_noise), jnp.asarray(main_noise), max_frames=frames)
     with torch.inference_mode():
         got = tv.debug_infer(params_to_torch(w, "cpu"), hp, torch.from_numpy(ids),
@@ -168,8 +175,8 @@ def _decode_both(hp, w, seed):
     the 32-frame bucket."""
     ids, lengths, dp_noise, main_noise = _inputs(hp, frames=32, seed=seed)
     jp = params_from_arrays(w)
-    j_enc = jv.encode(jp, hp, jnp.asarray(ids), jnp.asarray(lengths), jnp.asarray(dp_noise))
-    want, want_len = jv.decode(jp, hp, j_enc, jnp.asarray(main_noise), max_frames=32,
+    j_enc = jv.encode(jp, _jhp(hp), jnp.asarray(ids), jnp.asarray(lengths), jnp.asarray(dp_noise))
+    want, want_len = jv.decode(jp, _jhp(hp), j_enc, jnp.asarray(main_noise), max_frames=32,
                                use_pallas=False)
     tp = params_to_torch(w, "cpu")
     with torch.inference_mode():
@@ -216,7 +223,7 @@ def test_hifigan_resblock2_matches_pallas(monkeypatch):
     z = rng.standard_normal((2, hp.inter_channels, 16)).astype(np.float32)
     lengths = np.array([16, 11], np.int32)
     mask = np.array(sequence_mask(jnp.asarray(lengths), 16))
-    want = j_hifigan(jnp.asarray(z * mask), params_from_arrays(w), hp,
+    want = j_hifigan(jnp.asarray(z * mask), params_from_arrays(w), _jhp(hp),
                      t_mask=jnp.asarray(mask), use_pallas=True, t_bounds=jnp.asarray(lengths))
     before = K1.conv1d_same.launches
     with torch.inference_mode():
@@ -241,8 +248,9 @@ def test_hifigan_level_precisions_match_pallas(monkeypatch):
     z = rng.standard_normal((2, hp.inter_channels, 16)).astype(np.float32)
     lengths = np.array([16, 11], np.int32)
     mask = np.array(sequence_mask(jnp.asarray(lengths), 16))
-    want = j_hifigan(jnp.asarray(z * mask), params_from_arrays(w), hp, level_precisions=lp,
-                     t_mask=jnp.asarray(mask), use_pallas=True, t_bounds=jnp.asarray(lengths))
+    want = j_hifigan(jnp.asarray(z * mask), params_from_arrays(w), _jhp(hp),
+                     level_precisions=lp, t_mask=jnp.asarray(mask), use_pallas=True,
+                     t_bounds=jnp.asarray(lengths))
     tp = params_to_torch(w, "cpu")
     with torch.inference_mode():
         got = [t_hifigan(torch.from_numpy(z * mask), tp, hp, level_precisions=levels,

@@ -103,6 +103,69 @@ def test_conv_transpose1d(k, u):
                                stride=u, padding=pad), 1e-5)
 
 
+@pytest.mark.parametrize("u,k,output_padding", [
+    (8, 16, 0), (2, 4, 0), (4, 8, 0),  # the medium and x_low upsample levels
+    (2, 5, 0),                         # k not a multiple of the stride
+    (1, 3, 0),                         # stride 1
+    (2, 4, 1), (3, 7, 2),              # output_padding > 0
+])
+def test_conv_transpose1d_polyphase(u, k, output_padding):
+    """The port of the JAX package's polyphase lowering (one conv to
+    stride*C_out channels, then the interleave, on the CPU its plain
+    version) against that lowering itself: the same products summed in
+    another order, 2e-5 max-abs."""
+    rng = np.random.default_rng(7)
+    x, w, b = _rand(rng, 2, 16, 21), _rand(rng, 16, 8, k, scale=0.3), _rand(rng, 8)
+    kw = dict(stride=u, padding=(k - u) // 2, output_padding=output_padding)
+    got = tc.conv_transpose1d_polyphase(T(x), T(w), T(b), **kw)
+    want = jc.conv_transpose1d(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b), **kw)
+    assert tuple(got.shape) == want.shape
+    _close(got, want, 2e-5)
+
+
+def test_conv_transpose1d_polyphase_refuses_a_wide_output_padding():
+    x, w = torch.zeros(1, 4, 5), torch.zeros(4, 2, 4)
+    with pytest.raises(ValueError, match="output_padding must be < stride"):
+        tc.conv_transpose1d_polyphase(x, w, stride=2, output_padding=2)
+
+
+@pytest.mark.parametrize("level", [0, 1, 2, 3])
+def test_ct_probe_pieces_run_on_the_cpu(level):
+    """Every piece of the conv-transpose probe at a tiny shape (the level's
+    channels, 2 frames): the three conv-transposes agree within 2e-5, the
+    interleave pair returns its input, and the K5 piece equals the plain
+    interleave of that input."""
+    from piper_tpu_torch.tools import ct_probe
+
+    shape, pieces = ct_probe.build_pieces(1, 2, level, "cpu")
+    assert shape["c_in"] == 512 >> level and shape["t_in"] == 2 * [1, 8, 64, 128][level]
+    outs = {p.name: p.fn() for p in pieces}
+    assert list(outs) == ["poly_conv_folded_out", "interleave_pair(2x)", "full_ct", "poly_ct",
+                          "native_ct_lhs_dilated", "mosaic_interleave"]
+    c_out, u, q = shape["c_out"], shape["u"], shape["q"]
+    assert outs["poly_conv_folded_out"].shape == (1, u * c_out, q)
+    assert outs["full_ct"].shape == (1, c_out, shape["t_out"])
+    for name in ("poly_ct", "native_ct_lhs_dilated"):
+        assert float((outs[name] - outs["full_ct"]).abs().max()) <= 2e-5, name
+    assert torch.equal(outs["mosaic_interleave"],
+                       outs["interleave_pair(2x)"].permute(0, 2, 3, 1).reshape(1, c_out, q * u))
+    assert [p.name for p in pieces if p.plain is not None] == ["mosaic_interleave"]
+    errs = ct_probe.agreement(pieces)
+    assert errs["mosaic_interleave_equal"] and max(
+        errs["poly_ct_vs_full_ct"], errs["native_ct_lhs_dilated_vs_full_ct"]) <= 2e-5
+    assert all(p.nbytes > 0 for p in pieces)
+
+
+def test_ct_probe_refuses_to_run_without_a_card():
+    """The probe times the pieces on a card and has no CPU path."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from piper_tpu_torch.tools import ct_probe
+
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        ct_probe.main(["--b", "1", "--frames", "2"])
+
+
 @pytest.mark.parametrize("length", [3, 5, 12])
 def test_relative_position_helpers(length):
     """All three helpers, on both branches of get_relative_embeddings

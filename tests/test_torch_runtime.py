@@ -18,17 +18,18 @@ import pytest
 import torch
 
 from piper_tpu.models.vits.params import host_arrays_from_graph as j_host_arrays
-from piper_tpu.models.vits.synthetic import make_synthetic_voice, synthetic_params
-from piper_tpu.models.vits.hparams import PRESETS
-from piper_tpu.onnx.loader import load_model
-from piper_tpu.onnx.writer import node, save_model, tensor_from_array
+from piper_tpu.onnx.loader import load_model as j_load_model
 from piper_tpu_torch.engine.runtime import (
     PiperRuntime,
     RuntimeOptions,
     parse_precision_spec,
     seeded_noise,
 )
+from piper_tpu_torch.models.vits.hparams import PRESETS
 from piper_tpu_torch.models.vits.params import host_arrays_from_graph, params_to_torch
+from piper_tpu_torch.models.vits.synthetic import make_synthetic_voice, synthetic_params
+from piper_tpu_torch.onnx.loader import load_model
+from piper_tpu_torch.onnx.writer import node, save_model, tensor_from_array
 from piper_tpu_torch.ops.kernels import resblock as R
 from piper_tpu_torch.ops.kernels.precision import fp32_exact, tier_scope
 
@@ -45,8 +46,8 @@ def _assert_same_arrays(got, want):
 
 
 def test_weights_match_reference_loader(tiny_voice):
+    want = j_host_arrays(j_load_model(tiny_voice[0]).graph)
     graph = load_model(tiny_voice[0]).graph
-    want = j_host_arrays(graph)
     _assert_same_arrays(host_arrays_from_graph(graph), want)
     _assert_same_arrays(params_to_torch(host_arrays_from_graph(graph), "cpu"), want)
 
@@ -62,11 +63,10 @@ def test_constant_node_weights_are_harvested(tmp_path):
     w["shape_const"] = np.array([1, 2], np.int64)
     path = tmp_path / "m.onnx"
     save_model(str(path), nodes, w)
-    graph = load_model(path).graph
-    got = host_arrays_from_graph(graph)
+    got = host_arrays_from_graph(load_model(path).graph)
     assert set(moved) <= set(got) and "/Constant_output_0" not in got
     assert "shape_const" not in got
-    _assert_same_arrays(got, j_host_arrays(graph))
+    _assert_same_arrays(got, j_host_arrays(j_load_model(path).graph))
 
 
 @pytest.fixture(scope="module")
@@ -186,6 +186,15 @@ def test_cuda_device_without_a_card_raises(tiny_voice):
         PiperRuntime(*tiny_voice, device="cuda")
 
 
+def test_default_device_is_the_card(tiny_voice):
+    """With no device named the runtime runs on the card, and raises where
+    there is none; it never falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PiperRuntime(*tiny_voice)
+
+
 def test_fp32_exact_restores_tf32_flags():
     saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     with fp32_exact():
@@ -256,15 +265,15 @@ def test_bench_mixed_precision_matches_reference(k2k3_voice, monkeypatch):
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
-    hp = rt.hparams
     ids = np.zeros((1, 16), np.int64)
     ids[0, : len(IDS)] = IDS
     dpn = np.zeros((1, 2, 16), np.float32)
     dpn[0, :, : len(IDS)] = dp_noise
-    jp = params_from_arrays(j_host_arrays(load_model(k2k3_voice[0]).graph))
-    j_enc = jv.encode(jp, hp, ids.astype(np.int32), np.array([len(IDS)], np.int32), dpn)
+    jp = params_from_arrays(j_host_arrays(j_load_model(k2k3_voice[0]).graph))
+    j_enc = jv.encode(jp, ref.hparams, ids.astype(np.int32), np.array([len(IDS)], np.int32),
+                      dpn)
     with torch.inference_mode():
-        t_enc = tv.encode(rt.params, hp, torch.from_numpy(ids), torch.tensor([len(IDS)]),
+        t_enc = tv.encode(rt.params, rt.hparams, torch.from_numpy(ids), torch.tensor([len(IDS)]),
                           torch.from_numpy(dpn))
     np.testing.assert_array_equal(t_enc.w_ceil.numpy(), np.asarray(j_enc.w_ceil))
 
@@ -277,7 +286,8 @@ def test_port_never_imports_jax(tiny_voice):
         f"rt = PiperRuntime({str(tiny_voice[0])!r}, {str(tiny_voice[1])!r}, device='cpu')\n"
         f"pcm = rt.synthesize({IDS!r})\n"
         "assert len(pcm) > 0\n"
-        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'piper_tpu'))\n"
+        "assert not bad, f'imported {bad}'\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
