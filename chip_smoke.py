@@ -22,6 +22,11 @@ paths give it, and drives the main paths, counting each kernel's launches:
   the interleave kernel (the polyphase conv-transpose's interleave), with
   the polyphase and input-dilated conv-transposes held against PyTorch's.
 
+Beside the paths, a profile phase puts one medium utterance (fp32 and
+mixed, factors 1 and 8) under torch.profiler: its device kernels, their
+summed device time, the ResBlock1 kernels' share, and the unprofiled
+ms/utterance.
+
 Each voice's result on the card is checked against the same port on the
 CPU. Each phase prints one JSON line; any failure raises and the exit code
 is non-zero. The line before the last lists every kernel: its launches on
@@ -76,6 +81,10 @@ TIERS = ("highest", "high", "default")
 # chain carries it on; measured up to 2.2e-3 at K2's main-path shape on the
 # H100. A single conv (K1) has no chain: ~6e-7.
 KERNEL_ATOL = {"highest": 1e-4, "high": 1e-4, "default": 5e-3}
+# How K2/K3/K4 form each tier's conv products (csrc/resblock1.cu).
+RESBLOCK_DESIGN = {"highest": "cuda-core fp32", "high": "mma.sync bf16 x3",
+                   "default": "mma.sync bf16 x1"}
+RESBLOCK_SYMBOL = "resblock1_kernel"  # the device symbol of K2, K3 and K4
 WAVE_ATOL = 1e-4     # the fp32 waveform bar the JAX package is held to
 MIXED_ATOL = 1e-3    # the lowered-precision waveform gate (BASELINE.md)
 # bench.py's default configuration of the JAX package
@@ -160,12 +169,16 @@ def _chain_work(c, n, live, ks, outputs, convs=6) -> tuple:
     return 4 * (c * n * (1 + outputs) + weights), sum(2 * c * c * k * convs * live for k in ks)
 
 
-def _tier_row(torch, name, tier, run, cases, n, x1, bnd1, work, **fields) -> dict:
+def _tier_row(torch, name, tier, run, cases, n, x1, bnd1, work, launches_per_call,
+              **fields) -> dict:
     """Check run(x, bounds, kernel, tier) against its plain version at
     `tier` on every bounds case, then time both at a batch of one: `ms` by
     CUDA events (the host's time where it is the slower), `device_ms` under
-    torch.profiler. `work` is the timed call's (bytes, flops), for the least
-    time the card could take at the tier's rate."""
+    torch.profiler (the whole wrapper: weight layout, fold copies and
+    launches), and `kernel_device_ms`, the ResBlock1 kernel alone, whose
+    `launches_per_call` launches per call the profiler must count. `work` is
+    the timed call's (bytes, flops), for the least time the card could take
+    at the tier's rate."""
     from piper_tpu_torch.tools.timing import TIER_FLOPS, bound_ms, device_ms, event_ms
 
     errs = {}
@@ -181,7 +194,10 @@ def _tier_row(torch, name, tier, run, cases, n, x1, bnd1, work, **fields) -> dic
     row = {"max_abs_err": worst, "ms": event_ms(lambda: run(x1, bnd1, True, tier)),
            "plain_ms": event_ms(lambda: run(x1, bnd1, False, tier)),
            "device_ms": device_ms(lambda: run(x1, bnd1, True, tier)),
-           "plain_device_ms": device_ms(lambda: run(x1, bnd1, False, tier))}
+           "kernel_device_ms": device_ms(lambda: run(x1, bnd1, True, tier),
+                                         name=RESBLOCK_SYMBOL, expected=launches_per_call),
+           "plain_device_ms": device_ms(lambda: run(x1, bnd1, False, tier)),
+           "design": RESBLOCK_DESIGN[tier]}
     row["bound_ms"], row["bound_by"] = bound_ms(*work, TIER_FLOPS[tier])
     emit(phase="kernel", name=name, precision=tier, samples=n, batch_timed=1, errs=errs,
          atol=KERNEL_ATOL[tier], **row, **fields)
@@ -219,7 +235,8 @@ def phase_kernels(torch) -> dict:
             bnd1 = torch.tensor([n - 100], dtype=torch.int32, device="cuda")
             work = _chain_work(c, n, n - 100, (3, 7, 11), outputs=3 if c == 64 else 1)
             results[name] = {tier: _tier_row(
-                torch, name, tier, run, cases, n, x1, bnd1, work, channels=c,
+                torch, name, tier, run, cases, n, x1, bnd1, work, 3 if c == 64 else 1,
+                channels=c,
                 note="ms covers the 3 branch launches of one level" if c == 64 else
                 "ms covers one launch (3 branches + mean)") for tier in TIERS}
         results["conv1d_same"] = _conv1d_same_check(torch, gen)
@@ -254,7 +271,7 @@ def _folded_check(torch, gen, K4, R) -> dict:
         bnd1 = torch.tensor([n - 100], dtype=torch.int32, device="cuda")
         work = _chain_work(c, n, n - 100, (3, 7, 11), outputs=1)
         level = {tier: _tier_row(torch, "resblock1_mrf_folded", tier, run, cases, n, x1, bnd1,
-                                 work, channels=c, fold=fold, equal_to_k3=True,
+                                 work, 1, channels=c, fold=fold, equal_to_k3=True,
                                  note="ms covers fold + one launch + unfold")
                  for tier in TIERS}
         if c == 32:
@@ -266,12 +283,14 @@ def _conv1d_same_check(torch, gen) -> dict:
     """K1 at x_low's levels 1 (C=64) and 2 (C=32), 128 frames, every tier:
     every (k, d) of the ResBlock2 convs, B=2 at the level's N with act_slope
     0.1 and at a ragged N with act_slope 0, then B=1 timed per level (6
-    launches). Returns {tier: the two levels' worst error and summed times}."""
+    launches; `kernel_device_ms` counts the 6 kernels of each call). Returns
+    {tier: the two levels' worst error and summed times}."""
     from piper_tpu_torch.ops.kernels import conv as K1
     from piper_tpu_torch.tools.timing import TIER_FLOPS, bound_ms, device_ms, event_ms
 
     total = {t: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0,
-                 "plain_device_ms": 0.0, "bound_ms": 0.0} for t in TIERS}
+                 "kernel_device_ms": 0.0, "plain_device_ms": 0.0, "bound_ms": 0.0}
+             for t in TIERS}
     for level, c, n in ((1, 64, 128 * 64), (2, 32, 128 * 256)):
         convs = [(_rand(torch, gen, c, c, k, scale=(c * k) ** -0.5),
                   _rand(torch, gen, c, scale=0.02), k, d) for k, d in X_LOW_CONVS]
@@ -302,6 +321,8 @@ def _conv1d_same_check(torch, gen) -> dict:
             row = {"max_abs_err": worst, "ms": event_ms(lambda: run(True)),
                    "plain_ms": event_ms(lambda: run(False)),
                    "device_ms": device_ms(lambda: run(True)),
+                   "kernel_device_ms": device_ms(lambda: run(True), name="conv1d_same_kernel",
+                                                 expected=len(convs)),
                    "plain_device_ms": device_ms(lambda: run(False))}
             work = _chain_work(c, n, n, [k for k, _ in X_LOW_CONVS], outputs=6, convs=1)
             row["bound_ms"], row["bound_by"] = bound_ms(*work, TIER_FLOPS[tier])
@@ -311,7 +332,8 @@ def _conv1d_same_check(torch, gen) -> dict:
             t = total[tier]
             t["max_abs_err"] = max(t["max_abs_err"], worst)
             t["bound_by"] = row["bound_by"]
-            for key in ("ms", "plain_ms", "device_ms", "plain_device_ms", "bound_ms"):
+            for key in ("ms", "plain_ms", "device_ms", "kernel_device_ms", "plain_device_ms",
+                        "bound_ms"):
                 t[key] += row[key]
     return total
 
@@ -475,6 +497,46 @@ def phase_compare(torch, path: str, rt, other, atol: float, against: str) -> Non
          frames=int(wc.sum()), samples=int(a.shape[0]), max_abs_err=err, atol=atol)
 
 
+def phase_profile(torch, runtimes: dict) -> None:
+    """The method of PERF.md §5, per runtime and factor 1 and 8: the median
+    wall of REPS unprofiled utterances, then one utterance under
+    torch.profiler: its device kernels, their summed device time (device
+    busy), and the ResBlock1 kernels' (K2 + K3) time and launches. The
+    window must hold exactly the K2 and K3 launches the counters saw, or it
+    is profiled again (tools/timing.py, _PROFILE_ATTEMPTS windows)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.tools.timing import _PROFILE_ATTEMPTS, device_kernels
+
+    for path, rt in runtimes.items():
+        for f in (1, 8):
+            ids = FIXTURE_PHONEME_IDS * f
+            walls = []
+            for _ in range(REPS):
+                rt.synthesize(ids)
+                walls.append(rt.last_run_timings.wall_ms)
+            wall = statistics.median(walls)
+            for _ in range(_PROFILE_ATTEMPTS):
+                counters = _zero_counts()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    rt.synthesize(ids)
+                    torch.cuda.synchronize()
+                want = counters["resblock1_branch"].launches + counters["resblock1_mrf"].launches
+                events = prof.key_averages()
+                count, us = device_kernels(events)
+                k_count, k_us = device_kernels(events, RESBLOCK_SYMBOL)
+                if k_count == want > 0:
+                    break
+            else:
+                raise AssertionError(f"profile {path} f={f}: {k_count} ResBlock1 kernels in the "
+                                     f"window, {want} launched")
+            emit(phase="profile", path=path, factor=f, device_kernels=count,
+                 device_busy_ms=us / 1e3, k2_k3_ms=k_us / 1e3, k2_k3_launches=k_count,
+                 ms_per_utterance=wall, busy_share=us / 1e3 / wall,
+                 vocoder_precision=rt.options.vocoder_precision)
+
+
 def phase_probe() -> dict:
     """The folded-kernel probe's main function, reduced to a batch of 2 and
     one timed window of 2 calls per kernel, at its default tier ("high");
@@ -573,6 +635,7 @@ def main() -> None:
             rt_mixed, counts = phase_main_path(torch, "medium_mixed", model, config, mixed)
             count(counts)
             phase_compare(torch, "medium_mixed", rt_mixed, rt, MIXED_ATOL, "card highest")
+            phase_profile(torch, {"medium": rt, "medium_mixed": rt_mixed})
     count(phase_probe())
     count(phase_ct_probe())
     foreign = sorted(m for m in sys.modules

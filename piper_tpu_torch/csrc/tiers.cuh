@@ -7,11 +7,14 @@
 //                dropped);
 //   2 "default": one product of the bf16-rounded operands.
 // Every product of two bf16 values is exact in fp32, so the tiers differ
-// from their plain versions only in the order of the fp32 sums. The split
-// is done in registers at the read: the kernels' shared memory is full, so
-// no hi/lo copies are staged. On CUDA cores "high" costs three FMAs and the
-// splits per product, so it runs slower than "highest" here; only the
-// tensor cores (mma/wgmma on bf16) would make the lower tiers faster.
+// from their plain versions only in the order of the fp32 sums.
+// tier_fma is the CUDA-core form, with the split done in registers at the
+// read: "high" costs three FMAs and the splits per product, so on CUDA
+// cores it runs ~4x slower than "highest" (K1, conv1d.cu, at every tier;
+// the ResBlock1 kernels at "highest"). The ResBlock1 kernels run "high"
+// and "default" on the tensor cores instead (resblock1.cu,
+// conv_stage_mma): mma.sync on bf16 operands with fp32 sums forms exactly
+// these products, and the operands are split once, where they are written.
 
 #pragma once
 

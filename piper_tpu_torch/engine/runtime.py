@@ -199,14 +199,25 @@ class PiperRuntime:
         noise_scale: Optional[float] = None,
         length_scale: Optional[float] = None,
         noise_w: Optional[float] = None,
+        speaker_id: Optional[int] = None,
         seed: Optional[int] = None,
         dp_noise: Optional[np.ndarray] = None,
         main_noise: Optional[np.ndarray] = None,
+        speaker_mix: Optional[dict] = None,
     ) -> np.ndarray:
         """Synthesize one utterance; PCM in the runtime's output_dtype.
 
-        `dp_noise` (2, P') and `main_noise` (C, F') inject the noise tensors
-        (zero-padded to the buckets) in place of the seeded draws."""
+        The parameters are the JAX package's, in its order. `speaker_id` is
+        ignored, as the JAX package ignores it for a single-speaker voice
+        (the only kind the port loads); `speaker_mix` raises until
+        multi-speaker voices are ported. `dp_noise` (2, P') and `main_noise`
+        (C, F') inject the noise tensors (zero-padded to the buckets) in
+        place of the seeded draws."""
+        if speaker_mix is not None:
+            if speaker_id is not None:
+                raise ValueError("pass speaker_id OR speaker_mix, not both")
+            raise NotImplementedError("speaker_mix is not ported yet: it comes with "
+                                      "multi-speaker voices (ROADMAP §1 item 5)")
         t_start = time.perf_counter()
         hp = self.hparams
         ids = list(phoneme_ids)

@@ -81,7 +81,7 @@ def resblock1_mrf_folded(x, branches: Sequence[tuple], *, fold: int = 4, bounds=
     if x.device.type != "cuda":
         raise ValueError(f"resblock1_mrf_folded runs on cpu or cuda, not {x.device}")
     tier = tier_code(precision)
-    t, args, _keep = mrf_launch_args(x, branches, fold * tile)
+    t, args, _keep = mrf_launch_args(x, branches, fold * tile, tier)
     from piper_tpu_torch.ops.kernels import build
 
     lib = build.load()

@@ -3,7 +3,10 @@
 Counterparts of piper_tpu.ops.pallas.resblock.pallas_resblock1_branch and
 pallas_resblock1_mrf. The kernels are CUDA C++ for Hopper
 (`csrc/resblock1.cu`, whose header says what bounds them on the H100 and
-how the design answers it); each sits beside its plain PyTorch version.
+how the design answers it): fp32 FMAs on CUDA cores at "highest", bf16
+mma.sync on the tensor cores at "high" and "default", whose weights this
+module lays out in the tensor cores' fragment order (`a_fragments`). Each
+sits beside its plain PyTorch version.
 
 Contract, as on the TPU: a branch is y = x; for d in dilations:
 y += conv2(act(conv1_d(act(y)))), with conv1 dilated, conv2 dense, both
@@ -31,6 +34,8 @@ _SMEM_LIMIT = 232448  # dynamic shared memory one block may opt into on the H100
 _THREADS = 512
 _MAX_BRANCHES = 4
 _MAX_DILS = 4
+_MMA_NT = 2    # "high"/"default": 8-lane n-tiles per warp work item
+_MMA_PAD = 8   # "high"/"default": a bf16 plane's row is C + 8 channels
 
 
 def branch_halo(kernel: int, dilations: Sequence[int]) -> int:
@@ -106,37 +111,57 @@ def resblock1_mrf_plain(x, branches: Sequence[tuple], *, bounds=None,
     return acc / len(branches) * mask
 
 
-def _smem_bytes(c: int, tile: int, halo: int, mean: bool) -> int:
-    return 4 * (3 * c * (tile + 2 * halo) + (c * tile if mean else 0))
+def _smem_bytes(c: int, tile: int, halo: int, mean: bool, tier: int) -> int:
+    """The kernel's shared memory: the fp32 residual over the window, act(y)
+    and act(conv1) as fp32 ("highest") or as bf16 planes (two at "high", one
+    at "default"), and the MRF's fp32 branch sum."""
+    w = tile + 2 * halo
+    acts = 2 * 4 * c * w if tier == 0 else 2 * 2 * (2 if tier == 1 else 1) * w * (c + _MMA_PAD)
+    return 4 * c * w + acts + (4 * c * tile if mean else 0)
 
 
-def _pick_tile(x: torch.Tensor, halo: int, mean: bool, tile_max: int) -> int:
+def _mma_m_tiles(c: int) -> int:
+    """m-tiles of 16 output channels per warp work item (run_chain_mma)."""
+    n16 = c // 16
+    return 4 if n16 % 4 == 0 else 2 if n16 % 2 == 0 else 1
+
+
+def _pick_tile(x: torch.Tensor, halo: int, mean: bool, tile_max: int, tier: int) -> int:
     """Largest time tile (256/128/64/32, at most `tile_max`) whose buffers fit
     in shared memory and whose window (tile + 2*halo samples) fits in one
-    pass of the block's threads (each covers 4 samples of 8 channels); else
-    the smallest that fits. Measured on the H100 at the medium voice's
-    shapes: a smaller tile to fill more SMs loses to the halo it recomputes.
-    The output does not depend on the tile."""
+    pass of the block's threads; else the smallest that fits. A pass covers
+    4 samples of 8 channels per thread at "highest", and 2 n-tiles of 8
+    lanes by (up to) 64 channels per warp on the tensor cores. Measured on
+    the H100 at the medium voice's shapes at "highest": a smaller tile to
+    fill more SMs loses to the halo it recomputes (the tensor-core tiers
+    take the same rule, not yet measured against other tiles). The output
+    does not depend on the tile."""
     c = x.shape[1]
     props = torch.cuda.get_device_properties(x.device)
     limit = getattr(props, "shared_memory_per_block_optin", _SMEM_LIMIT)
     fits = [t for t in (256, 128, 64, 32)
-            if t <= tile_max and _smem_bytes(c, t, halo, mean) <= limit]
+            if t <= tile_max and _smem_bytes(c, t, halo, mean, tier) <= limit]
     if not fits:
         raise ValueError(f"no time tile <= {tile_max} fits C={c}, halo={halo} "
                          f"in {limit} bytes of shared memory")
-    one_pass = _THREADS // (c // 8) * 4
+    if tier == 0:
+        one_pass = _THREADS // (c // 8) * 4
+    else:
+        one_pass = _THREADS // 32 * _MMA_NT * 8 * _mma_m_tiles(c) // (c // 16)
     return next((t for t in fits if t + 2 * halo <= one_pass), fits[-1])
 
 
 def _check_cuda_args(x: torch.Tensor, tensors: Sequence[torch.Tensor],
-                     k: int, dilations: Sequence[int]) -> None:
+                     k: int, dilations: Sequence[int], tier: int) -> None:
     if x.dtype != torch.float32 or not x.is_contiguous() or x.ndim != 3:
         raise ValueError("x must be a contiguous float32 (B, C, N) tensor, got "
                          f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
     c = x.shape[1]
-    if c % 8 or _THREADS % (c // 8):
+    if tier == 0 and (c % 8 or _THREADS % (c // 8)):
         raise ValueError(f"C={c}: the kernel takes C a multiple of 8 with C/8 dividing {_THREADS}")
+    if tier != 0 and (c < 16 or c % 16):
+        raise ValueError(f"C={c}: the tensor-core stage (tiers 'high' and 'default') takes "
+                         f"C a multiple of 16")
     if k % 2 == 0 or not 1 <= len(dilations) <= _MAX_DILS:
         raise ValueError(f"kernel {k} must be odd with 1..{_MAX_DILS} dilations")
     m = len(dilations)
@@ -148,13 +173,45 @@ def _check_cuda_args(x: torch.Tensor, tensors: Sequence[torch.Tensor],
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _kernel_weights(w1s, b1s, w2s, b2s):
-    """(M, C_out, C_in, K) -> (M, C_in, K, C_out): the kernel reads 8 output
-    channels of one (input channel, tap) as two float4 loads."""
-    out = (w1s.permute(0, 2, 3, 1).contiguous(), b1s.contiguous(),
-           w2s.permute(0, 2, 3, 1).contiguous(), b2s.contiguous())
+def a_fragments(w: torch.Tensor) -> torch.Tensor:
+    """(M, C_out, C_in, K) -> (M, K, C_in/16, C_out/16, 32, 8): per (conv,
+    tap, 16 input channels, 16 output channels) the A operand of
+    mma.m16n8k16 in its fragment order, lane-major, 8 values per lane.
+    Lane 4*g + t holds rows (output channels) g and g + 8, columns (input
+    channels) 2t, 2t+1 and 2t+8, 2t+9, as the registers a0..a3 take them:
+    (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1), (g, 2t+8), (g, 2t+9),
+    (g+8, 2t+8), (g+8, 2t+9). Any dtype; a permutation of w's values."""
+    m, co, ci, k = w.shape
+    if co % 16 or ci % 16:
+        raise ValueError(f"A fragments take C_out and C_in multiples of 16, got {co}, {ci}")
+    # co = 16*mt + 8*rh + g, ci = 16*kc + 8*ch + 2*t + h
+    t = w.reshape(m, co // 16, 2, 8, ci // 16, 2, 4, 2, k)
+    return t.permute(0, 8, 4, 1, 3, 6, 5, 2, 7).reshape(m, k, ci // 16, co // 16, 32, 8)
+
+
+def fragment_weights(w: torch.Tensor, tier: int) -> torch.Tensor:
+    """The tensor-core tiers' weights: (P, M, K, C_in/16, C_out/16, 32, 8)
+    bf16, the A fragments of precision.split_bf16's hi and lo parts (P = 2,
+    tier 1 "high") or of bf16(w) (P = 1, tier 2 "default")."""
+    hi = w.to(torch.bfloat16)  # split_bf16's hi; lo is what it leaves, rounded
+    parts = torch.stack((hi, (w - hi.float()).to(torch.bfloat16))) if tier == 1 else hi[None]
+    frags = a_fragments(parts.flatten(0, 1))  # one copy into fragment order
+    return frags.reshape(len(parts), *w.shape[:1], *frags.shape[1:])
+
+
+def _kernel_weights(w1s, b1s, w2s, b2s, tier: int):
+    """The weights in the kernel's layout for the tier. "highest":
+    (M, C_out, C_in, K) -> (M, C_in, K, C_out), so the kernel reads 8 output
+    channels of one (input channel, tap) as two float4 loads. "high" and
+    "default": fragment_weights, one 16-byte load per lane and m-tile."""
+    if tier == 0:
+        out = (w1s.permute(0, 2, 3, 1).contiguous(), b1s.contiguous(),
+               w2s.permute(0, 2, 3, 1).contiguous(), b2s.contiguous())
+    else:
+        out = (fragment_weights(w1s, tier), b1s.contiguous(),
+               fragment_weights(w2s, tier), b2s.contiguous())
     if out[0].data_ptr() % 16 or out[2].data_ptr() % 16:
-        raise ValueError("transposed conv weights must be 16-byte aligned")
+        raise ValueError("the kernel's conv weights must be 16-byte aligned")
     return out
 
 
@@ -176,14 +233,14 @@ def resblock1_branch(x, w1s, b1s, w2s, b2s, *, kernel: int,
     if x.device.type != "cuda":
         raise ValueError(f"resblock1_branch runs on cpu or cuda, not {x.device}")
     tier = tier_code(precision)
-    _check_cuda_args(x, (w1s, b1s, w2s, b2s), kernel, dilations)
+    _check_cuda_args(x, (w1s, b1s, w2s, b2s), kernel, dilations, tier)
     from piper_tpu_torch.ops.kernels import build
 
     lib = build.load()
     b, c, n = x.shape
     bnd = _bounds_array(bounds, b, n, x.device)
-    w1t, b1c, w2t, b2c = _kernel_weights(w1s, b1s, w2s, b2s)
-    t = _pick_tile(x, branch_halo(kernel, dilations), False, tile)
+    w1t, b1c, w2t, b2c = _kernel_weights(w1s, b1s, w2s, b2s, tier)
+    t = _pick_tile(x, branch_halo(kernel, dilations), False, tile, tier)
     out = torch.empty_like(x)
     dils = (ctypes.c_int * len(dilations))(*dilations)
     code = lib.piper_resblock1_branch(
@@ -198,21 +255,22 @@ def resblock1_branch(x, w1s, b1s, w2s, b2s, *, kernel: int,
 resblock1_branch.launches = 0
 
 
-def mrf_launch_args(x, branches: Sequence[tuple], tile: int) -> tuple:
+def mrf_launch_args(x, branches: Sequence[tuple], tile: int, tier: int) -> tuple:
     """Check the MRF `branches` against x (B, C, N) and build the per-branch
-    arguments of the MRF C entries: returns (time tile, the arguments from
-    n_branches to dils, what must stay alive until the call returns)."""
+    arguments of the MRF C entries at tier code `tier`: returns (time tile,
+    the arguments from n_branches to dils, what must stay alive until the
+    call returns)."""
     nb = len(branches)
     if not 1 <= nb <= _MAX_BRANCHES:
         raise ValueError(f"the MRF kernel takes 1..{_MAX_BRANCHES} branches, got {nb}")
     ks, dils_list, weights = [], [], []
     for (w1s, b1s, w2s, b2s, k, dils) in branches:
-        _check_cuda_args(x, (w1s, b1s, w2s, b2s), int(k), dils)
+        _check_cuda_args(x, (w1s, b1s, w2s, b2s), int(k), dils, tier)
         ks.append(int(k))
         dils_list.append([int(d) for d in dils])
-        weights.append(_kernel_weights(w1s, b1s, w2s, b2s))
+        weights.append(_kernel_weights(w1s, b1s, w2s, b2s, tier))
     halo = max(branch_halo(k, d) for k, d in zip(ks, dils_list))
-    t = _pick_tile(x, halo, True, tile)
+    t = _pick_tile(x, halo, True, tile, tier)
     arrays = [(ctypes.c_void_p * nb)(*[w[i].data_ptr() for w in weights]) for i in range(4)]
     arrays += [(ctypes.c_int * nb)(*ks), (ctypes.c_int * nb)(*[len(d) for d in dils_list]),
                (ctypes.c_int * (nb * _MAX_DILS))(
@@ -231,7 +289,7 @@ def resblock1_mrf(x, branches: Sequence[tuple], *, bounds=None, slope: float = 0
     if x.device.type != "cuda":
         raise ValueError(f"resblock1_mrf runs on cpu or cuda, not {x.device}")
     tier = tier_code(precision)
-    t, args, _keep = mrf_launch_args(x, branches, tile)
+    t, args, _keep = mrf_launch_args(x, branches, tile, tier)
     from piper_tpu_torch.ops.kernels import build
 
     lib = build.load()

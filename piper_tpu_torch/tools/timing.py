@@ -4,7 +4,7 @@ time under torch.profiler, and the least time the card could take."""
 from __future__ import annotations
 
 import statistics
-from typing import Callable, Tuple
+from typing import Callable, Iterable, Optional, Tuple
 
 # One H100 SXM's published peaks (NVIDIA's data sheet; dense, at its 700 W
 # limit): HBM3 bytes/s, and FLOP/s by the type the products run in.
@@ -47,26 +47,48 @@ def event_ms(fn: Callable, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn: Callable, reps: int = 10) -> float:
-    """Device time of fn() (ms): the sum of its kernels' times under
-    torch.profiler, per call, after one warm-up call. On the H100 a window
-    late in a long process has come back empty, once in some fifty; such a
-    window is profiled again, up to _PROFILE_ATTEMPTS times in all, and then
-    this raises."""
+def device_kernels(events: Iterable, name: Optional[str] = None) -> Tuple[int, float]:
+    """(count, µs) of the device kernels among torch.profiler's averaged
+    events (`prof.key_averages()`): those whose name holds `name`, or all of
+    them when `name` is None."""
+    from torch.autograd import DeviceType
+
+    count, us = 0, 0.0
+    for e in events:
+        if e.device_type != DeviceType.CUDA or (name is not None and name not in e.key):
+            continue
+        count += e.count
+        us += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+    return count, us
+
+
+def device_ms(fn: Callable, reps: int = 10, name: Optional[str] = None,
+              expected: Optional[int] = None) -> float:
+    """Device time of fn() (ms) under torch.profiler, per call, after one
+    warm-up call: the sum over its kernels, or over those whose name holds
+    `name`. With `expected` (kernels per call) the window must hold exactly
+    expected * reps such kernels; without it, some device time. A window
+    that fails the check is profiled again, up to _PROFILE_ATTEMPTS times in
+    all, and then this raises (on the H100 a window late in a long process
+    has come back empty, once in some fifty)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    seen = []
     for _ in range(_PROFILE_ATTEMPTS):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-                 for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-        if us > 0:
+        count, us = device_kernels(prof.key_averages(), name)
+        seen.append(count)
+        if (count == expected * reps) if expected is not None else us > 0:
             return us / reps / 1e3
-    raise RuntimeError(f"torch.profiler recorded no device time in {_PROFILE_ATTEMPTS} "
-                       f"windows")
+    what = f"kernels named {name!r}" if name else "kernels"
+    if expected is not None:
+        raise RuntimeError(f"torch.profiler: expected {expected * reps} {what} in {reps} "
+                           f"calls, counted {seen} in {_PROFILE_ATTEMPTS} windows")
+    raise RuntimeError(f"torch.profiler recorded no device time of {what} in "
+                       f"{_PROFILE_ATTEMPTS} windows")

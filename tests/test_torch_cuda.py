@@ -10,7 +10,8 @@ states it: up to C*k = 704-term fp32 sums of exact products chained over six
 convs, in another order than cuDNN's. 5e-3 at "default", where one bf16
 rounding of a conv's input may flip between the two versions and the chain
 carries the flip on (measured up to 2.2e-3 for K2 at C=64, k=11 on the H100;
-chip_smoke.py says more).
+chip_smoke.py says more). K2/K3/K4 run "high" and "default" on the tensor
+cores (mma.sync), whose fp32 sums run in yet another order: the same bars.
 """
 
 import pytest
@@ -24,6 +25,7 @@ from piper_tpu_torch.ops.kernels import folded as K4
 from piper_tpu_torch.ops.kernels import interleave as K5
 from piper_tpu_torch.ops.kernels import resblock as R
 from piper_tpu_torch.ops.kernels.precision import fp32_exact, tier_scope
+from piper_tpu_torch.tools.timing import device_ms
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
@@ -171,7 +173,98 @@ def test_mrf_kernel_tiers_match_plain(cuda, tier):
     assert _max_err(got, want) <= TIER_ATOL[tier]
 
 
+MMA_TIERS = ["high", "default"]
+# Row 0 two-sided, row 1 whole, row 2 dead (every tile skipped).
+def _three_rows(n, dev):
+    return torch.tensor([[37, n - 101], [0, n], [0, 0]], dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("tier", MMA_TIERS)
+@pytest.mark.parametrize("c,k,n", [
+    (64, 11, 5000),   # K2's level: ragged against the tile
+    (64, 3, 1000),
+    (32, 7, 3001),
+    (16, 11, 100),    # N below the tile
+    (16, 3, 257),
+])
+def test_branch_kernel_mma_tiers_match_plain(cuda, tier, c, k, n):
+    """K2 on the tensor cores: C 16/32/64, k 3/7/11 at dilations 1/3/5, B=3."""
+    gen = torch.Generator().manual_seed(c * k + n)
+    dils = (1, 3, 5)
+    x = (torch.randn(3, c, n, generator=gen) * 0.3).to(cuda)
+    ws = _weights(gen, c, k, len(dils), cuda)
+    bnd = _three_rows(n, cuda)
+    before = R.resblock1_branch.launches
+    got = R.resblock1_branch(x, *ws, kernel=k, dilations=dils, bounds=bnd, precision=tier)
+    torch.cuda.synchronize()
+    assert R.resblock1_branch.launches == before + 1
+    want = R.resblock1_branch_plain(x, *ws, kernel=k, dilations=dils, bounds=bnd,
+                                    precision=tier)
+    assert _max_err(got, want) <= TIER_ATOL[tier]
+    assert bool((got[2] == 0).all()) and bool((got[0, :, :37] == 0).all())
+    assert bool((got[0, :, n - 101:] == 0).all())
+
+
+@pytest.mark.parametrize("tier", MMA_TIERS)
+@pytest.mark.parametrize("c,n", [(64, 4100), (32, 9000), (32, 200), (16, 1001)])
+def test_mrf_kernel_mma_tiers_match_plain(cuda, tier, c, n):
+    """K3 on the tensor cores: three branches (k 3/7/11, dilations 1/3/5),
+    C 16/32/64, N ragged or below the tile, B=3 with a dead row."""
+    gen = torch.Generator().manual_seed(c + n)
+    x = (torch.randn(3, c, n, generator=gen) * 0.3).to(cuda)
+    branches = _mrf_branches(gen, c, cuda)
+    bnd = _three_rows(n, cuda)
+    before = R.resblock1_mrf.launches
+    got = R.resblock1_mrf(x, branches, bounds=bnd, precision=tier)
+    torch.cuda.synchronize()
+    assert R.resblock1_mrf.launches == before + 1
+    want = R.resblock1_mrf_plain(x, branches, bounds=bnd, precision=tier)
+    assert _max_err(got, want) <= TIER_ATOL[tier]
+    assert bool((got[2] == 0).all()) and bool((got[0, :, n - 101:] == 0).all())
+
+
+def test_mma_tiers_refuse_c_not_a_multiple_of_16(cuda):
+    """C=8 runs at "highest" (CUDA cores) and is refused at the tensor-core
+    tiers, with no launch and no fallback."""
+    gen = torch.Generator().manual_seed(8)
+    x = (torch.randn(1, 8, 300, generator=gen) * 0.3).to(cuda)
+    ws = _weights(gen, 8, 3, 1, cuda)
+    got = R.resblock1_branch(x, *ws, kernel=3, dilations=(1,))
+    torch.cuda.synchronize()
+    want = R.resblock1_branch_plain(x, *ws, kernel=3, dilations=(1,))
+    assert _max_err(got, want) <= ATOL
+    before = (R.resblock1_branch.launches, R.resblock1_mrf.launches,
+              K4.resblock1_mrf_folded.launches)
+    for tier in MMA_TIERS:
+        with pytest.raises(ValueError, match="multiple of 16"):
+            R.resblock1_branch(x, *ws, kernel=3, dilations=(1,), precision=tier)
+        with pytest.raises(ValueError, match="multiple of 16"):
+            R.resblock1_mrf(x, [(*ws, 3, (1,))], precision=tier)
+        with pytest.raises(ValueError, match="multiple of 16"):
+            K4.resblock1_mrf_folded(x, [(*ws, 3, (1,))], precision=tier)
+    assert (R.resblock1_branch.launches, R.resblock1_mrf.launches,
+            K4.resblock1_mrf_folded.launches) == before
+
+
 @pytest.mark.parametrize("tier", ["highest", "high"])
+def test_device_ms_counts_the_kernel_launches(cuda, tier):
+    """device_ms by kernel name: three branch launches per call; a wrong
+    expected count raises."""
+    gen = torch.Generator().manual_seed(5)
+    x = (torch.randn(1, 32, 4096, generator=gen) * 0.3).to(cuda)
+    branches = _mrf_branches(gen, 32, cuda)
+
+    def call():
+        return [R.resblock1_branch(x, *b[:4], kernel=b[4], dilations=b[5], precision=tier)
+                for b in branches]
+
+    ms = device_ms(call, reps=3, name="resblock1_kernel", expected=3)
+    assert 0 < ms < device_ms(call, reps=3)
+    with pytest.raises(RuntimeError, match="expected 6 kernels named 'resblock1_kernel'"):
+        device_ms(call, reps=3, name="resblock1_kernel", expected=2)
+
+
+@pytest.mark.parametrize("tier", ["highest", "high", "default"])
 @pytest.mark.parametrize("fold,c,n", [(2, 64, 4097), (4, 32, 8190), (4, 16, 999)])
 def test_mrf_folded_kernel_matches_plain_and_k3(cuda, tier, fold, c, n):
     """K4 against its plain version, and bit for bit against K3: the same

@@ -33,7 +33,8 @@ from piper_tpu_torch.ops.kernels import conv as K1
 from piper_tpu_torch.ops.kernels import folded as K4
 from piper_tpu_torch.ops.kernels import interleave as K5
 from piper_tpu_torch.ops.kernels import resblock as R
-from piper_tpu_torch.ops.kernels.precision import tier_code, tiered_conv1d
+from piper_tpu_torch.ops.kernels.precision import split_bf16, tier_code, tiered_conv1d
+from piper_tpu_torch.tools import timing
 
 ROOT = Path(__file__).resolve().parent.parent
 ATOL = 1e-5
@@ -396,3 +397,109 @@ def test_interleave_refuses_what_the_kernel_does_not_take():
         K5.interleave(torch.zeros(1, 9, 8, 64))
     with pytest.raises(ValueError, match="cpu or cuda"):
         K5.interleave(y.to("meta"))
+
+
+def _unpack_fragments(f):
+    """(M, K, C/16, C/16, 32, 8) -> (M, C_out, C_in, K) by PTX's A-fragment
+    layout of mma.m16n8k16: lane 4g + t, register i, half h holds row
+    g + 8*(i % 2), column 2t + h + 8*(i // 2)."""
+    m, k, kc_n, mt_n = f.shape[:4]
+    lane, e = np.meshgrid(np.arange(32), np.arange(8), indexing="ij")
+    row = torch.from_numpy(lane // 4 + 8 * ((e // 2) % 2))
+    col = torch.from_numpy(2 * (lane % 4) + e % 2 + 8 * (e // 4))
+    out = torch.empty((m, 16 * mt_n, 16 * kc_n, k), dtype=f.dtype)
+    for mt in range(mt_n):
+        for kc in range(kc_n):
+            out[:, 16 * mt + row, 16 * kc + col, :] = f[:, :, kc, mt].permute(0, 2, 3, 1)
+    return out
+
+
+@pytest.mark.parametrize("k", [3, 7, 11])
+@pytest.mark.parametrize("c", [16, 32, 64])
+def test_a_fragment_weights_are_the_bf16_split(c, k):
+    """The tensor-core tiers' weights: every (co, ci, tap) once; hi and lo
+    unpacked equal precision.py's bf16 split bit for bit ("high"), one plane
+    of bf16(w) at "default"; hi + lo is the "high" operand."""
+    m = 3
+    idx = torch.arange(m * c * c * k).reshape(m, c, c, k)
+    frag = R.a_fragments(idx)
+    assert frag.shape == (m, k, c // 16, c // 16, 32, 8)
+    assert torch.equal(frag.flatten().sort().values, idx.flatten())
+    assert torch.equal(_unpack_fragments(frag), idx)
+
+    rng = np.random.default_rng(c * k)
+    w = torch.from_numpy((rng.standard_normal((m, c, c, k)) / np.sqrt(c * k)).astype(np.float32))
+    hi, lo = split_bf16(w)
+    high = R.fragment_weights(w, tier_code("high"))
+    assert high.dtype == torch.bfloat16 and high.shape == (2, *frag.shape)
+    assert high.is_contiguous()
+    got_hi, got_lo = _unpack_fragments(high[0]), _unpack_fragments(high[1])
+    assert torch.equal(got_hi.view(torch.int16), hi.to(torch.bfloat16).view(torch.int16))
+    assert torch.equal(got_lo.view(torch.int16), lo.to(torch.bfloat16).view(torch.int16))
+    assert torch.equal(got_hi.float() + got_lo.float(), hi + lo)
+    assert float((got_hi.float() + got_lo.float() - w).abs().max()) <= \
+        2.0 ** -16 * float(w.abs().max())
+    default = R.fragment_weights(w, tier_code("default"))
+    assert default.shape == (1, *frag.shape)
+    assert torch.equal(_unpack_fragments(default[0]).view(torch.int16),
+                       w.to(torch.bfloat16).view(torch.int16))
+
+
+def test_a_fragments_refuse_channels_not_a_multiple_of_16():
+    with pytest.raises(ValueError, match="multiples of 16"):
+        R.a_fragments(torch.zeros(1, 8, 8, 3))
+
+
+def _event(key, count, us, device="CUDA"):
+    from types import SimpleNamespace
+
+    return SimpleNamespace(key=key, count=count, device_time_total=us,
+                           device_type=getattr(torch.autograd.DeviceType, device))
+
+
+def test_device_kernels_sums_only_the_named_kernels():
+    events = [_event("void (anonymous namespace)::resblock1_kernel<false, false, 1>(Args)",
+                     6, 600.0),
+              _event("void at::native::elementwise_kernel<128, 4>(...)", 12, 50.0),
+              _event("aten::resblock1_kernel_on_the_host", 1, 999.0, device="CPU")]
+    assert timing.device_kernels(events, "resblock1_kernel") == (6, 600.0)
+    assert timing.device_kernels(events, "elementwise") == (12, 50.0)
+    assert timing.device_kernels(events) == (18, 650.0)
+    assert timing.device_kernels(events, "conv1d_same") == (0, 0.0)
+
+
+def test_device_ms_requires_the_expected_kernel_count(monkeypatch):
+    """A window with another count than expected * reps is profiled again,
+    and after _PROFILE_ATTEMPTS such windows device_ms raises."""
+    windows = []
+
+    class StubProfile:
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return windows.pop(0)
+
+    monkeypatch.setattr(torch.profiler, "profile", StubProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    calls = []
+    fn = lambda: calls.append(1)  # noqa: E731
+    kernel = "resblock1_kernel<true, false, 2>"
+    # One kernel of six went missing from the first window: profiled again.
+    windows[:] = [[_event(kernel, 5, 500.0)], [_event(kernel, 6, 630.0), _event("copy", 9, 1.0)]]
+    assert timing.device_ms(fn, reps=3, name="resblock1_kernel", expected=2) == \
+        pytest.approx(630.0 / 3 / 1e3)
+    assert len(calls) == 1 + 3 + 3 and not windows
+    windows[:] = [[_event(kernel, 7, 700.0)]] * timing._PROFILE_ATTEMPTS
+    with pytest.raises(RuntimeError, match=r"expected 6 kernels named 'resblock1_kernel'.*"
+                                           r"\[7, 7, 7\]"):
+        timing.device_ms(fn, reps=3, name="resblock1_kernel", expected=2)
+    # Without `expected`, only an empty window is refused.
+    windows[:] = [[], [_event("copy", 3, 30.0)]]
+    assert timing.device_ms(fn, reps=3) == pytest.approx(30.0 / 3 / 1e3)

@@ -141,6 +141,31 @@ def test_seeded_synthesis_is_deterministic(port_rt):
     assert np.isfinite(a).all()
 
 
+def test_synthesize_takes_the_reference_parameters():
+    """The same parameter names, kinds and defaults in the same order as the
+    JAX package's PiperRuntime.synthesize, so a positional call means the
+    same in both."""
+    import inspect
+
+    from piper_tpu.engine.runtime import PiperRuntime as JaxRuntime
+
+    def params(fn):
+        return [(p.name, p.kind, p.default) for p in inspect.signature(fn).parameters.values()]
+
+    assert params(PiperRuntime.synthesize) == params(JaxRuntime.synthesize)
+
+
+def test_speaker_arguments_on_a_single_speaker_voice(port_rt):
+    """speaker_id (fifth) is ignored by a single-speaker voice, as in the JAX
+    package; speaker_mix is not ported and raises, and so do both at once."""
+    a = port_rt.synthesize(IDS, None, None, None, 0, 7)
+    assert np.array_equal(a, port_rt.synthesize(IDS, seed=7))
+    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
+        port_rt.synthesize(IDS, speaker_mix={0: 1.0})
+    with pytest.raises(ValueError, match="pass speaker_id OR speaker_mix, not both"):
+        port_rt.synthesize(IDS, speaker_id=0, speaker_mix={0: 1.0})
+
+
 def test_seeded_noise_is_row_invariant():
     """Every row gets the same draw, equal to the single-row draw, and the
     two streams of one seed differ."""
