@@ -11,9 +11,9 @@ paths give it, and drives the main paths, counting each kernel's launches:
   resblock kernels, and of an x_low voice, whose ResBlock2 levels run
   conv1d_same (phoneme ids to PCM through piper_tpu_torch.PiperRuntime, at
   the fp32 tier);
-- the medium voice at the JAX bench's mixed-precision configuration
-  (encoder "highest", vocoder and flows "high"), held against the fp32 run
-  on the card within the 1e-3 waveform gate;
+- each voice at the JAX bench's mixed-precision configuration (encoder
+  "highest", vocoder and flows "high"), held against its fp32 run on the
+  card within the 1e-3 waveform gate;
 - a reduced run of the folded-kernel probe
   (piper_tpu_torch.tools.folded_probe), the path that runs the folded MRF
   kernel;
@@ -22,10 +22,10 @@ paths give it, and drives the main paths, counting each kernel's launches:
   the interleave kernel (the polyphase conv-transpose's interleave), with
   the polyphase and input-dilated conv-transposes held against PyTorch's.
 
-Beside the paths, a profile phase puts one medium utterance (fp32 and
-mixed, factors 1 and 8) under torch.profiler: its device kernels, their
-summed device time, the ResBlock1 kernels' share, and the unprofiled
-ms/utterance.
+Beside the paths, a profile phase puts one utterance of each voice (fp32
+and mixed, factors 1 and 8) under torch.profiler: its device kernels, their
+summed device time, the vocoder kernels' share (K2 + K3 for medium, K1 for
+x_low), and the unprofiled ms/utterance.
 
 Each voice's result on the card is checked against the same port on the
 CPU. Each phase prints one JSON line; any failure raises and the exit code
@@ -60,7 +60,7 @@ KERNELS = {
                       "piper_tpu/ops/pallas/resblock.py:328",
                       ("medium", "medium_mixed", "probe")),
     "conv1d_same": ("piper_tpu_torch/csrc/conv1d.cu",
-                    "piper_tpu/ops/pallas/conv.py:107", ("x_low",)),
+                    "piper_tpu/ops/pallas/conv.py:107", ("x_low", "x_low_mixed")),
     "resblock1_mrf_folded": ("piper_tpu_torch/csrc/resblock1.cu",
                              "piper_tpu/ops/pallas/folded.py:220", ("probe",)),
     "interleave": ("piper_tpu_torch/csrc/interleave.cu", "tools/ct_probe.py:151",
@@ -79,12 +79,26 @@ TIERS = ("highest", "high", "default")
 # by an fp32 ulp, the next conv's bf16 rounding of its input can flip by one
 # bf16 ulp (2^-6 for values in [2, 4)), times a weight of up to ~0.1, and the
 # chain carries it on; measured up to 2.2e-3 at K2's main-path shape on the
-# H100. A single conv (K1) has no chain: ~6e-7.
+# H100.
 KERNEL_ATOL = {"highest": 1e-4, "high": 1e-4, "default": 5e-3}
+# K1 is one conv: no chain carries a flip, and the kernel rounds the same
+# fp32 input as its plain version, so every tier differs only in the order
+# of its fp32 sums.
+K1_ATOL = 1e-4
 # How K2/K3/K4 form each tier's conv products (csrc/resblock1.cu).
 RESBLOCK_DESIGN = {"highest": "cuda-core fp32", "high": "mma.sync bf16 x3",
                    "default": "mma.sync bf16 x1"}
+# How K1 forms them (csrc/conv1d.cu): at the bf16 tiers the kernel splits
+# the caller's fp32 weights once per persistent block, so no launch lays
+# them out.
+K1_DESIGN = {"highest": "cuda-core fp32",
+             "high": "mma.sync bf16 x3, weights split in the kernel",
+             "default": "mma.sync bf16 x1, weights split in the kernel"}
 RESBLOCK_SYMBOL = "resblock1_kernel"  # the device symbol of K2, K3 and K4
+K1_SYMBOL = "conv1d_same"  # held by both K1 kernels' symbols (fp32 and mma)
+# A voice's vocoder kernels: their device symbol and their launch counters.
+VOCODER_KERNELS = {"medium": (RESBLOCK_SYMBOL, ("resblock1_branch", "resblock1_mrf")),
+                   "x_low": (K1_SYMBOL, ("conv1d_same",))}
 WAVE_ATOL = 1e-4     # the fp32 waveform bar the JAX package is held to
 MIXED_ATOL = 1e-3    # the lowered-precision waveform gate (BASELINE.md)
 # bench.py's default configuration of the JAX package
@@ -282,36 +296,41 @@ def _folded_check(torch, gen, K4, R) -> dict:
 def _conv1d_same_check(torch, gen) -> dict:
     """K1 at x_low's levels 1 (C=64) and 2 (C=32), 128 frames, every tier:
     every (k, d) of the ResBlock2 convs, B=2 at the level's N with act_slope
-    0.1 and at a ragged N with act_slope 0, then B=1 timed per level (6
-    launches; `kernel_device_ms` counts the 6 kernels of each call). Returns
-    {tier: the two levels' worst error and summed times}."""
+    0.1 and each bounds case, and at a ragged N with act_slope 0, within
+    K1_ATOL; then B=1 timed per level (6 launches, no bounds;
+    `kernel_device_ms` counts the 6 kernels of each call). Returns {tier:
+    the two levels' worst error and summed times}."""
     from piper_tpu_torch.ops.kernels import conv as K1
     from piper_tpu_torch.tools.timing import TIER_FLOPS, bound_ms, device_ms, event_ms
 
     total = {t: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0,
-                 "kernel_device_ms": 0.0, "plain_device_ms": 0.0, "bound_ms": 0.0}
-             for t in TIERS}
+                 "kernel_device_ms": 0.0, "plain_device_ms": 0.0, "bound_ms": 0.0,
+                 "design": K1_DESIGN[t]} for t in TIERS}
     for level, c, n in ((1, 64, 128 * 64), (2, 32, 128 * 256)):
         convs = [(_rand(torch, gen, c, c, k, scale=(c * k) ** -0.5),
                   _rand(torch, gen, c, scale=0.02), k, d) for k, d in X_LOW_CONVS]
-        inputs = [(case, _rand(torch, gen, 2, c, nn, scale=0.3), slope)
-                  for case, nn, slope in (("act", n, 0.1), ("ragged_no_act", n - 77, 0.0))]
+        x2 = _rand(torch, gen, 2, c, n, scale=0.3)
+        bounds = {**_bounds_cases(torch, n), "empty_and_full": torch.tensor(
+            [[500, 500], [0, n]], dtype=torch.int32, device="cuda")}
+        inputs = [(f"act_{case}", x2, 0.1, bnd) for case, bnd in bounds.items()]
+        inputs.append(("ragged_no_act", _rand(torch, gen, 2, c, n - 77, scale=0.3), 0.0, None))
         x1 = _rand(torch, gen, 1, c, n, scale=0.3)
         for tier in TIERS:
             errs = {}
-            for case, x2, slope in inputs:
+            for case, xin, slope, bnd in inputs:
                 for w, b, k, d in convs:
-                    got = K1.conv1d_same(x2, w, b, dilation=d, act_slope=slope, precision=tier)
+                    got = K1.conv1d_same(xin, w, b, dilation=d, act_slope=slope, bounds=bnd,
+                                         precision=tier)
                     torch.cuda.synchronize()
-                    want = K1.conv1d_same_plain(x2, w, b, dilation=d, act_slope=slope,
-                                                precision=tier)
+                    want = K1.conv1d_same_plain(xin, w, b, dilation=d, act_slope=slope,
+                                                bounds=bnd, precision=tier)
                     if got.shape != want.shape:
                         raise AssertionError(f"conv1d_same {case} k={k} d={d}: {got.shape}")
                     errs[f"{case}_k{k}_d{d}"] = float((got - want).abs().max())
             worst = max(errs.values())
-            if not worst <= KERNEL_ATOL[tier]:
+            if not worst <= K1_ATOL:
                 raise AssertionError(f"conv1d_same level {level} {tier}: max-abs {worst} > "
-                                     f"{KERNEL_ATOL[tier]} ({errs})")
+                                     f"{K1_ATOL} ({errs})")
 
             def run(kernel):
                 fn = K1.conv1d_same if kernel else K1.conv1d_same_plain
@@ -321,14 +340,16 @@ def _conv1d_same_check(torch, gen) -> dict:
             row = {"max_abs_err": worst, "ms": event_ms(lambda: run(True)),
                    "plain_ms": event_ms(lambda: run(False)),
                    "device_ms": device_ms(lambda: run(True)),
-                   "kernel_device_ms": device_ms(lambda: run(True), name="conv1d_same_kernel",
+                   "kernel_device_ms": device_ms(lambda: run(True), name=K1_SYMBOL,
                                                  expected=len(convs)),
                    "plain_device_ms": device_ms(lambda: run(False))}
+            # One input read and six outputs written, as the timed call does
+            # (six convs of x1); the weights once; 2*C*C*k flops per sample.
             work = _chain_work(c, n, n, [k for k, _ in X_LOW_CONVS], outputs=6, convs=1)
             row["bound_ms"], row["bound_by"] = bound_ms(*work, TIER_FLOPS[tier])
             emit(phase="kernel", name="conv1d_same", precision=tier, level=level, channels=c,
-                 samples=n, batch_timed=1, errs=errs, atol=KERNEL_ATOL[tier], **row,
-                 note="ms covers the 6 launches of one level")
+                 samples=n, batch_timed=1, errs=errs, atol=K1_ATOL, design=K1_DESIGN[tier],
+                 **row, note="ms covers the 6 launches of one level")
             t = total[tier]
             t["max_abs_err"] = max(t["max_abs_err"], worst)
             t["bound_by"] = row["bound_by"]
@@ -442,8 +463,8 @@ def phase_main_path(torch, path: str, model, config, options=None) -> tuple:
                      "audio_s": t.samples / rt.sample_rate, "rtf": t.rtf})
     launches = _require_launches(path, counters)
     utterances = len(FACTORS) * REPS
-    if path == "x_low" and launches["conv1d_same"] != 12 * utterances:
-        raise AssertionError(f"x_low: {launches['conv1d_same']} conv1d_same launches for "
+    if path.startswith("x_low") and launches["conv1d_same"] != 12 * utterances:
+        raise AssertionError(f"{path}: {launches['conv1d_same']} conv1d_same launches for "
                              f"{utterances} utterances, expected 12 each")
     o = rt.options
     emit(phase="main_path", path=path, voice=f"synthetic {rt.config.audio.quality}, seed 0",
@@ -498,42 +519,23 @@ def phase_compare(torch, path: str, rt, other, atol: float, against: str) -> Non
 
 
 def phase_profile(torch, runtimes: dict) -> None:
-    """The method of PERF.md §5, per runtime and factor 1 and 8: the median
-    wall of REPS unprofiled utterances, then one utterance under
-    torch.profiler: its device kernels, their summed device time (device
-    busy), and the ResBlock1 kernels' (K2 + K3) time and launches. The
-    window must hold exactly the K2 and K3 launches the counters saw, or it
-    is profiled again (tools/timing.py, _PROFILE_ATTEMPTS windows)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    """The method of PERF.md §5, per runtime and factor 1 and 8
+    (tools/conv1d_probe.py::profile_utterance): the median wall of REPS
+    unprofiled utterances, then one utterance under torch.profiler: its
+    device kernels, their summed device time (device busy), and the voice's
+    vocoder kernels' time and launches, by symbol (VOCODER_KERNELS: K2 + K3
+    for medium, K1 for x_low), which must equal the launches their counters
+    saw."""
     from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
-    from piper_tpu_torch.tools.timing import _PROFILE_ATTEMPTS, device_kernels
+    from piper_tpu_torch.tools.conv1d_probe import profile_utterance
 
+    counters = _counters()
     for path, rt in runtimes.items():
+        symbol, names = VOCODER_KERNELS[path.split("_mixed")[0]]
         for f in (1, 8):
-            ids = FIXTURE_PHONEME_IDS * f
-            walls = []
-            for _ in range(REPS):
-                rt.synthesize(ids)
-                walls.append(rt.last_run_timings.wall_ms)
-            wall = statistics.median(walls)
-            for _ in range(_PROFILE_ATTEMPTS):
-                counters = _zero_counts()
-                with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                    rt.synthesize(ids)
-                    torch.cuda.synchronize()
-                want = counters["resblock1_branch"].launches + counters["resblock1_mrf"].launches
-                events = prof.key_averages()
-                count, us = device_kernels(events)
-                k_count, k_us = device_kernels(events, RESBLOCK_SYMBOL)
-                if k_count == want > 0:
-                    break
-            else:
-                raise AssertionError(f"profile {path} f={f}: {k_count} ResBlock1 kernels in the "
-                                     f"window, {want} launched")
-            emit(phase="profile", path=path, factor=f, device_kernels=count,
-                 device_busy_ms=us / 1e3, k2_k3_ms=k_us / 1e3, k2_k3_launches=k_count,
-                 ms_per_utterance=wall, busy_share=us / 1e3 / wall,
+            row = profile_utterance(torch, rt, FIXTURE_PHONEME_IDS * f, symbol,
+                                    [counters[name] for name in names], REPS)
+            emit(phase="profile", path=path, factor=f, kernels=list(names), **row,
                  vocoder_precision=rt.options.vocoder_precision)
 
 
@@ -630,12 +632,12 @@ def main() -> None:
         count(counts)
         phase_compare(torch, quality, rt, PiperRuntime(model, config, device="cpu"),
                       WAVE_ATOL, "cpu")
-        if quality == "medium":
-            mixed = RuntimeOptions(**BENCH_MIX)
-            rt_mixed, counts = phase_main_path(torch, "medium_mixed", model, config, mixed)
-            count(counts)
-            phase_compare(torch, "medium_mixed", rt_mixed, rt, MIXED_ATOL, "card highest")
-            phase_profile(torch, {"medium": rt, "medium_mixed": rt_mixed})
+        mixed = f"{quality}_mixed"
+        rt_mixed, counts = phase_main_path(torch, mixed, model, config,
+                                           RuntimeOptions(**BENCH_MIX))
+        count(counts)
+        phase_compare(torch, mixed, rt_mixed, rt, MIXED_ATOL, "card highest")
+        phase_profile(torch, {quality: rt, mixed: rt_mixed})
     count(phase_probe())
     count(phase_ct_probe())
     foreign = sorted(m for m in sys.modules

@@ -175,7 +175,7 @@ __device__ void conv_stage(const float* __restrict__ src, float* __restrict__ ds
         const float4 wa = __ldg(reinterpret_cast<const float4*>(wrow + j * C));
         const float4 wb = __ldg(reinterpret_cast<const float4*>(wrow + j * C + 4));
         const float wv[kRCo] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-        piper::tier_fma<0>(wv, v, acc);
+        piper::fma_tile(wv, v, acc);
       }
     }
 #pragma unroll
@@ -241,37 +241,10 @@ __device__ void run_chain(float* ybuf, float* abuf, float* tbuf, const Branch& b
 
 // ---- "high" and "default": the tensor-core stage ----
 
-using bf16 = __nv_bfloat16;
-
-// v into the activation planes at element `off`: bf16_rn(v) into the hi
-// plane and, with two planes, bf16_rn(v - hi) into the lo plane `plane`
-// elements on (precision.py::split_bf16).
-template <int kPlanes>
-__device__ __forceinline__ void store_split(bf16* planes, int plane, int off, float v) {
-  const bf16 h = __float2bfloat16_rn(v);
-  planes[off] = h;
-  if (kPlanes == 2) planes[plane + off] = __float2bfloat16_rn(v - __bfloat162float(h));
-}
-
-// Four 8x8 b16 matrices from shared memory; thread t gives the address of
-// row t % 8 of matrix t / 8 and receives, of matrix i in r[i], row t / 4,
-// columns 2 * (t % 4) and 2 * (t % 4) + 1.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr)
-               : "memory");
-}
-
-// d += A (16x16 bf16, A-fragment registers a) x B (16x8 bf16, b0 b1), fp32.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint4& a, uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
-}
+using piper::bf16;
+using piper::ldmatrix_x4;
+using piper::mma_bf16;
+using piper::store_split;
 
 // conv_stage on the tensor cores, at kPasses = 3 ("high") or 1 ("default").
 // src and dst are bf16 planes (plane = W * (C + kPad) elements; lo after hi

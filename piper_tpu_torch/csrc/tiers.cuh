@@ -8,64 +8,77 @@
 //   2 "default": one product of the bf16-rounded operands.
 // Every product of two bf16 values is exact in fp32, so the tiers differ
 // from their plain versions only in the order of the fp32 sums.
-// tier_fma is the CUDA-core form, with the split done in registers at the
-// read: "high" costs three FMAs and the splits per product, so on CUDA
-// cores it runs ~4x slower than "highest" (K1, conv1d.cu, at every tier;
-// the ResBlock1 kernels at "highest"). The ResBlock1 kernels run "high"
-// and "default" on the tensor cores instead (resblock1.cu,
-// conv_stage_mma): mma.sync on bf16 operands with fp32 sums forms exactly
-// these products, and the operands are split once, where they are written.
+//
+// Where each tier is formed: "highest" on CUDA cores (fma_tile, below; K1
+// in conv1d.cu, the ResBlock1 kernels in resblock1.cu). "high" and
+// "default" on the tensor cores in every kernel (conv1d.cu's
+// conv1d_same_mma_kernel, resblock1.cu's conv_stage_mma): mma.sync on bf16
+// operands with fp32 sums forms exactly these products, and the operands
+// are split once, where they are written (store_split), into planes that
+// ldmatrix_x4 reads.
 
 #pragma once
 
 #include <cuda_bf16.h>
 
+#include <cstdint>
+
 namespace piper {
 
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+using bf16 = __nv_bfloat16;
+
+// acc[c][i] += w[c] * v[i] in fp32 ("highest"), for a register tile of kCo
+// output channels by kT samples.
+template <int kCo, int kT>
+__device__ __forceinline__ void fma_tile(const float (&w)[kCo], const float (&v)[kT],
+                                         float (&acc)[kCo][kT]) {
+#pragma unroll
+  for (int c = 0; c < kCo; ++c) {
+#pragma unroll
+    for (int i = 0; i < kT; ++i) acc[c][i] = fmaf(w[c], v[i], acc[c][i]);
+  }
 }
 
-// acc[c][i] += w[c] * v[i] at tier kTier, for a register tile of kCo output
-// channels by kT samples.
-template <int kTier, int kCo, int kT>
-__device__ __forceinline__ void tier_fma(const float (&w)[kCo], const float (&v)[kT],
-                                         float (&acc)[kCo][kT]) {
-  if (kTier == 0) {
-#pragma unroll
-    for (int c = 0; c < kCo; ++c) {
-#pragma unroll
-      for (int i = 0; i < kT; ++i) acc[c][i] = fmaf(w[c], v[i], acc[c][i]);
-    }
-  } else if (kTier == 1) {
-    float vh[kT], vl[kT];
-#pragma unroll
-    for (int i = 0; i < kT; ++i) {
-      vh[i] = bf16_round(v[i]);
-      vl[i] = bf16_round(v[i] - vh[i]);
-    }
-#pragma unroll
-    for (int c = 0; c < kCo; ++c) {
-      const float wh = bf16_round(w[c]);
-      const float wl = bf16_round(w[c] - wh);
-#pragma unroll
-      for (int i = 0; i < kT; ++i) {
-        float a = fmaf(wh, vh[i], acc[c][i]);
-        a = fmaf(wh, vl[i], a);
-        acc[c][i] = fmaf(wl, vh[i], a);
-      }
-    }
-  } else {
-    float vb[kT];
-#pragma unroll
-    for (int i = 0; i < kT; ++i) vb[i] = bf16_round(v[i]);
-#pragma unroll
-    for (int c = 0; c < kCo; ++c) {
-      const float wb = bf16_round(w[c]);
-#pragma unroll
-      for (int i = 0; i < kT; ++i) acc[c][i] = fmaf(wb, vb[i], acc[c][i]);
-    }
-  }
+// v into bf16 planes at element `off`: bf16_rn(v) into the hi plane and,
+// with two planes, bf16_rn(v - hi) into the lo plane `plane` elements on
+// (precision.py::split_bf16).
+template <int kPlanes>
+__device__ __forceinline__ void store_split(bf16* planes, int plane, int off, float v) {
+  const bf16 h = __float2bfloat16_rn(v);
+  planes[off] = h;
+  if (kPlanes == 2) planes[plane + off] = __float2bfloat16_rn(v - __bfloat162float(h));
+}
+
+// store_split of two neighbouring values (v0 at `off`, v1 at `off` + 1,
+// `off` even) as one 4-byte store per plane.
+template <int kPlanes>
+__device__ __forceinline__ void store_split2(bf16* planes, int plane, int off, float v0,
+                                             float v1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  *reinterpret_cast<__nv_bfloat162*>(planes + off) = h;
+  if (kPlanes == 2)
+    *reinterpret_cast<__nv_bfloat162*>(planes + plane + off) =
+        __floats2bfloat162_rn(v0 - __low2float(h), v1 - __high2float(h));
+}
+
+// Four 8x8 b16 matrices from shared memory; thread t gives the address of
+// row t % 8 of matrix t / 8 and receives, of matrix i in r[i], row t / 4,
+// columns 2 * (t % 4) and 2 * (t % 4) + 1.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d += A (16x16 bf16, A-fragment registers a) x B (16x8 bf16, b0 b1), fp32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint4& a, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
 }
 
 }  // namespace piper

@@ -10,7 +10,8 @@ taking JAX's use_pallas=True throughout:
 - every other resblock conv that is square and narrower than 128 channels
   (all convs of a ResBlock2 voice's narrow levels, and the unfused narrow
   ResBlock1 convs of a masked run without bounds) goes through the
-  conv1d_same kernel, with the mask applied to its input;
+  conv1d_same kernel: given the level's per-row bounds it masks its own
+  input; without them it gets the mask applied to its input;
 - wider levels, the upsampling and the pre/post convs are PyTorch convs.
 
 On a CPU tensor the kernel wrappers run their plain versions, so the CPU
@@ -38,15 +39,16 @@ from piper_tpu_torch.ops.nn import leaky_relu
 LRELU_SLOPE = 0.1
 
 
-def _lrelu_conv(x, w, b, *, dilation=1, t_mask=None, precision=None):
+def _lrelu_conv(x, w, b, *, dilation=1, t_mask=None, bounds=None, precision=None):
     """leaky_relu -> (mask ->) same-conv; through the K1 kernel at
     `precision` for a square conv narrower than 128 channels. For a 0/1 mask
-    lrelu(x * m) equals lrelu(x) * m, so the kernel gets the mask on its
-    input."""
+    lrelu(x * m) equals lrelu(x) * m, so the kernel masks its input: by
+    `bounds` (B, 2), the rows' [lo, hi) of the same mask, inside the kernel,
+    or else by a multiply by `t_mask` before it."""
     if w.shape[0] == w.shape[1] and w.shape[0] < 128:
-        xin = x if t_mask is None else x * t_mask
+        xin = x if t_mask is None or bounds is not None else x * t_mask
         return K1.conv1d_same(xin, w, b, dilation=dilation, act_slope=LRELU_SLOPE,
-                              precision=precision)
+                              bounds=bounds, precision=precision)
     xt = leaky_relu(x, LRELU_SLOPE)
     if t_mask is not None:
         xt = xt * t_mask
@@ -64,11 +66,11 @@ def _resblock1(x, p: Prefix, dilations, t_mask=None, precision=None):
     return x
 
 
-def _resblock2(x, p: Prefix, dilations, t_mask=None, precision=None):
+def _resblock2(x, p: Prefix, dilations, t_mask=None, bounds=None, precision=None):
     """Single-conv residual block (HiFi-GAN ResBlock2, Piper's x_low voices)."""
     for m, d in enumerate(dilations):
         x = x + _lrelu_conv(x, p[f"convs.{m}.weight"], p[f"convs.{m}.bias"],
-                            dilation=d, t_mask=t_mask, precision=precision)
+                            dilation=d, t_mask=t_mask, bounds=bounds, precision=precision)
     return x
 
 
@@ -99,8 +101,10 @@ def hifigan_generator(
     every conv, so the bucket padding behaves like the array's end.
     `t_bounds` gives each row's valid FRAME interval, (B,) [0, hi) or (B, 2)
     [lo, hi); with it the narrow ResBlock1 levels run the fused kernels,
-    which apply the same masking per row. A ResBlock2 voice ignores it: its
-    narrow convs run the conv1d_same kernel on the masked input.
+    which apply the same masking per row. A ResBlock2 voice's narrow convs
+    run the conv1d_same kernel, which masks its input by the same bounds
+    where `t_mask` is given too (without `t_mask` nothing is masked, as in
+    JAX).
     """
     if level_precisions is None or isinstance(level_precisions, str):
         lp = [level_precisions] * hp.num_upsamples
@@ -173,7 +177,8 @@ def _level(x, m, bounds, i: int, p: Prefix, hp: VitsHParams, use_resblock2: bool
             y = resblock1_branch(x, *_stacked(rb, len(dils)), kernel=kernel, dilations=dils,
                                  bounds=bounds, slope=LRELU_SLOPE, precision=precision)
         elif use_resblock2:
-            y = _resblock2(x, rb, dils, t_mask=m, precision=precision)
+            y = _resblock2(x, rb, dils, t_mask=m, bounds=None if m is None else bounds,
+                           precision=precision)
         else:
             y = _resblock1(x, rb, dils, t_mask=m, precision=precision)
         acc = y if acc is None else acc + y

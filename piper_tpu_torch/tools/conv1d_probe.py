@@ -1,0 +1,199 @@
+"""Time the conv1d_same kernel (K1) at the x_low voice's shapes on a CUDA card.
+
+The main path's K1 calls: x_low's two narrow vocoder levels at `--frames`
+frames and a batch of 1 (level 1: C=64, N = 64 * frames; level 2: C=32,
+N = 256 * frames), the six ResBlock2 convs of each, (k, d) = (3, 1), (3, 2),
+(5, 2), (5, 6), (7, 3), (7, 12), act_slope 0.1, no bounds; weights, bias
+and input from torch's generator seeded 0. Per tier and level, the device
+time of the six calls under torch.profiler (`tools/timing.py::device_ms`):
+the whole wrapper (`wrapper_ms`, with any weight layout it launches) and
+the K1 kernels alone (`kernel_ms`, by the symbol "conv1d_same", six of
+them per call or the window is profiled again). One JSON line per (tier,
+level), then one with the sums over the levels.
+
+It uses only the public `conv1d_same` wrapper, so it times any tree whose
+package is first on the path: run it as a file with PYTHONPATH at another
+checkout's root to time that checkout's kernel on the same card.
+
+`--sweep` also times the tensor-core kernel at every (time tile, m-tiles
+per warp) that fits, at "high" and "default", each held bit-equal to the
+wrapper's own choice (the output does not depend on either), and lists the
+wrapper's choice per conv.
+
+`--utterances` also profiles whole x_low utterances (the synthetic x_low
+voice, seed 0, written under build/conv1d_probe_voice/ beside the package)
+at the fp32 configuration and at the JAX bench's mixed one (vocoder and
+flows "high"), phoneme factors 1 and 8: one utterance under torch.profiler
+after the median wall of `--reps` unprofiled ones (`profile_utterance`):
+device kernels, device-busy ms, and K1's kernels, ms and count (checked
+against the launch counter). It needs the card and has no other path.
+
+    python -m piper_tpu_torch.tools.conv1d_probe [--precision highest,high,default]
+        [--frames 128] [--reps 10] [--sweep] [--utterances]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+from pathlib import Path
+from typing import Callable, List, Optional, Sequence
+
+X_LOW_CONVS = ((3, 1), (3, 2), (5, 2), (5, 6), (7, 3), (7, 12))
+LEVELS = ((1, 64, 64), (2, 32, 256))  # (level, C, samples per frame)
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--precision", default="highest,high,default")
+    ap.add_argument("--frames", type=int, default=128)
+    ap.add_argument("--reps", type=int, default=10)
+    ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--utterances", action="store_true")
+    return ap
+
+
+def profile_utterance(torch, rt, ids: Sequence[int], symbol: str, counters: Sequence[Callable],
+                      reps: int, attempts: int = 3) -> dict:
+    """The median wall of `reps` unprofiled rt.synthesize(ids), then one
+    under torch.profiler: its device kernels and their summed device time
+    (device busy), and the kernels whose symbol holds `symbol`: their time
+    and count. The count must equal the launches the wrappers `counters`
+    (each with a `.launches`) saw during the profiled call, or the call is
+    profiled again, `attempts` times in all, and then this raises."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from piper_tpu_torch.tools.timing import device_kernels
+
+    walls = []
+    for _ in range(reps):
+        rt.synthesize(ids)
+        walls.append(rt.last_run_timings.wall_ms)
+    wall = statistics.median(walls)
+    for _ in range(attempts):
+        before = sum(fn.launches for fn in counters)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            rt.synthesize(ids)
+            torch.cuda.synchronize()
+        want = sum(fn.launches for fn in counters) - before
+        events = prof.key_averages()
+        count, us = device_kernels(events)
+        k_count, k_us = device_kernels(events, symbol)
+        if k_count == want > 0:
+            return {"device_kernels": count, "device_busy_ms": us / 1e3, "kernel_symbol": symbol,
+                    "kernel_ms": k_us / 1e3, "kernel_launches": k_count,
+                    "ms_per_utterance": wall, "busy_share": us / 1e3 / wall}
+    raise AssertionError(f"profile: {k_count} {symbol} kernels in the window, {want} launched")
+
+
+def _utterances(torch, reps: int) -> List[dict]:
+    """x_low utterances at fp32 and at the bench's mixed tiers, f = 1 and 8."""
+    import piper_tpu_torch
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.engine.runtime import PiperRuntime, RuntimeOptions
+    from piper_tpu_torch.models.vits.synthetic import make_synthetic_voice
+    from piper_tpu_torch.ops.kernels import conv as K1
+
+    root = Path(piper_tpu_torch.__file__).resolve().parents[1]
+    model, config = make_synthetic_voice(root / "build" / "conv1d_probe_voice", quality="x_low",
+                                         seed=0)
+    rows = []
+    for name, opts in (("x_low", None), ("x_low_mixed", RuntimeOptions(
+            precision="highest", vocoder_precision="high", flow_precision="high"))):
+        rt = PiperRuntime(model, config, opts, device="cuda")
+        for f in (1, 8):
+            ids = FIXTURE_PHONEME_IDS * f
+            rt.synthesize(ids)  # first call per shape: cuDNN heuristics, allocator
+            row = {"path": name, "factor": f,
+                   **profile_utterance(torch, rt, ids, "conv1d_same", [K1.conv1d_same], reps)}
+            print(json.dumps(row), flush=True)
+            rows.append(row)
+    return rows
+
+
+def _sweep(torch, K1, x, convs, tier: str, reps: int) -> dict:
+    """The tensor-core kernel's (tile, m_tiles) choices at one level, one
+    (tile, m_tiles) for all six convs, and the wrapper's choice per conv."""
+    from piper_tpu_torch.ops.kernels.precision import tier_code
+    from piper_tpu_torch.tools.timing import device_ms
+
+    code = tier_code(tier)
+    b, c, n = x.shape
+    limit = torch.cuda.get_device_properties(x.device).shared_memory_per_block_optin
+    pads = [(k - 1) // 2 * d for _, _, k, d in convs]
+    want = [K1.conv1d_same(x, w, bias, dilation=d, act_slope=0.1, precision=tier)
+            for w, bias, k, d in convs]
+    rows = []
+    for t in K1._MMA_TILES:
+        for m in (4, 2, 1):
+            if (-(-c // 16)) % m or K1._mma_warps(c, t, m) > 16 or any(
+                    K1.mma_smem_bytes(c, k, t, p, code) > limit
+                    for (_, _, k, _), p in zip(convs, pads)):
+                continue
+
+            def run():
+                return [K1._launch(x, w, k, bias, None, d, 0.1, code, t, m)
+                        for w, bias, k, d in convs]
+
+            if not all(torch.equal(g, h) for g, h in zip(run(), want)):
+                raise AssertionError(f"conv1d_same {tier} C={c} tile {t} m_tiles {m}: "
+                                     f"differs from the wrapper's choice")
+            rows.append({"tile": t, "m_tiles": m, "warps": K1._mma_warps(c, t, m),
+                         "kernel_ms": device_ms(run, reps=reps, name="conv1d_same",
+                                                expected=len(convs))})
+    return {"rows": rows, "chosen": [list(K1._mma_config(x, k, p, 4096, code))
+                                     for (_, _, k, _), p in zip(convs, pads)]}
+
+
+def main(argv: Optional[List[str]] = None) -> List[dict]:
+    """Run the probe; print and return one row per (tier, level) and the sums."""
+    args = _parser().parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("conv1d_probe: no CUDA device; this probe times the kernel on a "
+                         "card and has no CPU path")
+    import piper_tpu_torch
+    from piper_tpu_torch.ops.kernels import conv as K1
+    from piper_tpu_torch.ops.kernels.precision import fp32_exact
+    from piper_tpu_torch.tools.timing import device_ms
+
+    gen = torch.Generator().manual_seed(0)
+    levels = []
+    for level, c, per_frame in LEVELS:
+        convs = [((torch.randn(c, c, k, generator=gen) * (c * k) ** -0.5).cuda(),
+                  (torch.randn(c, generator=gen) * 0.02).cuda(), k, d) for k, d in X_LOW_CONVS]
+        x = (torch.randn(1, c, per_frame * args.frames, generator=gen) * 0.3).cuda()
+        levels.append((level, x, convs))
+    rows, sums = [], {}
+    with torch.inference_mode(), fp32_exact():
+        for tier in args.precision.split(","):
+            total = {"wrapper_ms": 0.0, "kernel_ms": 0.0}
+            for level, x, convs in levels:
+
+                def call():
+                    return [K1.conv1d_same(x, w, b, dilation=d, act_slope=0.1, precision=tier)
+                            for w, b, k, d in convs]
+
+                row = {"precision": tier, "level": level, "channels": x.shape[1],
+                       "samples": x.shape[2], "wrapper_ms": device_ms(call, reps=args.reps),
+                       "kernel_ms": device_ms(call, reps=args.reps, name="conv1d_same",
+                                              expected=len(convs))}
+                if args.sweep and tier != "highest":
+                    row["sweep"] = _sweep(torch, K1, x, convs, tier, args.reps)
+                for key in total:
+                    total[key] += row[key]
+                print(json.dumps(row), flush=True)
+                rows.append(row)
+            sums[tier] = total
+        if args.utterances:
+            rows += _utterances(torch, args.reps)
+    summary = {"package": piper_tpu_torch.__file__, "device": torch.cuda.get_device_name(0),
+               "frames": args.frames, "launches_per_tier": 6 * len(levels), "sums": sums}
+    print(json.dumps(summary), flush=True)
+    return rows + [summary]
+
+
+if __name__ == "__main__":
+    main()

@@ -12,6 +12,8 @@ rounding of a conv's input may flip between the two versions and the chain
 carries the flip on (measured up to 2.2e-3 for K2 at C=64, k=11 on the H100;
 chip_smoke.py says more). K2/K3/K4 run "high" and "default" on the tensor
 cores (mma.sync), whose fp32 sums run in yet another order: the same bars.
+K1 runs them there too; one conv carries no flip, so its x_low tests hold
+every tier to 1e-4 (K1_ATOL).
 """
 
 import pytest
@@ -128,6 +130,66 @@ def test_conv1d_same_kernel_refuses_bad_arguments(cuda):
 
 def _max_err(got, want):
     return float((got - want).abs().max())
+
+
+# K1's bar at every tier: one conv has no chain to carry a bf16 rounding
+# flip (the kernel and its plain version round the same fp32 input), so the
+# tiers differ only in the order of up to C*k = 448-term fp32 sums.
+K1_ATOL = 1e-4
+X_LOW_CONVS = ((3, 1), (3, 2), (5, 2), (5, 6), (7, 3), (7, 12))  # x_low's (k, d)
+
+
+def _k1_bounds(n, dev):
+    return {"none": None,
+            "one_sided": torch.tensor([n, n - 300], dtype=torch.int32, device=dev),
+            "two_sided": torch.tensor([[37, n - 401], [0, n // 3]], dtype=torch.int32, device=dev),
+            "empty_and_full": torch.tensor([[500, 500], [-3, n + 9]], dtype=torch.int32,
+                                           device=dev)}
+
+
+@pytest.mark.parametrize("tier", TIERS)
+@pytest.mark.parametrize("c", [16, 24, 32, 64])  # 24: padded to 32 zero channels at the bf16 tiers
+def test_conv1d_same_kernel_x_low_convs_with_bounds(cuda, tier, c):
+    """K1 against its plain version at every (k, d) of x_low's ResBlock2
+    convs, B=2 at a ragged N, every bounds case, one launch counted per
+    call; bit-equal when the time tile (and with it the warps' m-tiles)
+    changes."""
+    gen = torch.Generator().manual_seed(c)
+    n = 3001
+    x = (torch.randn(2, c, n, generator=gen) * 0.3).to(cuda)
+    for k, d in X_LOW_CONVS:
+        w = (torch.randn(c, c, k, generator=gen) * (c * k) ** -0.5).to(cuda)
+        b = (torch.randn(c, generator=gen) * 0.02).to(cuda)
+        for case, bnd in _k1_bounds(n, cuda).items():
+            before = K1.conv1d_same.launches
+            got = K1.conv1d_same(x, w, b, dilation=d, act_slope=0.1, bounds=bnd, precision=tier)
+            torch.cuda.synchronize()
+            assert K1.conv1d_same.launches == before + 1
+            want = K1.conv1d_same_plain(x, w, b, dilation=d, act_slope=0.1, bounds=bnd,
+                                        precision=tier)
+            assert _max_err(got, want) <= K1_ATOL, (k, d, case)
+            for cap in ((64, 32) if tier == "highest" else (32, 16)):
+                again = K1.conv1d_same(x, w, b, dilation=d, act_slope=0.1, bounds=bnd,
+                                       precision=tier, tile=cap)
+                assert torch.equal(again, got), (k, d, case, cap)
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_device_ms_counts_the_conv1d_same_kernels(cuda, tier):
+    """device_ms by K1's symbol: six launches per call of x_low's level-2
+    convs; a wrong expected count raises."""
+    gen = torch.Generator().manual_seed(6)
+    x = (torch.randn(1, 32, 8192, generator=gen) * 0.3).to(cuda)
+    convs = [((torch.randn(32, 32, k, generator=gen) * (32 * k) ** -0.5).to(cuda), d)
+             for k, d in X_LOW_CONVS]
+
+    def call():
+        return [K1.conv1d_same(x, w, None, dilation=d, act_slope=0.1, precision=tier)
+                for w, d in convs]
+
+    assert device_ms(call, reps=3, name="conv1d_same", expected=6) > 0
+    with pytest.raises(RuntimeError, match="expected 15 kernels named 'conv1d_same'"):
+        device_ms(call, reps=3, name="conv1d_same", expected=5)
 
 
 @pytest.mark.parametrize("tier", TIERS)

@@ -228,15 +228,78 @@ def test_conv1d_same_plain_matches_pallas(ch, k, d, n, slope, with_bias):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
 
 
-def test_conv1d_same_cpu_runs_the_plain_version_and_counts_no_launch():
+@pytest.mark.parametrize("bounds", [None, [60, 100], [[3, 70], [0, 100]]],
+                         ids=["none", "one_sided", "two_sided"])
+def test_conv1d_same_cpu_runs_the_plain_version_and_counts_no_launch(bounds):
     rng = np.random.default_rng(10)
     x = torch.from_numpy(rng.standard_normal((2, 16, 100)).astype(np.float32))
     w = torch.from_numpy(rng.standard_normal((16, 16, 5)).astype(np.float32))
     b = torch.from_numpy(rng.standard_normal(16).astype(np.float32))
+    bnd = None if bounds is None else torch.tensor(bounds, dtype=torch.int32)
     before = K1.conv1d_same.launches
-    got = K1.conv1d_same(x, w, b, dilation=2, act_slope=0.1)
-    assert torch.equal(got, K1.conv1d_same_plain(x, w, b, dilation=2, act_slope=0.1))
+    got = K1.conv1d_same(x, w, b, dilation=2, act_slope=0.1, bounds=bnd)
+    assert torch.equal(got, K1.conv1d_same_plain(x, w, b, dilation=2, act_slope=0.1, bounds=bnd))
     assert K1.conv1d_same.launches == before
+
+
+# Row bounds of a (2, C, 900) input: one-sided (B,), two-sided (B, 2), empty
+# rows (lo >= hi) and the whole length (past N, clamped).
+K1_BOUNDS = {
+    "one_sided": [900, 433],
+    "two_sided": [[37, 401], [0, 900]],
+    "empty": [[500, 500], [0, 0]],
+    "full": [[0, 900], [-5, 2000]],
+}
+
+
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+@pytest.mark.parametrize("case", list(K1_BOUNDS))
+def test_conv1d_same_plain_bounds_match_pallas_on_the_masked_input(case, precision):
+    """With bounds, K1 is the TPU kernel on x * mask (mask 1 on [lo, hi)):
+    lrelu(x * m) = lrelu(x) * m for a 0/1 mask. The output is not masked."""
+    rng = np.random.default_rng(31)
+    ch, k, d, n = 32, 7, 3, 900
+    x = rng.standard_normal((2, ch, n)).astype(np.float32)
+    w = (rng.standard_normal((ch, ch, k)) * 0.05).astype(np.float32)
+    bias = rng.standard_normal((ch,)).astype(np.float32)
+    bnd = np.asarray(K1_BOUNDS[case], np.int32)
+    b2 = np.clip(np.stack([np.zeros_like(bnd), bnd], 1) if bnd.ndim == 1 else bnd, 0, n)
+    pos = np.arange(n)
+    mask = ((pos >= b2[:, :1]) & (pos < b2[:, 1:]))[:, None, :].astype(np.float32)
+    got = K1.conv1d_same_plain(torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(bias),
+                               dilation=d, act_slope=0.1, bounds=torch.from_numpy(bnd),
+                               precision=precision)
+    want = pallas_conv1d_same(jnp.asarray(x * mask), jnp.asarray(w), jnp.asarray(bias),
+                              dilation=d, act_slope=0.1, tile=512, interpret=True,
+                              precision=precision)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TIER_ATOL[precision], rtol=0)
+    if case == "empty":  # a row with no valid input is the bias everywhere
+        np.testing.assert_array_equal(got.numpy()[1], np.broadcast_to(bias[:, None], (ch, n)))
+
+
+def test_conv1d_same_kernel_bounds_layout():
+    """The bounds as the kernel reads them: (B,) one column, (B, 2) two,
+    int32, with no copy when they already are; any other shape raises."""
+    one = torch.tensor([5, 7], dtype=torch.int32)
+    t, cols = K1._kernel_bounds(one, 2, one.device)
+    assert cols == 1 and t.data_ptr() == one.data_ptr()
+    t, cols = K1._kernel_bounds([[1, 5], [0, 7]], 2, one.device)
+    assert cols == 2 and t.dtype == torch.int32 and t.tolist() == [[1, 5], [0, 7]]
+    assert K1._kernel_bounds(None, 2, one.device) == (None, 0)
+    with pytest.raises(ValueError, match="bounds must be"):
+        K1._kernel_bounds(torch.zeros(3, 2), 2, one.device)
+
+
+def test_mma_shared_memory_figures():
+    """The tensor-core kernel's shared memory at x_low's widest convs: the
+    weight planes [tap][C_out][C_in + 8] (two at "high") and the window's
+    planes or the output stage over them; C=24 is padded to 32 channels."""
+    # C=64, k=7, d=12 (pad 36), tile 64, "high": 2*7*64*72*2 + 2*136*72*2
+    assert K1.mma_smem_bytes(64, 7, 64, 36, 1) == 129024 + 39168
+    # "default": one plane each; the stage (64 x 72 fp32) is the larger
+    assert K1.mma_smem_bytes(64, 7, 64, 36, 2) == 64512 + max(19584, 18432)
+    assert K1.mma_smem_bytes(64, 3, 256, 1, 2) == 27648 + max(37152, 67584)
+    assert K1.mma_smem_bytes(24, 3, 32, 1, 1) == 2 * 3 * 32 * 40 * 2 + 2 * 34 * 40 * 2
 
 
 def test_conv1d_same_refuses_what_the_kernel_does_not_take():

@@ -55,6 +55,7 @@ ROUTES2 = replace(
 )
 
 MODULE_ATOL, LOGW_ATOL, WAVE_ATOL = 2e-5, 5e-5, 1e-4
+MIXED_ATOL = 1e-3  # the lowered-precision waveform gate (BASELINE.md:40)
 
 
 def _jhp(hp):
@@ -212,10 +213,16 @@ def test_infer_is_encode_then_decode():
     assert torch.equal(audio, audio2) and torch.equal(y_len, y_len2)
 
 
-def test_hifigan_resblock2_matches_pallas(monkeypatch):
+@pytest.mark.parametrize("precision", [None, "high", "default"])
+def test_hifigan_resblock2_matches_pallas(monkeypatch, precision):
     """The ResBlock2 vocoder against JAX's with use_pallas=True, its
     pallas_conv1d_same calls in interpret mode; masked, with bounds, as
-    decode calls it."""
+    decode calls it (the port's K1 takes the bounds, JAX's the masked
+    input), at every level's tier: None ("highest"), "high", "default".
+    "default" is held to the 1e-3 gate of the lowered tiers (BASELINE.md:40):
+    where the two versions' fp32 sums differ in the last bit, the next
+    conv's bf16 rounding of its input can flip, and the chain of six convs
+    and two upsamplings carries the flip to the waveform (5.1e-4 here)."""
     monkeypatch.setenv("PIPER_TPU_PALLAS_INTERPRET", "1")
     hp = ROUTES2
     w = synthetic_params(hp, seed=5)
@@ -224,13 +231,15 @@ def test_hifigan_resblock2_matches_pallas(monkeypatch):
     lengths = np.array([16, 11], np.int32)
     mask = np.array(sequence_mask(jnp.asarray(lengths), 16))
     want = j_hifigan(jnp.asarray(z * mask), params_from_arrays(w), _jhp(hp),
-                     t_mask=jnp.asarray(mask), use_pallas=True, t_bounds=jnp.asarray(lengths))
+                     level_precisions=precision, t_mask=jnp.asarray(mask), use_pallas=True,
+                     t_bounds=jnp.asarray(lengths))
     before = K1.conv1d_same.launches
     with torch.inference_mode():
         got = t_hifigan(torch.from_numpy(z * mask), params_to_torch(w, "cpu"), hp,
-                        t_mask=torch.from_numpy(mask), t_bounds=torch.from_numpy(lengths))
+                        level_precisions=precision, t_mask=torch.from_numpy(mask),
+                        t_bounds=torch.from_numpy(lengths))
     assert K1.conv1d_same.launches == before  # CPU tensors: the plain version
-    _close(got, want, WAVE_ATOL)
+    _close(got, want, MIXED_ATOL if precision == "default" else WAVE_ATOL)
 
 
 def test_hifigan_level_precisions_match_pallas(monkeypatch):
