@@ -20,7 +20,20 @@ paths give it, and drives the main paths, counting each kernel's launches:
 - a reduced run of the conv-transpose probe (piper_tpu_torch.tools.ct_probe)
   at each of the medium voice's four upsample levels, the path that runs
   the interleave kernel (the polyphase conv-transpose's interleave), with
-  the polyphase and input-dilated conv-transposes held against PyTorch's.
+  the polyphase and input-dilated conv-transposes held against PyTorch's;
+- each voice, fp32 and mixed, against the committed JAX goldens
+  (piper_tpu_torch/golden/, f=1 and f=8): w_ceil equal, the waveform within
+  1e-4 (1e-3 mixed);
+- batches: 32 identical f=8 rows of synthesize_batch against one
+  synthesize (medium, both configurations), four injected rows of f =
+  1/2/4/8 against their one-row runs (every voice and configuration: the
+  kernels' per-row bounds at B>1), and medium's B=32 throughput, blocking
+  and through ServingPipeline.submit_batch, with one profiled batch;
+- 32 ServingPipeline.submit requests on a fused-mode medium runtime, each
+  equal to its fused synthesize;
+- the five-level high voice (K3 at 16 channels), fp32 and mixed, held
+  against the port on the CPU and against each other;
+- the port's bench, `piper_tpu_torch.bench.main(["--quick"])`.
 
 Beside the paths, a profile phase puts one utterance of each voice (fp32
 and mixed, factors 1 and 8) under torch.profiler: its device kernels, their
@@ -51,16 +64,20 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+# The paths that run the ResBlock1 kernels (K2, K3) and conv1d_same (K1).
+RESBLOCK1_PATHS = ("medium", "medium_mixed", "medium_golden", "medium_mixed_golden",
+                   "medium_batch", "medium_mixed_batch", "pipeline", "high", "high_mixed",
+                   "bench")
+CONV1D_PATHS = ("x_low", "x_low_mixed", "x_low_golden", "x_low_mixed_golden", "x_low_batch",
+                "x_low_mixed_batch")
 # kernel -> (its source, the TPU kernel it replaces, the paths that run it)
 KERNELS = {
     "resblock1_branch": ("piper_tpu_torch/csrc/resblock1.cu",
-                         "piper_tpu/ops/pallas/resblock.py:157",
-                         ("medium", "medium_mixed", "probe")),
+                         "piper_tpu/ops/pallas/resblock.py:157", RESBLOCK1_PATHS + ("probe",)),
     "resblock1_mrf": ("piper_tpu_torch/csrc/resblock1.cu",
-                      "piper_tpu/ops/pallas/resblock.py:328",
-                      ("medium", "medium_mixed", "probe")),
+                      "piper_tpu/ops/pallas/resblock.py:328", RESBLOCK1_PATHS + ("probe",)),
     "conv1d_same": ("piper_tpu_torch/csrc/conv1d.cu",
-                    "piper_tpu/ops/pallas/conv.py:107", ("x_low", "x_low_mixed")),
+                    "piper_tpu/ops/pallas/conv.py:107", CONV1D_PATHS),
     "resblock1_mrf_folded": ("piper_tpu_torch/csrc/resblock1.cu",
                              "piper_tpu/ops/pallas/folded.py:220", ("probe",)),
     "interleave": ("piper_tpu_torch/csrc/interleave.cu", "tools/ct_probe.py:151",
@@ -99,12 +116,19 @@ K1_SYMBOL = "conv1d_same"  # held by both K1 kernels' symbols (fp32 and mma)
 # A voice's vocoder kernels: their device symbol and their launch counters.
 VOCODER_KERNELS = {"medium": (RESBLOCK_SYMBOL, ("resblock1_branch", "resblock1_mrf")),
                    "x_low": (K1_SYMBOL, ("conv1d_same",))}
+# A voice's vocoder kernel launches per synthesis call, whatever its rows:
+# medium's level 2 (C=64) runs three K2 branches and level 3 (C=32) one K3;
+# high adds a K3 level at C=16; x_low's two levels run six K1 convs each.
+LAUNCHES_PER_CALL = {"medium": {"resblock1_branch": 3, "resblock1_mrf": 1},
+                     "high": {"resblock1_branch": 3, "resblock1_mrf": 2},
+                     "x_low": {"conv1d_same": 12}}
 WAVE_ATOL = 1e-4     # the fp32 waveform bar the JAX package is held to
 MIXED_ATOL = 1e-3    # the lowered-precision waveform gate (BASELINE.md)
 # bench.py's default configuration of the JAX package
 BENCH_MIX = {"precision": "highest", "vocoder_precision": "high", "flow_precision": "high"}
 FACTORS = (1, 2, 4, 8)
 REPS = 10
+SERVING_BATCH = 32  # the JAX bench's serving batch of f=8 utterances
 # x_low's ResBlock2 convs, (kernel, dilation), one per conv of the three branches.
 X_LOW_CONVS = ((3, 1), (3, 2), (5, 2), (5, 6), (7, 3), (7, 12))
 # The medium voice's upsample levels: rate (the interleave's r), kernel,
@@ -428,7 +452,21 @@ def _require_launches(path: str, counters: dict) -> dict:
     return launches
 
 
-def phase_main_path(torch, path: str, model, config, options=None) -> tuple:
+def _voice(path: str) -> str:
+    """The voice of a path: medium, high or x_low."""
+    return next(v for v in LAUNCHES_PER_CALL if path.startswith(v))
+
+
+def _require_per_call(path: str, launches: dict, calls: int) -> None:
+    """Each vocoder kernel of the path's voice launched exactly its count
+    per synthesis call, `calls` times."""
+    for name, n in LAUNCHES_PER_CALL[_voice(path)].items():
+        if launches[name] != n * calls:
+            raise AssertionError(f"{path}: {launches[name]} {name} launches for {calls} calls, "
+                                 f"expected {n} each")
+
+
+def phase_main_path(torch, path: str, model, config, options=None, factors=FACTORS) -> tuple:
     """A main path: synthesize() on the card for one voice and options.
     Every launch count is set to 0 just before the timed run and read just
     after; each kernel of this path must have launched."""
@@ -438,12 +476,12 @@ def phase_main_path(torch, path: str, model, config, options=None) -> tuple:
     t0 = time.perf_counter()
     rt = PiperRuntime(model, config, options, device="cuda")
     load_s = time.perf_counter() - t0
-    for f in FACTORS:  # first call per shape: cuDNN heuristics, allocator
+    for f in factors:  # first call per shape: cuDNN heuristics, allocator
         rt.synthesize(FIXTURE_PHONEME_IDS * f)
 
     counters = _zero_counts()
     rows = []
-    for f in FACTORS:
+    for f in factors:
         ids = FIXTURE_PHONEME_IDS * f
         walls, timings = [], []
         for _ in range(REPS):
@@ -462,10 +500,8 @@ def phase_main_path(torch, path: str, model, config, options=None) -> tuple:
                      "frames": t.frames, "frame_bucket": t.frame_bucket,
                      "audio_s": t.samples / rt.sample_rate, "rtf": t.rtf})
     launches = _require_launches(path, counters)
-    utterances = len(FACTORS) * REPS
-    if path.startswith("x_low") and launches["conv1d_same"] != 12 * utterances:
-        raise AssertionError(f"{path}: {launches['conv1d_same']} conv1d_same launches for "
-                             f"{utterances} utterances, expected 12 each")
+    utterances = len(factors) * REPS
+    _require_per_call(path, launches, utterances)
     o = rt.options
     emit(phase="main_path", path=path, voice=f"synthetic {rt.config.audio.quality}, seed 0",
          precision=o.precision, vocoder_precision=o.vocoder_precision,
@@ -480,22 +516,6 @@ def _injected_noise(hp, n_ids: int):
             rng.standard_normal((hp.inter_channels, 64)).astype(np.float32))
 
 
-def _w_ceil(torch, r, ids, dp_noise):
-    """The durations of `ids` under runtime r with the injected dp noise."""
-    from piper_tpu_torch.engine.bucketing import bucket_for, pad_to
-    from piper_tpu_torch.models.vits import model as vits
-    from piper_tpu_torch.ops.kernels.precision import tier_scope
-
-    p = bucket_for(len(ids), r.options.phoneme_buckets)
-    dpn = np.zeros((1, 2, p), np.float32)
-    dpn[0, :, : len(ids)] = dp_noise
-    with torch.inference_mode(), tier_scope(r.options.precision, r.device):
-        enc = vits.encode(
-            r.params, r.hparams, torch.from_numpy(pad_to(np.asarray(ids), p)[None]).to(r.device),
-            torch.tensor([len(ids)], device=r.device), torch.from_numpy(dpn).to(r.device))
-        return enc.w_ceil.cpu().numpy()
-
-
 def phase_compare(torch, path: str, rt, other, atol: float, against: str) -> None:
     """f=1 with the same injected noise: runtime rt against `other` (the
     port on the CPU, or another configuration on the card); w_ceil equal
@@ -504,7 +524,8 @@ def phase_compare(torch, path: str, rt, other, atol: float, against: str) -> Non
 
     ids = FIXTURE_PHONEME_IDS
     dp_noise, main_noise = _injected_noise(rt.hparams, len(ids))
-    wc, wc_other = _w_ceil(torch, rt, ids, dp_noise), _w_ceil(torch, other, ids, dp_noise)
+    wc = rt._durations([ids], dp_noise=dp_noise[None])[1]
+    wc_other = other._durations([ids], dp_noise=dp_noise[None])[1]
     if not np.array_equal(wc, wc_other):
         raise AssertionError(f"{path}: w_ceil differs: {wc} vs {against} {wc_other}")
     a = rt.synthesize(ids, dp_noise=dp_noise, main_noise=main_noise)
@@ -533,10 +554,169 @@ def phase_profile(torch, runtimes: dict) -> None:
     for path, rt in runtimes.items():
         symbol, names = VOCODER_KERNELS[path.split("_mixed")[0]]
         for f in (1, 8):
-            row = profile_utterance(torch, rt, FIXTURE_PHONEME_IDS * f, symbol,
+            row = profile_utterance(rt, FIXTURE_PHONEME_IDS * f, symbol,
                                     [counters[name] for name in names], REPS)
             emit(phase="profile", path=path, factor=f, kernels=list(names), **row,
                  vocoder_precision=rt.options.vocoder_precision)
+
+
+def phase_golden(path: str, rt) -> dict:
+    """rt on the card against the committed JAX goldens of its voice, f=1
+    and 8: w_ceil equal, the waveform within 1e-4 at fp32, 1e-3 mixed."""
+    from piper_tpu_torch import golden
+
+    quality = _voice(path)
+    counters = _zero_counts()
+    rows = [golden.check(rt, quality, f) for f in golden.factors(quality)]
+    launches = _require_launches(f"{path}_golden", counters)
+    emit(phase="golden", path=path, rows=rows, launches=launches)
+    return launches
+
+
+def _rows_close(path: str, what: str, got, want, atol: float) -> float:
+    """Rows of equal lengths within atol; their worst max-abs."""
+    errs = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g.shape != w.shape:
+            raise AssertionError(f"{path} {what}: row {i} has {g.shape[0]} samples, "
+                                 f"its single run {w.shape[0]}")
+        errs.append(float(np.abs(g - w).max()))
+    if not max(errs) <= atol:
+        raise AssertionError(f"{path} {what}: max-abs {errs} > {atol}")
+    return max(errs)
+
+
+def phase_batch(path: str, rt, atol: float, serving: bool) -> dict:
+    """The batch paths on the card, each row held within `atol`, the
+    tier's bar: 1e-4 at fp32, 1e-3 at the mixed tiers, where cuDNN's TF32
+    convs around the kernels pick their algorithms by the batch's shape
+    (4.7e-4 to 6.1e-4 between B=4 and B=1 on the H100). (b) four injected
+    rows of f = 1/2/4/8 (dp noise zero past each row's length) through
+    _synthesize_batch_impl, each against its one-row injected run: per-row
+    bounds and dead tiles at B>1. With `serving`, first (a) 32 identical
+    f=8 rows of synthesize_batch, each against one synthesize with the same
+    seed and as long (on a length mismatch the message gives the pre-ceil
+    durations' distance to an integer); then (c) B=32 throughput blocking
+    and through ServingPipeline.submit_batch (8 batches) and (d) one
+    profiled B=32 batch, its vocoder kernels counted against their counters
+    (`bench.measure_throughput`). (a) and (b) check each vocoder kernel's
+    launches per call."""
+    from piper_tpu_torch import bench
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+
+    kw = dict(noise_scale=None, length_scale=None, noise_w=None, speaker_ids=None)
+    counters = _zero_counts()
+    row, calls = {}, 0
+    if serving:
+        ids8 = FIXTURE_PHONEME_IDS * 8
+        t0 = time.perf_counter()
+        batch = rt.synthesize_batch([ids8] * SERVING_BATCH, seed=7)
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        single = rt.synthesize(ids8, seed=7)
+        calls += 2
+        if any(len(a) != len(single) for a in batch):
+            w_b = rt._durations([ids8] * SERVING_BATCH, seed=7)[0]
+            w_1 = rt._durations([ids8], seed=7)[0]
+            raise AssertionError(
+                f"{path} (a): batch rows' lengths {sorted({len(a) for a in batch})} vs "
+                f"{len(single)}; pre-ceil durations' distance to an integer "
+                f"{float(np.abs(w_1 - np.round(w_1)).min())}, batch vs single "
+                f"{float(np.abs(w_b - w_1).max())}")
+        row["identical_rows"] = {"rows": SERVING_BATCH, "phonemes": len(ids8),
+                                 "samples": len(single), "first_call_ms": batch_ms,
+                                 "max_abs_err": _rows_close(path, "(a)", batch,
+                                                            [single] * SERVING_BATCH, atol),
+                                 "atol": atol}
+    rows = [FIXTURE_PHONEME_IDS * f for f in FACTORS]
+    rng = np.random.default_rng(1)
+    width = max(len(r) for r in rows)
+    dp = rng.standard_normal((len(rows), 2, width)).astype(np.float32)
+    for i, r in enumerate(rows):
+        dp[i, :, len(r):] = 0.0
+    mn = rng.standard_normal((len(rows), rt.hparams.inter_channels, 64)).astype(np.float32)
+    got, t = rt._synthesize_batch_impl(rows, dp_noise=dp, main_noise=mn, **kw)
+    one = [rt._synthesize_batch_impl([r], dp_noise=dp[i:i + 1, :, :len(r)],
+                                     main_noise=mn[i:i + 1], **kw)[0][0]
+           for i, r in enumerate(rows)]
+    calls += 1 + len(rows)
+    row["mixed_lengths"] = {"factors": list(FACTORS), "samples": [len(a) for a in got],
+                            "frame_bucket": t.frame_bucket,
+                            "max_abs_err": _rows_close(path, "(b)", got, one, atol),
+                            "atol": atol}
+    launches = _require_launches(f"{path}_batch", counters)
+    _require_per_call(path, launches, calls)
+    if serving:
+        row["throughput"] = bench.measure_throughput(rt, SERVING_BATCH, iters=5)
+        row["throughput_pipelined"] = bench.measure_throughput_pipelined(rt, SERVING_BATCH, 8)
+        launches = {name: fn.launches for name, fn in counters.items()}
+    emit(phase="batch", path=path, **row, launches=launches)
+    return launches
+
+
+def phase_pipeline(model, config) -> dict:
+    """32 ServingPipeline.submit requests (f = 1/2, seeds 0..31) on a
+    fused-mode medium runtime at the bench's mixed tiers, each equal to the
+    same runtime's synthesize with its seed."""
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.engine.pipeline import ServingPipeline
+    from piper_tpu_torch.engine.runtime import PiperRuntime, RuntimeOptions
+
+    rt = PiperRuntime(model, config, RuntimeOptions(mode="fused", **BENCH_MIX), device="cuda")
+    reqs = [(FIXTURE_PHONEME_IDS * (1 + i % 2), i) for i in range(32)]
+    want = [rt.synthesize(ids, seed=s) for ids, s in reqs]
+    counters = _zero_counts()
+    t0 = time.perf_counter()
+    with ServingPipeline(rt, max_inflight=16, num_fetchers=8) as pipe:
+        got = [f.result(timeout=300) for f in [pipe.submit(ids, seed=s) for ids, s in reqs]]
+    wall = time.perf_counter() - t0
+    launches = _require_launches("pipeline", counters)
+    _require_per_call("medium", launches, len(reqs))
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not np.array_equal(g, w):
+            raise AssertionError(f"pipeline: request {i} differs from its fused synthesize")
+    emit(phase="pipeline", requests=len(reqs), mode="fused", fused_keys=sorted(
+        str(k) for k in rt._compiled_keys), ms_per_utt=wall / len(reqs) * 1e3,
+        launches=launches)
+    return launches
+
+
+def phase_high(torch) -> dict:
+    """The high preset (five upsample levels; K3 at C=32 and C=16, K2 at
+    C=64) at fp32 and mixed, f=1: timed as a main path, fp32 held against
+    the port on the CPU within 1e-4, mixed against fp32 within 1e-3."""
+    from piper_tpu_torch.engine.runtime import PiperRuntime, RuntimeOptions
+    from piper_tpu_torch.models.vits.synthetic import make_synthetic_voice
+
+    model, config = make_synthetic_voice(ROOT / "build" / "chip_smoke_voice_high",
+                                         quality="high", seed=0)
+    rt, launches = phase_main_path(torch, "high", model, config, factors=(1,))
+    phase_compare(torch, "high", rt, PiperRuntime(model, config, device="cpu"), WAVE_ATOL, "cpu")
+    rt_mixed, mixed = phase_main_path(torch, "high_mixed", model, config,
+                                      RuntimeOptions(**BENCH_MIX), factors=(1,))
+    phase_compare(torch, "high_mixed", rt_mixed, rt, MIXED_ATOL, "card highest")
+    return {name: launches[name] + mixed[name] for name in launches}
+
+
+def phase_bench() -> dict:
+    """The port's bench at --quick on the card (medium, the JAX bench's
+    defaults: mixed tiers, fused mode, int16, B=32), its golden rows
+    included. It prints its own JSON line; its keys must be the root
+    bench's."""
+    from piper_tpu_torch import bench
+
+    keys = {"metric", "value", "unit", "vs_baseline", "rows", "throughput",
+            "throughput_pipelined", "batch_sweep", "pipeline", "high", "multispeaker",
+            "streaming", "streaming_server", "roofline", "platform", "device", "golden"}
+    counters = _zero_counts()
+    result = bench.main(["--quick"])
+    launches = _require_launches("bench", counters)
+    if not keys <= set(result) or result["metric"] != "rtf_per_chip" or \
+            result["platform"] != "gpu" or not result["value"] > 0:
+        raise AssertionError(f"bench: keys {sorted(result)}")
+    if not all(r["ok"] for r in result["golden"]):
+        raise AssertionError(f"bench: golden {result['golden']}")
+    emit(phase="bench", rtf_per_chip=result["value"], launches=launches)
+    return launches
 
 
 def phase_probe() -> dict:
@@ -625,6 +805,10 @@ def main() -> None:
         for name, n in path_launches.items():
             launches[name] += n
 
+    # The probes first: their many short torch.profiler windows have come
+    # back empty late in a long process.
+    count(phase_probe())
+    count(phase_ct_probe())
     for quality in ("medium", "x_low"):
         model, config = make_synthetic_voice(ROOT / "build" / f"chip_smoke_voice_{quality}",
                                              quality=quality, seed=0)
@@ -638,8 +822,15 @@ def main() -> None:
         count(counts)
         phase_compare(torch, mixed, rt_mixed, rt, MIXED_ATOL, "card highest")
         phase_profile(torch, {quality: rt, mixed: rt_mixed})
-    count(phase_probe())
-    count(phase_ct_probe())
+        count(phase_golden(quality, rt))
+        count(phase_golden(mixed, rt_mixed))
+        serving = quality == "medium"
+        count(phase_batch(quality, rt, WAVE_ATOL, serving))
+        count(phase_batch(mixed, rt_mixed, MIXED_ATOL, serving))
+        if serving:
+            count(phase_pipeline(model, config))
+    count(phase_high(torch))
+    count(phase_bench())
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "piper_tpu"))
     if foreign:

@@ -1,30 +1,55 @@
-"""PiperRuntime: load a Piper voice and synthesize one utterance.
+"""PiperRuntime: load a Piper voice and synthesize utterances, one or a batch.
 
-Counterpart of piper_tpu.engine.runtime's split mode: pad the phoneme ids to
-a bucket, encode, read the frame count on the host once, pick the frame
-bucket, decode, and return PCM. The device is the CUDA card unless the
-caller asks for the CPU (`device="cpu"`); weights go to it once. Encode
-and decode run at the `precision` tier (by default "highest", fp32 with
-TF32 off for matmuls and cuDNN convs: a duration error can flip a ceil()
-and shift the whole waveform); the reverse flows and the vocoder may
+Counterpart of piper_tpu.engine.runtime for single-speaker voices on one
+device: the CUDA card unless the caller asks for the CPU (`device="cpu"`);
+weights go to it once.
+
+- Split mode: pad the phoneme ids to a bucket (and a batch's rows to the
+  `batch_buckets` ladder), encode, read the frame counts on the host once,
+  pick the frame bucket, decode, and copy the PCM to the host.
+- Fused mode (one utterance): encode and decode with no host read between
+  them, at the heuristic frame budget max(32, len * fused_frames_per_phoneme)
+  rounded up to a frame bucket, then one host copy of (audio, y_len,
+  y_total). A run whose durations overflow the budget is redone exactly in
+  split mode. Batches take the split path, as in the JAX package.
+- dispatch/fetch: `dispatch_fused` and `dispatch_batch` queue the work and
+  the audio's copy to pinned host memory behind it and return at once (split
+  mode reads only the frame counts); `fetch_fused` and `fetch_batch` wait for
+  the copy's event and slice each row. `engine/pipeline.py` builds the
+  serving pipeline on them.
+
+Encode and decode run at the `precision` tier (by default "highest", fp32
+with TF32 off for matmuls and cuDNN convs: a duration error can flip a
+ceil() and shift the whole waveform); the reverse flows and the vocoder may
 take lower tiers of their own, as in the JAX package (`precision.py` says
-what each tier means in the kernels and around them).
+what each tier means in the kernels and around them). The tiers are
+process-wide flags, so every piece of a runtime's device work runs under
+its lock (`_lock`, reentrant); a fetch only waits for its copy.
 
 Seeded noise comes from a torch.Generator seeded from (seed, 0) for the
 duration predictor and (seed, 1) for the prior; each is one per-row draw
 broadcast over the rows, so a row's noise does not depend on what is
-batched beside it. The numbers differ from the JAX package's threefry by
-design; parity checks inject the noise instead.
+batched beside it. The prior's draw has the frame bucket's width, so fused
+and split runs of one utterance share a realization only where their
+buckets agree (the JAX package's caveat too). The numbers differ from the
+JAX package's threefry by design; parity checks inject the noise instead.
+
+Eager PyTorch compiles nothing. `RunTimings.compiled` marks the first run
+of a (kind, rows, bucket) key, as the JAX package marks a compile: on the
+card that run pays cuDNN's per-shape heuristics and the caching
+allocator's growth (~100 ms), so warm-ups must use the shapes they time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import sys
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Optional, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -42,6 +67,8 @@ from piper_tpu_torch.models.vits.hparams import VitsHParams, derive_hparams
 from piper_tpu_torch.models.vits.params import host_arrays_from_graph, params_to_torch
 from piper_tpu_torch.onnx.loader import load_model
 from piper_tpu_torch.ops.kernels.precision import TIERS, kernel_tier, tier_scope
+
+MODES = ("split", "fused")
 
 
 def parse_precision_spec(spec):
@@ -68,16 +95,21 @@ class RuntimeOptions:
     "default". `vocoder_precision` is None (inherit), one tier, or one entry
     per upsample level (None entries run that level's kernels at "highest"
     and its PyTorch convs at the outer tier, as in JAX); `flow_precision` is
-    None or one tier. Values that are not ported yet raise, naming the later
-    change that brings them."""
+    None or one tier. `mode` is "split" or "fused" (the module docstring);
+    `fused_frames_per_phoneme` sets fused mode's frame budget. Batched calls
+    pad the row axis up to the next `batch_buckets` rung (dummy rows copy row
+    0; their outputs are dropped). Values that are not ported yet raise,
+    naming the later change that brings them."""
 
     seed: int = 1234
     precision: str = "highest"
     vocoder_precision: Union[str, Tuple[Optional[str], ...], None] = None
     flow_precision: Optional[str] = None
     mode: str = "split"
+    fused_frames_per_phoneme: int = 6
     phoneme_buckets: Tuple[int, ...] = tuple(DEFAULT_PHONEME_BUCKETS)
     frame_buckets: Tuple[int, ...] = tuple(DEFAULT_FRAME_BUCKETS)
+    batch_buckets: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 48, 64, 96, 128)
     output_dtype: str = "float32"  # or "int16": clip * 32767, cast on the device
 
     def validate(self) -> None:
@@ -91,9 +123,8 @@ class RuntimeOptions:
         for tier in (vp if isinstance(vp, (tuple, list)) else (vp,)):
             kernel_tier(tier, "vocoder_precision")
         kernel_tier(self.flow_precision, "flow_precision")
-        if self.mode != "split":
-            raise ValueError(f"mode {self.mode!r}: only 'split' is ported; "
-                             f"fused mode comes in a later change")
+        if self.mode not in MODES:
+            raise ValueError(f"mode {self.mode!r}: the modes are {MODES}")
         if self.output_dtype not in ("float32", "int16"):
             raise ValueError(f"output_dtype must be 'float32' or 'int16', "
                              f"got {self.output_dtype!r}")
@@ -101,15 +132,17 @@ class RuntimeOptions:
 
 @dataclass
 class RunTimings:
-    """Per-run accounting (host clock; both phases end in a host read)."""
+    """Per-run accounting (host clock; every run ends in a host copy)."""
 
     wall_ms: float = 0.0
     encode_ms: float = 0.0
     decode_ms: float = 0.0
     phoneme_bucket: int = 0
     frame_bucket: int = 0
-    frames: int = 0
-    samples: int = 0
+    frames: int = 0  # summed over the rows
+    samples: int = 0  # summed over the rows
+    compiled: bool = False  # the first run of one of its (kind, rows, bucket) keys
+    compile_count: int = 0  # keys seen so far
     rtf: float = 0.0  # real-time factor (audio seconds per wall second)
 
 
@@ -123,6 +156,42 @@ def seeded_noise(seed: int, stream: int, shape: Tuple[int, ...], rows: int,
     return draw.expand(rows, *shape)
 
 
+def _padded(src: np.ndarray, shape: Tuple[int, ...]) -> np.ndarray:
+    """Injected noise zero-padded (or cut) along its last axis to `shape`."""
+    out = np.zeros(shape, np.float32)
+    width = min(shape[-1], src.shape[-1])
+    out[..., :width] = src[..., :width]
+    return out
+
+
+class _HostCopy:
+    """Device tensors copied to the host behind the work that makes them.
+    On a CUDA device each goes into pinned memory with non_blocking=True and
+    an event is recorded after the copies; `wait()` blocks on the event
+    (the thread sleeps, it does not spin) and returns numpy arrays. The
+    device tensors stay referenced until then. On the CPU there is nothing
+    to copy."""
+
+    def __init__(self, tensors: Sequence[torch.Tensor]):
+        self._src = tuple(tensors)
+        self._event = None
+        if self._src[0].device.type != "cuda":
+            self._host = self._src
+            return
+        self._host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                           for t in self._src)
+        for h, t in zip(self._host, self._src):
+            h.copy_(t, non_blocking=True)
+        self._event = torch.cuda.Event(blocking=True)
+        self._event.record()
+
+    def wait(self) -> List[np.ndarray]:
+        if self._event is not None:
+            self._event.synchronize()
+        self._src = ()
+        return [h.numpy() for h in self._host]
+
+
 def _resolve_device(device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -130,6 +199,18 @@ def _resolve_device(device) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"device must be cpu or cuda, got {device!r}")
     return dev
+
+
+def _check_speakers(speaker_ids, speaker_mixes) -> None:
+    """A single-speaker voice (the only kind the port loads) ignores speaker
+    ids, as the JAX package does; a speaker mix raises until multi-speaker
+    voices are ported, and ids with mixes raise the JAX package's error."""
+    if speaker_mixes is None:
+        return
+    if speaker_ids is not None:
+        raise ValueError("pass speaker_id OR speaker_mix, not both")
+    raise NotImplementedError("speaker_mix is not ported yet: it comes with "
+                              "multi-speaker voices (ROADMAP §1 item 5)")
 
 
 class PiperRuntime:
@@ -166,11 +247,27 @@ class PiperRuntime:
                 f"{self.hparams.num_upsamples} upsample levels: give one tier per level "
                 f"(or a single tier name for all levels)")
         self.params = params_to_torch(host_arrays_from_graph(graph), self.device)
+        self._compiled_keys: set = set()
+        # Serializes device work (the tier flags are process-wide) and the
+        # bookkeeping (_compiled_keys, last_run_timings) for threaded callers.
+        self._lock = threading.RLock()
         self.last_run_timings: Optional[RunTimings] = None
 
     @property
     def sample_rate(self) -> int:
         return self.config.audio.sample_rate
+
+    @property
+    def batch_ladder(self) -> Tuple[int, ...]:
+        """The batch-bucket ladder (one device: every rung)."""
+        return self.options.batch_buckets
+
+    def _as_output(self, audio: torch.Tensor) -> torch.Tensor:
+        """The waveform in the runtime's output dtype, on the device: int16
+        is clip * 32767 cast there, so the host copy moves half the bytes."""
+        if self.options.output_dtype == "int16":
+            return (torch.clamp(audio, -1.0, 1.0) * 32767.0).to(torch.int16)
+        return audio
 
     def _scales(self, noise_scale, length_scale, noise_w):
         inf = self.config.inference
@@ -184,14 +281,130 @@ class PiperRuntime:
                 raise ValueError(f"{name} must be finite and >= 0, got {v}")
         return ns, ls, nw
 
-    def _frame_bucket(self, needed: int) -> int:
+    def _mark(self, kind: str, key) -> bool:
+        """True the first time (kind, key) runs on this runtime."""
+        with self._lock:
+            k = (kind, key)
+            if k in self._compiled_keys:
+                return False
+            self._compiled_keys.add(k)
+            return True
+
+    @contextlib.contextmanager
+    def _device_work(self):
+        """The runtime's lock, inference mode (per thread) and the encode
+        tier: every piece of this runtime's device work runs inside it."""
+        with self._lock, torch.inference_mode(), tier_scope(self.options.precision,
+                                                            self.device):
+            yield
+
+    def _validate_and_pad(self, ids_batch: List[List[int]], pad_batch: bool = True):
+        """Request validation and the phoneme and batch-axis bucketing of
+        every path. Returns (lengths, p_bucket, ids) where ids may carry
+        dummy rows (copies of row 0) padding the batch up to the
+        batch_buckets ladder; callers slice outputs to the real row count.
+        Dummy rows copy row 0 so they cannot raise the frame bucket above
+        what the real rows need."""
+        hp = self.hparams
+        for seq in ids_batch:
+            if not seq:
+                raise ValueError("empty phoneme sequence")
+            bad = [i for i in seq if not 0 <= i < hp.n_vocab]
+            if bad:
+                raise ValueError(f"phoneme id(s) {bad[:5]} out of range [0, {hp.n_vocab}) — "
+                                 f"check the voice's phoneme_id_map")
+        b = len(ids_batch)
+        ladder = self.batch_ladder
+        if pad_batch and b > 1 and b <= ladder[-1]:
+            b_bucket = next(x for x in ladder if x >= b)
+            ids_batch = ids_batch + [ids_batch[0]] * (b_bucket - b)
+        lengths = np.asarray([len(x) for x in ids_batch], np.int64)
+        p_bucket = bucket_for(int(lengths.max()), self.options.phoneme_buckets, "phoneme")
+        ids = np.stack([pad_to(np.asarray(x, np.int64), p_bucket) for x in ids_batch])
+        return lengths, p_bucket, ids
+
+    def _frame_bucket(self, frames: int) -> int:
+        """The frame bucket of `frames`, or the largest past it."""
         try:
-            return bucket_for(max(1, needed), self.options.frame_buckets, "frame")
+            return bucket_for(max(1, frames), self.options.frame_buckets, "frame")
         except BucketOverflowError:
-            largest = self.options.frame_buckets[-1]
-            print(f"[piper-tpu-torch] warning: predicted {needed} frames exceeds the "
-                  f"largest bucket {largest}; audio will be truncated", file=sys.stderr)
-            return largest
+            return self.options.frame_buckets[-1]
+
+    def _frame_bucket_or_clamp(self, max_needed: int) -> int:
+        """The frame bucket of `max_needed` frames; past the largest bucket,
+        the largest, with a warning (the audio is truncated)."""
+        f_bucket = self._frame_bucket(max_needed)
+        if f_bucket < max_needed:
+            print(f"[piper-tpu-torch] warning: predicted {max_needed} frames exceeds the "
+                  f"largest bucket {f_bucket}; audio will be truncated", file=sys.stderr)
+        return f_bucket
+
+    def _budget_bucket(self, max_len: int) -> int:
+        """Fused mode's frame bucket: the heuristic budget's, clamped."""
+        return self._frame_bucket(max(32, max_len * self.options.fused_frames_per_phoneme))
+
+    # -- device work (callers hold _device_work) -------------------------------
+
+    def _encode(self, ids: np.ndarray, lengths: np.ndarray, ls: float, nw: float, seed: int,
+                dp_noise: Optional[np.ndarray] = None) -> vits.EncodeResult:
+        """ids (B, P) through the text encoder and duration predictor, with
+        the injected dp_noise (zero-padded to P) or the seeded draw."""
+        b, p = ids.shape
+        dev = self.device
+        if dp_noise is not None:
+            src = np.asarray(dp_noise, np.float32).reshape(b, 2, -1)
+            dpn = torch.from_numpy(_padded(src, (b, 2, p))).to(dev)
+        else:
+            dpn = seeded_noise(seed, 0, (2, p), b, dev)
+        return vits.encode(self.params, self.hparams, torch.from_numpy(ids).to(dev),
+                           torch.from_numpy(lengths).to(dev), dpn, length_scale=ls, noise_w=nw)
+
+    def _decode(self, enc: vits.EncodeResult, f_bucket: int, ns: float, seed: int,
+                main_noise: Optional[np.ndarray] = None):
+        """(audio in the output dtype, y_len), both on the device."""
+        b, c = enc.m_p.shape[:2]
+        if main_noise is not None:
+            mn = torch.from_numpy(_padded(main_noise, (b, c, f_bucket))).to(self.device)
+        else:
+            mn = seeded_noise(seed, 1, (c, f_bucket), b, self.device)
+        o = self.options
+        audio, y_len = vits.decode(self.params, self.hparams, enc, mn, max_frames=f_bucket,
+                                   noise_scale=ns, vocoder_precision=o.vocoder_precision,
+                                   flow_precision=o.flow_precision)
+        return self._as_output(audio), y_len
+
+    def _run_fused(self, ids, lengths, scales, seed):
+        """Encode and decode at the budget bucket with no host read; returns
+        ((audio, y_len, y_total) on the device, f_bucket, compiled)."""
+        ns, ls, nw = scales
+        f_bucket = self._budget_bucket(int(lengths.max()))
+        compiled = self._mark("fused", (ids.shape[0], ids.shape[1], f_bucket))
+        enc = self._encode(ids, lengths, ls, nw, seed)
+        audio, y_len = self._decode(enc, f_bucket, ns, seed)
+        return (audio, y_len, enc.y_total), f_bucket, compiled
+
+    def _run_split(self, ids, lengths, b: int, scales, seed, dp_noise=None, main_noise=None):
+        """Encode, the one host read (the frame counts pick the decode
+        bucket), decode. Returns (audio on the device, y_len of the b real
+        rows, f_bucket, compiled, the host clock after the read)."""
+        ns, ls, nw = scales
+        rows, p_bucket = ids.shape
+        compiled = self._mark("enc_inj" if dp_noise is not None else "enc_key", (rows, p_bucket))
+        enc = self._encode(ids, lengths, ls, nw, seed, dp_noise)
+        y_lengths = enc.y_total.cpu().numpy().astype(np.int64)
+        t_encode = time.perf_counter()
+        # Degenerate durations (extreme length_scale) clamp to the largest
+        # bucket and truncate the tail rather than failing the request.
+        f_bucket = self._frame_bucket_or_clamp(int(y_lengths[:b].max()))
+        src = None
+        if main_noise is not None:
+            src = np.asarray(main_noise, np.float32).reshape(b, self.hparams.inter_channels, -1)
+            f_bucket = self._frame_bucket(max(int(y_lengths.max()), src.shape[-1]))
+        compiled |= self._mark("dec_inj" if src is not None else "dec_key", (rows, f_bucket))
+        audio, _ = self._decode(enc, f_bucket, ns, seed, src)
+        return audio, np.clip(y_lengths, 1, f_bucket)[:b], f_bucket, compiled, t_encode
+
+    # -- blocking synthesis ----------------------------------------------------
 
     def synthesize(
         self,
@@ -212,77 +425,234 @@ class PiperRuntime:
         (the only kind the port loads); `speaker_mix` raises until
         multi-speaker voices are ported. `dp_noise` (2, P') and `main_noise`
         (C, F') inject the noise tensors (zero-padded to the buckets) in
-        place of the seeded draws."""
-        if speaker_mix is not None:
-            if speaker_id is not None:
-                raise ValueError("pass speaker_id OR speaker_mix, not both")
-            raise NotImplementedError("speaker_mix is not ported yet: it comes with "
-                                      "multi-speaker voices (ROADMAP §1 item 5)")
+        place of the seeded draws; they run in split mode."""
+        audios, timings = self._synthesize_batch_impl(
+            [list(phoneme_ids)],
+            noise_scale=noise_scale,
+            length_scale=length_scale,
+            noise_w=noise_w,
+            speaker_ids=[speaker_id] if speaker_id is not None else None,
+            seed=seed,
+            dp_noise=dp_noise,
+            main_noise=main_noise,
+            speaker_mixes=[speaker_mix] if speaker_mix is not None else None,
+        )
+        self.last_run_timings = timings
+        return audios[0]
+
+    def synthesize_batch(
+        self,
+        phoneme_ids_batch: Sequence[Sequence[int]],
+        noise_scale: Optional[float] = None,
+        length_scale: Optional[float] = None,
+        noise_w: Optional[float] = None,
+        speaker_ids: Optional[Sequence[int]] = None,
+        seed: Optional[int] = None,
+        speaker_mixes: Optional[Sequence[dict]] = None,
+    ) -> List[np.ndarray]:
+        """Batched multi-utterance synthesis (pads to a common bucket and the
+        rows to the batch ladder); one PCM array per utterance, exact
+        lengths. The parameters are the JAX package's, in its order."""
+        audios, timings = self._synthesize_batch_impl(
+            [list(x) for x in phoneme_ids_batch],
+            noise_scale=noise_scale,
+            length_scale=length_scale,
+            noise_w=noise_w,
+            speaker_ids=list(speaker_ids) if speaker_ids is not None else None,
+            seed=seed,
+            speaker_mixes=list(speaker_mixes) if speaker_mixes is not None else None,
+        )
+        self.last_run_timings = timings
+        return audios
+
+    def _synthesize_batch_impl(
+        self,
+        ids_batch: List[List[int]],
+        *,
+        noise_scale,
+        length_scale,
+        noise_w,
+        speaker_ids,
+        seed=None,
+        dp_noise: Optional[np.ndarray] = None,
+        main_noise: Optional[np.ndarray] = None,
+        speaker_mixes=None,
+    ) -> Tuple[List[np.ndarray], RunTimings]:
+        _check_speakers(speaker_ids, speaker_mixes)
+        with self._device_work():
+            return self._synthesize_batch_locked(
+                ids_batch, noise_scale=noise_scale, length_scale=length_scale,
+                noise_w=noise_w, seed=seed, dp_noise=dp_noise, main_noise=main_noise)
+
+    def _synthesize_batch_locked(
+        self,
+        ids_batch: List[List[int]],
+        *,
+        noise_scale,
+        length_scale,
+        noise_w,
+        seed=None,
+        dp_noise: Optional[np.ndarray] = None,
+        main_noise: Optional[np.ndarray] = None,
+    ) -> Tuple[List[np.ndarray], RunTimings]:
         t_start = time.perf_counter()
-        hp = self.hparams
-        ids = list(phoneme_ids)
-        if not ids:
-            raise ValueError("empty phoneme sequence")
-        bad = [i for i in ids if not 0 <= i < hp.n_vocab]
-        if bad:
-            raise ValueError(f"phoneme id(s) {bad[:5]} out of range [0, {hp.n_vocab}) — "
-                             f"check the voice's phoneme_id_map")
-        ns, ls, nw = self._scales(noise_scale, length_scale, noise_w)
+        b = len(ids_batch)
+        # Injected-noise calls provide exactly b rows of noise: no batch
+        # padding there (they are test and bisection paths, not serving).
+        injected = dp_noise is not None or main_noise is not None
+        lengths, p_bucket, ids = self._validate_and_pad(ids_batch, pad_batch=not injected)
+        scales = self._scales(noise_scale, length_scale, noise_w)
         base_seed = self.options.seed if seed is None else seed
-        p_bucket = bucket_for(len(ids), self.options.phoneme_buckets, "phoneme")
-        dev = self.device
 
-        opts = self.options
-        with torch.inference_mode(), tier_scope(opts.precision, dev):
-            ids_t = torch.from_numpy(pad_to(np.asarray(ids, np.int64), p_bucket)[None]).to(dev)
-            lengths_t = torch.tensor([len(ids)], dtype=torch.int64, device=dev)
-            if dp_noise is not None:
-                src = np.asarray(dp_noise, np.float32).reshape(1, 2, -1)
-                dpn = np.zeros((1, 2, p_bucket), np.float32)
-                dpn[:, :, : src.shape[-1]] = src
-                dpn_t = torch.from_numpy(dpn).to(dev)
-            else:
-                dpn_t = seeded_noise(base_seed, 0, (2, p_bucket), 1, dev)
-            enc = vits.encode(self.params, hp, ids_t, lengths_t, dpn_t,
-                              length_scale=ls, noise_w=nw)
-            # The one host read between the phases: the frame count picks
-            # the decode bucket.
-            y_total = int(enc.y_total.max().item())
-            t_encode = time.perf_counter()
+        # Fused mode serves single-utterance latency; batches want the exact
+        # split-chosen frame bucket (the budget would waste decode work on
+        # every row).
+        use_fused = self.options.mode == "fused" and b == 1 and not injected
+        compiled = False
+        if use_fused:
+            outs, f_bucket, compiled = self._run_fused(ids, lengths, scales, base_seed)
+            audio, y_len, y_total = _HostCopy(outs).wait()
+            t_encode = t_end = time.perf_counter()
+            use_fused = int(y_total.max()) <= f_bucket  # else redo exactly, split
+        if not use_fused:
+            audio_d, y_len, f_bucket, split_compiled, t_encode = self._run_split(
+                ids, lengths, b, scales, base_seed, dp_noise, main_noise)
+            compiled |= split_compiled
+            (audio,) = _HostCopy((audio_d,)).wait()
+            t_end = time.perf_counter()
 
-            if main_noise is not None:
-                src = np.asarray(main_noise, np.float32).reshape(1, hp.inter_channels, -1)
-                try:
-                    f_bucket = bucket_for(max(1, y_total, src.shape[-1]),
-                                          self.options.frame_buckets, "frame")
-                except BucketOverflowError:
-                    f_bucket = self.options.frame_buckets[-1]
-                    src = src[:, :, :f_bucket]
-                mn = np.zeros((1, hp.inter_channels, f_bucket), np.float32)
-                mn[:, :, : src.shape[-1]] = src
-                mn_t = torch.from_numpy(mn).to(dev)
-            else:
-                f_bucket = self._frame_bucket(y_total)
-                mn_t = seeded_noise(base_seed, 1, (hp.inter_channels, f_bucket), 1, dev)
-            audio, _ = vits.decode(self.params, hp, enc, mn_t, max_frames=f_bucket,
-                                   noise_scale=ns, vocoder_precision=opts.vocoder_precision,
-                                   flow_precision=opts.flow_precision)
-            if self.options.output_dtype == "int16":
-                audio = (torch.clamp(audio, -1.0, 1.0) * 32767.0).to(torch.int16)
-            audio = audio.cpu().numpy()
-        t_end = time.perf_counter()
-
-        y_len = min(max(y_total, 1), f_bucket)
-        out = audio[0, : y_len * hp.hop_length]
+        hop = self.hparams.hop_length
+        out = [audio[i, : int(y_len[i]) * hop].copy() for i in range(b)]
+        total_samples = sum(len(a) for a in out)
         wall = t_end - t_start
-        self.last_run_timings = RunTimings(
+        timings = RunTimings(
             wall_ms=wall * 1e3,
             encode_ms=(t_encode - t_start) * 1e3,
             decode_ms=(t_end - t_encode) * 1e3,
             phoneme_bucket=p_bucket,
             frame_bucket=f_bucket,
-            frames=y_len,
-            samples=len(out),
-            rtf=(len(out) / self.sample_rate) / wall if wall > 0 else 0.0,
+            frames=int(np.sum(y_len[:b])),
+            samples=total_samples,
+            compiled=compiled,
+            compile_count=len(self._compiled_keys),
+            rtf=(total_samples / self.sample_rate) / wall if wall > 0 else 0.0,
         )
-        return out
+        return out, timings
+
+    def _durations(self, ids_batch: Sequence[Sequence[int]], seed: Optional[int] = None,
+                   dp_noise: Optional[np.ndarray] = None):
+        """(w, w_ceil) of the real rows, (b, P) each: the frame durations
+        before and after their ceil, as a synthesis with the same ids, seed
+        or injected dp_noise (b, 2, P') computes them (rows padded to the
+        ladder unless the noise is injected). For parity checks: how close
+        a duration lies to an integer says whether a ceil could flip."""
+        ids_batch = [list(x) for x in ids_batch]
+        lengths, _, ids = self._validate_and_pad(ids_batch, pad_batch=dp_noise is None)
+        _, ls, nw = self._scales(None, None, None)
+        with self._device_work():
+            enc = self._encode(ids, lengths, ls, nw,
+                               self.options.seed if seed is None else seed, dp_noise)
+            b = len(ids_batch)
+            return enc.w[:b].cpu().numpy(), enc.w_ceil[:b].cpu().numpy()
+
+    # -- dispatch / fetch ------------------------------------------------------
+
+    def dispatch_fused(
+        self,
+        phoneme_ids: Sequence[int],
+        noise_scale: Optional[float] = None,
+        length_scale: Optional[float] = None,
+        noise_w: Optional[float] = None,
+        speaker_id: Optional[int] = None,
+        seed: Optional[int] = None,
+        speaker_mix: Optional[dict] = None,
+    ):
+        """Queue one fused synthesis and its copy to the host without a
+        host read; returns ((audio, y_len, y_total) on the device, meta) for
+        `fetch_fused`. The building block of the serving pipeline."""
+        _check_speakers([speaker_id] if speaker_id is not None else None,
+                        [speaker_mix] if speaker_mix is not None else None)
+        ids = list(phoneme_ids)
+        lengths, _, ids_np = self._validate_and_pad([ids])
+        scales = self._scales(noise_scale, length_scale, noise_w)
+        base_seed = self.options.seed if seed is None else seed
+        with self._device_work():
+            outs, f_bucket, _ = self._run_fused(ids_np, lengths, scales, base_seed)
+            copy = _HostCopy(outs)
+        meta = {"ids": ids, "f_bucket": f_bucket, "scales": scales, "speaker_id": speaker_id,
+                "seed": seed, "copy": copy}
+        return outs, meta
+
+    def fetch_fused(self, outs, meta) -> np.ndarray:
+        """Complete a dispatch_fused: wait for its one copy of (audio, y_len,
+        y_total) (meta's copy holds `outs` until then); when the durations
+        overflowed the frame budget, redo the utterance with a blocking
+        split-mode synthesis."""
+        audio, y_len, y_total = meta["copy"].wait()
+        if int(y_total.max()) > meta["f_bucket"]:
+            ns, ls, nw = meta["scales"]
+            return self.synthesize(meta["ids"], noise_scale=ns, length_scale=ls, noise_w=nw,
+                                   speaker_id=meta["speaker_id"], seed=meta["seed"])
+        return audio[0, : int(y_len[0]) * self.hparams.hop_length].copy()
+
+    def dispatch_batch(
+        self,
+        phoneme_ids_batch: Sequence[Sequence[int]],
+        noise_scale: Optional[float] = None,
+        length_scale: Optional[float] = None,
+        noise_w: Optional[float] = None,
+        speaker_ids: Optional[Sequence[int]] = None,
+        seed: Optional[int] = None,
+        fused: Optional[bool] = None,
+        pad_rows_to: Optional[int] = None,
+        budget_frames: Optional[int] = None,
+        overflow_budget_frames: Optional[int] = None,
+        overflow_pad_rows: Optional[int] = None,
+        speaker_mixes: Optional[Sequence[dict]] = None,
+    ):
+        """Queue a batched synthesis without waiting for the audio.
+
+        The split path: encode, read only the frame counts (they pick the
+        decode bucket; the read waits for the work queued before it), queue
+        the decode and the audio's copy to pinned host memory, and return
+        (device audio, meta) for `fetch_batch`. The copy is queued here,
+        right behind its decode: on one stream a copy queued at fetch time
+        would wait for the next batch's decode too.
+
+        A 1-row batch on a fused-mode runtime with `fused=None` delegates to
+        dispatch_fused, so its audio equals synthesize_batch's (which takes
+        the fused path for one row). `fused=True` and its `pad_rows_to`,
+        `budget_frames` and `overflow_*` arguments are the batcher's
+        whole-group fused path: they raise until the serving layers are
+        ported (ROADMAP §1 item 8)."""
+        if fused or any(v is not None for v in (pad_rows_to, budget_frames,
+                                                overflow_budget_frames, overflow_pad_rows)):
+            raise NotImplementedError(
+                "the whole-group fused dispatch (fused=True, pad_rows_to, budget_frames, "
+                "overflow_*) is not ported yet: it comes with the batcher (ROADMAP §1 item 8)")
+        ids_batch = [list(x) for x in phoneme_ids_batch]
+        b = len(ids_batch)
+        if b == 1 and self.options.mode == "fused" and fused is None:
+            outs, meta = self.dispatch_fused(
+                ids_batch[0], noise_scale=noise_scale, length_scale=length_scale,
+                noise_w=noise_w, speaker_id=speaker_ids[0] if speaker_ids else None, seed=seed,
+                speaker_mix=speaker_mixes[0] if speaker_mixes else None)
+            meta["fused1"] = True
+            return outs, meta
+        _check_speakers(speaker_ids, speaker_mixes)
+        lengths, _, ids = self._validate_and_pad(ids_batch)
+        scales = self._scales(noise_scale, length_scale, noise_w)
+        base_seed = self.options.seed if seed is None else seed
+        with self._device_work():
+            audio, y_len, f_bucket, _, _ = self._run_split(ids, lengths, b, scales, base_seed)
+            copy = _HostCopy((audio,))
+        return audio, {"y_len": y_len, "f_bucket": f_bucket, "b": b, "copy": copy}
+
+    def fetch_batch(self, outs, meta) -> List[np.ndarray]:
+        """Complete a dispatch_batch: wait for the audio's copy (meta's copy
+        holds `outs` until then) and slice each row to its exact length."""
+        if meta.get("fused1"):
+            return [self.fetch_fused(outs, meta)]
+        (audio,) = meta["copy"].wait()
+        y_len, hop = meta["y_len"], self.hparams.hop_length
+        return [audio[i, : int(y_len[i]) * hop].copy() for i in range(meta["b"])]

@@ -30,6 +30,7 @@ class EncodeResult:
     m_p: torch.Tensor        # (B, C, P) prior mean
     logs_p: torch.Tensor     # (B, C, P) prior log-std
     x_mask: torch.Tensor     # (B, 1, P)
+    w: torch.Tensor          # (B, P) frame durations before their ceil
     w_ceil: torch.Tensor     # (B, P) integer-valued frame durations
     y_total: torch.Tensor    # (B,) total frame counts (sum of w_ceil)
     g: Optional[torch.Tensor]  # (B, gin, 1) speaker embedding; None (single speaker)
@@ -55,9 +56,9 @@ def encode(
     x, m_p, logs_p, x_mask = text_encoder(phoneme_ids, lengths, params, hp)
     logw = stochastic_duration_predictor_reverse(
         x, x_mask, dp_noise.to(x.dtype), params, hp, noise_scale=noise_w)
-    w = torch.exp(logw) * x_mask * length_scale
-    w_ceil = torch.ceil(w)[:, 0]  # (B, P)
-    return EncodeResult(m_p=m_p, logs_p=logs_p, x_mask=x_mask, w_ceil=w_ceil,
+    w = (torch.exp(logw) * x_mask * length_scale)[:, 0]  # (B, P)
+    w_ceil = torch.ceil(w)
+    return EncodeResult(m_p=m_p, logs_p=logs_p, x_mask=x_mask, w=w, w_ceil=w_ceil,
                         y_total=w_ceil.sum(dim=-1), g=None)
 
 

@@ -54,37 +54,22 @@ def _parser() -> argparse.ArgumentParser:
     return ap
 
 
-def profile_utterance(torch, rt, ids: Sequence[int], symbol: str, counters: Sequence[Callable],
-                      reps: int, attempts: int = 3) -> dict:
+def profile_utterance(rt, ids: Sequence[int], symbol: str, counters: Sequence[Callable],
+                      reps: int) -> dict:
     """The median wall of `reps` unprofiled rt.synthesize(ids), then one
-    under torch.profiler: its device kernels and their summed device time
-    (device busy), and the kernels whose symbol holds `symbol`: their time
-    and count. The count must equal the launches the wrappers `counters`
-    (each with a `.launches`) saw during the profiled call, or the call is
-    profiled again, `attempts` times in all, and then this raises."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from piper_tpu_torch.tools.timing import device_kernels
+    under torch.profiler (`tools/timing.py::profile_call`): its device
+    kernels and their summed device time (device busy), and the kernels
+    whose symbol holds `symbol`, their time and count, checked against the
+    launches the wrappers `counters` saw."""
+    from piper_tpu_torch.tools.timing import profile_call
 
     walls = []
     for _ in range(reps):
         rt.synthesize(ids)
         walls.append(rt.last_run_timings.wall_ms)
     wall = statistics.median(walls)
-    for _ in range(attempts):
-        before = sum(fn.launches for fn in counters)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            rt.synthesize(ids)
-            torch.cuda.synchronize()
-        want = sum(fn.launches for fn in counters) - before
-        events = prof.key_averages()
-        count, us = device_kernels(events)
-        k_count, k_us = device_kernels(events, symbol)
-        if k_count == want > 0:
-            return {"device_kernels": count, "device_busy_ms": us / 1e3, "kernel_symbol": symbol,
-                    "kernel_ms": k_us / 1e3, "kernel_launches": k_count,
-                    "ms_per_utterance": wall, "busy_share": us / 1e3 / wall}
-    raise AssertionError(f"profile: {k_count} {symbol} kernels in the window, {want} launched")
+    row = profile_call(lambda: rt.synthesize(ids), symbol, counters)
+    return {**row, "ms_per_utterance": wall, "busy_share": row["device_busy_ms"] / wall}
 
 
 def _utterances(torch, reps: int) -> List[dict]:
@@ -106,7 +91,7 @@ def _utterances(torch, reps: int) -> List[dict]:
             ids = FIXTURE_PHONEME_IDS * f
             rt.synthesize(ids)  # first call per shape: cuDNN heuristics, allocator
             row = {"path": name, "factor": f,
-                   **profile_utterance(torch, rt, ids, "conv1d_same", [K1.conv1d_same], reps)}
+                   **profile_utterance(rt, ids, "conv1d_same", [K1.conv1d_same], reps)}
             print(json.dumps(row), flush=True)
             rows.append(row)
     return rows

@@ -4,7 +4,7 @@ time under torch.profiler, and the least time the card could take."""
 from __future__ import annotations
 
 import statistics
-from typing import Callable, Iterable, Optional, Tuple
+from typing import Callable, Iterable, Optional, Sequence, Tuple
 
 # One H100 SXM's published peaks (NVIDIA's data sheet; dense, at its 700 W
 # limit): HBM3 bytes/s, and FLOP/s by the type the products run in.
@@ -92,3 +92,28 @@ def device_ms(fn: Callable, reps: int = 10, name: Optional[str] = None,
                            f"calls, counted {seen} in {_PROFILE_ATTEMPTS} windows")
     raise RuntimeError(f"torch.profiler recorded no device time of {what} in "
                        f"{_PROFILE_ATTEMPTS} windows")
+
+
+def profile_call(fn: Callable, symbol: str, counters: Sequence[Callable],
+                 attempts: int = _PROFILE_ATTEMPTS) -> dict:
+    """fn() once under torch.profiler: its device kernels and their summed
+    device time (device busy), and the kernels whose symbol holds `symbol`:
+    their time and count. The count must equal the launches the wrappers
+    `counters` (each with a `.launches`) saw during the call, or the call
+    is profiled again, `attempts` times in all, and then this raises."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(attempts):
+        before = sum(fn.launches for fn in counters)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        want = sum(fn.launches for fn in counters) - before
+        events = prof.key_averages()
+        count, us = device_kernels(events)
+        k_count, k_us = device_kernels(events, symbol)
+        if k_count == want > 0:
+            return {"device_kernels": count, "device_busy_ms": us / 1e3, "kernel_symbol": symbol,
+                    "kernel_ms": k_us / 1e3, "kernel_launches": k_count}
+    raise AssertionError(f"profile: {k_count} {symbol} kernels in the window, {want} launched")

@@ -416,3 +416,68 @@ def test_polyphase_conv_transpose_matches_pytorch(cuda, stride, k, padding, outp
     assert K5.interleave.launches == before + (stride > 1)
     assert got.shape == want.shape
     assert _max_err(got, want) <= ATOL
+
+
+@pytest.fixture(scope="module")
+def card_voices(tmp_path_factory):
+    """Full-width synthetic medium and x_low voices (seed 0); written only
+    where there is a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from piper_tpu_torch.models.vits.synthetic import make_synthetic_voice
+
+    root = tmp_path_factory.mktemp("card_voices")
+    return {q: make_synthetic_voice(root / q, quality=q, seed=0) for q in ("medium", "x_low")}
+
+
+@pytest.mark.parametrize("quality", ["medium", "x_low"])
+def test_injected_mixed_length_batch_matches_cpu(card_voices, quality):
+    """Four rows of f = 1/2/4/8 with injected noise, one batch on the card
+    against the same batch on the CPU: w_ceil equal, each row within 1e-4.
+    The vocoder kernels run their per-row bounds at B=4."""
+    import numpy as np
+
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.engine.runtime import PiperRuntime
+
+    rows = [FIXTURE_PHONEME_IDS * f for f in (1, 2, 4, 8)]
+    card = PiperRuntime(*card_voices[quality], device="cuda")
+    cpu = PiperRuntime(*card_voices[quality], device="cpu")
+    rng = np.random.default_rng(3)
+    dp = rng.standard_normal((4, 2, len(rows[-1]))).astype(np.float32)
+    mn = rng.standard_normal((4, card.hparams.inter_channels, 64)).astype(np.float32)
+    kw = dict(noise_scale=None, length_scale=None, noise_w=None, speaker_ids=None,
+              dp_noise=dp, main_noise=mn)
+    counters = [R.resblock1_branch, R.resblock1_mrf, K1.conv1d_same]
+    before = sum(fn.launches for fn in counters)
+    got, _ = card._synthesize_batch_impl(rows, **kw)
+    assert sum(fn.launches for fn in counters) > before
+    want, _ = cpu._synthesize_batch_impl(rows, **kw)
+    np.testing.assert_array_equal(card._durations(rows, dp_noise=dp)[1],
+                                  cpu._durations(rows, dp_noise=dp)[1])
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, atol=ATOL, rtol=0)
+
+
+def test_pipeline_on_the_card_matches_synthesize(card_voices):
+    """submit_batch equals synthesize_batch, and submit equals a fused
+    synthesize, on the card (the same work, queued the same way)."""
+    import numpy as np
+
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.engine.pipeline import ServingPipeline
+    from piper_tpu_torch.engine.runtime import PiperRuntime, RuntimeOptions
+
+    rt = PiperRuntime(*card_voices["medium"], RuntimeOptions(mode="fused"), device="cuda")
+    batch = [FIXTURE_PHONEME_IDS * f for f in (8, 1, 2)]
+    ref = [rt.synthesize_batch(batch, seed=s) for s in range(3)]
+    single = rt.synthesize(FIXTURE_PHONEME_IDS, seed=5)
+    with ServingPipeline(rt) as pipe:
+        futs = [pipe.submit_batch(batch, seed=s) for s in range(3)]
+        one = pipe.submit(FIXTURE_PHONEME_IDS, seed=5).result(timeout=300)
+        got = [f.result(timeout=300) for f in futs]
+    np.testing.assert_array_equal(one, single)
+    for res, want in zip(got, ref):
+        for g, w in zip(res, want):
+            np.testing.assert_array_equal(g, w)

@@ -182,7 +182,7 @@ def test_seeded_noise_is_row_invariant():
     ("precision", "float16", "the tiers are"),
     ("vocoder_precision", ("high", None, "high"), "3 per-level entries but this voice has 2"),
     ("flow_precision", "tensorfloat32", "flow_precision 'tensorfloat32': the tiers are"),
-    ("mode", "fused", "later change"),
+    ("mode", "pipelined", "the modes are"),
     ("output_dtype", "float16", "int16"),
 ])
 def test_unported_options_raise(tiny_voice, field, value, match):
@@ -311,6 +311,12 @@ def test_port_never_imports_jax(tiny_voice):
         f"rt = PiperRuntime({str(tiny_voice[0])!r}, {str(tiny_voice[1])!r}, device='cpu')\n"
         f"pcm = rt.synthesize({IDS!r})\n"
         "assert len(pcm) > 0\n"
+        "import piper_tpu_torch.bench, piper_tpu_torch.golden\n"
+        "from piper_tpu_torch.engine.pipeline import ServingPipeline\n"
+        f"batch = rt.synthesize_batch([{IDS!r}, {IDS[:8]!r}])\n"
+        "assert len(batch) == 2 and all(len(a) > 0 for a in batch)\n"
+        "with ServingPipeline(rt) as pipe:\n"
+        f"    assert len(pipe.submit_batch([{IDS!r}]).result()[0]) > 0\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'piper_tpu'))\n"
         "assert not bad, f'imported {bad}'\n"
         "print('ok')\n"
