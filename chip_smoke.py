@@ -33,7 +33,14 @@ paths give it, and drives the main paths, counting each kernel's launches:
   equal to its fused synthesize;
 - the five-level high voice (K3 at 16 channels), fp32 and mixed, held
   against the port on the CPU and against each other;
-- the port's bench, `piper_tpu_torch.bench.main(["--quick"])`.
+- the bench's 904-speaker medium voice (gin 512), fp32 and mixed:
+  utterances of speaker ids and mixes, the committed speaker goldens (id
+  903, mix {0: 0.6, 903: 0.4}), the card against the CPU, one-hot mixes
+  bit-equal to their ids, a B=32 batch of mixed speaker ids against its
+  rows run one by one, and forced durations: the predicted plan forced
+  against synthesize, and synthesize_batch_forced against its solo runs;
+- the port's bench, `piper_tpu_torch.bench.main(["--quick"])`, its
+  multispeaker row (8 speakers) included.
 
 Beside the paths, a profile phase puts one utterance of each voice (fp32
 and mixed, factors 1 and 8) under torch.profiler: its device kernels, their
@@ -65,9 +72,12 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 # The paths that run the ResBlock1 kernels (K2, K3) and conv1d_same (K1).
+# The multi-speaker voice's paths (the medium vocoder: K2, K3).
+MS_PATHS = tuple(f"medium_ms{suffix}{part}" for suffix in ("", "_mixed")
+                 for part in ("", "_golden", "_batch", "_forced"))
 RESBLOCK1_PATHS = ("medium", "medium_mixed", "medium_golden", "medium_mixed_golden",
                    "medium_batch", "medium_mixed_batch", "pipeline", "high", "high_mixed",
-                   "bench")
+                   "bench") + MS_PATHS
 CONV1D_PATHS = ("x_low", "x_low_mixed", "x_low_golden", "x_low_mixed_golden", "x_low_batch",
                 "x_low_mixed_batch")
 # kernel -> (its source, the TPU kernel it replaces, the paths that run it)
@@ -131,6 +141,13 @@ REPS = 10
 SERVING_BATCH = 32  # the JAX bench's serving batch of f=8 utterances
 # x_low's ResBlock2 convs, (kernel, dilation), one per conv of the three branches.
 X_LOW_CONVS = ((3, 1), (3, 2), (5, 2), (5, 6), (7, 3), (7, 12))
+# The bench's multi-speaker voice, and the speakers its paths run: ids at
+# both ends and inside the table, and a blend.
+MS_SPEAKERS = 904
+MS_GIN = 512
+MS_RUNS = ({"speaker_id": 0}, {"speaker_id": 451}, {"speaker_id": 903},
+           {"speaker_mix": {0: 0.6, 903: 0.4}}, {"speaker_mix": {17: 1.2, 400: -0.2}})
+FORCED_ATOL = 1e-5  # the forced predicted plan against synthesize, fp32
 # The medium voice's upsample levels: rate (the interleave's r), kernel,
 # output channels.
 MEDIUM_UPSAMPLE = ((8, 16, 256), (8, 16, 128), (2, 4, 64), (2, 4, 32))
@@ -466,10 +483,13 @@ def _require_per_call(path: str, launches: dict, calls: int) -> None:
                                  f"expected {n} each")
 
 
-def phase_main_path(torch, path: str, model, config, options=None, factors=FACTORS) -> tuple:
-    """A main path: synthesize() on the card for one voice and options.
-    Every launch count is set to 0 just before the timed run and read just
-    after; each kernel of this path must have launched."""
+def phase_main_path(torch, path: str, model, config, options=None, factors=FACTORS,
+                    runs=({},), reps=REPS) -> tuple:
+    """A main path: synthesize() on the card for one voice and options, at
+    each factor, once per speaker keyword set of `runs` (speaker_id or
+    speaker_mix; {} for none). Every launch count is set to 0 just before
+    the timed run and read just after; each kernel of this path must have
+    launched."""
     from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
     from piper_tpu_torch.engine.runtime import PiperRuntime
 
@@ -477,36 +497,43 @@ def phase_main_path(torch, path: str, model, config, options=None, factors=FACTO
     rt = PiperRuntime(model, config, options, device="cuda")
     load_s = time.perf_counter() - t0
     for f in factors:  # first call per shape: cuDNN heuristics, allocator
-        rt.synthesize(FIXTURE_PHONEME_IDS * f)
+        for spk in runs:
+            rt.synthesize(FIXTURE_PHONEME_IDS * f, **spk)
 
     counters = _zero_counts()
     rows = []
     for f in factors:
         ids = FIXTURE_PHONEME_IDS * f
-        walls, timings = [], []
-        for _ in range(REPS):
-            pcm = rt.synthesize(ids)
-            t = rt.last_run_timings
-            walls.append(t.wall_ms)
-            timings.append(t)
-            if pcm.dtype.name != "float32" or len(pcm) != t.frames * rt.hparams.hop_length:
-                raise AssertionError(f"{path} f={f}: {pcm.dtype} length {len(pcm)} != "
-                                     f"{t.frames} frames * {rt.hparams.hop_length}")
-            if not np.isfinite(pcm).all() or not 0 < float(np.abs(pcm).max()) <= 1.0:
-                raise AssertionError(f"{path} f={f}: output not finite / not in (0, 1]")
-        t = timings[-1]
-        rows.append({"factor": f, "phonemes": len(ids), "ms_median": statistics.median(walls),
-                     "ms_all": walls, "encode_ms": t.encode_ms, "decode_ms": t.decode_ms,
-                     "frames": t.frames, "frame_bucket": t.frame_bucket,
-                     "audio_s": t.samples / rt.sample_rate, "rtf": t.rtf})
+        for spk in runs:
+            walls, timings = [], []
+            for _ in range(reps):
+                pcm = rt.synthesize(ids, **spk)
+                t = rt.last_run_timings
+                walls.append(t.wall_ms)
+                timings.append(t)
+                if pcm.dtype.name != "float32" or len(pcm) != t.frames * rt.hparams.hop_length:
+                    raise AssertionError(f"{path} f={f} {spk}: {pcm.dtype} length {len(pcm)} "
+                                         f"!= {t.frames} frames * {rt.hparams.hop_length}")
+                if not np.isfinite(pcm).all() or not 0 < float(np.abs(pcm).max()) <= 1.0:
+                    raise AssertionError(f"{path} f={f} {spk}: output not finite / not in "
+                                         f"(0, 1]")
+            t = timings[-1]
+            rows.append({"factor": f, **{k: str(v) for k, v in spk.items()},
+                         "phonemes": len(ids), "ms_median": statistics.median(walls),
+                         "ms_all": walls, "encode_ms": t.encode_ms, "decode_ms": t.decode_ms,
+                         "frames": t.frames, "frame_bucket": t.frame_bucket,
+                         "audio_s": t.samples / rt.sample_rate, "rtf": t.rtf})
     launches = _require_launches(path, counters)
-    utterances = len(factors) * REPS
+    utterances = len(factors) * len(runs) * reps
     _require_per_call(path, launches, utterances)
-    o = rt.options
-    emit(phase="main_path", path=path, voice=f"synthetic {rt.config.audio.quality}, seed 0",
+    o, hp = rt.options, rt.hparams
+    voice = f"synthetic {rt.config.audio.quality}, seed 0"
+    if hp.n_speakers > 1:
+        voice += f", {hp.n_speakers} speakers, gin {hp.gin_channels}"
+    emit(phase="main_path", path=path, voice=voice,
          precision=o.precision, vocoder_precision=o.vocoder_precision,
          flow_precision=o.flow_precision, load_s=load_s, sample_rate=rt.sample_rate,
-         hop=rt.hparams.hop_length, rows=rows, utterances=utterances, launches=launches)
+         hop=hp.hop_length, rows=rows, utterances=utterances, launches=launches)
     return rt, launches
 
 
@@ -516,27 +543,35 @@ def _injected_noise(hp, n_ids: int):
             rng.standard_normal((hp.inter_channels, 64)).astype(np.float32))
 
 
-def phase_compare(torch, path: str, rt, other, atol: float, against: str) -> None:
-    """f=1 with the same injected noise: runtime rt against `other` (the
-    port on the CPU, or another configuration on the card); w_ceil equal
-    and the waveform within atol."""
+def _speaker_lists(spk: dict) -> dict:
+    """synthesize()'s speaker keyword as the batch keywords of one row."""
+    return {"speaker_ids": [spk["speaker_id"]] if "speaker_id" in spk else None,
+            "speaker_mixes": [spk["speaker_mix"]] if "speaker_mix" in spk else None}
+
+
+def phase_compare(torch, path: str, rt, other, atol: float, against: str, **spk) -> None:
+    """f=1 with the same injected noise and speaker (`spk`: speaker_id or
+    speaker_mix): runtime rt against `other` (the port on the CPU, or
+    another configuration on the card); w_ceil equal and the waveform
+    within atol."""
     from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
 
     ids = FIXTURE_PHONEME_IDS
     dp_noise, main_noise = _injected_noise(rt.hparams, len(ids))
-    wc = rt._durations([ids], dp_noise=dp_noise[None])[1]
-    wc_other = other._durations([ids], dp_noise=dp_noise[None])[1]
+    wc = rt._durations([ids], dp_noise=dp_noise[None], **_speaker_lists(spk))[1]
+    wc_other = other._durations([ids], dp_noise=dp_noise[None], **_speaker_lists(spk))[1]
     if not np.array_equal(wc, wc_other):
         raise AssertionError(f"{path}: w_ceil differs: {wc} vs {against} {wc_other}")
-    a = rt.synthesize(ids, dp_noise=dp_noise, main_noise=main_noise)
-    b = other.synthesize(ids, dp_noise=dp_noise, main_noise=main_noise)
+    a = rt.synthesize(ids, dp_noise=dp_noise, main_noise=main_noise, **spk)
+    b = other.synthesize(ids, dp_noise=dp_noise, main_noise=main_noise, **spk)
     if a.shape != b.shape:
         raise AssertionError(f"{path}: lengths differ: {a.shape} vs {against} {b.shape}")
     err = float(np.abs(a - b).max())
     if not err <= atol:
         raise AssertionError(f"{path}: waveform vs {against} max-abs {err} > {atol}")
     emit(phase="compare", path=path, against=against, factor=1, w_ceil_equal=True,
-         frames=int(wc.sum()), samples=int(a.shape[0]), max_abs_err=err, atol=atol)
+         frames=int(wc.sum()), samples=int(a.shape[0]), max_abs_err=err, atol=atol,
+         **{k: str(v) for k, v in spk.items()})
 
 
 def phase_profile(torch, runtimes: dict) -> None:
@@ -560,14 +595,17 @@ def phase_profile(torch, runtimes: dict) -> None:
                  vocoder_precision=rt.options.vocoder_precision)
 
 
-def phase_golden(path: str, rt) -> dict:
+def phase_golden(path: str, rt, speakers: bool = False) -> dict:
     """rt on the card against the committed JAX goldens of its voice, f=1
-    and 8: w_ceil equal, the waveform within 1e-4 at fp32, 1e-3 mixed."""
+    and 8 (with `speakers`, the multi-speaker voice's speaker goldens):
+    w_ceil equal, the waveform within 1e-4 at fp32, 1e-3 mixed."""
     from piper_tpu_torch import golden
 
     quality = _voice(path)
+    keys = (golden.SPEAKER_GOLDENS if speakers else
+            [(quality, f, None) for f in golden.factors(quality)])
     counters = _zero_counts()
-    rows = [golden.check(rt, quality, f) for f in golden.factors(quality)]
+    rows = [golden.check(rt, *key) for key in keys]
     launches = _require_launches(f"{path}_golden", counters)
     emit(phase="golden", path=path, rows=rows, launches=launches)
     return launches
@@ -697,6 +735,136 @@ def phase_high(torch) -> dict:
     return {name: launches[name] + mixed[name] for name in launches}
 
 
+def _ms_checks(path: str, rt, atol: float) -> dict:
+    """On one configuration of the multi-speaker voice: the speaker goldens,
+    one-hot mixes bit-equal to their ids, a B=32 batch of f=8 rows with
+    speaker ids 0, 29, 58, ... against four of its rows run alone (and a
+    4-row batch of mixes of f = 8/1/4/2 against its rows), both with
+    injected noise, and forced durations. Each part zeroes the launch
+    counts first and requires K2/K3 on its path."""
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+
+    ids, ids8 = FIXTURE_PHONEME_IDS, FIXTURE_PHONEME_IDS * 8
+    total = {}
+
+    def add(launches):
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+
+    add(phase_golden(path, rt, speakers=True))
+
+    onehot = {}
+    for k in (0, 903):
+        a = rt.synthesize(ids8, speaker_id=k, seed=3)
+        b = rt.synthesize(ids8, speaker_mix={k: 1.0}, seed=3)
+        if a.shape != b.shape or not np.array_equal(a, b):
+            raise AssertionError(f"{path}: the one-hot mix of speaker {k} differs from its id")
+        onehot[k] = len(a)
+
+    counters = _zero_counts()
+    sids = [i * 29 % MS_SPEAKERS for i in range(SERVING_BATCH)]
+    rng = np.random.default_rng(2)
+    dp = rng.standard_normal((SERVING_BATCH, 2, len(ids8))).astype(np.float32)
+    mn = rng.standard_normal((SERVING_BATCH, rt.hparams.inter_channels, 384)).astype(np.float32)
+    kw = dict(noise_scale=None, length_scale=None, noise_w=None)
+    t0 = time.perf_counter()
+    batch, _ = rt._synthesize_batch_impl([ids8] * SERVING_BATCH, dp_noise=dp, main_noise=mn,
+                                         speaker_ids=sids, **kw)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    picked = sorted({0, 1, SERVING_BATCH // 2 + 1, SERVING_BATCH - 1})
+    solo = [rt._synthesize_batch_impl([ids8], dp_noise=dp[i:i + 1], main_noise=mn[i:i + 1],
+                                      speaker_ids=[sids[i]], **kw)[0][0] for i in picked]
+    mixes = [dict(spk["speaker_mix"]) for spk in MS_RUNS if "speaker_mix" in spk]
+    mixes += [{5: 0.5, 6: 0.5}, {903: 1.0}]
+    mix_rows = [ids8, ids, ids * 4, ids * 2]
+    dp4 = dp[:4].copy()
+    for i, r in enumerate(mix_rows):
+        dp4[i, :, len(r):] = 0.0
+    mixed_batch, _ = rt._synthesize_batch_impl(mix_rows, dp_noise=dp4, main_noise=mn[:4],
+                                               speaker_ids=None, speaker_mixes=mixes, **kw)
+    mixed_solo = [rt._synthesize_batch_impl([r], dp_noise=dp4[i:i + 1, :, :len(r)],
+                                            main_noise=mn[i:i + 1], speaker_ids=None,
+                                            speaker_mixes=[mixes[i]], **kw)[0][0]
+                  for i, r in enumerate(mix_rows)]
+    add(_require_launches(f"{path}_batch", counters))
+    batch_row = {"rows": SERVING_BATCH, "speaker_ids": sids, "first_call_ms": batch_ms,
+                 "compared_rows": list(picked),
+                 "max_abs_err": _rows_close(path, "ids batch", [batch[i] for i in picked],
+                                            solo, atol),
+                 "mixes_max_abs_err": _rows_close(path, "mixes batch", mixed_batch,
+                                                  mixed_solo, atol), "atol": atol}
+    emit(phase="batch", path=path, **batch_row, onehot_bit_equal=onehot)
+
+    counters = _zero_counts()
+    forced = []
+    for spk in (MS_RUNS[2], MS_RUNS[3]):
+        durs = rt.phoneme_durations([ids8], seed=4, **_speaker_lists(spk))[0]
+        ref = rt.synthesize(ids8, seed=4, **spk)
+        got = rt.synthesize_forced(ids8, [int(d) for d in durs], seed=4, **spk)
+        if got.shape != ref.shape:
+            raise AssertionError(f"{path} forced {spk}: {got.shape} vs synthesize {ref.shape}")
+        err = float(np.abs(got - ref).max())
+        bar = FORCED_ATOL if atol == WAVE_ATOL else atol
+        if not err <= bar:
+            raise AssertionError(f"{path} forced {spk}: max-abs {err} > {bar}")
+        forced.append({**{k: str(v) for k, v in spk.items()}, "frames": int(durs.sum()),
+                       "max_abs_err": err, "atol": bar})
+    # Every plan's total in the 256-frame bucket: the seeded prior noise is
+    # drawn at the bucket's width, so a solo run shares its batch row's
+    # realization only at the batch's bucket.
+    plans = [[15] * len(ids), [40] * 6, [9, 0, 12] * 10, [2] * len(ids8)]
+    rows_f = [ids, ids[:6], (ids * 3)[:30], ids8]
+    f_sids = [903, 0, 451, 17]
+    got = rt.synthesize_batch_forced(rows_f, plans, speaker_ids=f_sids, seed=5)
+    want = [rt.synthesize_forced(r, d, speaker_id=k, seed=5)
+            for r, d, k in zip(rows_f, plans, f_sids)]
+    hop = rt.hparams.hop_length
+    if [len(a) for a in got] != [sum(d) * hop for d in plans]:
+        raise AssertionError(f"{path} forced batch: lengths {[len(a) for a in got]}")
+    batch_err = _rows_close(path, "forced batch", got, want, atol)
+    add(_require_launches(f"{path}_forced", counters))
+    emit(phase="forced", path=path, predicted_plan=forced, batch_rows=len(rows_f),
+         batch_max_abs_err=batch_err, atol=atol)
+    return total
+
+
+def phase_multispeaker(torch) -> dict:
+    """The bench's multi-speaker voice (medium, 904 speakers, gin 512) at
+    fp32 and at the mixed tiers, split mode: utterances of MS_RUNS' speaker
+    ids and mixes at f=1 and 8 (a main path each, 3 of each after a
+    warm-up), the card against the port on the CPU (fp32,
+    an id and a mix, 1e-4), the mixed run against the fp32 one (1e-3), and
+    _ms_checks on each."""
+    from piper_tpu_torch.engine.runtime import PiperRuntime, RuntimeOptions
+    from piper_tpu_torch.models.vits.synthetic import make_synthetic_voice
+
+    model, config = make_synthetic_voice(ROOT / "build" / "chip_smoke_voice_medium_ms",
+                                         quality="medium", seed=0, n_speakers=MS_SPEAKERS,
+                                         gin_channels=MS_GIN)
+    total = {}
+
+    def add(launches):
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+
+    rt, counts = phase_main_path(torch, "medium_ms", model, config, factors=(1, 8),
+                                 runs=MS_RUNS, reps=3)
+    add(counts)
+    cpu = PiperRuntime(model, config, device="cpu")
+    for spk in (MS_RUNS[2], MS_RUNS[3]):
+        phase_compare(torch, "medium_ms", rt, cpu, WAVE_ATOL, "cpu", **spk)
+    del cpu
+    add(_ms_checks("medium_ms", rt, WAVE_ATOL))
+    rt_mixed, counts = phase_main_path(torch, "medium_ms_mixed", model, config,
+                                       RuntimeOptions(**BENCH_MIX), factors=(1, 8),
+                                       runs=MS_RUNS, reps=3)
+    add(counts)
+    phase_compare(torch, "medium_ms_mixed", rt_mixed, rt, MIXED_ATOL, "card highest",
+                  **MS_RUNS[3])
+    add(_ms_checks("medium_ms_mixed", rt_mixed, MIXED_ATOL))
+    return total
+
+
 def phase_bench() -> dict:
     """The port's bench at --quick on the card (medium, the JAX bench's
     defaults: mixed tiers, fused mode, int16, B=32), its golden rows
@@ -715,7 +883,10 @@ def phase_bench() -> dict:
         raise AssertionError(f"bench: keys {sorted(result)}")
     if not all(r["ok"] for r in result["golden"]):
         raise AssertionError(f"bench: golden {result['golden']}")
-    emit(phase="bench", rtf_per_chip=result["value"], launches=launches)
+    ms = result["multispeaker"]
+    if ms is None or ms["n_speakers"] != 8 or not ms["rtf_throughput"] > 0:
+        raise AssertionError(f"bench: multispeaker {ms}")
+    emit(phase="bench", rtf_per_chip=result["value"], multispeaker=ms, launches=launches)
     return launches
 
 
@@ -830,6 +1001,7 @@ def main() -> None:
         if serving:
             count(phase_pipeline(model, config))
     count(phase_high(torch))
+    count(phase_multispeaker(torch))
     count(phase_bench())
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "piper_tpu"))

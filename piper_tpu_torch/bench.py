@@ -10,10 +10,12 @@ against the reference's published Swift/Metal 147.39 ms), the factor rows
 (the 14-id fixture phrase repeated f times), `throughput` (one batch of
 f=8 utterances, blocking), `throughput_pipelined` (the same batches through
 `ServingPipeline.submit_batch`), `batch_sweep`, `pipeline` (32 single
-utterances through `ServingPipeline.submit`) and `high` (the five-level
-`high` preset). `multispeaker`, `streaming`, `streaming_server` and
-`roofline` are null: their parts of the port are not written yet, their
-flags default to off, and turning one on raises.
+utterances through `ServingPipeline.submit`), `multispeaker` (a synthetic
+N-speaker voice, gin 512, B rows of f=8 with speaker ids 0..B-1 mod N
+through `submit_batch`: the en_US-libritts-high class, N=904 by default,
+8 under --quick) and `high` (the five-level `high` preset). `streaming`,
+`streaming_server` and `roofline` are null: their parts of the port are
+not written yet, their flags default to off, and turning one on raises.
 
 `--device` takes `--platform`'s place: the card by default, or the CPU.
 On the card the wall is launch-bound and noisy, so each factor row and the
@@ -25,7 +27,8 @@ launch counters; the throughput rows carry `torch.cuda.max_memory_allocated`.
 On the CPU those keys are null (not measured).
 
 Correctness in the same run: where the voice has committed JAX goldens
-(`piper_tpu_torch/golden/`: synthetic medium and x_low, f=1 and f=8), a
+(`piper_tpu_torch/golden/`: synthetic medium and x_low, f=1 and f=8; the
+904-speaker medium voice's speaker 903 and mix {0: 0.6, 903: 0.4}, f=1), a
 float32 split-mode runtime with the bench's tiers is held to them with the
 goldens' injected noise: `w_ceil` equal, the waveform within 1e-4 at fp32
 and 1e-3 at a lowered tier. The rows go into `golden`; an excess exits
@@ -56,7 +59,6 @@ ROOT = Path(__file__).resolve().parent.parent
 BASELINE_MS_FACTOR1 = 147.39  # reference Swift/Metal ms_mean @ factor 1 (BASELINE.md)
 # Rows of the root bench whose parts of the port are not written yet.
 UNPORTED = {
-    "multi_speaker": "multi-speaker voices are not ported yet (ROADMAP §1 item 5)",
     "streams": "the streaming server is not ported yet (ROADMAP §1 item 8)",
     "roofline": "the roofline report (piper_tpu/utils/roofline.py) is not ported",
 }
@@ -89,8 +91,9 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--pipeline", action="store_true", default=True,
                         help="measure pipelined serving throughput")
     parser.add_argument("--no-pipeline", dest="pipeline", action="store_false")
-    parser.add_argument("--multi-speaker", type=int, default=0, metavar="N",
-                        help="not ported: raises unless 0")
+    parser.add_argument("--multi-speaker", type=int, default=904, metavar="N",
+                        help="bench an N-speaker voice with batched mixed-sid serving "
+                             "(the en_US-libritts-high-class config; 0 = skip)")
     parser.add_argument("--high", action="store_true", default=True,
                         help="bench the high-quality (five upsample levels) config")
     parser.add_argument("--no-high", dest="high", action="store_false")
@@ -101,7 +104,7 @@ def _parser() -> argparse.ArgumentParser:
     return parser
 
 
-def get_runtime(args, quality: str = None):
+def get_runtime(args, quality: str = None, n_speakers: int = 1, gin: int = 0):
     from piper_tpu_torch.engine.runtime import PiperRuntime, RuntimeOptions, parse_precision_spec
     from piper_tpu_torch.models.vits.synthetic import make_synthetic_voice
 
@@ -112,13 +115,16 @@ def get_runtime(args, quality: str = None):
         flow_precision=parse_precision_spec(args.flow_precision),
         output_dtype=args.output_dtype,
     )
-    if args.model and quality == args.quality:
+    if args.model and quality == args.quality and n_speakers <= 1:
         return PiperRuntime(args.model, args.config, options, device=args.device)
     cache = Path(os.environ.get("PIPER_TPU_CACHE", ROOT / "build" / "bench_voices"))
-    voice_dir = cache / "synthetic" / quality
-    model = voice_dir / f"synthetic-{quality}.onnx"
+    tag = quality if n_speakers <= 1 else f"{quality}-ms{n_speakers}"
+    name = f"synthetic-{tag}"
+    voice_dir = cache / "synthetic" / tag
+    model = voice_dir / f"{name}.onnx"
     if not model.exists():
-        make_synthetic_voice(voice_dir, quality=quality, seed=0)
+        make_synthetic_voice(voice_dir, quality=quality, seed=0, n_speakers=n_speakers,
+                             gin_channels=gin, voice_name=name if n_speakers > 1 else None)
     return PiperRuntime(model, None, options, device=args.device)
 
 
@@ -199,24 +205,26 @@ def measure_throughput(runtime, bsz: int, iters: int) -> dict:
     }
 
 
-def measure_throughput_pipelined(runtime, bsz: int, n_batches: int = 8) -> dict:
+def measure_throughput_pipelined(runtime, bsz: int, n_batches: int = 8, sids=None) -> dict:
     """`n_batches` batches of `bsz` factor-8 utterances through
-    ServingPipeline.submit_batch: batch i's copy and slicing overlap batch
-    i+1's work. Warmed up with the exact seeds the timed loop uses (the
-    seed changes the durations, hence the frame bucket)."""
+    ServingPipeline.submit_batch, row i with speaker id sids[i] where given:
+    batch i's copy and slicing overlap batch i+1's work. Warmed up with the
+    exact seeds the timed loop uses (the seed changes the durations, hence
+    the frame bucket)."""
     import torch
 
     from piper_tpu_torch.engine.pipeline import ServingPipeline
 
     ids8 = (FIXTURE_IDS * 8)[:4096]
     batch = [ids8] * bsz
+    kw = {"speaker_ids": sids} if sids is not None else {}
     with ServingPipeline(runtime, max_inflight=4, num_fetchers=4) as pipe:
-        for f in [pipe.submit_batch(batch, seed=i) for i in range(n_batches)]:
+        for f in [pipe.submit_batch(batch, seed=i, **kw) for i in range(n_batches)]:
             f.result()
 
         def timed():
             t0 = time.perf_counter()
-            futs = [pipe.submit_batch(batch, seed=i) for i in range(n_batches)]
+            futs = [pipe.submit_batch(batch, seed=i, **kw) for i in range(n_batches)]
             audio_s = sum(sum(len(a) for a in f.result()) for f in futs)
             return audio_s / runtime.sample_rate, time.perf_counter() - t0
 
@@ -231,16 +239,24 @@ def measure_throughput_pipelined(runtime, bsz: int, n_batches: int = 8) -> dict:
     }
 
 
-def _golden_rows(args, rt):
-    """The voice against its committed JAX goldens, or None where it has none."""
-    if args.model or not golden.factors(args.quality):
+def _golden_rows(args, rt, speakers: bool = False):
+    """The voice against its committed JAX goldens, or None where it has
+    none; with `speakers`, the multi-speaker voice against the speaker
+    goldens (those exist for the 904-speaker voice only)."""
+    if speakers:
+        keys = ([k for k in golden.SPEAKER_GOLDENS if k[0] == args.quality]
+                if args.multi_speaker == golden.N_SPEAKERS else [])
+    else:
+        keys = [] if args.model else [(args.quality, f, None)
+                                      for f in golden.factors(args.quality)]
+    if not keys:
         return None
     from piper_tpu_torch.engine.runtime import PiperRuntime
 
     checker = PiperRuntime(rt.model_path, rt.config_path,
                            replace(rt.options, mode="split", output_dtype="float32"),
                            device=args.device)
-    return [golden.compare(checker, args.quality, f) for f in golden.factors(args.quality)]
+    return [golden.compare(checker, *key) for key in keys]
 
 
 def main(argv=None) -> dict:
@@ -252,6 +268,7 @@ def main(argv=None) -> dict:
     if args.quick:
         args.factors = "1,2"
         args.warmup, args.iters = 1, 2
+        args.multi_speaker = min(args.multi_speaker, 8)
         args.high = False
     args.iters = max(1, args.iters)
 
@@ -319,6 +336,29 @@ def main(argv=None) -> dict:
             "rtf": round(audio_s / wall, 1),
         }
 
+    # Multi-speaker batched serving (the en_US-libritts-high class: 900+
+    # speaker embeddings, a batch of rows with different speaker ids),
+    # always on a synthetic N-speaker voice: a --model is usually
+    # single-speaker and would ignore the ids.
+    multispeaker_row = ms_golden_rows = None
+    if args.multi_speaker:
+        rt_ms = get_runtime(args, n_speakers=args.multi_speaker, gin=512)
+        bsz = max(2, args.batch or 8)
+        sids = [i % args.multi_speaker for i in range(bsz)]
+        row = measure_throughput_pipelined(rt_ms, bsz, n_batches=4 if args.quick else 8,
+                                           sids=sids)
+        batch = [(FIXTURE_IDS * 8)[:4096]] * bsz
+        multispeaker_row = {
+            "n_speakers": args.multi_speaker,
+            "batch": bsz,
+            "rtf_throughput": row["rtf_throughput"],
+            "max_memory_allocated": row["max_memory_allocated"],
+            **_profile(rt_ms, lambda: rt_ms.synthesize_batch(batch, speaker_ids=sids),
+                       row["wall_s"] * 1e3 / row["n_batches"]),
+        }
+        ms_golden_rows = _golden_rows(args, rt_ms, speakers=True)
+        del rt_ms
+
     # High-quality config (en_US-ryan-high class: five upsample levels, the
     # last at 16 channels through K3, same 22.05 kHz output).
     high_row = None
@@ -344,7 +384,7 @@ def main(argv=None) -> dict:
         }
         del rt_high
 
-    golden_rows = _golden_rows(args, rt)
+    golden_rows = (_golden_rows(args, rt) or []) + (ms_golden_rows or []) or None
 
     f1 = next((r for r in rows if r["factor"] == 1), rows[0])
     serving_rows = [r for r in (throughput, throughput_pipelined) if r]
@@ -375,7 +415,7 @@ def main(argv=None) -> dict:
         "pipeline": pipeline_row,
         "streaming": None,
         "streaming_server": None,
-        "multispeaker": None,
+        "multispeaker": multispeaker_row,
         "high": high_row,
         "roofline": None,
         "rows": rows,

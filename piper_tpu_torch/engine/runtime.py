@@ -1,8 +1,8 @@
 """PiperRuntime: load a Piper voice and synthesize utterances, one or a batch.
 
-Counterpart of piper_tpu.engine.runtime for single-speaker voices on one
-device: the CUDA card unless the caller asks for the CPU (`device="cpu"`);
-weights go to it once.
+Counterpart of piper_tpu.engine.runtime for single- and multi-speaker
+voices on one device: the CUDA card unless the caller asks for the CPU
+(`device="cpu"`); weights go to it once.
 
 - Split mode: pad the phoneme ids to a bucket (and a batch's rows to the
   `batch_buckets` ladder), encode, read the frame counts on the host once,
@@ -17,6 +17,17 @@ weights go to it once.
   mode reads only the frame counts); `fetch_fused` and `fetch_batch` wait for
   the copy's event and slice each row. `engine/pipeline.py` builds the
   serving pipeline on them.
+- Duration controls: `phoneme_durations` runs the encoder only and returns
+  each phoneme's frames; `synthesize_with_alignment` adds their sample
+  spans to the audio (`core/alignment.py`); `synthesize_forced` and
+  `synthesize_batch_forced` decode the caller's frame plan with no host
+  read (encode_forced, then decode at the plan's frame bucket).
+- Speakers: a multi-speaker voice takes speaker ids (`speaker_index`
+  resolves names through the voice's speaker_id_map) or mixes
+  {id: weight} (`resolve_speaker_mix`) on every entry point. Ids and
+  mixes are validated on the host before any device work: an
+  out-of-range index on the card is a device-side assert that would end
+  the process's CUDA context (JAX clamps instead).
 
 Encode and decode run at the `precision` tier (by default "highest", fp32
 with TF32 off for matmuls and cuDNN convs: a duration error can flip a
@@ -31,13 +42,16 @@ duration predictor and (seed, 1) for the prior; each is one per-row draw
 broadcast over the rows, so a row's noise does not depend on what is
 batched beside it. The prior's draw has the frame bucket's width, so fused
 and split runs of one utterance share a realization only where their
-buckets agree (the JAX package's caveat too). The numbers differ from the
-JAX package's threefry by design; parity checks inject the noise instead.
+buckets agree (the JAX package's caveat too); a forced plan decodes at the
+bucket split mode picks for the same total, so forcing the predicted plan
+reproduces split mode's audio. The numbers differ from the JAX package's
+threefry by design; parity checks inject the noise instead.
 
 Eager PyTorch compiles nothing. `RunTimings.compiled` marks the first run
-of a (kind, rows, bucket) key, as the JAX package marks a compile: on the
-card that run pays cuDNN's per-shape heuristics and the caching
-allocator's growth (~100 ms), so warm-ups must use the shapes they time.
+of a (kind, rows, bucket, speaker kind) key, as the JAX package marks a
+compile: on the card that run pays cuDNN's per-shape heuristics and the
+caching allocator's growth (~100 ms), so warm-ups must use the shapes they
+time.
 """
 
 from __future__ import annotations
@@ -54,6 +68,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from piper_tpu_torch.core.alignment import PhonemeAlignment, make_alignment
 from piper_tpu_torch.core.config import VoiceConfig
 from piper_tpu_torch.engine.bucketing import (
     DEFAULT_FRAME_BUCKETS,
@@ -201,16 +216,106 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-def _check_speakers(speaker_ids, speaker_mixes) -> None:
-    """A single-speaker voice (the only kind the port loads) ignores speaker
-    ids, as the JAX package does; a speaker mix raises until multi-speaker
-    voices are ported, and ids with mixes raise the JAX package's error."""
-    if speaker_mixes is None:
-        return
-    if speaker_ids is not None:
+def resolve_speaker(spec, n_speakers: int, speaker_id_map=None) -> int:
+    """Speaker reference -> validated integer id. Integers (and digit
+    strings) pass through; other strings look up the voice's
+    speaker_id_map by name. The map wins over integer parsing: real voices
+    (libritts exports) use numeric reader ids such as "3922" as names of
+    small indices."""
+    if isinstance(spec, bool):
+        raise ValueError(f"speaker {spec!r} is not an id or name")
+    if isinstance(spec, (int, np.integer)):
+        sid = int(spec)
+    elif isinstance(spec, str):
+        s = spec.strip()
+        m = speaker_id_map or {}
+        if s in m:
+            sid = int(m[s])
+        else:
+            try:
+                sid = int(s)
+            except ValueError:
+                known = ", ".join(sorted(m)[:10]) if m else "none defined"
+                raise ValueError(
+                    f"unknown speaker {spec!r} (known names: {known})")
+    else:
+        raise ValueError(f"speaker {spec!r} is not an id or name")
+    if not 0 <= sid < max(1, n_speakers):
+        raise ValueError(
+            f"speaker_id {sid} out of range [0, {max(1, n_speakers)})")
+    return sid
+
+
+def parse_mix_spec(spec: str) -> dict:
+    """'k:w,k:w' -> {key: weight}, the grammar of textual mix specs. Keys
+    become ints when they parse, otherwise stay names for
+    resolve_speaker_mix. Raises ValueError with the offending part."""
+    raw: dict = {}
+    for part in spec.split(","):
+        bits = part.split(":")
+        if len(bits) != 2 or not bits[0].strip():
+            raise ValueError(
+                f"bad mix entry {part!r} (use ID:WEIGHT or NAME:WEIGHT "
+                f"pairs, e.g. '0:0.6,3:0.4')")
+        key = bits[0].strip()
+        try:
+            key = int(key)
+        except ValueError:
+            pass  # a speaker name
+        try:
+            w = float(bits[1])
+        except ValueError:
+            raise ValueError(
+                f"bad mix weight {bits[1]!r} in {part!r}") from None
+        if key in raw:
+            raise ValueError(f"mix names speaker {key} twice")
+        raw[key] = w
+    if not raw:
+        raise ValueError("mix must name at least one speaker")
+    return raw
+
+
+def validate_scales(noise_scale: float, length_scale: float, noise_w: float) -> None:
+    """length_scale must be finite and > 0 (it multiplies the durations:
+    <= 0 gives zero or negative frame counts); the noise scales finite and
+    >= 0."""
+    if not (math.isfinite(length_scale) and length_scale > 0):
+        raise ValueError(f"length_scale must be > 0, got {length_scale}")
+    for name, v in (("noise_scale", noise_scale), ("noise_w", noise_w)):
+        if not (math.isfinite(v) and v >= 0):
+            raise ValueError(f"{name} must be finite and >= 0, got {v}")
+
+
+def validate_speaker_mix(mix: dict, n_speakers: int, speaker_id=None) -> None:
+    """Validation of a speaker mix {id: weight}: integral ids in range
+    (bool and 1.5 are not ids), each once, finite weights, one of them
+    non-zero; a request's `speaker_id` beside a mix is an error."""
+    if speaker_id is not None:
         raise ValueError("pass speaker_id OR speaker_mix, not both")
-    raise NotImplementedError("speaker_mix is not ported yet: it comes with "
-                              "multi-speaker voices (ROADMAP §1 item 5)")
+    if n_speakers <= 1:
+        raise ValueError("speaker_mix requires a multi-speaker voice")
+    if not mix:
+        raise ValueError("speaker_mix must not be empty")
+    any_nonzero = False
+    seen = set()
+    for s, w in mix.items():
+        if isinstance(s, bool) or not (
+                isinstance(s, (int, np.integer))
+                or (isinstance(s, float) and s.is_integer())):
+            raise ValueError(
+                f"speaker_mix id {s!r} is not an integer speaker id")
+        s, w = int(s), float(w)
+        if s in seen:
+            raise ValueError(f"speaker_mix names speaker {s} twice")
+        seen.add(s)
+        if not 0 <= s < n_speakers:
+            raise ValueError(
+                f"speaker_mix id {s} out of range [0, {n_speakers})")
+        if not math.isfinite(w):
+            raise ValueError("speaker_mix weights must be finite")
+        any_nonzero |= w != 0.0
+    if not any_nonzero:
+        raise ValueError("speaker_mix needs at least one non-zero weight")
 
 
 class PiperRuntime:
@@ -238,8 +343,6 @@ class PiperRuntime:
         self.hparams: VitsHParams = derive_hparams(
             graph, sample_rate=self.config.audio.sample_rate,
             n_speakers=self.config.num_speakers)
-        if self.hparams.n_speakers > 1:
-            raise NotImplementedError("multi-speaker voices are not ported yet")
         vp = self.options.vocoder_precision
         if isinstance(vp, (tuple, list)) and len(vp) != self.hparams.num_upsamples:
             raise ValueError(
@@ -274,12 +377,93 @@ class PiperRuntime:
         ns = inf.noise_scale if noise_scale is None else float(noise_scale)
         ls = inf.length_scale if length_scale is None else float(length_scale)
         nw = inf.noise_w if noise_w is None else float(noise_w)
-        if not (math.isfinite(ls) and ls > 0):
-            raise ValueError(f"length_scale must be > 0, got {ls}")
-        for name, v in (("noise_scale", ns), ("noise_w", nw)):
-            if not (math.isfinite(v) and v >= 0):
-                raise ValueError(f"{name} must be finite and >= 0, got {v}")
+        validate_scales(ns, ls, nw)
         return ns, ls, nw
+
+    # -- speakers ----------------------------------------------------------------
+
+    def speaker_index(self, spec) -> int:
+        """Speaker name or id -> validated integer id, through the voice
+        config's speaker_id_map (e.g. 'spk3' -> 3). The synthesis entry
+        points take integer ids; callers that accept names resolve here."""
+        return resolve_speaker(spec, self.hparams.n_speakers, self.config.speaker_id_map)
+
+    def resolve_speaker_mix(self, mix: dict) -> dict:
+        """{name_or_id: weight} -> {int_id: weight}: string keys resolve
+        through speaker_index (the map wins for numeric names); two keys
+        that resolve to one speaker raise, and so do bool and non-integral
+        keys."""
+        if not mix:
+            raise ValueError("speaker_mix must not be empty")
+        out = {}
+        for k, w in mix.items():
+            if isinstance(k, str):
+                key = self.speaker_index(k)
+            elif isinstance(k, bool) or not isinstance(k, (int, np.integer)):
+                raise ValueError(f"speaker_mix key {k!r} is not a speaker id or name")
+            else:
+                key = int(k)
+            if key in out:
+                raise ValueError(f"speaker_mix names speaker {key} twice")
+            out[key] = w
+        return out
+
+    def _sid_array(self, speaker_ids: Optional[Sequence[int]], batch: int,
+                   mixes=None) -> Optional[np.ndarray]:
+        """The speaker argument of `batch` rows, validated on the host:
+        (B,) int64 ids, or (B, n_speakers) float32 mixing weights when
+        `mixes` ({id: weight} per row, dummy rows included) is given; None
+        for a single-speaker voice, which ignores ids as the JAX package
+        does. A multi-speaker voice without ids takes speaker 0."""
+        n_spk = self.hparams.n_speakers
+        if mixes is not None:
+            if len(mixes) != batch:
+                raise ValueError(f"speaker_mixes length {len(mixes)} != batch size {batch}")
+            if speaker_ids is not None:
+                raise ValueError("pass speaker_id OR speaker_mix, not both")
+            w = np.zeros((batch, max(1, n_spk)), np.float32)
+            for i, mix in enumerate(mixes):
+                validate_speaker_mix(mix, n_spk)
+                for s, wt in mix.items():
+                    w[i, int(s)] = float(wt)
+            return w
+        if n_spk <= 1:
+            return None
+        if speaker_ids is None:
+            speaker_ids = [0] * batch
+        if len(speaker_ids) != batch:
+            raise ValueError(f"speaker_ids length {len(speaker_ids)} != batch size {batch}")
+        bad = [s for s in speaker_ids if not 0 <= int(s) < n_spk]
+        if bad:
+            raise ValueError(f"speaker_id {int(bad[0])} out of range [0, {n_spk})")
+        return np.asarray([int(s) for s in speaker_ids], np.int64)
+
+    def _row_sids(self, speaker_ids, speaker_mixes, b: int, bp: int) -> Optional[np.ndarray]:
+        """_sid_array for b real rows padded to bp: the ladder's dummy rows
+        copy row 0's speaker id or mix."""
+        if speaker_ids is not None and bp > b:
+            speaker_ids = list(speaker_ids) + [speaker_ids[0]] * (bp - b)
+        return self._sid_array(speaker_ids, bp, mixes=self._pad_mixes(speaker_mixes, b, bp))
+
+    @staticmethod
+    def _pad_mixes(mixes, b: int, bp: int):
+        """One copied mix per real row, then copies of row 0's for the
+        ladder's dummy rows. The copies keep a caller's later change to a
+        submitted dict out of a queued request; too few mixes raise rather
+        than condition a real row on row 0's mix."""
+        if mixes is None:
+            return None
+        mixes = [dict(m) if m is not None else None for m in mixes]
+        if len(mixes) != b:
+            raise ValueError(f"speaker_mixes length {len(mixes)} != batch size {b}")
+        return mixes + [mixes[0]] * (bp - b)
+
+    @staticmethod
+    def _sid_kind(sid):
+        """The speaker part of a run's key: None, "id" or "mix"."""
+        if sid is None:
+            return None
+        return "mix" if sid.ndim == 2 else "id"
 
     def _mark(self, kind: str, key) -> bool:
         """True the first time (kind, key) runs on this runtime."""
@@ -298,13 +482,14 @@ class PiperRuntime:
                                                             self.device):
             yield
 
-    def _validate_and_pad(self, ids_batch: List[List[int]], pad_batch: bool = True):
+    def _validate_and_pad(self, ids_batch: List[List[int]], pad_batch: bool = True,
+                          pad_rows_to: Optional[int] = None):
         """Request validation and the phoneme and batch-axis bucketing of
         every path. Returns (lengths, p_bucket, ids) where ids may carry
         dummy rows (copies of row 0) padding the batch up to the
-        batch_buckets ladder; callers slice outputs to the real row count.
-        Dummy rows copy row 0 so they cannot raise the frame bucket above
-        what the real rows need."""
+        batch_buckets ladder, or to `pad_rows_to` rows when given; callers
+        slice outputs to the real row count. Dummy rows copy row 0 so they
+        cannot raise the frame bucket above what the real rows need."""
         hp = self.hparams
         for seq in ids_batch:
             if not seq:
@@ -315,7 +500,11 @@ class PiperRuntime:
                                  f"check the voice's phoneme_id_map")
         b = len(ids_batch)
         ladder = self.batch_ladder
-        if pad_batch and b > 1 and b <= ladder[-1]:
+        if pad_rows_to is not None:
+            if pad_rows_to < b:
+                raise ValueError(f"pad_rows_to {pad_rows_to} < batch size {b}")
+            ids_batch = ids_batch + [ids_batch[0]] * (int(pad_rows_to) - b)
+        elif pad_batch and b > 1 and b <= ladder[-1]:
             b_bucket = next(x for x in ladder if x >= b)
             ids_batch = ids_batch + [ids_batch[0]] * (b_bucket - b)
         lengths = np.asarray([len(x) for x in ids_batch], np.int64)
@@ -345,26 +534,32 @@ class PiperRuntime:
 
     # -- device work (callers hold _device_work) -------------------------------
 
+    def _to_device(self, a: Optional[np.ndarray]) -> Optional[torch.Tensor]:
+        return None if a is None else torch.from_numpy(a).to(self.device)
+
     def _encode(self, ids: np.ndarray, lengths: np.ndarray, ls: float, nw: float, seed: int,
-                dp_noise: Optional[np.ndarray] = None) -> vits.EncodeResult:
+                dp_noise: Optional[np.ndarray] = None,
+                sid: Optional[np.ndarray] = None) -> vits.EncodeResult:
         """ids (B, P) through the text encoder and duration predictor, with
-        the injected dp_noise (zero-padded to P) or the seeded draw."""
+        the injected dp_noise (zero-padded to P) or the seeded draw, for the
+        speakers of `sid` (_sid_array's)."""
         b, p = ids.shape
         dev = self.device
         if dp_noise is not None:
             src = np.asarray(dp_noise, np.float32).reshape(b, 2, -1)
-            dpn = torch.from_numpy(_padded(src, (b, 2, p))).to(dev)
+            dpn = self._to_device(_padded(src, (b, 2, p)))
         else:
             dpn = seeded_noise(seed, 0, (2, p), b, dev)
-        return vits.encode(self.params, self.hparams, torch.from_numpy(ids).to(dev),
-                           torch.from_numpy(lengths).to(dev), dpn, length_scale=ls, noise_w=nw)
+        return vits.encode(self.params, self.hparams, self._to_device(ids),
+                           self._to_device(lengths), dpn, length_scale=ls, noise_w=nw,
+                           sid=self._to_device(sid))
 
     def _decode(self, enc: vits.EncodeResult, f_bucket: int, ns: float, seed: int,
                 main_noise: Optional[np.ndarray] = None):
         """(audio in the output dtype, y_len), both on the device."""
         b, c = enc.m_p.shape[:2]
         if main_noise is not None:
-            mn = torch.from_numpy(_padded(main_noise, (b, c, f_bucket))).to(self.device)
+            mn = self._to_device(_padded(main_noise, (b, c, f_bucket)))
         else:
             mn = seeded_noise(seed, 1, (c, f_bucket), b, self.device)
         o = self.options
@@ -373,24 +568,28 @@ class PiperRuntime:
                                    flow_precision=o.flow_precision)
         return self._as_output(audio), y_len
 
-    def _run_fused(self, ids, lengths, scales, seed):
+    def _run_fused(self, ids, lengths, scales, seed, sid):
         """Encode and decode at the budget bucket with no host read; returns
         ((audio, y_len, y_total) on the device, f_bucket, compiled)."""
         ns, ls, nw = scales
         f_bucket = self._budget_bucket(int(lengths.max()))
-        compiled = self._mark("fused", (ids.shape[0], ids.shape[1], f_bucket))
-        enc = self._encode(ids, lengths, ls, nw, seed)
+        compiled = self._mark("fused", (ids.shape[0], ids.shape[1], f_bucket,
+                                        self._sid_kind(sid)))
+        enc = self._encode(ids, lengths, ls, nw, seed, sid=sid)
         audio, y_len = self._decode(enc, f_bucket, ns, seed)
         return (audio, y_len, enc.y_total), f_bucket, compiled
 
-    def _run_split(self, ids, lengths, b: int, scales, seed, dp_noise=None, main_noise=None):
+    def _run_split(self, ids, lengths, b: int, scales, seed, sid, dp_noise=None,
+                   main_noise=None):
         """Encode, the one host read (the frame counts pick the decode
         bucket), decode. Returns (audio on the device, y_len of the b real
         rows, f_bucket, compiled, the host clock after the read)."""
         ns, ls, nw = scales
         rows, p_bucket = ids.shape
-        compiled = self._mark("enc_inj" if dp_noise is not None else "enc_key", (rows, p_bucket))
-        enc = self._encode(ids, lengths, ls, nw, seed, dp_noise)
+        kind = self._sid_kind(sid)
+        compiled = self._mark("enc_inj" if dp_noise is not None else "enc_key",
+                              (rows, p_bucket, kind))
+        enc = self._encode(ids, lengths, ls, nw, seed, dp_noise, sid)
         y_lengths = enc.y_total.cpu().numpy().astype(np.int64)
         t_encode = time.perf_counter()
         # Degenerate durations (extreme length_scale) clamp to the largest
@@ -400,7 +599,8 @@ class PiperRuntime:
         if main_noise is not None:
             src = np.asarray(main_noise, np.float32).reshape(b, self.hparams.inter_channels, -1)
             f_bucket = self._frame_bucket(max(int(y_lengths.max()), src.shape[-1]))
-        compiled |= self._mark("dec_inj" if src is not None else "dec_key", (rows, f_bucket))
+        compiled |= self._mark("dec_inj" if src is not None else "dec_key",
+                               (rows, f_bucket, kind))
         audio, _ = self._decode(enc, f_bucket, ns, seed, src)
         return audio, np.clip(y_lengths, 1, f_bucket)[:b], f_bucket, compiled, t_encode
 
@@ -421,11 +621,12 @@ class PiperRuntime:
         """Synthesize one utterance; PCM in the runtime's output_dtype.
 
         The parameters are the JAX package's, in its order. `speaker_id` is
-        ignored, as the JAX package ignores it for a single-speaker voice
-        (the only kind the port loads); `speaker_mix` raises until
-        multi-speaker voices are ported. `dp_noise` (2, P') and `main_noise`
-        (C, F') inject the noise tensors (zero-padded to the buckets) in
-        place of the seeded draws; they run in split mode."""
+        an integer id (names resolve through `speaker_index`), ignored by a
+        single-speaker voice; `speaker_mix` {id: weight} blends speakers
+        (a multi-speaker voice only; not beside `speaker_id`). `dp_noise`
+        (2, P') and `main_noise` (C, F') inject the noise tensors
+        (zero-padded to the buckets) in place of the seeded draws; they run
+        in split mode."""
         audios, timings = self._synthesize_batch_impl(
             [list(phoneme_ids)],
             noise_scale=noise_scale,
@@ -452,7 +653,8 @@ class PiperRuntime:
     ) -> List[np.ndarray]:
         """Batched multi-utterance synthesis (pads to a common bucket and the
         rows to the batch ladder); one PCM array per utterance, exact
-        lengths. The parameters are the JAX package's, in its order."""
+        lengths. The parameters are the JAX package's, in its order; each
+        row takes its own speaker id or mix."""
         audios, timings = self._synthesize_batch_impl(
             [list(x) for x in phoneme_ids_batch],
             noise_scale=noise_scale,
@@ -478,11 +680,11 @@ class PiperRuntime:
         main_noise: Optional[np.ndarray] = None,
         speaker_mixes=None,
     ) -> Tuple[List[np.ndarray], RunTimings]:
-        _check_speakers(speaker_ids, speaker_mixes)
         with self._device_work():
             return self._synthesize_batch_locked(
                 ids_batch, noise_scale=noise_scale, length_scale=length_scale,
-                noise_w=noise_w, seed=seed, dp_noise=dp_noise, main_noise=main_noise)
+                noise_w=noise_w, speaker_ids=speaker_ids, seed=seed, dp_noise=dp_noise,
+                main_noise=main_noise, speaker_mixes=speaker_mixes)
 
     def _synthesize_batch_locked(
         self,
@@ -491,9 +693,11 @@ class PiperRuntime:
         noise_scale,
         length_scale,
         noise_w,
+        speaker_ids,
         seed=None,
         dp_noise: Optional[np.ndarray] = None,
         main_noise: Optional[np.ndarray] = None,
+        speaker_mixes=None,
     ) -> Tuple[List[np.ndarray], RunTimings]:
         t_start = time.perf_counter()
         b = len(ids_batch)
@@ -502,6 +706,7 @@ class PiperRuntime:
         injected = dp_noise is not None or main_noise is not None
         lengths, p_bucket, ids = self._validate_and_pad(ids_batch, pad_batch=not injected)
         scales = self._scales(noise_scale, length_scale, noise_w)
+        sid = self._row_sids(speaker_ids, speaker_mixes, b, ids.shape[0])
         base_seed = self.options.seed if seed is None else seed
 
         # Fused mode serves single-utterance latency; batches want the exact
@@ -510,50 +715,218 @@ class PiperRuntime:
         use_fused = self.options.mode == "fused" and b == 1 and not injected
         compiled = False
         if use_fused:
-            outs, f_bucket, compiled = self._run_fused(ids, lengths, scales, base_seed)
+            outs, f_bucket, compiled = self._run_fused(ids, lengths, scales, base_seed, sid)
             audio, y_len, y_total = _HostCopy(outs).wait()
             t_encode = t_end = time.perf_counter()
             use_fused = int(y_total.max()) <= f_bucket  # else redo exactly, split
         if not use_fused:
             audio_d, y_len, f_bucket, split_compiled, t_encode = self._run_split(
-                ids, lengths, b, scales, base_seed, dp_noise, main_noise)
+                ids, lengths, b, scales, base_seed, sid, dp_noise, main_noise)
             compiled |= split_compiled
             (audio,) = _HostCopy((audio_d,)).wait()
             t_end = time.perf_counter()
 
         hop = self.hparams.hop_length
         out = [audio[i, : int(y_len[i]) * hop].copy() for i in range(b)]
+        return out, self._timings(t_start, t_encode, t_end, p_bucket, f_bucket,
+                                  int(np.sum(y_len[:b])), out, compiled)
+
+    def _timings(self, t_start, t_encode, t_end, p_bucket, f_bucket, frames, out,
+                 compiled) -> RunTimings:
         total_samples = sum(len(a) for a in out)
         wall = t_end - t_start
-        timings = RunTimings(
+        return RunTimings(
             wall_ms=wall * 1e3,
             encode_ms=(t_encode - t_start) * 1e3,
             decode_ms=(t_end - t_encode) * 1e3,
             phoneme_bucket=p_bucket,
             frame_bucket=f_bucket,
-            frames=int(np.sum(y_len[:b])),
+            frames=frames,
             samples=total_samples,
             compiled=compiled,
             compile_count=len(self._compiled_keys),
             rtf=(total_samples / self.sample_rate) / wall if wall > 0 else 0.0,
         )
-        return out, timings
 
     def _durations(self, ids_batch: Sequence[Sequence[int]], seed: Optional[int] = None,
-                   dp_noise: Optional[np.ndarray] = None):
+                   dp_noise: Optional[np.ndarray] = None, speaker_ids=None,
+                   speaker_mixes=None):
         """(w, w_ceil) of the real rows, (b, P) each: the frame durations
-        before and after their ceil, as a synthesis with the same ids, seed
-        or injected dp_noise (b, 2, P') computes them (rows padded to the
-        ladder unless the noise is injected). For parity checks: how close
-        a duration lies to an integer says whether a ceil could flip."""
+        before and after their ceil, as a synthesis with the same ids,
+        speakers, seed or injected dp_noise (b, 2, P') computes them (rows
+        padded to the ladder unless the noise is injected). For parity
+        checks: how close a duration lies to an integer says whether a ceil
+        could flip."""
         ids_batch = [list(x) for x in ids_batch]
+        b = len(ids_batch)
         lengths, _, ids = self._validate_and_pad(ids_batch, pad_batch=dp_noise is None)
         _, ls, nw = self._scales(None, None, None)
+        sid = self._row_sids(speaker_ids, speaker_mixes, b, ids.shape[0])
         with self._device_work():
             enc = self._encode(ids, lengths, ls, nw,
-                               self.options.seed if seed is None else seed, dp_noise)
-            b = len(ids_batch)
+                               self.options.seed if seed is None else seed, dp_noise, sid)
             return enc.w[:b].cpu().numpy(), enc.w_ceil[:b].cpu().numpy()
+
+    # -- duration controls -----------------------------------------------------
+
+    def phoneme_durations(
+        self,
+        phoneme_ids_batch: Sequence[Sequence[int]],
+        noise_scale: Optional[float] = None,
+        length_scale: Optional[float] = None,
+        noise_w: Optional[float] = None,
+        speaker_ids: Optional[Sequence[int]] = None,
+        seed: Optional[int] = None,
+        pad_rows_to: Optional[int] = None,
+        speaker_mixes: Optional[Sequence[dict]] = None,
+    ) -> List[np.ndarray]:
+        """Per-phoneme frame durations of each utterance (int64), the plan
+        the decoder expands: the encoder only (text encoder and duration
+        predictor), one small host copy, no vocoder work. The seeded noise
+        is one draw per row, so for the same (ids, length_scale, noise_w,
+        speaker, seed) this is the plan every synthesis of the runtime
+        realized, however it was batched. `pad_rows_to` pins the padded row
+        count (row-0 copies) in place of the batch ladder. `noise_scale`
+        does not change durations (it scales the prior's noise only)."""
+        del noise_scale
+        ids_batch = [list(x) for x in phoneme_ids_batch]
+        b = len(ids_batch)
+        lengths, p_bucket, ids = self._validate_and_pad(ids_batch, pad_rows_to=pad_rows_to)
+        bp = ids.shape[0]
+        _, ls, nw = self._scales(None, length_scale, noise_w)
+        sid = self._row_sids(speaker_ids, speaker_mixes, b, bp)
+        with self._device_work():
+            self._mark("enc_key", (bp, p_bucket, self._sid_kind(sid)))
+            enc = self._encode(ids, lengths, ls, nw,
+                               self.options.seed if seed is None else seed, sid=sid)
+            w = enc.w_ceil.cpu().numpy().astype(np.int64)
+        return [w[i, : len(ids_batch[i])] for i in range(b)]
+
+    def synthesize_with_alignment(
+        self,
+        phoneme_ids: Sequence[int],
+        noise_scale: Optional[float] = None,
+        length_scale: Optional[float] = None,
+        noise_w: Optional[float] = None,
+        speaker_id: Optional[int] = None,
+        seed: Optional[int] = None,
+        speaker_mix: Optional[dict] = None,
+    ) -> Tuple[np.ndarray, PhonemeAlignment]:
+        """One utterance and its phoneme-level timing: (audio as synthesize
+        gives it, the per-phoneme sample spans of that waveform). One more
+        encoder pass and a small host copy than synthesize."""
+        ids = list(phoneme_ids)
+        audio = self.synthesize(ids, noise_scale=noise_scale, length_scale=length_scale,
+                                noise_w=noise_w, speaker_id=speaker_id, seed=seed,
+                                speaker_mix=speaker_mix)
+        durations = self.phoneme_durations(
+            [ids], length_scale=length_scale, noise_w=noise_w,
+            speaker_ids=[speaker_id] if speaker_id is not None else None, seed=seed,
+            speaker_mixes=[speaker_mix] if speaker_mix is not None else None)[0]
+        return audio, make_alignment(ids, durations, hop_length=self.hparams.hop_length,
+                                     sample_rate=self.sample_rate, total_samples=len(audio))
+
+    def synthesize_forced(
+        self,
+        phoneme_ids: Sequence[int],
+        durations: Sequence[int],
+        noise_scale: Optional[float] = None,
+        speaker_id: Optional[int] = None,
+        seed: Optional[int] = None,
+        speaker_mix: Optional[dict] = None,
+    ) -> np.ndarray:
+        """Synthesize with the caller's per-phoneme frame plan:
+        `durations[i]` frames go to `phoneme_ids[i]` and the duration
+        predictor is skipped (dubbing and karaoke timing, an edited
+        `phoneme_durations()` plan). Forcing the unedited plan at the same
+        seed reproduces split mode's `synthesize()`. There is no host read:
+        the frame bucket follows from sum(durations)."""
+        audios, timings = self._synthesize_forced_impl(
+            [list(phoneme_ids)], [list(durations)],
+            noise_scale=noise_scale,
+            speaker_ids=[speaker_id] if speaker_id is not None else None,
+            seed=seed,
+            speaker_mixes=[speaker_mix] if speaker_mix is not None else None,
+        )
+        self.last_run_timings = timings
+        return audios[0]
+
+    def synthesize_batch_forced(
+        self,
+        phoneme_ids_batch: Sequence[Sequence[int]],
+        durations_batch: Sequence[Sequence[int]],
+        noise_scale: Optional[float] = None,
+        speaker_ids: Optional[Sequence[int]] = None,
+        seed: Optional[int] = None,
+        pad_rows_to: Optional[int] = None,
+        speaker_mixes: Optional[Sequence[dict]] = None,
+    ) -> List[np.ndarray]:
+        """Batched duration forcing (see synthesize_forced); `pad_rows_to`
+        as in phoneme_durations."""
+        audios, timings = self._synthesize_forced_impl(
+            [list(x) for x in phoneme_ids_batch],
+            [list(d) for d in durations_batch],
+            noise_scale=noise_scale,
+            speaker_ids=list(speaker_ids) if speaker_ids is not None else None,
+            seed=seed,
+            pad_rows_to=pad_rows_to,
+            speaker_mixes=list(speaker_mixes) if speaker_mixes is not None else None,
+        )
+        self.last_run_timings = timings
+        return audios
+
+    def _synthesize_forced_impl(
+        self,
+        ids_batch: List[List[int]],
+        durations_batch: List[List[int]],
+        *,
+        noise_scale,
+        speaker_ids,
+        seed=None,
+        pad_rows_to=None,
+        speaker_mixes=None,
+    ) -> Tuple[List[np.ndarray], RunTimings]:
+        if len(durations_batch) != len(ids_batch):
+            raise ValueError(
+                f"{len(ids_batch)} utterances but {len(durations_batch)} duration rows")
+        totals = []
+        for ids, durs in zip(ids_batch, durations_batch):
+            if len(durs) != len(ids):
+                raise ValueError(
+                    f"durations length {len(durs)} != phoneme count {len(ids)} — one "
+                    f"frame count per phoneme")
+            if any(d < 0 for d in durs):
+                raise ValueError("durations must be non-negative frame counts")
+            # Per row: an all-zero plan would clip to one frame of noise.
+            if sum(durs) < 1:
+                raise ValueError("at least one phoneme needs a non-zero duration")
+            totals.append(int(sum(durs)))
+        t_start = time.perf_counter()
+        b = len(ids_batch)
+        lengths, p_bucket, ids = self._validate_and_pad(ids_batch, pad_rows_to=pad_rows_to)
+        bp = ids.shape[0]
+        # Dummy rows copy row 0's plan, so they cannot raise the frame bucket.
+        durs = np.zeros((bp, p_bucket), np.int64)
+        for i in range(bp):
+            row = durations_batch[i] if i < b else durations_batch[0]
+            durs[i, : len(row)] = row
+        sid = self._row_sids(speaker_ids, speaker_mixes, b, bp)
+        ns, _, _ = self._scales(noise_scale, None, None)
+        base_seed = self.options.seed if seed is None else seed
+        with self._device_work():
+            f_bucket = self._frame_bucket_or_clamp(max(totals))
+            compiled = self._mark("forced", (bp, p_bucket, f_bucket, self._sid_kind(sid)))
+            enc = vits.encode_forced(self.params, self.hparams, self._to_device(ids),
+                                     self._to_device(lengths), self._to_device(durs),
+                                     sid=self._to_device(sid))
+            audio_d, _ = self._decode(enc, f_bucket, ns, base_seed)
+            (audio,) = _HostCopy((audio_d,)).wait()
+        t_end = time.perf_counter()
+        y_len = np.clip(np.asarray(totals, np.int64), 1, f_bucket)
+        hop = self.hparams.hop_length
+        out = [audio[i, : int(y_len[i]) * hop].copy() for i in range(b)]
+        return out, self._timings(t_start, t_start, t_end, p_bucket, f_bucket,
+                                  int(y_len.sum()), out, compiled)
 
     # -- dispatch / fetch ------------------------------------------------------
 
@@ -570,29 +943,33 @@ class PiperRuntime:
         """Queue one fused synthesis and its copy to the host without a
         host read; returns ((audio, y_len, y_total) on the device, meta) for
         `fetch_fused`. The building block of the serving pipeline."""
-        _check_speakers([speaker_id] if speaker_id is not None else None,
-                        [speaker_mix] if speaker_mix is not None else None)
         ids = list(phoneme_ids)
         lengths, _, ids_np = self._validate_and_pad([ids])
         scales = self._scales(noise_scale, length_scale, noise_w)
+        sid = self._sid_array([speaker_id] if speaker_id is not None else None, 1,
+                              mixes=[speaker_mix] if speaker_mix is not None else None)
         base_seed = self.options.seed if seed is None else seed
         with self._device_work():
-            outs, f_bucket, _ = self._run_fused(ids_np, lengths, scales, base_seed)
+            outs, f_bucket, _ = self._run_fused(ids_np, lengths, scales, base_seed, sid)
             copy = _HostCopy(outs)
+        # The mix is copied: meta outlives this call (fetch_fused's overflow
+        # redo) and the caller may change the dict meanwhile.
         meta = {"ids": ids, "f_bucket": f_bucket, "scales": scales, "speaker_id": speaker_id,
+                "speaker_mix": dict(speaker_mix) if speaker_mix is not None else None,
                 "seed": seed, "copy": copy}
         return outs, meta
 
     def fetch_fused(self, outs, meta) -> np.ndarray:
         """Complete a dispatch_fused: wait for its one copy of (audio, y_len,
         y_total) (meta's copy holds `outs` until then); when the durations
-        overflowed the frame budget, redo the utterance with a blocking
-        split-mode synthesis."""
+        overflowed the frame budget, redo the utterance, in the same voice,
+        with a blocking split-mode synthesis."""
         audio, y_len, y_total = meta["copy"].wait()
         if int(y_total.max()) > meta["f_bucket"]:
             ns, ls, nw = meta["scales"]
             return self.synthesize(meta["ids"], noise_scale=ns, length_scale=ls, noise_w=nw,
-                                   speaker_id=meta["speaker_id"], seed=meta["seed"])
+                                   speaker_id=meta["speaker_id"], seed=meta["seed"],
+                                   speaker_mix=meta["speaker_mix"])
         return audio[0, : int(y_len[0]) * self.hparams.hop_length].copy()
 
     def dispatch_batch(
@@ -639,12 +1016,13 @@ class PiperRuntime:
                 speaker_mix=speaker_mixes[0] if speaker_mixes else None)
             meta["fused1"] = True
             return outs, meta
-        _check_speakers(speaker_ids, speaker_mixes)
         lengths, _, ids = self._validate_and_pad(ids_batch)
         scales = self._scales(noise_scale, length_scale, noise_w)
+        sid = self._row_sids(speaker_ids, speaker_mixes, b, ids.shape[0])
         base_seed = self.options.seed if seed is None else seed
         with self._device_work():
-            audio, y_len, f_bucket, _, _ = self._run_split(ids, lengths, b, scales, base_seed)
+            audio, y_len, f_bucket, _, _ = self._run_split(ids, lengths, b, scales, base_seed,
+                                                           sid)
             copy = _HostCopy((audio,))
         return audio, {"y_len": y_len, "f_bucket": f_bucket, "b": b, "copy": copy}
 

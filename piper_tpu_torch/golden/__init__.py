@@ -10,26 +10,36 @@ data: the port never imports the code that made them
 (`tests/test_torch_golden.py::make_golden` regenerates them and holds the
 committed files equal to what the JAX package computes).
 
-`compare` runs a runtime on a golden's ids and noise: `w_ceil` must be
-equal and the waveform within FP32_ATOL at fp32, or LOWERED_ATOL when any
+The speaker goldens (`SPEAKER_GOLDENS`, `{quality}_ms904_{speaker}_f1.npz`)
+are the same on the bench's multi-speaker voice,
+`make_synthetic_voice(quality, seed=0, n_speakers=904, gin_channels=512)`,
+for one speaker id (`speaker_id`) and one mix (`mix_ids`, `mix_weights`).
+
+`compare` runs a runtime on a golden's ids, noise and speaker: `w_ceil` must
+be equal and the waveform within FP32_ATOL at fp32, or LOWERED_ATOL when any
 tier of the runtime is lowered.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 
 SEED = 0
 GOLDENS = (("medium", 1), ("medium", 8), ("x_low", 1), ("x_low", 8))
+# The bench's multi-speaker voice and the speakers of its goldens.
+N_SPEAKERS, GIN_CHANNELS = 904, 512
+SPEAKERS = {"id903": {"speaker_id": 903}, "mix0_903": {"speaker_mix": {0: 0.6, 903: 0.4}}}
+SPEAKER_GOLDENS = (("medium", 1, "id903"), ("medium", 1, "mix0_903"))
 FP32_ATOL = 1e-4     # the fp32 waveform bar the JAX package is held to
 LOWERED_ATOL = 1e-3  # the lowered-precision waveform gate (BASELINE.md)
 
 
-def path(quality: str, factor: int) -> Path:
-    return Path(__file__).resolve().parent / f"{quality}_f{factor}.npz"
+def path(quality: str, factor: int, speaker: Optional[str] = None) -> Path:
+    ms = "" if speaker is None else f"_ms{N_SPEAKERS}_{speaker}"
+    return Path(__file__).resolve().parent / f"{quality}{ms}_f{factor}.npz"
 
 
 def factors(quality: str):
@@ -37,9 +47,30 @@ def factors(quality: str):
     return tuple(f for q, f in GOLDENS if q == quality)
 
 
-def load(quality: str, factor: int) -> Dict[str, np.ndarray]:
-    with np.load(path(quality, factor)) as z:
+def load(quality: str, factor: int, speaker: Optional[str] = None) -> Dict[str, np.ndarray]:
+    with np.load(path(quality, factor, speaker)) as z:
         return {k: z[k] for k in z.files}
+
+
+def speaker_arrays(speaker: str) -> Dict[str, np.ndarray]:
+    """A speaker golden's speaker, as its file stores it."""
+    spec = SPEAKERS[speaker]
+    if "speaker_id" in spec:
+        return {"speaker_id": np.int64(spec["speaker_id"])}
+    mix = spec["speaker_mix"]
+    return {"mix_ids": np.asarray(list(mix), np.int64),
+            "mix_weights": np.asarray(list(mix.values()), np.float32)}
+
+
+def speaker_kwargs(g: Dict[str, np.ndarray]) -> dict:
+    """The synthesize() speaker arguments of a loaded golden ({} for a
+    single-speaker one)."""
+    if "speaker_id" in g:
+        return {"speaker_id": int(g["speaker_id"])}
+    if "mix_ids" in g:
+        return {"speaker_mix": {int(s): float(w)
+                                for s, w in zip(g["mix_ids"], g["mix_weights"])}}
+    return {}
 
 
 def atol_for(options) -> float:
@@ -51,29 +82,36 @@ def atol_for(options) -> float:
     return FP32_ATOL if all(t in (None, "highest") for t in tiers) else LOWERED_ATOL
 
 
-def compare(rt, quality: str, factor: int) -> dict:
-    """Run runtime `rt` (float32 output) on one golden's ids and injected
-    noise. Returns its row: `w_ceil_equal`, `max_abs_err` beside `atol`,
+def compare(rt, quality: str, factor: int, speaker: Optional[str] = None) -> dict:
+    """Run runtime `rt` (float32 output) on one golden's ids, injected
+    noise and speaker (`speaker`, a key of SPEAKERS, on the N_SPEAKERS
+    voice). Returns its row: `w_ceil_equal`, `max_abs_err` beside `atol`,
     and `ok`. Where a duration differs, the row lists the phonemes and how
     far the port's pre-ceil durations there lie from an integer (a ceil
     that flips on an ulp lies within ~1e-6)."""
     if rt.options.output_dtype != "float32":
         raise ValueError("golden.compare needs a runtime with output_dtype='float32'")
-    g = load(quality, factor)
+    if speaker is not None and rt.hparams.n_speakers != N_SPEAKERS:
+        raise ValueError(f"the speaker goldens need the {N_SPEAKERS}-speaker voice")
+    g = load(quality, factor, speaker)
     ids = g["ids"].tolist()
+    spk = speaker_kwargs(g)
     atol = atol_for(rt.options)
-    row = {"quality": quality, "factor": factor, "phonemes": len(ids), "atol": atol,
-           "precision": rt.options.precision,
+    row = {"quality": quality, "factor": factor, "speaker": speaker, "phonemes": len(ids),
+           "atol": atol, "precision": rt.options.precision,
            "vocoder_precision": rt.options.vocoder_precision,
            "flow_precision": rt.options.flow_precision}
-    w, w_ceil = rt._durations([ids], dp_noise=g["dp_noise"][None])
+    w, w_ceil = rt._durations(
+        [ids], dp_noise=g["dp_noise"][None],
+        speaker_ids=[spk["speaker_id"]] if "speaker_id" in spk else None,
+        speaker_mixes=[spk["speaker_mix"]] if "speaker_mix" in spk else None)
     w, w_ceil = w[0, : len(ids)], w_ceil[0, : len(ids)]
     if not np.array_equal(w_ceil, g["w_ceil"]):
         at = np.nonzero(w_ceil != g["w_ceil"])[0]
         return {**row, "w_ceil_equal": False, "max_abs_err": None, "ok": False,
                 "w_ceil_differs_at": at.tolist(),
                 "pre_ceil_distance_to_integer": np.abs(w[at] - np.round(w[at])).tolist()}
-    audio = rt.synthesize(ids, dp_noise=g["dp_noise"], main_noise=g["main_noise"])
+    audio = rt.synthesize(ids, dp_noise=g["dp_noise"], main_noise=g["main_noise"], **spk)
     want = g["audio"]
     err = float(np.abs(audio - want).max()) if audio.shape == want.shape else None
     return {**row, "w_ceil_equal": True, "frames": int(g["w_ceil"].sum()),
@@ -81,9 +119,9 @@ def compare(rt, quality: str, factor: int) -> dict:
             "ok": err is not None and err <= atol}
 
 
-def check(rt, quality: str, factor: int) -> dict:
+def check(rt, quality: str, factor: int, speaker: Optional[str] = None) -> dict:
     """compare(), raising AssertionError unless the row is ok."""
-    row = compare(rt, quality, factor)
+    row = compare(rt, quality, factor, speaker)
     if not row["ok"]:
-        raise AssertionError(f"golden {quality} f={factor}: {row}")
+        raise AssertionError(f"golden {quality} f={factor} {speaker or ''}: {row}")
     return row

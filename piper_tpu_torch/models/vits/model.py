@@ -1,9 +1,12 @@
 """Full VITS inference graph (counterpart of piper_tpu.models.vits.model).
 
 `encode` / `decode` are the split entry points: the runtime reads the
-frame count on the host between them to pick the frame bucket. `infer` runs
-both; `debug_infer` returns every module-boundary tensor, with the same keys
-as the JAX package's, for parity checks. Single-speaker only so far.
+frame count on the host between them to pick the frame bucket.
+`encode_forced` takes the caller's per-phoneme frame plan in place of the
+duration predictor. `infer` runs encode and decode; `debug_infer` returns
+every module-boundary tensor, with the same keys as the JAX package's, for
+parity checks. A multi-speaker voice takes `sid`: (B,) speaker ids or
+(B, n_speakers) mixing weights (`speaker_embedding`).
 """
 
 from __future__ import annotations
@@ -36,9 +39,25 @@ class EncodeResult:
     g: Optional[torch.Tensor]  # (B, gin, 1) speaker embedding; None (single speaker)
 
 
-def _single_speaker(hp: VitsHParams) -> None:
-    if hp.n_speakers > 1:
-        raise NotImplementedError("multi-speaker voices are not ported yet")
+def speaker_embedding(params: Params, hp: VitsHParams,
+                      sid: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """The speaker conditioning vector (B, gin, 1), or None for a
+    single-speaker voice. `sid` is (B,) integer ids (a row lookup of
+    emb_g) or (B, n_speakers) float mixing weights: g = weights @ emb_g in
+    true fp32 (TF32 off on the card whatever the caller's tier), so a
+    one-hot row equals the id lookup bit for bit (it adds exact zeros).
+    Weights need not sum to 1. The caller validates ids: an out-of-range
+    index on the card is a device-side assert."""
+    if hp.n_speakers <= 1 or "emb_g.weight" not in params:
+        return None
+    if sid is None:
+        raise ValueError("multi-speaker model requires a speaker id")
+    emb = params["emb_g.weight"]
+    if sid.ndim == 2:
+        with tier_scope("highest", emb.device):
+            g = torch.matmul(sid.to(torch.float32), emb)
+        return g[..., None]
+    return emb[sid.long()][..., None]
 
 
 def encode(
@@ -50,16 +69,36 @@ def encode(
     *,
     length_scale: float = 1.0,
     noise_w: float = 0.8,
+    sid: Optional[torch.Tensor] = None,
 ) -> EncodeResult:
     """Text encoder + duration predictor: ids (B, P) -> durations + prior."""
-    _single_speaker(hp)
     x, m_p, logs_p, x_mask = text_encoder(phoneme_ids, lengths, params, hp)
+    g = speaker_embedding(params, hp, sid)
     logw = stochastic_duration_predictor_reverse(
-        x, x_mask, dp_noise.to(x.dtype), params, hp, noise_scale=noise_w)
+        x, x_mask, dp_noise.to(x.dtype), params, hp, g=g, noise_scale=noise_w)
     w = (torch.exp(logw) * x_mask * length_scale)[:, 0]  # (B, P)
     w_ceil = torch.ceil(w)
     return EncodeResult(m_p=m_p, logs_p=logs_p, x_mask=x_mask, w=w, w_ceil=w_ceil,
-                        y_total=w_ceil.sum(dim=-1), g=None)
+                        y_total=w_ceil.sum(dim=-1), g=g)
+
+
+def encode_forced(
+    params: Params,
+    hp: VitsHParams,
+    phoneme_ids: torch.Tensor,
+    lengths: torch.Tensor,
+    durations: torch.Tensor,
+    *,
+    sid: Optional[torch.Tensor] = None,
+) -> EncodeResult:
+    """Text encoder with the caller's per-phoneme frame durations (B, P):
+    the duration predictor is skipped and `durations`, masked to each row's
+    length, is the plan the decoder expands, as a predicted w_ceil is."""
+    x, m_p, logs_p, x_mask = text_encoder(phoneme_ids, lengths, params, hp)
+    g = speaker_embedding(params, hp, sid)
+    w_ceil = durations.to(m_p.dtype) * x_mask[:, 0]
+    return EncodeResult(m_p=m_p, logs_p=logs_p, x_mask=x_mask, w=w_ceil, w_ceil=w_ceil,
+                        y_total=w_ceil.sum(dim=-1), g=g)
 
 
 def _expand_prior(enc_m_p, enc_logs_p, w_ceil, x_mask, max_frames, main_noise, noise_scale):
@@ -115,21 +154,22 @@ def debug_infer(
     noise_scale: float = 0.667,
     length_scale: float = 1.0,
     noise_w: float = 0.8,
+    sid: Optional[torch.Tensor] = None,
 ) -> dict:
     """Full inference returning every module-boundary tensor (the keys of
     piper_tpu.models.vits.model.debug_infer, without its per-layer trace).
     Like the reference, the vocoder gets the mask and no bounds here, so it
     runs the unfused path."""
-    _single_speaker(hp)
     x, m_p, logs_p, x_mask = text_encoder(phoneme_ids, lengths, params, hp)
-    logw = stochastic_duration_predictor_reverse(x, x_mask, dp_noise, params, hp,
+    g = speaker_embedding(params, hp, sid)
+    logw = stochastic_duration_predictor_reverse(x, x_mask, dp_noise, params, hp, g=g,
                                                  noise_scale=noise_w)
     w = torch.exp(logw) * x_mask * length_scale
     w_ceil = torch.ceil(w)[:, 0]
     y_lengths, y_mask, path, m_p_exp, logs_p_exp, z_p = _expand_prior(
         m_p, logs_p, w_ceil, x_mask, max_frames, main_noise, noise_scale)
-    z = flow_reverse(z_p, y_mask, params, hp)
-    audio = hifigan_generator(z * y_mask, params, hp, t_mask=y_mask)
+    z = flow_reverse(z_p, y_mask, params, hp, g=g)
+    audio = hifigan_generator(z * y_mask, params, hp, g=g, t_mask=y_mask)
     return {
         "enc_hidden": x,
         "m_p": m_p,
@@ -160,12 +200,13 @@ def infer(
     noise_scale: float = 0.667,
     length_scale: float = 1.0,
     noise_w: float = 0.8,
+    sid: Optional[torch.Tensor] = None,
     vocoder_precision: Union[str, Sequence[Optional[str]], None] = None,
     flow_precision: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Synthesis in one call: ids -> (audio, y_lengths)."""
     enc = encode(params, hp, phoneme_ids, lengths, dp_noise,
-                 length_scale=length_scale, noise_w=noise_w)
+                 length_scale=length_scale, noise_w=noise_w, sid=sid)
     return decode(params, hp, enc, main_noise, max_frames=max_frames,
                   noise_scale=noise_scale, vocoder_precision=vocoder_precision,
                   flow_precision=flow_precision)

@@ -120,16 +120,20 @@ def test_int16_output(tiny_voice, port_rt):
 
 
 def test_batch_speaker_arguments(port_rt):
-    """As synthesize: speaker ids are ignored by a single-speaker voice and
-    speaker mixes raise until multi-speaker voices are ported."""
+    """As synthesize: speaker ids are ignored by a single-speaker voice,
+    and speaker mixes raise the JAX package's ValueError there (they need
+    a multi-speaker voice; tests/test_torch_speakers.py runs them)."""
     a = port_rt.synthesize_batch([IDS, IDS[:8]], seed=4)
-    b = port_rt.synthesize_batch([IDS, IDS[:8]], speaker_ids=[0, 0], seed=4)
+    b = port_rt.synthesize_batch([IDS, IDS[:8]], speaker_ids=[2, 5], seed=4)
     for x, y in zip(a, b):
         np.testing.assert_array_equal(x, y)
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
+    with pytest.raises(ValueError, match="speaker_mix requires a multi-speaker voice"):
         port_rt.synthesize_batch([IDS], speaker_mixes=[{0: 1.0}])
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
+    with pytest.raises(ValueError, match="speaker_mix requires a multi-speaker voice"):
         port_rt.dispatch_batch([IDS, IDS], speaker_mixes=[{0: 1.0}, {0: 1.0}])
+    with pytest.raises(ValueError, match="pass speaker_id OR speaker_mix, not both"):
+        port_rt.dispatch_batch([IDS, IDS], speaker_ids=[0, 0],
+                               speaker_mixes=[{0: 1.0}, {0: 1.0}])
 
 
 @pytest.mark.parametrize("kw", [dict(fused=True), dict(pad_rows_to=4), dict(budget_frames=64),

@@ -1,10 +1,11 @@
 """The port's bench (mirrors tests/test_bench_driver.py): one JSON
 line with the root bench's keys, its headline the best serving row, on the
-CPU with the tiny test preset; the rows whose parts are not ported raise
-when asked for."""
+CPU with the tiny test preset (its multispeaker row on an 8-speaker test
+voice); the rows whose parts are not ported raise when asked for."""
 
 import json
 
+import numpy as np
 import pytest
 import torch
 
@@ -44,8 +45,11 @@ def test_bench_quick_schema(capsys, monkeypatch, tmp_path):
     assert payload["platform"] == "cpu" and payload["device"]["name"] == "cpu"
     assert (payload["mode"], payload["output_dtype"]) == ("fused", "int16")
     assert (payload["vocoder_precision"], payload["flow_precision"]) == ("high", "high")
-    for row in ("multispeaker", "streaming", "streaming_server", "roofline", "high", "golden"):
+    for row in ("streaming", "streaming_server", "roofline", "high", "golden"):
         assert payload[row] is None, row  # --quick skips high; the test voice has no golden
+    ms = payload["multispeaker"]  # --quick clamps the bench's 904 speakers to 8
+    assert (ms["n_speakers"], ms["batch"]) == (8, 2) and ms["rtf_throughput"] >= 0
+    assert ms["device_busy_ms"] is None and ms["max_memory_allocated"] is None
 
     assert [r["factor"] for r in payload["rows"]] == [1, 2]  # --quick trims the sweep
     for r in payload["rows"]:
@@ -65,7 +69,8 @@ def test_bench_quick_schema(capsys, monkeypatch, tmp_path):
 
 def test_bench_flags_match_the_root_bench():
     """Every flag of the port bench is the root bench's, but --device for
-    --platform; the defaults agree but those of the unported rows (off)."""
+    --platform; the defaults agree but those of the unported rows (off):
+    --multi-speaker is the root bench's 904."""
     import bench as root_bench
 
     ours = {a.dest: a.default for a in bench._parser()._actions if a.dest != "help"}
@@ -74,11 +79,34 @@ def test_bench_flags_match_the_root_bench():
         if dest != "device":
             assert f"--{dest.replace('_', '-')}" in src, dest
     assert ours["mode"] == "fused" and ours["batch"] == 32 and ours["precision"] == "highest"
-    assert (ours["multi_speaker"], ours["streams"], ours["roofline"]) == (0, 0, False)
+    assert (ours["multi_speaker"], ours["streams"], ours["roofline"]) == (904, 0, False)
+    assert 'parser.add_argument("--multi-speaker", type=int, default=904' in src
+
+
+def test_multispeaker_row_serves_speaker_ids(monkeypatch, tmp_path):
+    """The row's parts on a 3-speaker test voice: get_runtime writes and
+    loads the N-speaker voice (gin 512), and the pipelined throughput with
+    speaker ids 0, 1, 2, 0 serves each row in its own speaker's voice: the
+    audio of synthesize_batch with those ids and the same seed."""
+    monkeypatch.setenv("PIPER_TPU_CACHE", str(tmp_path))
+    args = bench._parser().parse_args(["--device", "cpu", "--quality", "test"])
+    rt = bench.get_runtime(args, n_speakers=3, gin=512)
+    assert (rt.hparams.n_speakers, rt.hparams.gin_channels) == (3, 512)
+    assert rt.model_path.name == "synthetic-test-ms3.onnx"
+    sids = [0, 1, 2, 0]
+    served = []
+    real = rt.fetch_batch
+    monkeypatch.setattr(rt, "fetch_batch", lambda o, m: served.append(real(o, m)) or served[-1])
+    row = bench.measure_throughput_pipelined(rt, 4, n_batches=1, sids=sids)
+    assert row["batch"] == 4 and row["audio_s_total"] > 0
+    want = rt.synthesize_batch([(bench.FIXTURE_IDS * 8)[:4096]] * 4, speaker_ids=sids, seed=0)
+    for got, w in zip(served[-1], want):
+        np.testing.assert_array_equal(got, w)
+    np.testing.assert_array_equal(served[-1][3], served[-1][0])
+    assert not np.array_equal(served[-1][1], served[-1][0])
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--multi-speaker", "8"], "ROADMAP §1 item 5"),
     (["--streams", "2"], "ROADMAP §1 item 8"),
     (["--roofline"], "roofline"),
 ])

@@ -481,3 +481,55 @@ def test_pipeline_on_the_card_matches_synthesize(card_voices):
     for res, want in zip(got, ref):
         for g, w in zip(res, want):
             np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("tier", TIERS)
+def test_speaker_mix_is_true_fp32_on_the_card(cuda, tier):
+    """The 904 x 512 mix product runs with TF32 off under every tier's
+    scope: one-hot rows equal the id lookup bit for bit, and a blend
+    agrees with the CPU within 1e-6."""
+    from dataclasses import replace
+
+    from piper_tpu_torch.models.vits.hparams import PRESETS
+    from piper_tpu_torch.models.vits.model import speaker_embedding
+
+    hp = replace(PRESETS["medium"], n_speakers=904, gin_channels=512)
+    gen = torch.Generator().manual_seed(9)
+    emb = torch.randn(904, 512, generator=gen) * 0.1
+    ids = torch.tensor([0, 451, 903, 17])
+    mix = torch.zeros(4, 904)
+    mix[0, 0], mix[0, 903], mix[1, 17], mix[1, 400] = 0.6, 0.4, 1.2, -0.2
+    mix[2, 5] = mix[3, 6] = 1.0
+    card = {"emb_g.weight": emb.to(cuda)}
+    with tier_scope(tier, cuda):
+        by_id = speaker_embedding(card, hp, ids.to(cuda))
+        onehot = speaker_embedding(card, hp, torch.nn.functional.one_hot(ids, 904).float()
+                                   .to(cuda))
+        blend = speaker_embedding(card, hp, mix.to(cuda))
+    assert torch.equal(by_id, onehot)
+    want = speaker_embedding({"emb_g.weight": emb}, hp, mix)
+    assert float((blend.cpu() - want).abs().max()) <= 1e-6
+
+
+def test_a_bad_speaker_leaves_the_card_usable(tmp_path):
+    """An out-of-range id or mix raises ValueError on the host; no
+    device-side assert poisons the CUDA context, and the next request
+    runs."""
+    import numpy as np
+
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.engine.runtime import PiperRuntime
+    from piper_tpu_torch.models.vits.synthetic import make_synthetic_voice
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    voice = make_synthetic_voice(tmp_path, quality="test", seed=6, n_speakers=4,
+                                 gin_channels=32)
+    rt = PiperRuntime(*voice, device="cuda")
+    before = rt.synthesize(FIXTURE_PHONEME_IDS, speaker_id=3, seed=1)
+    for kw in (dict(speaker_id=4), dict(speaker_id=-1), dict(speaker_mix={4: 1.0})):
+        with pytest.raises(ValueError, match="out of range"):
+            rt.synthesize(FIXTURE_PHONEME_IDS, seed=1, **kw)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(rt.synthesize(FIXTURE_PHONEME_IDS, speaker_id=3, seed=1),
+                                  before)

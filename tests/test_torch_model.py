@@ -38,7 +38,7 @@ SMALL = VitsHParams(
     resblock_kernel_sizes=[3], resblock_dilation_sizes=[[1, 3]],
     upsample_rates=[4, 4], upsample_initial_channel=64, upsample_kernel_sizes=[8, 8],
 )
-# Speaker conditioning exercised at module level (the runtime is single-speaker).
+# Speaker conditioning at module level (the runtime tests: test_torch_speakers.py).
 SMALL_G = replace(SMALL, n_speakers=4, gin_channels=16)
 # A vocoder whose levels take all three routes: C=128 unfused convs, C=64
 # the branch kernel, C=32 the MRF kernel (medium's kernels and dilations).

@@ -155,15 +155,17 @@ def test_synthesize_takes_the_reference_parameters():
     assert params(PiperRuntime.synthesize) == params(JaxRuntime.synthesize)
 
 
-def test_speaker_arguments_on_a_single_speaker_voice(port_rt):
+def test_speaker_arguments_on_a_single_speaker_voice(port_rt, tiny_runtime):
     """speaker_id (fifth) is ignored by a single-speaker voice, as in the JAX
-    package; speaker_mix is not ported and raises, and so do both at once."""
-    a = port_rt.synthesize(IDS, None, None, None, 0, 7)
+    package; a speaker mix raises the JAX package's ValueError (it needs a
+    multi-speaker voice), and so do both at once."""
+    a = port_rt.synthesize(IDS, None, None, None, 3, 7)
     assert np.array_equal(a, port_rt.synthesize(IDS, seed=7))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 5"):
-        port_rt.synthesize(IDS, speaker_mix={0: 1.0})
-    with pytest.raises(ValueError, match="pass speaker_id OR speaker_mix, not both"):
-        port_rt.synthesize(IDS, speaker_id=0, speaker_mix={0: 1.0})
+    for rt in (port_rt, tiny_runtime):
+        with pytest.raises(ValueError, match="speaker_mix requires a multi-speaker voice"):
+            rt.synthesize(IDS, speaker_mix={0: 1.0})
+        with pytest.raises(ValueError, match="pass speaker_id OR speaker_mix, not both"):
+            rt.synthesize(IDS, speaker_id=0, speaker_mix={0: 1.0})
 
 
 def test_seeded_noise_is_row_invariant():

@@ -1,8 +1,9 @@
 """The port stands alone: it imports neither JAX nor the JAX package.
 
 piper_tpu_torch keeps its own copies of the jax-free modules it needs
-(onnx.{ir,wire,loader,writer}, core.config, core.test_vector,
-models.vits.{hparams,synthetic}). These tests scan every module of the port
+(onnx.{ir,wire,loader,writer}, core.{config,test_vector,alignment},
+models.vits.{hparams,synthetic}, and engine.runtime's speaker and scale
+helpers). These tests scan every module of the port
 and chip_smoke.py for such imports, run the port in a process that refuses
 them, and hold each copy equal to its original: the same synthetic voice
 bytes, the same decoded graphs, hparams and configs.
@@ -10,6 +11,7 @@ bytes, the same decoded graphs, hparams and configs.
 
 import ast
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -190,3 +192,77 @@ def test_voice_config_load_is_equal(voices, quality):
 
 def test_fixture_phoneme_ids_are_equal():
     assert FIXTURE_PHONEME_IDS == J_FIXTURE_IDS
+
+
+SPEAKER_MAP = {"92": 0, "3922": 1, "2": 3, "alba": 2}
+RESOLVE_CASES = [(2, 4, None), (np.int64(3), 4, None), ("3", 4, None), (" 2 ", 4, SPEAKER_MAP),
+                 ("3922", 4, SPEAKER_MAP), ("alba", 4, SPEAKER_MAP), ("bob", 4, SPEAKER_MAP),
+                 ("bob", 4, None), (True, 4, None), (1.0, 4, None), (None, 4, None),
+                 (4, 4, None), (-1, 4, None), (0, 1, None), (1, 1, None), ("x1", 0, None)]
+MIX_SPECS = ["0:0.6,3:0.4", "alba:1", " 2 : 0.5 , spk1:-0.2", "0:1,0:2", "0", ":1", "0:x",
+             "a:b:c", "", "1:1e3"]
+SCALES = [(0.667, 1.0, 0.8), (0.0, 0.5, 0.0), (0.5, 0.0, 0.5), (0.5, -1.0, 0.5),
+          (float("nan"), 1.0, 0.8), (0.5, float("inf"), 0.8), (0.5, 1.0, -0.1),
+          (0.5, 1.0, float("inf"))]
+MIXES = [({0: 0.6, 3: 0.4}, 4, None), ({0: 1.2, 1: -0.2}, 4, None), ({2: 1.0}, 4, 1),
+         ({0: 1.0}, 1, None), ({}, 4, None), ({1.5: 1.0}, 4, None), ({True: 1.0}, 4, None),
+         ({2.0: 1.0}, 4, None), ({np.int64(3): 1.0}, 4, None), ({"2": 1.0}, 4, None),
+         ({4: 1.0}, 4, None), ({-1: 1.0}, 4, None), ({0: float("nan")}, 4, None),
+         ({0: 0.0, 1: 0.0}, 4, None), ({2: 0.5, np.int32(2): 0.5, 1: 1.0}, 4, None)]
+
+
+def _outcome(fn, *args):
+    try:
+        return "ok", fn(*args)
+    except Exception as e:  # noqa: BLE001 — the type and message are what is compared
+        return type(e).__name__, str(e)
+
+
+@pytest.mark.parametrize("name,cases", [
+    ("resolve_speaker", RESOLVE_CASES), ("parse_mix_spec", [(s,) for s in MIX_SPECS]),
+    ("validate_scales", SCALES), ("validate_speaker_mix", MIXES)])
+def test_speaker_helpers_match_the_reference(name, cases):
+    """The port's copies of the JAX package's speaker and scale helpers
+    give the same results, and raise the same errors with the same
+    messages, over one table of inputs."""
+    from piper_tpu.engine import runtime as j_runtime
+    from piper_tpu_torch.engine import runtime as t_runtime
+
+    for args in cases:
+        got = _outcome(getattr(t_runtime, name), *args)
+        want = _outcome(getattr(j_runtime, name), *args)
+        assert got == want, (name, args)
+        assert type(got[1]) is type(want[1]), (name, args)
+
+
+def test_multispeaker_voice_files_are_byte_identical(tmp_path):
+    """The bench's 904-speaker voice (gin 512), written by each package."""
+    j_model, j_config = j_make_voice(tmp_path / "jax", quality="medium", seed=0,
+                                     n_speakers=904, gin_channels=512)
+    model, config = make_synthetic_voice(tmp_path / "port", quality="medium", seed=0,
+                                         n_speakers=904, gin_channels=512)
+    assert model.read_bytes() == j_model.read_bytes()
+    assert config.read_bytes() == j_config.read_bytes()
+    assert json.loads(config.read_text())["num_speakers"] == 904
+
+
+def test_alignment_json_matches_reference():
+    """The copy of core/alignment.py gives the JAX package's dict and JSON
+    for the same plan, truncated or not, shifted or not."""
+    from piper_tpu.core import alignment as j_al
+    from piper_tpu_torch.core.alignment import alignments_to_json, make_alignment
+
+    durs = np.array([3, 0, 5, 2, 7], np.int64)
+    ids = [1, 20, 0, 12, 2]
+    for total in (17 * 256, 10 * 256):
+        kw = dict(hop_length=256, sample_rate=22050, total_samples=total)
+        al, jal = make_alignment(ids, durs, **kw), j_al.make_alignment(ids, durs, **kw)
+        assert al.to_dict() == jal.to_dict()
+        assert al.to_dict(offset_samples=1000) == jal.to_dict(offset_samples=1000)
+        assert json.dumps(alignments_to_json([al, al], [0, total + 50])) == json.dumps(
+            j_al.alignments_to_json([jal, jal], [0, total + 50]))
+    with pytest.raises(ValueError):
+        make_alignment([1, 2, 3], np.array([1, 2]), hop_length=32, sample_rate=16000,
+                       total_samples=96)
+    with pytest.raises(ValueError):
+        alignments_to_json([], [0])
