@@ -40,7 +40,17 @@ paths give it, and drives the main paths, counting each kernel's launches:
   rows run one by one, and forced durations: the predicted plan forced
   against synthesize, and synthesize_batch_forced against its solo runs;
 - the port's bench, `piper_tpu_torch.bench.main(["--quick"])`, its
-  multispeaker row (8 speakers) included.
+  multispeaker row (8 speakers) included;
+- incremental streaming on each voice, fp32 and mixed (paths
+  `{voice}_stream`, `{voice}_mixed_stream`): the f=8 JAX golden streamed
+  with its injected noise at the growing schedule and at 16-frame windows
+  (contiguous chunks, the last final, the waveform within 1e-4, 1e-3
+  mixed), the seeded fused head against the split path, the head and the
+  speculative window 1 dispatched under torch.cuda's sync debug mode
+  "error", a batched head of 4 streams and one batched window (rows at
+  different offsets, one past its end) against their solo decodes, and the
+  bench's streaming row (time to first audio, p50) with the head's device
+  busy time.
 
 Beside the paths, a profile phase puts one utterance of each voice (fp32
 and mixed, factors 1 and 8) under torch.profiler: its device kernels, their
@@ -77,9 +87,9 @@ MS_PATHS = tuple(f"medium_ms{suffix}{part}" for suffix in ("", "_mixed")
                  for part in ("", "_golden", "_batch", "_forced"))
 RESBLOCK1_PATHS = ("medium", "medium_mixed", "medium_golden", "medium_mixed_golden",
                    "medium_batch", "medium_mixed_batch", "pipeline", "high", "high_mixed",
-                   "bench") + MS_PATHS
+                   "bench", "medium_stream", "medium_mixed_stream") + MS_PATHS
 CONV1D_PATHS = ("x_low", "x_low_mixed", "x_low_golden", "x_low_mixed_golden", "x_low_batch",
-                "x_low_mixed_batch")
+                "x_low_mixed_batch", "x_low_stream", "x_low_mixed_stream")
 # kernel -> (its source, the TPU kernel it replaces, the paths that run it)
 KERNELS = {
     "resblock1_branch": ("piper_tpu_torch/csrc/resblock1.cu",
@@ -126,7 +136,8 @@ K1_SYMBOL = "conv1d_same"  # held by both K1 kernels' symbols (fp32 and mma)
 # A voice's vocoder kernels: their device symbol and their launch counters.
 VOCODER_KERNELS = {"medium": (RESBLOCK_SYMBOL, ("resblock1_branch", "resblock1_mrf")),
                    "x_low": (K1_SYMBOL, ("conv1d_same",))}
-# A voice's vocoder kernel launches per synthesis call, whatever its rows:
+# A voice's vocoder kernel launches per synthesis call or stream window,
+# whatever its rows:
 # medium's level 2 (C=64) runs three K2 branches and level 3 (C=32) one K3;
 # high adds a K3 level at C=16; x_low's two levels run six K1 convs each.
 LAUNCHES_PER_CALL = {"medium": {"resblock1_branch": 3, "resblock1_mrf": 1},
@@ -152,6 +163,10 @@ FORCED_ATOL = 1e-5  # the forced predicted plan against synthesize, fp32
 # output channels.
 MEDIUM_UPSAMPLE = ((8, 16, 256), (8, 16, 128), (2, 4, 64), (2, 4, 32))
 CT_ATOL = 1e-4  # poly_ct and native_ct vs full_ct, fp32 sums in other orders
+# Streaming: the fused head against the split path (the same kernels on the
+# same inputs), and the bench's first window (c0 = max(32, 2048 // hop)).
+FUSED_SPLIT_ATOL = 1e-6
+STREAM_C0 = 32
 
 
 def emit(**fields) -> None:
@@ -202,6 +217,8 @@ def _bounds_cases(torch, n):
         # row 1 ends 3000 samples early: its last tiles are dead
         "one_sided": torch.tensor([n, n - 3000], dtype=torch.int32, device="cuda"),
         "two_sided": torch.tensor([[37, n - 401], [0, n // 3]], dtype=torch.int32, device="cuda"),
+        # row 0 is empty (a stream window wholly past its end): every tile dead
+        "empty": torch.tensor([[0, 0], [0, n]], dtype=torch.int32, device="cuda"),
     }
 
 
@@ -368,6 +385,8 @@ def _conv1d_same_check(torch, gen) -> dict:
                     if got.shape != want.shape:
                         raise AssertionError(f"conv1d_same {case} k={k} d={d}: {got.shape}")
                     errs[f"{case}_k{k}_d{d}"] = float((got - want).abs().max())
+                    if case == "act_empty":
+                        _check_k1_empty(torch, K1, xin, w, b, d, bnd, got, tier)
             worst = max(errs.values())
             if not worst <= K1_ATOL:
                 raise AssertionError(f"conv1d_same level {level} {tier}: max-abs {worst} > "
@@ -398,6 +417,16 @@ def _conv1d_same_check(torch, gen) -> dict:
                         "bound_ms"):
                 t[key] += row[key]
     return total
+
+
+def _check_k1_empty(torch, K1, x, w, b, d, bnd, got, tier) -> None:
+    """K1 on an empty row (bounds [0, 0]): its input is all zero, so its
+    output is exactly the bias, and exactly zero without one (K1 masks its
+    input, not its output, as JAX's conv on the masked input)."""
+    bare = K1.conv1d_same(x, w, None, dilation=d, act_slope=0.1, bounds=bnd, precision=tier)
+    if not (torch.equal(got[0], b[:, None].expand_as(got[0]))
+            and int(torch.count_nonzero(bare[0])) == 0):
+        raise AssertionError(f"conv1d_same {tier} d={d}: the empty row is not its bias / zero")
 
 
 def _interleave_check(torch, gen) -> dict:
@@ -890,6 +919,147 @@ def phase_bench() -> dict:
     return launches
 
 
+def _stream_chunks(path: str, chunks, hop: int) -> np.ndarray:
+    """A stream's chunks: offsets contiguous, the last one final and no
+    other, every one but the last a whole number of frames. Returns the
+    concatenated audio."""
+    sizes = [len(c.samples) for c in chunks]
+    if [c.start_sample_index for c in chunks] != [sum(sizes[:i]) for i in range(len(sizes))]:
+        raise AssertionError(f"{path}: chunk offsets not contiguous")
+    if [c.is_final for c in chunks] != [False] * (len(chunks) - 1) + [True]:
+        raise AssertionError(f"{path}: is_final {[c.is_final for c in chunks]}")
+    if any(n % hop for n in sizes[:-1]):
+        raise AssertionError(f"{path}: chunk sizes {sizes}")
+    return np.concatenate([c.samples for c in chunks])
+
+
+def phase_stream(torch, path: str, rt, atol: float) -> dict:
+    """Incremental streaming on the card (`{path}_stream`; each window
+    launches the voice's vocoder kernels their count per call):
+
+    (a) the voice's f=8 JAX golden (ids, dp_noise, main_noise) streamed at
+        the growing schedule and at 16-frame windows: the concatenation
+        within `atol` of the golden's audio;
+    (b) a seeded stream of the bench's 224-id utterance, fused head against
+        the split path, within FUSED_SPLIT_ATOL;
+    (c) dispatch_stream_head and the speculative window 1 (on the
+        device-held frame count) under torch.cuda.set_sync_debug_mode
+        ("error"), window 1 equal to the stream's second chunk;
+    (d) dispatch_stream_head_batch of 4 streams in one bucket, row r against
+        the solo head at its seed, and one dispatch_window_batch (rows at
+        different offsets, row 3 wholly past its end) against each row's
+        solo window: within `atol`, row 3 exactly zero.
+
+    Then the bench's streaming row (bench.measure_streaming: TTFB and total
+    p50, one profiled stream), the head's device busy time, and the head's
+    wall alone (dispatch, copy, wait; p50 of REPS)."""
+    from piper_tpu_torch import bench, golden
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.models.vits.hparams import receptive_field_frames
+    from piper_tpu_torch.tools.timing import profile_call
+
+    name = f"{path}_stream"
+    hop, halo = rt.hparams.hop_length, receptive_field_frames(rt.hparams)
+    g = golden.load(_voice(path), 8)
+    counters = _zero_counts()
+    windows, row = 0, {"halo": halo}
+
+    goldens = []
+    for kw in ({}, {"chunk_frames": 16}):
+        chunks = list(rt.synthesize_stream_incremental(
+            g["ids"].tolist(), dp_noise=g["dp_noise"], main_noise=g["main_noise"], **kw))
+        windows += len(chunks)
+        audio = _stream_chunks(name, chunks, hop)
+        if audio.shape != g["audio"].shape:
+            raise AssertionError(f"{name} golden {kw}: {audio.shape} vs {g['audio'].shape}")
+        err = float(np.abs(audio - g["audio"]).max())
+        if not err <= atol:
+            raise AssertionError(f"{name} golden {kw}: max-abs {err} > {atol}")
+        goldens.append({"schedule": kw.get("chunk_frames", "growing"), "chunks": len(chunks),
+                        "samples": len(audio), "max_abs_err": err, "atol": atol})
+    row["golden"] = goldens
+
+    ids_long = (FIXTURE_PHONEME_IDS * 16)[:4096]
+    fused = list(rt.synthesize_stream_incremental(ids_long, seed=7))
+    split = list(rt.synthesize_stream_incremental(ids_long, seed=7, fused_head=False))
+    windows += len(fused) + len(split)
+    a, b = _stream_chunks(name, fused, hop), _stream_chunks(name, split, hop)
+    if [len(c.samples) for c in fused] != [len(c.samples) for c in split]:
+        raise AssertionError(f"{name}: fused and split chunk sizes differ")
+    err = float(np.abs(a - b).max())
+    if not err <= FUSED_SPLIT_ATOL:
+        raise AssertionError(f"{name}: fused head vs split max-abs {err} > {FUSED_SPLIT_ATOL}")
+    row["fused_vs_split"] = {"chunks": len(fused), "samples": len(a), "max_abs_err": err,
+                             "atol": FUSED_SPLIT_ATOL}
+
+    stream = list(rt.synthesize_stream_incremental(ids_long, seed=3))
+    windows += len(stream)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        enc, _, total, seed_t, ns = rt.dispatch_stream_head(ids_long, c0=STREAM_C0, halo=halo,
+                                                            seed=3)
+        spec1 = rt.dispatch_window_batch(enc, seed_t, [STREAM_C0 - halo], total, [ns],
+                                         emit_frames=2 * STREAM_C0, halo=halo)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    windows += 2
+    err = float(np.abs(spec1[0].cpu().numpy() - stream[1].samples).max())
+    if len(stream[1].samples) != spec1.shape[1] or not err <= FUSED_SPLIT_ATOL:
+        raise AssertionError(f"{name}: window 1 dispatched alone vs the stream's chunk 1: "
+                             f"{err}")
+    row["sync_free_dispatch"] = {"checked": ["dispatch_stream_head", "dispatch_window_batch"],
+                                 "window1_vs_stream_max_abs_err": err}
+
+    ids2 = FIXTURE_PHONEME_IDS * 2
+    rows = [ids2, ids2[:20], ids2[3:], ids2[1:25]]  # one phoneme bucket, 32, alone or together
+    seeds = [11, 12, 13, 14]
+    enc, audio0, totals, seed_vals, ns_vals = rt.dispatch_stream_head_batch(
+        rows, c0=STREAM_C0, halo=halo, seeds=seeds)
+    y_len = totals.cpu().numpy()
+    # window 1, a window over frame 0, one crossing its row's end, one wholly past it
+    t_off = np.array([STREAM_C0 - halo, 5 - halo, int(y_len[2]) - STREAM_C0 // 2 - halo,
+                      int(y_len[3]) + 1])
+    batch = rt.dispatch_window_batch(enc, seed_vals, t_off, y_len, ns_vals,
+                                     emit_frames=STREAM_C0, halo=halo).cpu().numpy()
+    windows += 2
+    head_errs, window_errs = [], []
+    for r, ids in enumerate(rows):
+        e1, a1, t1, s1, ns1 = rt.dispatch_stream_head(ids, c0=STREAM_C0, halo=halo,
+                                                      seed=seeds[r])
+        solo = rt.dispatch_window_batch(e1, s1, t_off[r:r + 1], t1, [ns1],
+                                        emit_frames=STREAM_C0, halo=halo)
+        windows += 2
+        head_errs.append(float((audio0[r] - a1[0, halo * hop: (halo + STREAM_C0) * hop])
+                               .abs().max()))
+        window_errs.append(float(np.abs(batch[r] - solo[0].cpu().numpy()).max()))
+    if not max(head_errs + window_errs) <= atol or np.count_nonzero(batch[3]):
+        raise AssertionError(f"{name}: batched head {head_errs} / window {window_errs} > "
+                             f"{atol}, or the row past its end is not zero")
+    row["batched"] = {"rows": len(rows), "frames": y_len.tolist(), "t_offsets": t_off.tolist(),
+                      "head_max_abs_err": max(head_errs), "window_max_abs_err": max(window_errs),
+                      "row_past_end_zero": True, "atol": atol}
+
+    launches = _require_launches(name, counters)
+    _require_per_call(name, launches, windows)
+    symbol, names = VOCODER_KERNELS[_voice(path)]
+    head = profile_call(lambda: rt.dispatch_stream_head(ids_long, c0=STREAM_C0, halo=halo),
+                        symbol, [_counters()[n] for n in names])
+    row["head_device_busy_ms"] = head["device_busy_ms"]
+    row["head_device_kernels"] = head["device_kernels"]
+    row["streaming"] = bench.measure_streaming(rt, REPS)
+    # The head alone to its audio on the host: the first chunk's time were
+    # window 1 queued after the fetch, not before it.
+    walls = []
+    for i in range(REPS):
+        t0 = time.perf_counter()
+        rt.dispatch_stream_head(ids_long, c0=STREAM_C0, halo=halo, seed=i)[1].cpu()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    row["head_wall_ms_p50"] = statistics.median(walls)
+    emit(phase="stream", path=name, windows=windows, **row, launches=launches)
+    return launches
+
+
 def phase_probe() -> dict:
     """The folded-kernel probe's main function, reduced to a batch of 2 and
     one timed window of 2 calls per kernel, at its default tier ("high");
@@ -993,6 +1163,8 @@ def main() -> None:
         count(counts)
         phase_compare(torch, mixed, rt_mixed, rt, MIXED_ATOL, "card highest")
         phase_profile(torch, {quality: rt, mixed: rt_mixed})
+        count(phase_stream(torch, quality, rt, WAVE_ATOL))
+        count(phase_stream(torch, mixed, rt_mixed, MIXED_ATOL))
         count(phase_golden(quality, rt))
         count(phase_golden(mixed, rt_mixed))
         serving = quality == "medium"

@@ -13,13 +13,15 @@ f=8 utterances, blocking), `throughput_pipelined` (the same batches through
 utterances through `ServingPipeline.submit`), `multispeaker` (a synthetic
 N-speaker voice, gin 512, B rows of f=8 with speaker ids 0..B-1 mod N
 through `submit_batch`: the en_US-libritts-high class, N=904 by default,
-8 under --quick) and `high` (the five-level `high` preset). `streaming`,
-`streaming_server` and `roofline` are null: their parts of the port are
-not written yet, their flags default to off, and turning one on raises.
+8 under --quick), `high` (the five-level `high` preset) and, unless
+--quick, `streaming` (incremental streams of the 224-id fixture utterance:
+time to the first chunk and to the last, p50). `streaming_server` and
+`roofline` are null: their parts of the port are not written yet, their
+flags default to off, and turning one on raises.
 
 `--device` takes `--platform`'s place: the card by default, or the CPU.
-On the card the wall is launch-bound and noisy, so each factor row and the
-throughput batch also carry, from one call under torch.profiler after the
+On the card the wall is launch-bound and noisy, so each factor row, the
+throughput batch and the streaming row also carry, from one call under torch.profiler after the
 timed ones, the device's kernels, their summed time (`device_busy_ms`) and
 its share of the row's unprofiled wall, with the voice's vocoder kernels
 (K2+K3 `resblock1_kernel`, or K1 `conv1d_same`) checked against their
@@ -239,6 +241,34 @@ def measure_throughput_pipelined(runtime, bsz: int, n_batches: int = 8, sids=Non
     }
 
 
+def measure_streaming(runtime, iters: int) -> dict:
+    """Time to first audio of incremental streaming, as the root bench
+    measures it: the fixture phrase repeated to 224 ids, one warm stream
+    over every window size of the growing schedule, then max(3, iters // 2)
+    seeded streams, each timed to its first chunk (`ttfb`) and to its last
+    (`total`); p50 of each, and one profiled stream (`_profile`)."""
+    ids_long = (FIXTURE_IDS * 16)[:4096]
+    for _ in runtime.synthesize_stream(ids_long, incremental=True):
+        pass
+    ttfbs, totals = [], []
+    for i in range(max(3, iters // 2)):
+        t0 = time.perf_counter()
+        it = runtime.synthesize_stream(ids_long, incremental=True, seed=i)
+        first = next(it)
+        ttfbs.append((time.perf_counter() - t0) * 1e3)
+        n = len(first.samples) + sum(len(c.samples) for c in it)
+        totals.append((time.perf_counter() - t0) * 1e3)
+    total_p50 = float(np.percentile(totals, 50))
+    return {
+        "phonemes": len(ids_long),
+        "utterance_s": round(n / runtime.sample_rate, 2),
+        "ttfb_ms_p50": round(float(np.percentile(ttfbs, 50)), 1),
+        "total_ms_p50": round(total_p50, 1),
+        **_profile(runtime, lambda: [c for c in runtime.synthesize_stream(
+            ids_long, incremental=True, seed=0)], total_p50),
+    }
+
+
 def _golden_rows(args, rt, speakers: bool = False):
     """The voice against its committed JAX goldens, or None where it has
     none; with `speakers`, the multi-speaker voice against the speaker
@@ -336,6 +366,9 @@ def main(argv=None) -> dict:
             "rtf": round(audio_s / wall, 1),
         }
 
+    # Streaming time to first audio (incremental windowed decode).
+    streaming_row = None if args.quick else measure_streaming(rt, args.iters)
+
     # Multi-speaker batched serving (the en_US-libritts-high class: 900+
     # speaker embeddings, a batch of rows with different speaker ids),
     # always on a synthetic N-speaker voice: a --model is usually
@@ -413,7 +446,7 @@ def main(argv=None) -> dict:
         "throughput_pipelined": throughput_pipelined,
         "batch_sweep": batch_sweep_rows,
         "pipeline": pipeline_row,
-        "streaming": None,
+        "streaming": streaming_row,
         "streaming_server": None,
         "multispeaker": multispeaker_row,
         "high": high_row,

@@ -28,6 +28,15 @@ voices on one device: the CUDA card unless the caller asks for the CPU
   mixes are validated on the host before any device work: an
   out-of-range index on the card is a device-side assert that would end
   the process's CUDA context (JAX clamps instead).
+- Streaming: `synthesize_stream` chunks a full synthesis, or with
+  incremental=True decodes frame windows haloed by the decode stack's
+  receptive field (`synthesize_stream_incremental`), so the first audio
+  comes after one small window. Seeded streams run a fused head (encode and
+  window 0 with no host read) and dispatch window 1 on the device-held
+  frame count before window 0's audio is fetched; every window k+1 is
+  queued before window k is fetched. `dispatch_stream_head`,
+  `dispatch_stream_head_batch` and `dispatch_window_batch` are the same
+  pieces without the generator, for a server that batches streams.
 
 Encode and decode run at the `precision` tier (by default "highest", fp32
 with TF32 off for matmuls and cuDNN convs: a duration error can flip a
@@ -44,8 +53,11 @@ batched beside it. The prior's draw has the frame bucket's width, so fused
 and split runs of one utterance share a realization only where their
 buckets agree (the JAX package's caveat too); a forced plan decodes at the
 bucket split mode picks for the same total, so forcing the predicted plan
-reproduces split mode's audio. The numbers differ from the JAX package's
-threefry by design; parity checks inject the noise instead.
+reproduces split mode's audio. A stream's prior noise is per_frame_noise's
+instead, a function of (seed, absolute frame): a seeded stream is
+deterministic but not synthesize()'s realization (as in the JAX package).
+The numbers differ from the JAX package's threefry by design; parity
+checks inject the noise instead.
 
 Eager PyTorch compiles nothing. `RunTimings.compiled` marks the first run
 of a (kind, rows, bucket, speaker kind) key, as the JAX package marks a
@@ -63,12 +75,13 @@ import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from piper_tpu_torch.core.alignment import PhonemeAlignment, make_alignment
+from piper_tpu_torch.core.audio import AudioChunk, AudioFormat
 from piper_tpu_torch.core.config import VoiceConfig
 from piper_tpu_torch.engine.bucketing import (
     DEFAULT_FRAME_BUCKETS,
@@ -78,7 +91,8 @@ from piper_tpu_torch.engine.bucketing import (
     pad_to,
 )
 from piper_tpu_torch.models.vits import model as vits
-from piper_tpu_torch.models.vits.hparams import VitsHParams, derive_hparams
+from piper_tpu_torch.models.vits.hparams import (VitsHParams, derive_hparams,
+                                                  receptive_field_frames)
 from piper_tpu_torch.models.vits.params import host_arrays_from_graph, params_to_torch
 from piper_tpu_torch.onnx.loader import load_model
 from piper_tpu_torch.ops.kernels.precision import TIERS, kernel_tier, tier_scope
@@ -169,6 +183,11 @@ def seeded_noise(seed: int, stream: int, shape: Tuple[int, ...], rows: int,
     gen.manual_seed(((int(seed) & 0xFFFFFFFF) << 8) | stream)
     draw = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
     return draw.expand(rows, *shape)
+
+
+def _seed_u32(seed) -> int:
+    """Any Python int -> uint32 range; negative seeds wrap mod 2**32."""
+    return int(seed) & 0xFFFFFFFF
 
 
 def _padded(src: np.ndarray, shape: Tuple[int, ...]) -> np.ndarray:
@@ -365,6 +384,14 @@ class PiperRuntime:
         """The batch-bucket ladder (one device: every rung)."""
         return self.options.batch_buckets
 
+    @property
+    def np_output_dtype(self):
+        return np.int16 if self.options.output_dtype == "int16" else np.float32
+
+    @property
+    def audio_format(self) -> AudioFormat:
+        return AudioFormat(sample_rate=self.sample_rate)
+
     def _as_output(self, audio: torch.Tensor) -> torch.Tensor:
         """The waveform in the runtime's output dtype, on the device: int16
         is clip * 32767 cast there, so the host copy moves half the bytes."""
@@ -535,19 +562,32 @@ class PiperRuntime:
     # -- device work (callers hold _device_work) -------------------------------
 
     def _to_device(self, a: Optional[np.ndarray]) -> Optional[torch.Tensor]:
-        return None if a is None else torch.from_numpy(a).to(self.device)
+        """A host array on the runtime's device. On the card the copy is
+        queued from pinned memory: the host does not wait for it, so no
+        dispatch synchronizes with the device."""
+        if a is None:
+            return None
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _encode(self, ids: np.ndarray, lengths: np.ndarray, ls: float, nw: float, seed: int,
+    def _encode(self, ids: np.ndarray, lengths: np.ndarray, ls, nw, seed,
                 dp_noise: Optional[np.ndarray] = None,
                 sid: Optional[np.ndarray] = None) -> vits.EncodeResult:
         """ids (B, P) through the text encoder and duration predictor, with
         the injected dp_noise (zero-padded to P) or the seeded draw, for the
-        speakers of `sid` (_sid_array's)."""
+        speakers of `sid` (_sid_array's). `seed` is one seed, whose draw
+        every row shares, or a list of one seed per row, each row drawing
+        its own (a streaming head's rows, each equal to its solo draw);
+        `ls` and `nw` are floats or (B, 1, 1) tensors."""
         b, p = ids.shape
         dev = self.device
         if dp_noise is not None:
             src = np.asarray(dp_noise, np.float32).reshape(b, 2, -1)
             dpn = self._to_device(_padded(src, (b, 2, p)))
+        elif isinstance(seed, (list, tuple)):
+            dpn = torch.cat([seeded_noise(s, 0, (2, p), 1, dev) for s in seed])
         else:
             dpn = seeded_noise(seed, 0, (2, p), b, dev)
         return vits.encode(self.params, self.hparams, self._to_device(ids),
@@ -1034,3 +1074,323 @@ class PiperRuntime:
         (audio,) = meta["copy"].wait()
         y_len, hop = meta["y_len"], self.hparams.hop_length
         return [audio[i, : int(y_len[i]) * hop].copy() for i in range(meta["b"])]
+
+    # -- streaming -------------------------------------------------------------
+
+    def _device_rows(self, v, dtype, b: int) -> torch.Tensor:
+        """(B,) per-row values on the device: a tensor as it is (reshaped),
+        host values through a queued pinned copy."""
+        if isinstance(v, torch.Tensor):
+            return v.to(self.device).reshape(-1).expand(b)
+        return self._to_device(np.asarray(v, dtype).reshape(-1))
+
+    def _filled(self, value: int) -> torch.Tensor:
+        """A host int as a (1,) int64 tensor filled on the device (no copy)."""
+        return torch.full((1,), int(value), dtype=torch.int64, device=self.device)
+
+    def _window(self, enc, noise, t_off, total, ns, window: int) -> torch.Tensor:
+        """decode_window at the runtime's tiers, in its output dtype: (B,
+        window * hop) on the device."""
+        o = self.options
+        return self._as_output(vits.decode_window(
+            self.params, self.hparams, enc, noise, t_off, window=window, total_frames=total,
+            noise_scale=ns, vocoder_precision=o.vocoder_precision,
+            flow_precision=o.flow_precision))
+
+    def _window_keyed(self, enc, seeds: torch.Tensor, t_off: torch.Tensor, total, ns,
+                      window: int) -> torch.Tensor:
+        """A seeded window: each row's prior noise from its seed at its
+        absolute frames (per_row_frame_noise), as it is decoding alone."""
+        t_idx = t_off[:, None] + torch.arange(window, device=self.device)[None, :]
+        noise = vits.per_row_frame_noise(seeds, t_idx, self.hparams.inter_channels)
+        return self._window(enc, noise, t_off, total, ns, window)
+
+    def _head(self, ids: np.ndarray, lengths: np.ndarray, seeds: Sequence[int], scales, sid,
+              window: int, halo: int):
+        """Encode the rows and decode their first windows, frames [-halo,
+        window - halo), with no host read. `scales` is (ns, ls, nw): floats,
+        or (B, 1, 1) tensors. Row r draws its duration noise from seeds[r]
+        as a solo run does. Returns (enc, audio (B, window * hop) in the
+        output dtype, each row's frame count clamped to >= 1, the seeds),
+        all on the device."""
+        ns, ls, nw = scales
+        enc = self._encode(ids, lengths, ls, nw, list(seeds), sid=sid)
+        seeds_d = self._to_device(np.asarray([_seed_u32(s) for s in seeds], np.int64))
+        totals = torch.clamp(enc.y_total, min=1).to(torch.int64)
+        t_off = torch.full((ids.shape[0],), -halo, dtype=torch.int64, device=self.device)
+        return enc, self._window_keyed(enc, seeds_d, t_off, totals, ns, window), totals, seeds_d
+
+    def synthesize_stream(
+        self,
+        phoneme_ids: Sequence[int],
+        chunk_size: int = 2048,
+        incremental: bool = False,
+        **kwargs,
+    ) -> Iterator[AudioChunk]:
+        """Chunked streaming over the synthesized waveform.
+
+        With incremental=False: synthesize fully, then chunk. With
+        incremental=True the decode itself runs in haloed frame windows, so
+        the first audio arrives after one window instead of the whole
+        utterance (synthesize_stream_incremental, which takes the other
+        keyword arguments). With injected noise the streamed audio equals
+        the full decode; seeded, it is deterministic but another prior-noise
+        realization than synthesize()'s (per_frame_noise)."""
+        if incremental:
+            yield from self.synthesize_stream_incremental(phoneme_ids, chunk_size=chunk_size,
+                                                          **kwargs)
+            return
+        audio = self.synthesize(phoneme_ids, **kwargs)
+        fmt, n = self.audio_format, len(audio)
+        if n == 0:
+            yield AudioChunk(format=fmt, start_sample_index=0,
+                             samples=np.zeros(0, self.np_output_dtype), is_final=True)
+            return
+        for start in range(0, n, chunk_size):
+            end = min(start + chunk_size, n)
+            yield AudioChunk(format=fmt, start_sample_index=start, samples=audio[start:end],
+                             is_final=end >= n)
+
+    def synthesize_stream_incremental(
+        self,
+        phoneme_ids: Sequence[int],
+        chunk_size: int = 2048,
+        chunk_frames: Optional[int] = None,
+        noise_scale: Optional[float] = None,
+        length_scale: Optional[float] = None,
+        noise_w: Optional[float] = None,
+        speaker_id: Optional[int] = None,
+        seed: Optional[int] = None,
+        dp_noise: Optional[np.ndarray] = None,
+        main_noise: Optional[np.ndarray] = None,
+        total_frames: Optional[int] = None,
+        halo_frames: Optional[int] = None,
+        chunk_schedule: Optional[Sequence[int]] = None,
+        fused_head: Optional[bool] = None,
+        speaker_mix: Optional[dict] = None,
+    ) -> Iterator[AudioChunk]:
+        """Windowed incremental decode; the JAX package's parameters, in its
+        order.
+
+        Each window emits its frames plus a halo of `receptive_field_frames`
+        (or `halo_frames`) on each side, so the emitted region equals a full
+        decode's up to the order of fp32 sums. The windows grow: emitted
+        frames [c0, 2c0, 4c0, 8c0] (the last repeating), c0 = max(32,
+        chunk_size // hop); `chunk_frames` pins one size and
+        `chunk_schedule` gives the sizes. `dp_noise` (2, P'), `main_noise`
+        (C, F') and `total_frames` (the virtual array length) inject what
+        the seeded path draws; each window then takes its slice of
+        main_noise, zero past it.
+
+        `fused_head` (default: on when seeded) encodes and decodes window 0
+        with no host read, queues window 0's copy to the host, then queues
+        window 1 on the device-held frame count, so the first audio waits
+        for the head alone and window 1 runs while it is fetched. The split
+        path (injected noise, explicit total_frames, fused_head=False) reads
+        the frame count after encode. In both, window k+1 is queued before
+        window k is fetched. The runtime's lock is held around each dispatch
+        only, never across a yield: an abandoned stream blocks nobody."""
+        hp = self.hparams
+        lengths, p_bucket, ids = self._validate_and_pad([list(phoneme_ids)], pad_batch=False)
+        scales = self._scales(noise_scale, length_scale, noise_w)
+        ns = scales[0]
+        sid = self._sid_array([speaker_id] if speaker_id is not None else None, 1,
+                              mixes=[speaker_mix] if speaker_mix is not None else None)
+        kind = self._sid_kind(sid)
+        base_seed = _seed_u32(self.options.seed if seed is None else seed)
+        halo = receptive_field_frames(hp) if halo_frames is None else int(halo_frames)
+        c0 = chunk_frames or max(32, chunk_size // hp.hop_length)
+        if chunk_schedule is not None:
+            sched = [max(1, int(v)) for v in chunk_schedule]
+        elif chunk_frames is not None:
+            sched = [c0]
+        else:
+            sched = [c0, 2 * c0, 4 * c0, 8 * c0]
+        hop = hp.hop_length
+        seeded = dp_noise is None and main_noise is None and total_frames is None
+        use_head = seeded if fused_head is None else bool(fused_head)
+        if use_head and not seeded:
+            raise ValueError("fused_head streaming is seeded-only: injected noise and "
+                             "explicit total_frames need the split encode/window path")
+
+        seeds_d = spec1 = None
+        with self._device_work():
+            if use_head:
+                self._mark("stream_head", (p_bucket, sched[0], halo, kind))
+                enc, audio0, total_d, seeds_d = self._head(
+                    ids, lengths, [base_seed], scales, sid, sched[0] + 2 * halo, halo)
+                copy0 = _HostCopy((audio0, total_d))
+                w1 = sched[min(1, len(sched) - 1)] + 2 * halo
+                self._mark("stream_window", (1, p_bucket, w1, halo))
+                spec1 = _HostCopy((self._window_keyed(
+                    enc, seeds_d, self._filled(sched[0] - halo), total_d, ns, w1),))
+            else:
+                self._mark("enc_inj" if dp_noise is not None else "enc_key", (1, p_bucket, kind))
+                enc = self._encode(ids, lengths, scales[1], scales[2], base_seed,
+                                   dp_noise=dp_noise, sid=sid)
+                if seeded:
+                    seeds_d = self._filled(base_seed)
+                y_len = max(1, int(enc.y_total[0]))
+        if use_head:
+            audio0, total_np = copy0.wait()
+            y_len = int(total_np[0])  # already clamped >= 1 on the device
+        total = int(total_frames) if total_frames is not None else y_len
+        plan = []  # (start frame, emitted frames) per window
+        pos = 0
+        while pos < y_len:
+            c_k = sched[min(len(plan), len(sched) - 1)]
+            plan.append((pos, c_k))
+            pos += c_k
+        n_chunks = len(plan)
+        full = (None if main_noise is None else
+                np.asarray(main_noise, np.float32).reshape(1, hp.inter_channels, -1))
+
+        def dispatch(k):
+            """Queue window k's decode and its copy to the host."""
+            start_k, c_k = plan[k]
+            window = c_k + 2 * halo
+            t_offset = start_k - halo
+            with self._device_work():
+                self._mark("stream_window", (1, p_bucket, window, halo))
+                if full is None:
+                    audio = self._window_keyed(enc, seeds_d, self._filled(t_offset),
+                                               self._filled(total), ns, window)
+                else:
+                    win = np.zeros((1, hp.inter_channels, window), np.float32)
+                    lo, hi = max(0, t_offset), min(full.shape[-1], t_offset + window)
+                    if hi > lo:
+                        win[:, :, lo - t_offset: hi - t_offset] = full[:, :, lo:hi]
+                    audio = self._window(enc, self._to_device(win), self._filled(t_offset),
+                                         self._filled(total), ns, window)
+                return _HostCopy((audio,))
+
+        emitted = 0
+        fmt = self.audio_format
+
+        def emit(k, audio_win):
+            nonlocal emitted
+            samples = audio_win[halo * hop: (halo + plan[k][1]) * hop]
+            samples = samples[: y_len * hop - emitted].copy()
+            chunk = AudioChunk(format=fmt, start_sample_index=emitted, samples=samples,
+                               is_final=k == n_chunks - 1)
+            emitted += len(samples)
+            return chunk
+
+        if use_head:
+            yield emit(0, audio0[0])
+            if n_chunks == 1:
+                return
+            pending, first = spec1, 1
+        else:
+            pending, first = dispatch(0), 0
+        for k in range(first, n_chunks):
+            nxt = dispatch(k + 1) if k + 1 < n_chunks else None
+            (audio_win,) = pending.wait()
+            pending = nxt
+            yield emit(k, audio_win[0])
+
+    def dispatch_stream_head(
+        self,
+        phoneme_ids: Sequence[int],
+        *,
+        c0: int,
+        halo: int,
+        noise_scale: Optional[float] = None,
+        length_scale: Optional[float] = None,
+        noise_w: Optional[float] = None,
+        speaker_id: Optional[int] = None,
+        seed: Optional[int] = None,
+        speaker_mix: Optional[dict] = None,
+    ):
+        """Queue one stream's fused head (encode and the first `c0` emitted
+        frames) and return at once, with no host read: (enc, audio0 (1,
+        (c0 + 2 halo) * hop), the frame count clamped to >= 1 (0-d int64),
+        the seed (0-d int64), noise_scale), the tensors on the device.
+        Speaker conditioning bakes into `enc`, so the windows after it
+        take none."""
+        lengths, p_bucket, ids = self._validate_and_pad([list(phoneme_ids)], pad_batch=False)
+        scales = self._scales(noise_scale, length_scale, noise_w)
+        sid = self._sid_array([speaker_id] if speaker_id is not None else None, 1,
+                              mixes=[speaker_mix] if speaker_mix is not None else None)
+        seed_u = _seed_u32(self.options.seed if seed is None else seed)
+        self._mark("stream_head", (p_bucket, c0, halo, self._sid_kind(sid)))
+        with self._device_work():
+            enc, audio0, total, seeds_d = self._head(ids, lengths, [seed_u], scales, sid,
+                                                     c0 + 2 * halo, halo)
+        return enc, audio0, total[0], seeds_d[0], scales[0]
+
+    def dispatch_stream_head_batch(
+        self,
+        ids_batch: Sequence[Sequence[int]],
+        *,
+        c0: int,
+        halo: int,
+        seeds: Optional[Sequence[Optional[int]]] = None,
+        noise_scales: Optional[Sequence[Optional[float]]] = None,
+        length_scales: Optional[Sequence[Optional[float]]] = None,
+        noise_ws: Optional[Sequence[Optional[float]]] = None,
+        speaker_ids: Optional[Sequence[Optional[int]]] = None,
+        speaker_mixes: Optional[Sequence[dict]] = None,
+    ):
+        """Queue B streams' fused heads as one batch and return at once.
+
+        Rows bucket at the largest row's phoneme bucket (no batch-ladder
+        rows are added: callers pad the row count). Row r equals
+        dispatch_stream_head at seeds[r] when the row's own bucket is the
+        same (the seeded duration noise spans the bucket). Returns (enc,
+        audio0 (B, c0 * hop) cut to the emitted region on the device,
+        totals (B,) int64 on the device, seed_vals, ns_vals), the last two
+        the resolved per-row host values the windows reuse."""
+        b = len(ids_batch)
+        if b == 0:
+            raise ValueError("empty batch")
+        lengths, p_bucket, ids = self._validate_and_pad([list(r) for r in ids_batch],
+                                                        pad_batch=False)
+        scl = [self._scales(None if noise_scales is None else noise_scales[i],
+                            None if length_scales is None else length_scales[i],
+                            None if noise_ws is None else noise_ws[i]) for i in range(b)]
+        ns_vals = [s[0] for s in scl]
+        if speaker_ids is not None:
+            speaker_ids = [0 if v is None else int(v) for v in speaker_ids]
+        sid = self._sid_array(speaker_ids, b, mixes=self._pad_mixes(speaker_mixes, b, b))
+        seed_vals = [_seed_u32(self.options.seed if seeds is None or seeds[i] is None
+                               else seeds[i]) for i in range(b)]
+        self._mark("stream_head_batch", (b, p_bucket, c0, halo, self._sid_kind(sid)))
+        window, hop = c0 + 2 * halo, self.hparams.hop_length
+        with self._device_work():
+            scales = tuple(self._to_device(np.asarray([s[j] for s in scl], np.float32))
+                           .view(b, 1, 1) for j in range(3))
+            enc, audio0, totals, _ = self._head(ids, lengths, seed_vals, scales, sid, window,
+                                                halo)
+        return enc, audio0[:, halo * hop: (window - halo) * hop], totals, seed_vals, ns_vals
+
+    def dispatch_window_batch(
+        self,
+        enc: vits.EncodeResult,
+        seeds,         # (B,) seeds: a tensor on the device, or host ints
+        t_offsets,     # (B,) window starts minus halo
+        totals,        # (B,) each row's frame count (its virtual length)
+        noise_scales,  # (B,)
+        *,
+        emit_frames: int,
+        halo: int,
+    ) -> torch.Tensor:
+        """Queue one batched multi-stream window decode and return at once.
+
+        `enc` holds rows of different utterances at one phoneme bucket. Row
+        r decodes frames [t_offsets[r] + halo, t_offsets[r] + halo +
+        emit_frames) of its own sequence, with the prior noise its stream
+        sees alone; a row past its end comes back zero. Each per-row
+        argument is a tensor on the device (used as it is) or host values
+        (copied without a wait). Returns (B, emit_frames * hop) on the
+        device: the halo is cut there."""
+        window = emit_frames + 2 * halo
+        b, hop = enc.m_p.shape[0], self.hparams.hop_length
+        self._mark("stream_window", (b, enc.m_p.shape[-1], window, halo))
+        with self._device_work():
+            args = [self._device_rows(v, dt, b) for v, dt in (
+                (seeds, np.int64), (t_offsets, np.int64), (totals, np.int64),
+                (noise_scales, np.float32))]
+            audio = self._window_keyed(enc, args[0], args[1].long(), args[2],
+                                       args[3].view(b, 1, 1), window)
+        return audio[:, halo * hop: (window - halo) * hop]

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -12,17 +14,22 @@ def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
     return mask[:, None, :].to(torch.float32)
 
 
-def generate_path(w_ceil: torch.Tensor, x_mask: torch.Tensor, y_mask: torch.Tensor) -> torch.Tensor:
+def generate_path(w_ceil: torch.Tensor, x_mask: torch.Tensor, y_mask: torch.Tensor,
+                  t_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Monotonic duration -> alignment path.
 
     w_ceil: (B, P) integer-valued durations (float dtype), already masked;
     x_mask: (B, 1, P); y_mask: (B, 1, T). Returns (B, T, P) with
-    path[b, t, p] = 1 iff cum[p-1] <= t < cum[p].
+    path[b, t, p] = 1 iff cum[p-1] <= t_idx[b, t] < cum[p], where t_idx,
+    the absolute frame of each column, is 0..T-1 by default or (B, T) for a
+    window of frames (streaming's decode_window).
     """
     cum = torch.cumsum(w_ceil, dim=-1)  # (B, P)
-    t_idx = torch.arange(y_mask.shape[-1], device=w_ceil.device, dtype=w_ceil.dtype)
-    below = t_idx[None, :, None] < cum[:, None, :]
+    if t_idx is None:
+        t_idx = torch.arange(y_mask.shape[-1], device=w_ceil.device)[None, :]
+    t_idx = t_idx.to(w_ceil.dtype)
+    below = t_idx[:, :, None] < cum[:, None, :]
     cum_prev = torch.cat([torch.zeros_like(cum[:, :1]), cum[:, :-1]], dim=-1)
-    below_prev = t_idx[None, :, None] < cum_prev[:, None, :]
+    below_prev = t_idx[:, :, None] < cum_prev[:, None, :]
     path = (below & ~below_prev).to(w_ceil.dtype)
     return path * y_mask.transpose(1, 2) * x_mask

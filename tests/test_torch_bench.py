@@ -1,9 +1,12 @@
 """The port's bench (mirrors tests/test_bench_driver.py): one JSON
 line with the root bench's keys, its headline the best serving row, on the
 CPU with the tiny test preset (its multispeaker row on an 8-speaker test
-voice); the rows whose parts are not ported raise when asked for."""
+voice, its streaming row on the test voice); the rows whose parts are not
+ported raise when asked for."""
 
+import ast
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -113,3 +116,33 @@ def test_multispeaker_row_serves_speaker_ids(monkeypatch, tmp_path):
 def test_unported_rows_raise(flags, match):
     with pytest.raises(NotImplementedError, match=match):
         bench.main(["--device", "cpu", *flags])
+
+
+def _root_streaming_keys() -> set:
+    """The keys of the root bench's streaming row, read from its source."""
+    src = (Path(__file__).resolve().parent.parent / "bench.py").read_text()
+    for node in ast.walk(ast.parse(src)):
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and any(getattr(t, "id", None) == "streaming_row" for t in node.targets)):
+            return {k.value for k in node.value.keys}
+    raise AssertionError("the root bench has no streaming_row dict")
+
+
+def test_streaming_row(capsys, monkeypatch, tmp_path):
+    """Without --quick the bench measures incremental streaming on its
+    runtime (here the test voice on the CPU, every other row off): the
+    root bench's keys, the 224-id utterance, first audio before the last,
+    and the profile keys null off the card."""
+    monkeypatch.setenv("PIPER_TPU_CACHE", str(tmp_path))
+    result = bench.main(["--device", "cpu", "--quality", "test", "--factors", "1",
+                         "--warmup", "0", "--iters", "1", "--batch", "0", "--no-pipeline",
+                         "--multi-speaker", "0", "--no-high"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["streaming"] == \
+        json.loads(json.dumps(result["streaming"]))
+    row = result["streaming"]
+    root = _root_streaming_keys()
+    assert root == {"phonemes", "utterance_s", "ttfb_ms_p50", "total_ms_p50"}
+    assert set(row) == root | {"kernels", "device_busy_ms", "busy_share"}
+    assert row["phonemes"] == 224 and row["utterance_s"] > 0
+    assert 0 < row["ttfb_ms_p50"] <= row["total_ms_p50"]
+    assert row["kernels"] is None and row["device_busy_ms"] is None

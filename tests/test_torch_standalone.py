@@ -1,7 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package.
 
 piper_tpu_torch keeps its own copies of the jax-free modules it needs
-(onnx.{ir,wire,loader,writer}, core.{config,test_vector,alignment},
+(onnx.{ir,wire,loader,writer}, core.{config,test_vector,alignment,audio},
 models.vits.{hparams,synthetic}, and engine.runtime's speaker and scale
 helpers). These tests scan every module of the port
 and chip_smoke.py for such imports, run the port in a process that refuses
@@ -266,3 +266,23 @@ def test_alignment_json_matches_reference():
                        total_samples=96)
     with pytest.raises(ValueError):
         alignments_to_json([], [0])
+
+
+def test_audio_module_is_a_copy():
+    """core/audio.py is the JAX package's, byte for byte, and its helpers
+    give the same results: chunks, int16 conversion, joins."""
+    from piper_tpu.core import audio as j_audio
+    from piper_tpu_torch.core import audio
+
+    assert (ROOT / "piper_tpu_torch/core/audio.py").read_bytes() == (
+        ROOT / "piper_tpu/core/audio.py").read_bytes()
+    x = np.array([-1.5, -1.0, -0.25, 0.0, 0.5, 1.0, 2.0], np.float32)
+    i16 = audio.float_to_int16(x)
+    np.testing.assert_array_equal(i16, j_audio.float_to_int16(x))
+    np.testing.assert_array_equal(audio.pcm_to_float32(i16), j_audio.pcm_to_float32(i16))
+    np.testing.assert_array_equal(audio.join_with_silence([x, i16], 3),
+                                  j_audio.join_with_silence([x, i16], 3))
+    fmt = audio.AudioFormat(sample_rate=16000)
+    chunk = audio.AudioChunk(format=fmt, start_sample_index=5, samples=x, is_final=True)
+    assert dataclasses.asdict(fmt) == dataclasses.asdict(j_audio.AudioFormat(sample_rate=16000))
+    assert chunk.duration_seconds == 7 / 16000
