@@ -111,19 +111,23 @@ NO_LIBRARY_CALL = {
     "resblock1_mrf_folded": "the MRF's chains on a folded layout",
 }
 TIERS = ("highest", "high", "default")
-# "highest"/"high": C*k <= 704-term sums of exact products chained over 6
-# convs, in another order than cuDNN's. "default": where the two sums differ
-# by an fp32 ulp, the next conv's bf16 rounding of its input can flip by one
-# bf16 ulp (2^-6 for values in [2, 4)), times a weight of up to ~0.1, and the
-# chain carries it on; measured up to 2.2e-3 at K2's main-path shape on the
-# H100.
+# "high": C*k <= 704-term sums of exact products chained over 6 convs, in
+# another order than cuDNN's. "highest": the same sums, K2-K4 forming each
+# product as 3xTF32 (big*big + big*small + small*big), which drops about
+# 2^-21 of it against the plain version's fp32 product, the order of the
+# sums' own rounding: measured 1.6e-5 at K2's main-path shape on the H100,
+# against 1.1e-5 at "high". "default": where the
+# two sums differ by an fp32 ulp, the next conv's bf16 rounding of its
+# input can flip by one bf16 ulp (2^-6 for values in [2, 4)), times a
+# weight of up to ~0.1, and the chain carries it on; measured up to 2.2e-3
+# at K2's main-path shape on the H100.
 KERNEL_ATOL = {"highest": 1e-4, "high": 1e-4, "default": 5e-3}
 # K1 is one conv: no chain carries a flip, and the kernel rounds the same
 # fp32 input as its plain version, so every tier differs only in the order
 # of its fp32 sums.
 K1_ATOL = 1e-4
 # How K2/K3/K4 form each tier's conv products (csrc/resblock1.cu).
-RESBLOCK_DESIGN = {"highest": "cuda-core fp32", "high": "mma.sync bf16 x3",
+RESBLOCK_DESIGN = {"highest": "mma.sync tf32 x3", "high": "mma.sync bf16 x3",
                    "default": "mma.sync bf16 x1"}
 # How K1 forms them (csrc/conv1d.cu): at the bf16 tiers the kernel splits
 # the caller's fp32 weights once per persistent block, so no launch lays
@@ -133,6 +137,7 @@ K1_DESIGN = {"highest": "cuda-core fp32",
              "default": "mma.sync bf16 x1, weights split in the kernel"}
 RESBLOCK_SYMBOL = "resblock1_kernel"  # the device symbol of K2, K3 and K4
 K1_SYMBOL = "conv1d_same"  # held by both K1 kernels' symbols (fp32 and mma)
+K5_SYMBOL = "interleave_kernel"
 # A voice's vocoder kernels: their device symbol and their launch counters.
 VOCODER_KERNELS = {"medium": (RESBLOCK_SYMBOL, ("resblock1_branch", "resblock1_mrf")),
                    "x_low": (K1_SYMBOL, ("conv1d_same",))}
@@ -241,13 +246,36 @@ def _chain_work(c, n, live, ks, outputs, convs=6) -> tuple:
     return 4 * (c * n * (1 + outputs) + weights), sum(2 * c * c * k * convs * live for k in ks)
 
 
+def _whole_call_ms(fn, symbol=None, counter=None, prefix="") -> dict:
+    """device_ms of fn() with its kernels per call required: the count per
+    call that two torch.profiler windows agree on (timing.call_kernels).
+    For a wrapper (`symbol`, `counter`) its kernels by symbol per call must
+    equal the launches its counter sees in one call, so the count is the
+    wrapper's launches plus its weight-layout, bounds and mask launches;
+    for a plain version it is the plain version's kernels. A window of the
+    timed calls with another count is profiled again, then raises."""
+    from piper_tpu_torch.tools.timing import call_kernels, device_ms
+
+    total, named = call_kernels(fn, symbol)
+    if counter is not None:
+        before = counter.launches
+        fn()
+        launched = counter.launches - before
+        if named != launched:
+            raise AssertionError(f"{symbol}: {named} kernels per call in the profiler's "
+                                 f"windows, {launched} launched")
+    return {f"{prefix}device_ms": device_ms(fn, expected=total),
+            f"{prefix}device_kernels": total}
+
+
 def _tier_row(torch, name, tier, run, cases, n, x1, bnd1, work, launches_per_call,
               **fields) -> dict:
     """Check run(x, bounds, kernel, tier) against its plain version at
     `tier` on every bounds case, then time both at a batch of one: `ms` by
     CUDA events (the host's time where it is the slower), `device_ms` under
     torch.profiler (the whole wrapper: weight layout, fold copies and
-    launches), and `kernel_device_ms`, the ResBlock1 kernel alone, whose
+    launches; `device_kernels` per call required, `_whole_call_ms`), and
+    `kernel_device_ms`, the ResBlock1 kernel alone, whose
     `launches_per_call` launches per call the profiler must count. `work` is
     the timed call's (bytes, flops), for the least time the card could take
     at the tier's rate."""
@@ -263,13 +291,18 @@ def _tier_row(torch, name, tier, run, cases, n, x1, bnd1, work, launches_per_cal
     worst = max(errs.values())
     if not worst <= KERNEL_ATOL[tier]:
         raise AssertionError(f"{name} {tier}: max-abs {worst} > {KERNEL_ATOL[tier]} ({errs})")
-    row = {"max_abs_err": worst, "ms": event_ms(lambda: run(x1, bnd1, True, tier)),
-           "plain_ms": event_ms(lambda: run(x1, bnd1, False, tier)),
-           "device_ms": device_ms(lambda: run(x1, bnd1, True, tier)),
-           "kernel_device_ms": device_ms(lambda: run(x1, bnd1, True, tier),
-                                         name=RESBLOCK_SYMBOL, expected=launches_per_call),
-           "plain_device_ms": device_ms(lambda: run(x1, bnd1, False, tier)),
-           "design": RESBLOCK_DESIGN[tier]}
+
+    def kernel():
+        return run(x1, bnd1, True, tier)
+
+    def plain():
+        return run(x1, bnd1, False, tier)
+
+    row = {"max_abs_err": worst, "ms": event_ms(kernel), "plain_ms": event_ms(plain),
+           **_whole_call_ms(kernel, RESBLOCK_SYMBOL, _counters()[name]),
+           "kernel_device_ms": device_ms(kernel, name=RESBLOCK_SYMBOL,
+                                         expected=launches_per_call),
+           **_whole_call_ms(plain, prefix="plain_"), "design": RESBLOCK_DESIGN[tier]}
     row["bound_ms"], row["bound_by"] = bound_ms(*work, TIER_FLOPS[tier])
     emit(phase="kernel", name=name, precision=tier, samples=n, batch_timed=1, errs=errs,
          atol=KERNEL_ATOL[tier], **row, **fields)
@@ -282,6 +315,7 @@ def phase_kernels(torch) -> dict:
     from piper_tpu_torch.ops.kernels import folded as K4
     from piper_tpu_torch.ops.kernels import resblock as R
     from piper_tpu_torch.ops.kernels.precision import fp32_exact
+    from piper_tpu_torch.tools import tier_checksums
 
     gen = torch.Generator().manual_seed(0)
     dils = (1, 3, 5)
@@ -314,6 +348,9 @@ def phase_kernels(torch) -> dict:
         results["conv1d_same"] = _conv1d_same_check(torch, gen)
         results["resblock1_mrf_folded"] = _folded_check(torch, gen, K4, R)
         results["interleave"] = _interleave_check(torch, gen)
+        # K2-K4's outputs at the bf16 tiers, to hold against another
+        # checkout's on the same card (tools/tier_checksums.py).
+        emit(phase="checksums", checksums=tier_checksums.checksums())
     return results
 
 
@@ -399,10 +436,10 @@ def _conv1d_same_check(torch, gen) -> dict:
 
             row = {"max_abs_err": worst, "ms": event_ms(lambda: run(True)),
                    "plain_ms": event_ms(lambda: run(False)),
-                   "device_ms": device_ms(lambda: run(True)),
+                   **_whole_call_ms(lambda: run(True), K1_SYMBOL, K1.conv1d_same),
                    "kernel_device_ms": device_ms(lambda: run(True), name=K1_SYMBOL,
                                                  expected=len(convs)),
-                   "plain_device_ms": device_ms(lambda: run(False))}
+                   **_whole_call_ms(lambda: run(False), prefix="plain_")}
             # One input read and six outputs written, as the timed call does
             # (six convs of x1); the weights once; 2*C*C*k flops per sample.
             work = _chain_work(c, n, n, [k for k, _ in X_LOW_CONVS], outputs=6, convs=1)
@@ -438,7 +475,7 @@ def _interleave_check(torch, gen) -> dict:
     version is one PyTorch call (the copy behind permute().reshape()), so
     its time is also the library yardstick."""
     from piper_tpu_torch.ops.kernels import interleave as K5
-    from piper_tpu_torch.tools.timing import bound_ms, device_ms, event_ms
+    from piper_tpu_torch.tools.timing import bound_ms, event_ms
 
     ys, errs, t_in = [], {}, 128
     for level, (r, k, c) in enumerate(MEDIUM_UPSAMPLE):
@@ -462,8 +499,8 @@ def _interleave_check(torch, gen) -> dict:
 
     row = {"max_abs_err": max(errs.values()), "ms": event_ms(lambda: run(True)),
            "plain_ms": event_ms(lambda: run(False)),
-           "device_ms": device_ms(lambda: run(True)),
-           "plain_device_ms": device_ms(lambda: run(False))}
+           **_whole_call_ms(lambda: run(True), K5_SYMBOL, K5.interleave),
+           **_whole_call_ms(lambda: run(False), prefix="plain_")}
     row["bound_ms"], row["bound_by"] = bound_ms(sum(2 * 4 * y.numel() for y in ys))
     emit(phase="kernel", name="interleave", shapes=[list(y.shape) for y in ys], batch_timed=1,
          errs=errs, atol=0.0, **row, note="ms covers the 4 launches of one medium utterance "

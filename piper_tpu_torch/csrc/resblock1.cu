@@ -1,6 +1,6 @@
 // HiFi-GAN ResBlock1 kernels for Hopper (sm_90a): fp32 sums, the convs'
-// products on CUDA cores at "highest" and on the tensor cores at "high" and
-// "default".
+// products on the tensor cores at every tier, 3xTF32 at "highest" and bf16
+// at "high" and "default".
 //
 // Replaces three Pallas TPU kernels:
 //   piper_resblock1_branch     <- pallas_resblock1_branch (_branch_kernel,
@@ -23,52 +23,61 @@
 // What bounds it on the H100: the six chained convs of a branch are narrow
 // (C = 16, 32 or 64 channels) and long in time. Run one by one, each conv
 // streams the level activation through device memory; fused, the work is
-// the products (2*C*C*k per output sample per conv: ~67 TFLOP/s peak in
-// fp32 on CUDA cores, 989 in bf16 on the tensor cores, three bf16 passes at
-// "high") plus the halo recompute.
+// the products (2*C*C*k per output sample per conv: 989 TFLOP/s in bf16 on
+// the tensor cores, three passes at "high"; 495 in TF32, three passes at
+// "highest", the same rate as six bf16 passes; 67 in fp32 on CUDA cores,
+// which no tier uses here) plus the halo recompute.
 //
 // Design: one block of 512 threads per (output tile of `tile` samples, row).
 // The block loads the tile's haloed window [t0 - halo, t0 + tile + halo)
 // once into shared memory and walks the whole chain there, so the
 // activation crosses device memory once in and once out (the MRF kernel
 // reloads the window from L2 for each branch). Three buffers over the
-// window: the raw residual y (fp32), act(y) (written by each conv2 beside
-// the residual, so conv1 reads its input as is) and act(conv1). The valid
-// region shrinks stage by stage exactly as _run_branch_chain shrinks it; a
-// narrower MRF branch starts with the margin it does not need already
-// consumed. The window is about 2x the tile at the widest halo (60 samples
-// per side for k=11, dilations 1/3/5); the wrapper takes the largest tile
-// whose window fits one pass of the block: measured, a smaller tile that
-// fills more SMs loses more to the halo it recomputes. Weights stay in
-// global memory (one k=11 branch at C=64 is ~1 MB), read through L1. Tiles
-// wholly outside [lo, hi) write zeros and skip all work.
+// window: the raw residual y (fp32, (C, W)), act(y) (written by each conv2
+// beside the residual, so conv1 reads its input as is) and act(conv1). The
+// valid region shrinks stage by stage exactly as _run_branch_chain shrinks
+// it; a narrower MRF branch starts with the margin it does not need
+// already consumed. The window is about 2x the tile at the widest halo (60
+// samples per side for k=11, dilations 1/3/5); the wrapper takes the
+// largest tile whose window fits one pass of the block: measured on CUDA
+// cores, a smaller tile that fills more SMs loses more to the halo it
+// recomputes. Weights stay in global memory (one k=11 branch at C=64 is
+// ~1 MB in fp32), read through L1. Tiles wholly outside [lo, hi) write
+// zeros and skip all work.
 //
-// "highest" (conv_stage): act(y) and act(conv1) are (C, window) fp32. Each
-// thread keeps an 8-channel x 4-sample register tile of accumulators: every
-// activation it reads from shared memory feeds 8 FMAs, and each weight read
-// (a warp-uniform float4 load of the (C_in, K, C_out) transposed weights)
-// feeds 4. The tap loop is unrolled for K = 3/5/7/11.
-//
-// "high" and "default" (conv_stage_mma): each conv is a GEMM on the tensor
-// cores, M = C_out, K = C_in x taps, N = the stage's lanes, one
-// mma.sync.m16n8k16 (bf16 in, fp32 sums) per (16 output channels, 8 lanes,
-// tap, 16 input channels); the TPU kernel's im2col buffer is implicit, as
-// the tap's lane offset. A bf16 product is exact in fp32, so "high" is
-// three mma per step into one accumulator, (w_hi, v_hi) + (w_hi, v_lo) +
-// (w_lo, v_hi), and "default" one, (bf16(w), bf16(v)): mxu_dot's passes,
-// summed in another order. The operands are split into bf16 parts once,
-// where they are written, not at every read: the weights on the host, in
-// mma's A-fragment order (one 16-byte load per thread and m-tile); act(y)
-// and act(conv1) by whoever writes them (the window load, each conv's
-// epilogue), as bf16 planes (hi, and lo at "high"). A plane is lane-major,
-// [lane][channel] with a row stride of C + 8 bf16, so the B fragment of 8
-// lanes x 16 channels is one ldmatrix with no transpose, the tap shift is a
-// row offset, and ldmatrix's eight 16-byte rows fall on distinct banks. The
-// residual, the bias, the mask, the leaky ReLU and the MRF mean stay fp32.
-// A warp owns all (at most 4) m-tiles of C_out by 2 n-tiles, so each A
-// fragment it loads feeds 2-6 mma; its accumulators start at the bias.
-// Lanes past a stage's width are computed on clamped lanes and discarded.
-// C must be a multiple of 16 (m16, k16).
+// The conv stage (conv_stage_mma): each conv is a GEMM on the tensor
+// cores, M = C_out, K = C_in x taps, N = the stage's lanes; the TPU
+// kernel's im2col buffer is implicit, as the tap's lane offset. A warp owns
+// all (at most 4) m-tiles of C_out by 2 n-tiles of 8 lanes, so each A
+// fragment it loads feeds 2-6 mma; its accumulators start at the bias, and
+// its epilogue adds the residual and applies the mask and the leaky ReLU in
+// fp32. Lanes past a stage's width are computed on clamped lanes and
+// discarded. C must be a multiple of 16 (m16). The weights are laid out on
+// the host in mma's A-fragment order, one 16-byte load per lane, m-tile
+// and plane. act(y) and act(conv1) are lane-major planes, [lane][channel],
+// so the B fragment is a row per lane and the tap shift is a row offset;
+// the window load and each conv's epilogue write them.
+//   "high"/"default": one mma.sync.m16n8k16 (bf16 in, fp32 sums) per (16
+//   output channels, 8 lanes, tap, 16 input channels). A bf16 product is
+//   exact in fp32, so "high" is three mma per step into one accumulator,
+//   (w_hi, v_hi) + (w_hi, v_lo) + (w_lo, v_hi), and "default" one, (bf16(w),
+//   bf16(v)): mxu_dot's passes, summed in another order. The operands are
+//   split into bf16 parts where they are written (the weights on the host,
+//   the activations by store_split), as planes (hi, and lo at "high") with
+//   a row stride of C + 8 bf16, so the B fragment of 8 lanes x 16 channels
+//   is one ldmatrix with no transpose and its eight 16-byte rows fall on
+//   distinct banks.
+//   "highest": 3xTF32, two mma.sync.m16n8k8 steps (tf32 in, fp32 sums) per
+//   16 input channels, each three mma into one accumulator, (w_big, v_big)
+//   + (w_big, v_small) + (w_small, v_big). The weights' big and small parts
+//   are split on the host; the activations stay one fp32 plane per buffer,
+//   with a row stride of C + 4 words, and are split on read (tf32 operands
+//   are fp32 registers, so ldmatrix does not apply): the B fragment is two
+//   32-bit loads per thread, (lane gid, channel tig) and (gid, tig + 4),
+//   which the stride puts on 32 distinct banks for C = 16, 32 and 64. Split
+//   bf16 planes of the same accuracy (six passes at the same rate) would
+//   need 278 KB at K2's widest shape (C=64, halo 60, tile 128); one fp32
+//   plane per buffer needs 198 KB and keeps the tile.
 //
 // The folded kernel is the MRF kernel with a folded gather and scatter: the
 // TPU kernel's zero-padded folded weight GEMM fills the MXU's 128 sublanes
@@ -80,6 +89,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "tiers.cuh"
 
@@ -87,17 +97,19 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kRCo = 8;  // "highest": output channels per thread
-constexpr int kRT = 4;   // "highest": time samples per thread, strided by the row width
-constexpr int kNT = 2;   // "high"/"default": 8-lane n-tiles per warp work item
-constexpr int kPad = 8;  // "high"/"default": bf16 plane row stride is C + kPad
+constexpr int kNT = 2;  // 8-lane n-tiles per warp work item
 constexpr int kMaxBranches = 4;
 constexpr int kMaxDils = 4;
 
+using piper::bf16;
+using piper::ldmatrix_x4;
+using piper::mma_bf16;
+
 struct Branch {
-  // "highest": (M, C_in, K, C_out) fp32. "high"/"default": bf16 A fragments
-  // (P, M, K, C_in/16, C_out/16, 32 lanes, 8), P = 2 planes (hi, lo) at
-  // "high" and 1 at "default" (ops/kernels/resblock.py::a_fragments).
+  // A fragments (ops/kernels/resblock.py::_kernel_weights). "highest": tf32
+  // (2, M, K, C_in/8, C_out/16, 32 lanes, 4), planes (big, small).
+  // "high"/"default": bf16 (P, M, K, C_in/16, C_out/16, 32 lanes, 8), P = 2
+  // planes (hi, lo) at "high" and 1 at "default".
   const void* w1;   // conv1 (dilated) weights
   const float* b1;  // (M, C)
   const void* w2;   // conv2 (dense) weights
@@ -131,147 +143,53 @@ __device__ __forceinline__ float act(float v, int g, int lo, int hi, float slope
   return (g >= lo && g < hi) ? (v >= 0.f ? v : v * slope) : 0.f;
 }
 
-// One conv of the chain over a window of `W` lanes per channel, fp32 on
-// CUDA cores ("highest"): output lane l in [a, a + width) reads input lanes
+// How a tier keeps act(y) and act(conv1): the element type of a plane, its
+// row stride past C (C + kPad elements), and the planes per buffer.
+template <int kTier>
+struct Planes {
+  using T = std::conditional_t<kTier == 0, float, bf16>;
+  static constexpr int kPad = kTier == 0 ? 4 : 8;
+  static constexpr int kCount = kTier == 1 ? 2 : 1;
+};
+
+// act(v) into the planes at element `off`: as is at "highest", split into
+// bf16 planes at "high"/"default".
+template <int kTier>
+__device__ __forceinline__ void store_act(typename Planes<kTier>::T* planes, int plane,
+                                          int off, float v) {
+  if constexpr (kTier == 0) {
+    planes[off] = v;
+  } else {
+    piper::store_split<Planes<kTier>::kCount>(planes, plane, off, v);
+  }
+}
+
+// One conv of the chain over a window of `W` lanes, on the tensor cores at
+// tier kTier. Output lane l in [a, a + width) reads input lanes
 // l - h + j*step, j < K (K > 0 is a compile-time tap count, so the tap loop
-// unrolls; K == 0 reads k_rt). The input is already activated. kConv1:
-// store act(conv) into dst (the next conv's input). Otherwise add the conv
-// into the residual dst and store act(new residual) into adst (the next
-// conv1's input).
-template <int K, bool kConv1>
-__device__ void conv_stage(const float* __restrict__ src, float* __restrict__ dst,
-                           float* __restrict__ adst, const float* __restrict__ w,
-                           const float* __restrict__ bias, int C, int W, int k_rt,
-                           int step, int h, int a, int width, float slope, int g0,
-                           int lo, int hi) {
+// unrolls; K == 0 reads k_rt). src and dst are the tier's planes (plane =
+// W * (C + kPad) elements; the second after the first); w points at this
+// conv's A fragments in the first plane, and the second is w_lo uint4s on.
+// kConv1: store act(conv) into dst. Otherwise add the conv into the fp32
+// residual ybuf ((C, W)) and store act(new residual) into dst.
+template <int K, int kTier, int kMT, bool kConv1>
+__device__ void conv_stage_mma(const typename Planes<kTier>::T* __restrict__ src,
+                               float* __restrict__ ybuf,
+                               typename Planes<kTier>::T* __restrict__ dst,
+                               const uint4* __restrict__ w, size_t w_lo,
+                               const float* __restrict__ bias, int C, int W, int k_rt,
+                               int step, int h, int a, int width, float slope, int g0, int lo,
+                               int hi) {
+  constexpr int kPasses = kTier == 2 ? 1 : 3;
   const int taps = K > 0 ? K : k_rt;
-  const int groups = C / kRCo;
-  const int row_threads = kThreads / groups;
-  const int cg = threadIdx.x / row_threads;
-  const int tx = threadIdx.x - cg * row_threads;
-  const int co0 = cg * kRCo;
-  const int first = a - h;  // input lane read by output lane a at tap 0
-  for (int base = 0; base < width; base += row_threads * kRT) {
-    float acc[kRCo][kRT];
-#pragma unroll
-    for (int c = 0; c < kRCo; ++c) {
-      const float bv = __ldg(bias + co0 + c);
-#pragma unroll
-      for (int i = 0; i < kRT; ++i) acc[c][i] = bv;
-    }
-    // Lanes past the stage's width read clamped (valid) lanes; their sums
-    // are discarded below.
-    int lane[kRT];
-#pragma unroll
-    for (int i = 0; i < kRT; ++i) lane[i] = first + min(base + tx + i * row_threads, width - 1);
-    for (int ci = 0; ci < C; ++ci) {
-      const float* row = src + ci * W;
-      const float* wrow = w + (size_t)ci * taps * C + co0;
-#pragma unroll
-      for (int j = 0; j < taps; ++j) {
-        float v[kRT];
-#pragma unroll
-        for (int i = 0; i < kRT; ++i) v[i] = row[lane[i] + j * step];
-        const float4 wa = __ldg(reinterpret_cast<const float4*>(wrow + j * C));
-        const float4 wb = __ldg(reinterpret_cast<const float4*>(wrow + j * C + 4));
-        const float wv[kRCo] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
-        piper::fma_tile(wv, v, acc);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kRT; ++i) {
-      const int pos = base + tx + i * row_threads;
-      if (pos >= width) continue;
-      const int l = a + pos;
-      const int g = g0 + l;
-#pragma unroll
-      for (int c = 0; c < kRCo; ++c) {
-        const int idx = (co0 + c) * W + l;
-        if (kConv1) {
-          dst[idx] = act(acc[c][i], g, lo, hi, slope);
-        } else {
-          const float y = dst[idx] + acc[c][i];
-          dst[idx] = y;
-          adst[idx] = act(y, g, lo, hi, slope);
-        }
-      }
-    }
-  }
-}
-
-// The branch chain, in place on ybuf (abuf holds act(y), tbuf act(conv1)).
-// `margin0` is the margin already consumed on each side: 0 when the window
-// halo equals this branch's receptive field, more for a narrower MRF branch.
-// On return ybuf is exact on [margin0 + br.halo, W - margin0 - br.halo).
-template <int K>
-__device__ void run_chain_k(float* ybuf, float* abuf, float* tbuf, const Branch& br,
-                            const Args& p, int margin0, int g0, int lo, int hi) {
-  const int C = p.C;
-  const int W = p.width;
-  const int h2 = (br.k - 1) / 2;
-  const size_t wstride = (size_t)C * C * br.k;
-  const float* w1 = static_cast<const float*>(br.w1);
-  const float* w2 = static_cast<const float*>(br.w2);
-  int margin = margin0;
-  for (int m = 0; m < br.n_dil; ++m) {
-    const int d = br.dils[m];
-    const int h1 = h2 * d;
-    const int a1 = margin + h1;
-    conv_stage<K, true>(abuf, tbuf, nullptr, w1 + m * wstride, br.b1 + m * C, C, W, br.k, d,
-                        h1, a1, W - 2 * a1, p.slope, g0, lo, hi);
-    __syncthreads();
-    const int a2 = a1 + h2;
-    conv_stage<K, false>(tbuf, ybuf, abuf, w2 + m * wstride, br.b2 + m * C, C, W, br.k, 1,
-                         h2, a2, W - 2 * a2, p.slope, g0, lo, hi);
-    __syncthreads();
-    margin = a2;
-  }
-}
-
-__device__ void run_chain(float* ybuf, float* abuf, float* tbuf, const Branch& br,
-                          const Args& p, int margin0, int g0, int lo, int hi) {
-  switch (br.k) {  // HiFi-GAN's kernel sizes get an unrolled tap loop
-    case 3: run_chain_k<3>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi); break;
-    case 5: run_chain_k<5>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi); break;
-    case 7: run_chain_k<7>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi); break;
-    case 11: run_chain_k<11>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi); break;
-    default: run_chain_k<0>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi); break;
-  }
-}
-
-// ---- "high" and "default": the tensor-core stage ----
-
-using piper::bf16;
-using piper::ldmatrix_x4;
-using piper::mma_bf16;
-using piper::store_split;
-
-// conv_stage on the tensor cores, at kPasses = 3 ("high") or 1 ("default").
-// src and dst are bf16 planes (plane = W * (C + kPad) elements; lo after hi
-// at "high"); w points at this conv's A fragments in the hi plane, and the
-// lo plane is w_lo uint4s on. kConv1: store act(conv) into dst. Otherwise
-// add the conv into the fp32 residual ybuf ((C, W)) and store act(new
-// residual) into dst.
-template <int K, int kPasses, int kMT, bool kConv1>
-__device__ void conv_stage_mma(const bf16* __restrict__ src, float* __restrict__ ybuf,
-                               bf16* __restrict__ dst, const uint4* __restrict__ w,
-                               size_t w_lo, const float* __restrict__ bias, int C, int W,
-                               int k_rt, int step, int h, int a, int width, float slope,
-                               int g0, int lo, int hi) {
-  constexpr int kPlanes = kPasses == 3 ? 2 : 1;
-  const int taps = K > 0 ? K : k_rt;
-  const int S = C + kPad;
+  const int S = C + Planes<kTier>::kPad;
   const int plane = W * S;
-  const int n16 = C / 16;  // m-tiles of C_out, and k-chunks of C_in per tap
+  const int n16 = C / 16;  // m-tiles of C_out
   const int groups_n = ((width + 7) / 8 + kNT - 1) / kNT;
   const int items = n16 / kMT * groups_n;
   const int lane = threadIdx.x & 31;
   const int gid = lane >> 2;
   const int tig = lane & 3;
-  // This thread's ldmatrix row: lane `lane & 7` of n-tile `lane >> 4`,
-  // channels +0 (matrices 0 and 2) or +8 (1 and 3) of the k-chunk.
-  const int mrow = (lane & 7) + (lane >> 4) * 8;
-  const int mcol = ((lane >> 3) & 1) * 8;
   const int first = a - h;  // input lane read by output lane a at tap 0
   for (int item = threadIdx.x >> 5; item < items; item += kWarps) {
     const int mt0 = item / groups_n * kMT;
@@ -289,33 +207,72 @@ __device__ void conv_stage_mma(const bf16* __restrict__ src, float* __restrict__
     }
     // Lanes past the stage's width read clamped (valid) lanes; their sums
     // are discarded below.
-    const bf16* bsrc = src + (size_t)(first + min(n0 + mrow, width - 1)) * S + mcol;
-    for (int kc = 0; kc < n16; ++kc) {
+    if constexpr (kTier == 0) {
+      // This thread's B rows: lane gid of each n-tile, channels tig and
+      // tig + 4 of each k-chunk of 8, split on read.
+      const float* brow[kNT];
 #pragma unroll
-      for (int j = 0; j < taps; ++j) {
-        const bf16* bp = bsrc + j * step * S + kc * 16;
-        uint32_t bh[4], bl[4];
-        ldmatrix_x4(bh, bp);
-        if (kPasses == 3) ldmatrix_x4(bl, bp + plane);
-        const uint4* wp = w + (((size_t)j * n16 + kc) * n16 + mt0) * 32 + lane;
+      for (int nt = 0; nt < kNT; ++nt)
+        brow[nt] = src + (size_t)(first + min(n0 + nt * 8 + gid, width - 1)) * S + tig;
+      const int n8 = C / 8;  // k-chunks of C_in per tap
+      for (int kc = 0; kc < n8; ++kc) {
 #pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-          const uint4 ah = __ldg(wp + mt * 32);
+        for (int j = 0; j < taps; ++j) {
+          const int off = j * step * S + kc * 8;
+          uint32_t vb[kNT][2], vs[kNT][2];
 #pragma unroll
-          for (int nt = 0; nt < kNT; ++nt) mma_bf16(acc[mt][nt], ah, bh[2 * nt], bh[2 * nt + 1]);
-          if (kPasses == 3) {
-            const uint4 al = __ldg(wp + w_lo + mt * 32);
+          for (int nt = 0; nt < kNT; ++nt) {
+            piper::split_tf32(brow[nt][off], vb[nt][0], vs[nt][0]);
+            piper::split_tf32(brow[nt][off + 4], vb[nt][1], vs[nt][1]);
+          }
+          const uint4* wp = w + (((size_t)j * n8 + kc) * n16 + mt0) * 32 + lane;
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            const uint4 ab = __ldg(wp + mt * 32);
+            const uint4 as = __ldg(wp + w_lo + mt * 32);
 #pragma unroll
             for (int nt = 0; nt < kNT; ++nt) {
-              mma_bf16(acc[mt][nt], ah, bl[2 * nt], bl[2 * nt + 1]);
-              mma_bf16(acc[mt][nt], al, bh[2 * nt], bh[2 * nt + 1]);
+              piper::mma_tf32(acc[mt][nt], ab, vb[nt][0], vb[nt][1]);
+              piper::mma_tf32(acc[mt][nt], ab, vs[nt][0], vs[nt][1]);
+              piper::mma_tf32(acc[mt][nt], as, vb[nt][0], vb[nt][1]);
+            }
+          }
+        }
+      }
+    } else {
+      // This thread's ldmatrix row: lane `lane & 7` of n-tile `lane >> 4`,
+      // channels +0 (matrices 0 and 2) or +8 (1 and 3) of the k-chunk.
+      const int mrow = (lane & 7) + (lane >> 4) * 8;
+      const int mcol = ((lane >> 3) & 1) * 8;
+      const bf16* bsrc = src + (size_t)(first + min(n0 + mrow, width - 1)) * S + mcol;
+      for (int kc = 0; kc < n16; ++kc) {
+#pragma unroll
+        for (int j = 0; j < taps; ++j) {
+          const bf16* bp = bsrc + j * step * S + kc * 16;
+          uint32_t bh[4], bl[4];
+          ldmatrix_x4(bh, bp);
+          if (kPasses == 3) ldmatrix_x4(bl, bp + plane);
+          const uint4* wp = w + (((size_t)j * n16 + kc) * n16 + mt0) * 32 + lane;
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            const uint4 ah = __ldg(wp + mt * 32);
+#pragma unroll
+            for (int nt = 0; nt < kNT; ++nt) mma_bf16(acc[mt][nt], ah, bh[2 * nt], bh[2 * nt + 1]);
+            if (kPasses == 3) {
+              const uint4 al = __ldg(wp + w_lo + mt * 32);
+#pragma unroll
+              for (int nt = 0; nt < kNT; ++nt) {
+                mma_bf16(acc[mt][nt], ah, bl[2 * nt], bl[2 * nt + 1]);
+                mma_bf16(acc[mt][nt], al, bh[2 * nt], bh[2 * nt + 1]);
+              }
             }
           }
         }
       }
     }
-    // The accumulator fragment: element 2r + e of acc[mt][nt] is output
-    // channel (mt0 + mt) * 16 + gid + 8r at stage lane n0 + nt*8 + 2*tig + e.
+    // The accumulator fragment (m16n8k16 and m16n8k8 alike): element 2r + e
+    // of acc[mt][nt] is output channel (mt0 + mt) * 16 + gid + 8r at stage
+    // lane n0 + nt*8 + 2*tig + e.
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt) {
 #pragma unroll
@@ -331,12 +288,12 @@ __device__ void conv_stage_mma(const bf16* __restrict__ src, float* __restrict__
             const int co = (mt0 + mt) * 16 + gid + 8 * r;
             const float v = acc[mt][nt][2 * r + e];
             if (kConv1) {
-              store_split<kPlanes>(dst, plane, l * S + co, act(v, g, lo, hi, slope));
+              store_act<kTier>(dst, plane, l * S + co, act(v, g, lo, hi, slope));
             } else {
               const int idx = co * W + l;
               const float y = ybuf[idx] + v;
               ybuf[idx] = y;
-              store_split<kPlanes>(dst, plane, l * S + co, act(y, g, lo, hi, slope));
+              store_act<kTier>(dst, plane, l * S + co, act(y, g, lo, hi, slope));
             }
           }
         }
@@ -345,15 +302,20 @@ __device__ void conv_stage_mma(const bf16* __restrict__ src, float* __restrict__
   }
 }
 
-// run_chain_k on the tensor-core stage: abuf and tbuf are bf16 planes.
+// The branch chain, in place on ybuf (abuf holds act(y), tbuf act(conv1),
+// as the tier's planes). `margin0` is the margin already consumed on each
+// side: 0 when the window halo equals this branch's receptive field, more
+// for a narrower MRF branch. On return ybuf is exact on
+// [margin0 + br.halo, W - margin0 - br.halo).
 template <int K, int kTier, int kMT>
-__device__ void run_chain_mma_k(float* ybuf, bf16* abuf, bf16* tbuf, const Branch& br,
-                                const Args& p, int margin0, int g0, int lo, int hi) {
-  constexpr int kPasses = kTier == 1 ? 3 : 1;
+__device__ void run_chain_k(float* ybuf, typename Planes<kTier>::T* abuf,
+                            typename Planes<kTier>::T* tbuf, const Branch& br, const Args& p,
+                            int margin0, int g0, int lo, int hi) {
   const int C = p.C;
   const int W = p.width;
   const int h2 = (br.k - 1) / 2;
-  const size_t wstride = (size_t)C * C * br.k / 8;  // uint4s of one conv's hi plane
+  // uint4s of one conv's first plane: 4 tf32 or 8 bf16 values each
+  const size_t wstride = (size_t)C * C * br.k / (kTier == 0 ? 4 : 8);
   const size_t w_lo = wstride * br.n_dil;
   const uint4* w1 = static_cast<const uint4*>(br.w1);
   const uint4* w2 = static_cast<const uint4*>(br.w2);
@@ -362,62 +324,59 @@ __device__ void run_chain_mma_k(float* ybuf, bf16* abuf, bf16* tbuf, const Branc
     const int d = br.dils[m];
     const int h1 = h2 * d;
     const int a1 = margin + h1;
-    conv_stage_mma<K, kPasses, kMT, true>(abuf, ybuf, tbuf, w1 + m * wstride, w_lo,
-                                          br.b1 + m * C, C, W, br.k, d, h1, a1, W - 2 * a1,
-                                          p.slope, g0, lo, hi);
+    conv_stage_mma<K, kTier, kMT, true>(abuf, ybuf, tbuf, w1 + m * wstride, w_lo,
+                                        br.b1 + m * C, C, W, br.k, d, h1, a1, W - 2 * a1,
+                                        p.slope, g0, lo, hi);
     __syncthreads();
     const int a2 = a1 + h2;
-    conv_stage_mma<K, kPasses, kMT, false>(tbuf, ybuf, abuf, w2 + m * wstride, w_lo,
-                                           br.b2 + m * C, C, W, br.k, 1, h2, a2, W - 2 * a2,
-                                           p.slope, g0, lo, hi);
+    conv_stage_mma<K, kTier, kMT, false>(tbuf, ybuf, abuf, w2 + m * wstride, w_lo,
+                                         br.b2 + m * C, C, W, br.k, 1, h2, a2, W - 2 * a2,
+                                         p.slope, g0, lo, hi);
     __syncthreads();
     margin = a2;
   }
 }
 
 template <int kTier, int kMT>
-__device__ void run_chain_mma_mt(float* ybuf, bf16* abuf, bf16* tbuf, const Branch& br,
-                                 const Args& p, int margin0, int g0, int lo, int hi) {
+__device__ void run_chain_mt(float* ybuf, typename Planes<kTier>::T* abuf,
+                             typename Planes<kTier>::T* tbuf, const Branch& br, const Args& p,
+                             int margin0, int g0, int lo, int hi) {
   switch (br.k) {  // ResBlock1's kernel sizes; others (k = 5 in tests) take the runtime loop
-    case 3: run_chain_mma_k<3, kTier, kMT>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi); break;
-    case 7: run_chain_mma_k<7, kTier, kMT>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi); break;
-    case 11:
-      run_chain_mma_k<11, kTier, kMT>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi);
-      break;
-    default: run_chain_mma_k<0, kTier, kMT>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi); break;
+    case 3: run_chain_k<3, kTier, kMT>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi); break;
+    case 7: run_chain_k<7, kTier, kMT>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi); break;
+    case 11: run_chain_k<11, kTier, kMT>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi); break;
+    default: run_chain_k<0, kTier, kMT>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi); break;
   }
 }
 
 // m-tiles per warp work item: 4 when C/16 allows (C = 64), else 2, else 1.
 template <int kTier>
-__device__ void run_chain_mma(float* ybuf, bf16* abuf, bf16* tbuf, const Branch& br,
-                              const Args& p, int margin0, int g0, int lo, int hi) {
+__device__ void run_chain(float* ybuf, typename Planes<kTier>::T* abuf,
+                          typename Planes<kTier>::T* tbuf, const Branch& br, const Args& p,
+                          int margin0, int g0, int lo, int hi) {
   const int n16 = p.C / 16;
   if (n16 % 4 == 0) {
-    run_chain_mma_mt<kTier, 4>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi);
+    run_chain_mt<kTier, 4>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi);
   } else if (n16 % 2 == 0) {
-    run_chain_mma_mt<kTier, 2>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi);
+    run_chain_mt<kTier, 2>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi);
   } else {
-    run_chain_mma_mt<kTier, 1>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi);
+    run_chain_mt<kTier, 1>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi);
   }
 }
 
 template <bool kMean, bool kFolded, int kTier>
 __global__ void __launch_bounds__(kThreads, 1) resblock1_kernel(const Args p) {
   extern __shared__ __align__(16) float smem[];
-  constexpr int kPlanes = kTier == 1 ? 2 : 1;
+  using T = typename Planes<kTier>::T;
   const int C = p.C;
   const int W = p.width;
-  const int S = C + kPad;
+  const int S = C + Planes<kTier>::kPad;
   const int plane = W * S;
-  float* ybuf = smem;              // (C, W) raw residual y
-  float* abuf = smem + C * W;      // "highest": (C, W) act(y)
-  float* tbuf = abuf + C * W;      // "highest": (C, W) act(conv1 output)
-  float* acc = tbuf + C * W;       // (C, tile) branch sum, kMean only
-  // "high"/"default": act(y) and act(conv1) as kPlanes bf16 planes each.
-  bf16* abuf16 = reinterpret_cast<bf16*>(abuf);
-  bf16* tbuf16 = abuf16 + kPlanes * plane;
-  if (kTier != 0) acc = reinterpret_cast<float*>(tbuf16 + kPlanes * plane);
+  float* ybuf = smem;                                  // (C, W) raw residual y
+  T* abuf = reinterpret_cast<T*>(smem + C * W);        // act(y), lane-major planes
+  T* tbuf = abuf + Planes<kTier>::kCount * plane;      // act(conv1 output), the same
+  float* acc = reinterpret_cast<float*>(tbuf + Planes<kTier>::kCount * plane);  // (C, tile)
+                                                       // branch sum, kMean only
 
   const int b = blockIdx.y;
   const int t0 = blockIdx.x * p.tile;
@@ -446,19 +405,10 @@ __global__ void __launch_bounds__(kThreads, 1) resblock1_kernel(const Args p) {
       const int g = g0 + l;
       const float v = (g >= 0 && g < p.N) ? __ldg(x + offset<kFolded>(p, c, g)) : 0.f;
       ybuf[idx] = v;
-      if constexpr (kTier == 0) {
-        abuf[idx] = act(v, g, lo, hi, p.slope);
-      } else {
-        store_split<kPlanes>(abuf16, plane, l * S + c, act(v, g, lo, hi, p.slope));
-      }
+      store_act<kTier>(abuf, plane, l * S + c, act(v, g, lo, hi, p.slope));
     }
     __syncthreads();
-    if constexpr (kTier == 0) {
-      run_chain(ybuf, abuf, tbuf, p.br[bi], p, p.halo - p.br[bi].halo, g0, lo, hi);
-    } else {
-      run_chain_mma<kTier>(ybuf, abuf16, tbuf16, p.br[bi], p, p.halo - p.br[bi].halo, g0, lo,
-                           hi);
-    }
+    run_chain<kTier>(ybuf, abuf, tbuf, p.br[bi], p, p.halo - p.br[bi].halo, g0, lo, hi);
     if (kMean) {
       for (int idx = threadIdx.x; idx < C * p.tile; idx += kThreads) {
         const int c = idx / p.tile;
@@ -499,13 +449,9 @@ int start(const Args& a, int B, size_t smem, int device, void* stream) {
 
 template <bool kMean, bool kFolded>
 int launch(Args& a, int B, int tier, int device, void* stream) {
-  // "highest" takes C a multiple of 8 with C/8 dividing the block; the
-  // tensor-core tiers C a multiple of 16.
-  const bool c_ok = tier == 0
-      ? a.C >= kRCo && a.C % kRCo == 0 && kThreads % (a.C / kRCo) == 0
-      : a.C >= 16 && a.C % 16 == 0;
-  if (!c_ok || tier < 0 || tier > 2 || a.n_branches < 1 || a.n_branches > kMaxBranches ||
-      a.tile < 1 || a.N < 1 || B < 1 || a.fold < 1)
+  // Every tier runs on the tensor cores: C a multiple of 16 (m16).
+  if (a.C < 16 || a.C % 16 != 0 || tier < 0 || tier > 2 || a.n_branches < 1 ||
+      a.n_branches > kMaxBranches || a.tile < 1 || a.N < 1 || B < 1 || a.fold < 1)
     return (int)cudaErrorInvalidValue;
   a.halo = 0;
   for (int i = 0; i < a.n_branches; ++i) {
@@ -517,12 +463,12 @@ int launch(Args& a, int B, int tier, int device, void* stream) {
   }
   a.width = a.tile + 2 * a.halo;
   const size_t mean = kMean ? sizeof(float) * a.C * a.tile : 0;
-  const size_t window = (size_t)a.C * a.width;
-  // ybuf fp32, then act(y) and act(conv1): fp32, or bf16 planes (2 at "high").
-  const size_t smem = tier == 0
-      ? sizeof(float) * 3 * window + mean
-      : sizeof(float) * window +
-            2 * sizeof(bf16) * (tier == 1 ? 2 : 1) * a.width * (a.C + kPad) + mean;
+  // ybuf fp32 (C, W), then act(y) and act(conv1) as the tier's planes:
+  // one fp32 plane each at "highest", two bf16 at "high", one at "default".
+  const size_t acts = tier == 0 ? 2 * sizeof(float) * a.width * (a.C + Planes<0>::kPad)
+                                : 2 * sizeof(bf16) * (tier == 1 ? 2 : 1) * a.width *
+                                      (a.C + Planes<1>::kPad);
+  const size_t smem = sizeof(float) * a.C * a.width + acts + mean;
   switch (tier) {
     case 0: return start<kMean, kFolded, 0>(a, B, smem, device, stream);
     case 1: return start<kMean, kFolded, 1>(a, B, smem, device, stream);

@@ -1,22 +1,28 @@
 // The precision tiers of the vocoder kernels' conv products, as
 // piper_tpu/ops/pallas/conv.py:mxu_dot defines them on the TPU
 // (piper_tpu_torch/ops/kernels/precision.py is the plain version):
-//   0 "highest": fp32 products;
+//   0 "highest": fp32-class products;
 //   1 "high":    bf16x3, v = v_hi + v_lo and w = w_hi + w_lo with each part
 //                a bf16 value; w_hi*v_hi + w_hi*v_lo + w_lo*v_hi (lo*lo
 //                dropped);
 //   2 "default": one product of the bf16-rounded operands.
-// Every product of two bf16 values is exact in fp32, so the tiers differ
-// from their plain versions only in the order of the fp32 sums.
+// Every product of two bf16 values is exact in fp32, so "high" and
+// "default" differ from their plain versions only in the order of the fp32
+// sums.
 //
-// Where each tier is formed: "highest" on CUDA cores (fma_tile, below; K1
-// in conv1d.cu, the ResBlock1 kernels in resblock1.cu). "high" and
-// "default" on the tensor cores in every kernel (conv1d.cu's
-// conv1d_same_mma_kernel, resblock1.cu's conv_stage_mma): mma.sync on bf16
-// operands with fp32 sums forms exactly these products, and the operands
-// are split once, where they are written (store_split), into planes that
-// ldmatrix_x4 reads.
-
+// Where each tier is formed: "high" and "default" on the tensor cores in
+// every kernel (conv1d.cu's conv1d_same_mma_kernel, resblock1.cu's
+// conv_stage_mma): mma.sync on bf16 operands with fp32 sums forms exactly
+// these products, and the operands are split once, where they are written
+// (store_split), into planes that ldmatrix_x4 reads. "highest" on CUDA
+// cores in K1 (fma_tile, conv1d.cu) and on the tensor cores as 3xTF32 in
+// the ResBlock1 kernels (resblock1.cu's conv_stage_mma): v = big + small
+// with big = tf32_rna(v), small = tf32_rna(v - big), and the same for w
+// (precision.py::split_tf32); big*big + big*small + small*big, each product
+// of two tf32 values exact in fp32. small*small and the rounding of small
+// drop about 2^-21 of each product, where the plain version's fp32 product
+// is exact; so "highest" differs from its plain version by that and by the
+// order of the fp32 sums.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -27,8 +33,8 @@ namespace piper {
 
 using bf16 = __nv_bfloat16;
 
-// acc[c][i] += w[c] * v[i] in fp32 ("highest"), for a register tile of kCo
-// output channels by kT samples.
+// acc[c][i] += w[c] * v[i] in fp32 (K1's "highest"), for a register tile of
+// kCo output channels by kT samples.
 template <int kCo, int kT>
 __device__ __forceinline__ void fma_tile(const float (&w)[kCo], const float (&v)[kT],
                                          float (&acc)[kCo][kT]) {
@@ -76,6 +82,29 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint4& a, uint32_t b0,
                                          uint32_t b1) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// v rounded to tf32 (10 mantissa bits), to nearest with ties away from
+// zero, as fp32 bits with the low 13 mantissa bits zero.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r & 0xffffe000u;  // mma ignores these bits; the split needs them zero
+}
+
+// v = big + small as two tf32 operands (precision.py::split_tf32).
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(v);
+  small = tf32_rna(v - __uint_as_float(big));
+}
+
+// d += A (16x8 tf32, A-fragment registers a) x B (8x8 tf32, b0 b1), fp32.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint4& a, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));

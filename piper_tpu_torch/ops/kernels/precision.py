@@ -11,8 +11,12 @@ accumulation stay as they are:
                            x_lo*w_hi and x_hi*w_lo (lo*lo dropped);
   "default" (or "bfloat16") one product of the bf16-rounded x and w.
 
-Every product of two bf16 values is exact in fp32, so a kernel and its
-plain version differ only in the order of their fp32 sums.
+Every product of two bf16 values is exact in fp32, so at "high" and
+"default" a kernel and its plain version differ only in the order of their
+fp32 sums. At "highest" the plain version's products are fp32; K2-K4 form
+them on the tensor cores as 3xTF32 (`split_tf32`: big*big + big*small +
+small*big), which drops about 2^-21 of each product besides the order of
+the sums.
 
 Outside the kernels a tier scopes what PyTorch may do with fp32 convs and
 matmuls on the card, as JAX's default_matmul_precision names its tiers by
@@ -58,6 +62,23 @@ def split_bf16(x: torch.Tensor):
     hi = x.to(torch.bfloat16).float()
     lo = (x - hi).to(torch.bfloat16).float()
     return hi, lo
+
+
+def split_tf32(x: torch.Tensor):
+    """(big, small) as fp32 tensors holding tf32 values (the low 13 mantissa
+    bits zero), x ~ big + small within 2^-22 of |x| (2^-137 where a part is
+    subnormal): big = rna(x), small =
+    rna(x - big), where rna rounds to tf32 to nearest with ties away from
+    zero on the int32 bit pattern, as the card's cvt.rna.tf32.f32 does."""
+    big = _rna_tf32(x)
+    return big, _rna_tf32(x - big)
+
+
+def _rna_tf32(x: torch.Tensor) -> torch.Tensor:
+    # Half an ulp of tf32 added to the magnitude bits, then the 13 low bits
+    # cut: ties round away from zero, and the carry may bump the exponent.
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
 def tiered_conv1d(x, w, b=None, *, padding: int = 0, dilation: int = 1,

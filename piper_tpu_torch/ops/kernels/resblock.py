@@ -3,10 +3,10 @@
 Counterparts of piper_tpu.ops.pallas.resblock.pallas_resblock1_branch and
 pallas_resblock1_mrf. The kernels are CUDA C++ for Hopper
 (`csrc/resblock1.cu`, whose header says what bounds them on the H100 and
-how the design answers it): fp32 FMAs on CUDA cores at "highest", bf16
-mma.sync on the tensor cores at "high" and "default", whose weights this
-module lays out in the tensor cores' fragment order (`a_fragments`). Each
-sits beside its plain PyTorch version.
+how the design answers it): mma.sync on the tensor cores at every tier,
+3xTF32 at "highest" and bf16 at "high" and "default", whose weights this
+module lays out in the tensor cores' fragment order (`tf32_fragments`,
+`a_fragments`). Each sits beside its plain PyTorch version.
 
 Contract, as on the TPU: a branch is y = x; for d in dilations:
 y += conv2(act(conv1_d(act(y)))), with conv1 dilated, conv2 dense, both
@@ -15,6 +15,11 @@ The result is exactly zero outside [lo, hi). `bounds` is (B,) meaning
 [0, hi) or (B, 2) meaning [lo, hi), at this level's sample rate; it is
 clamped to [0, N]. `precision` is the tier of the convs' products
 (`precision.py`); the activation, mask, bias and fp32 sums do not change.
+At "high" and "default" a kernel differs from its plain version only in
+the order of its fp32 sums. At "highest" the plain version multiplies in
+fp32 and the kernel in three TF32 passes (`precision.split_tf32`), which
+drop about 2^-21 of each product: well inside the 1e-4 bar over the six
+chained convs of a branch.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernel or raises. Each wrapper's `launches` counts its kernel launches.
@@ -27,15 +32,16 @@ from typing import Optional, Sequence
 
 import torch
 
-from piper_tpu_torch.ops.kernels.precision import tier_code, tiered_conv1d
+from piper_tpu_torch.ops.kernels.precision import split_tf32, tier_code, tiered_conv1d
 from piper_tpu_torch.ops.nn import leaky_relu
 
 _SMEM_LIMIT = 232448  # dynamic shared memory one block may opt into on the H100
 _THREADS = 512
 _MAX_BRANCHES = 4
 _MAX_DILS = 4
-_MMA_NT = 2    # "high"/"default": 8-lane n-tiles per warp work item
+_MMA_NT = 2    # 8-lane n-tiles per warp work item
 _MMA_PAD = 8   # "high"/"default": a bf16 plane's row is C + 8 channels
+_TF32_PAD = 4  # "highest": an fp32 plane's row is C + 4 channels
 
 
 def branch_halo(kernel: int, dilations: Sequence[int]) -> int:
@@ -113,15 +119,19 @@ def resblock1_mrf_plain(x, branches: Sequence[tuple], *, bounds=None,
 
 def _smem_bytes(c: int, tile: int, halo: int, mean: bool, tier: int) -> int:
     """The kernel's shared memory: the fp32 residual over the window, act(y)
-    and act(conv1) as fp32 ("highest") or as bf16 planes (two at "high", one
-    at "default"), and the MRF's fp32 branch sum."""
+    and act(conv1) as lane-major planes (one fp32 plane each at "highest",
+    two bf16 planes at "high", one at "default"), and the MRF's fp32 branch
+    sum."""
     w = tile + 2 * halo
-    acts = 2 * 4 * c * w if tier == 0 else 2 * 2 * (2 if tier == 1 else 1) * w * (c + _MMA_PAD)
+    if tier == 0:
+        acts = 2 * 4 * w * (c + _TF32_PAD)
+    else:
+        acts = 2 * 2 * (2 if tier == 1 else 1) * w * (c + _MMA_PAD)
     return 4 * c * w + acts + (4 * c * tile if mean else 0)
 
 
 def _mma_m_tiles(c: int) -> int:
-    """m-tiles of 16 output channels per warp work item (run_chain_mma)."""
+    """m-tiles of 16 output channels per warp work item (run_chain)."""
     n16 = c // 16
     return 4 if n16 % 4 == 0 else 2 if n16 % 2 == 0 else 1
 
@@ -129,13 +139,12 @@ def _mma_m_tiles(c: int) -> int:
 def _pick_tile(x: torch.Tensor, halo: int, mean: bool, tile_max: int, tier: int) -> int:
     """Largest time tile (256/128/64/32, at most `tile_max`) whose buffers fit
     in shared memory and whose window (tile + 2*halo samples) fits in one
-    pass of the block's threads; else the smallest that fits. A pass covers
-    4 samples of 8 channels per thread at "highest", and 2 n-tiles of 8
-    lanes by (up to) 64 channels per warp on the tensor cores. Measured on
-    the H100 at the medium voice's shapes at "highest": a smaller tile to
-    fill more SMs loses to the halo it recomputes (the tensor-core tiers
-    take the same rule, not yet measured against other tiles). The output
-    does not depend on the tile."""
+    pass of the block's warps (2 n-tiles of 8 lanes by up to 64 output
+    channels per warp); else the smallest that fits. Measured on the H100
+    at the medium voice's shapes on CUDA cores: a
+    smaller tile to fill more SMs loses to the halo it recomputes (the
+    tensor-core stage takes the same rule, not yet measured against other
+    tiles). The output does not depend on the tile."""
     c = x.shape[1]
     props = torch.cuda.get_device_properties(x.device)
     limit = getattr(props, "shared_memory_per_block_optin", _SMEM_LIMIT)
@@ -144,23 +153,18 @@ def _pick_tile(x: torch.Tensor, halo: int, mean: bool, tile_max: int, tier: int)
     if not fits:
         raise ValueError(f"no time tile <= {tile_max} fits C={c}, halo={halo} "
                          f"in {limit} bytes of shared memory")
-    if tier == 0:
-        one_pass = _THREADS // (c // 8) * 4
-    else:
-        one_pass = _THREADS // 32 * _MMA_NT * 8 * _mma_m_tiles(c) // (c // 16)
+    one_pass = _THREADS // 32 * _MMA_NT * 8 * _mma_m_tiles(c) // (c // 16)
     return next((t for t in fits if t + 2 * halo <= one_pass), fits[-1])
 
 
 def _check_cuda_args(x: torch.Tensor, tensors: Sequence[torch.Tensor],
-                     k: int, dilations: Sequence[int], tier: int) -> None:
+                     k: int, dilations: Sequence[int]) -> None:
     if x.dtype != torch.float32 or not x.is_contiguous() or x.ndim != 3:
         raise ValueError("x must be a contiguous float32 (B, C, N) tensor, got "
                          f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
     c = x.shape[1]
-    if tier == 0 and (c % 8 or _THREADS % (c // 8)):
-        raise ValueError(f"C={c}: the kernel takes C a multiple of 8 with C/8 dividing {_THREADS}")
-    if tier != 0 and (c < 16 or c % 16):
-        raise ValueError(f"C={c}: the tensor-core stage (tiers 'high' and 'default') takes "
+    if c < 16 or c % 16:
+        raise ValueError(f"C={c}: the kernels run every tier on the tensor cores and take "
                          f"C a multiple of 16")
     if k % 2 == 0 or not 1 <= len(dilations) <= _MAX_DILS:
         raise ValueError(f"kernel {k} must be odd with 1..{_MAX_DILS} dilations")
@@ -199,17 +203,36 @@ def fragment_weights(w: torch.Tensor, tier: int) -> torch.Tensor:
     return frags.reshape(len(parts), *w.shape[:1], *frags.shape[1:])
 
 
+def tf32_fragments(w: torch.Tensor) -> torch.Tensor:
+    """(M, C_out, C_in, K) -> (M, K, C_in/8, C_out/16, 32, 4): per (conv,
+    tap, 8 input channels, 16 output channels) the A operand of
+    mma.m16n8k8.tf32 in its fragment order, lane-major, 4 values per lane.
+    Lane 4*g + t holds rows (output channels) g and g + 8, columns (input
+    channels) t and t + 4, as the registers a0..a3 take them: (g, t),
+    (g+8, t), (g, t+4), (g+8, t+4). Any dtype; a permutation of w's values."""
+    m, co, ci, k = w.shape
+    if co % 16 or ci % 8:
+        raise ValueError(f"tf32 A fragments take C_out a multiple of 16 and C_in of 8, "
+                         f"got {co}, {ci}")
+    # co = 16*mt + 8*rh + g, ci = 8*kc + 4*ch + t; register rh + 2*ch
+    t = w.reshape(m, co // 16, 2, 8, ci // 8, 2, 4, k)
+    return t.permute(0, 7, 4, 1, 3, 6, 5, 2).reshape(m, k, ci // 8, co // 16, 32, 4)
+
+
+def tf32_weights(w: torch.Tensor) -> torch.Tensor:
+    """The "highest" tier's weights: (2, M, K, C_in/8, C_out/16, 32, 4) fp32,
+    the A fragments of precision.split_tf32's big and small parts."""
+    frags = tf32_fragments(torch.stack(split_tf32(w)).flatten(0, 1))
+    return frags.reshape(2, *w.shape[:1], *frags.shape[1:])
+
+
 def _kernel_weights(w1s, b1s, w2s, b2s, tier: int):
-    """The weights in the kernel's layout for the tier. "highest":
-    (M, C_out, C_in, K) -> (M, C_in, K, C_out), so the kernel reads 8 output
-    channels of one (input channel, tap) as two float4 loads. "high" and
-    "default": fragment_weights, one 16-byte load per lane and m-tile."""
-    if tier == 0:
-        out = (w1s.permute(0, 2, 3, 1).contiguous(), b1s.contiguous(),
-               w2s.permute(0, 2, 3, 1).contiguous(), b2s.contiguous())
-    else:
-        out = (fragment_weights(w1s, tier), b1s.contiguous(),
-               fragment_weights(w2s, tier), b2s.contiguous())
+    """The weights in the kernel's layout for the tier: the conv weights as
+    A fragments, one 16-byte load per lane, m-tile and plane (tf32_weights
+    at "highest", fragment_weights at "high" and "default"); the biases as
+    they are."""
+    lay = tf32_weights if tier == 0 else lambda w: fragment_weights(w, tier)
+    out = (lay(w1s), b1s.contiguous(), lay(w2s), b2s.contiguous())
     if out[0].data_ptr() % 16 or out[2].data_ptr() % 16:
         raise ValueError("the kernel's conv weights must be 16-byte aligned")
     return out
@@ -233,7 +256,7 @@ def resblock1_branch(x, w1s, b1s, w2s, b2s, *, kernel: int,
     if x.device.type != "cuda":
         raise ValueError(f"resblock1_branch runs on cpu or cuda, not {x.device}")
     tier = tier_code(precision)
-    _check_cuda_args(x, (w1s, b1s, w2s, b2s), kernel, dilations, tier)
+    _check_cuda_args(x, (w1s, b1s, w2s, b2s), kernel, dilations)
     from piper_tpu_torch.ops.kernels import build
 
     lib = build.load()
@@ -265,7 +288,7 @@ def mrf_launch_args(x, branches: Sequence[tuple], tile: int, tier: int) -> tuple
         raise ValueError(f"the MRF kernel takes 1..{_MAX_BRANCHES} branches, got {nb}")
     ks, dils_list, weights = [], [], []
     for (w1s, b1s, w2s, b2s, k, dils) in branches:
-        _check_cuda_args(x, (w1s, b1s, w2s, b2s), int(k), dils, tier)
+        _check_cuda_args(x, (w1s, b1s, w2s, b2s), int(k), dils)
         ks.append(int(k))
         dils_list.append([int(d) for d in dils])
         weights.append(_kernel_weights(w1s, b1s, w2s, b2s, tier))

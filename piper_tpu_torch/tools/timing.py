@@ -10,9 +10,11 @@ from typing import Callable, Iterable, Optional, Sequence, Tuple
 # limit): HBM3 bytes/s, and FLOP/s by the type the products run in.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
-# A kernel tier's products (precision.py): fp32 on CUDA cores, or 3 passes
-# ("high") or 1 pass ("default") of bf16 products, at the tensor cores' rate.
-TIER_FLOPS = {"highest": PEAK_FLOPS["fp32"], "high": PEAK_FLOPS["bf16"] / 3,
+# A kernel tier's products (precision.py) at the card's fastest rate for
+# them: fp32-class products as 3 passes of TF32 ("highest", as K2-K4 form
+# them; CUDA-core fp32 is 67 TFLOP/s), 3 passes ("high") or 1 pass
+# ("default") of bf16, on the tensor cores.
+TIER_FLOPS = {"highest": PEAK_FLOPS["tf32"] / 3, "high": PEAK_FLOPS["bf16"] / 3,
               "default": PEAK_FLOPS["bf16"]}
 _PROFILE_ATTEMPTS = 3
 
@@ -92,6 +94,36 @@ def device_ms(fn: Callable, reps: int = 10, name: Optional[str] = None,
                            f"calls, counted {seen} in {_PROFILE_ATTEMPTS} windows")
     raise RuntimeError(f"torch.profiler recorded no device time of {what} in "
                        f"{_PROFILE_ATTEMPTS} windows")
+
+
+def call_kernels(fn: Callable, name: Optional[str] = None, reps: int = 10,
+                 attempts: int = _PROFILE_ATTEMPTS) -> Tuple[int, int]:
+    """(all device kernels, those whose name holds `name`) that one call of
+    fn() launches, from torch.profiler windows of `reps` calls each, as
+    device_ms profiles them: the first counts that two windows in a row
+    agree on, nonzero and a multiple of `reps`, divided by `reps`. Raises
+    after `attempts` + 1 windows without that. (On the H100 a window of one
+    call has counted one kernel fewer than its share of a longer window.)"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(attempts + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        counts = [device_kernels(events)[0]]
+        if name is not None:
+            counts.append(device_kernels(events, name)[0])
+        if seen and counts == seen[-1] and all(n > 0 and n % reps == 0 for n in counts):
+            return counts[0] // reps, counts[-1] // reps if name is not None else 0
+        seen.append(counts)
+    raise RuntimeError(f"torch.profiler: no two windows of {reps} calls agree on their "
+                       f"kernels (all, named {name!r}) as a multiple of {reps}: {seen}")
 
 
 def profile_call(fn: Callable, symbol: str, counters: Sequence[Callable],

@@ -8,7 +8,9 @@ products, summed in another order. 2e-3 at "default": one bf16 rounding of
 a conv's input can land on the other side of a rounding edge in the two
 versions, and the flip propagates through up to six chained convs. The CUDA
 kernels themselves run only on a card (tests/test_torch_cuda.py,
-chip_smoke.py).
+chip_smoke.py). At "highest" K2-K4 form their products as 3xTF32: an
+emulation of that chain here is held to the Pallas kernels' fp32 within
+2e-5, the module bar.
 """
 
 import os
@@ -33,7 +35,8 @@ from piper_tpu_torch.ops.kernels import conv as K1
 from piper_tpu_torch.ops.kernels import folded as K4
 from piper_tpu_torch.ops.kernels import interleave as K5
 from piper_tpu_torch.ops.kernels import resblock as R
-from piper_tpu_torch.ops.kernels.precision import split_bf16, tier_code, tiered_conv1d
+from piper_tpu_torch.ops.kernels.precision import (split_bf16, split_tf32, tier_code,
+                                                    tiered_conv1d)
 from piper_tpu_torch.tools import timing
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -566,3 +569,240 @@ def test_device_ms_requires_the_expected_kernel_count(monkeypatch):
     # Without `expected`, only an empty window is refused.
     windows[:] = [[], [_event("copy", 3, 30.0)]]
     assert timing.device_ms(fn, reps=3) == pytest.approx(30.0 / 3 / 1e3)
+
+
+# ---- "highest" on the tensor cores: 3xTF32 ----
+
+
+def _rna_tf32_reference(x: np.ndarray) -> np.ndarray:
+    """tf32 rounding to nearest, ties away from zero, in numpy's own terms:
+    the magnitude's 32-bit pattern split at the 13th bit, rounded up where
+    the cut part is at least half of it."""
+    bits = x.astype(np.float32).view(np.uint32)
+    sign, mag = bits & np.uint32(0x80000000), bits & np.uint32(0x7FFFFFFF)
+    cut = mag & np.uint32(0x1FFF)
+    kept = mag - cut
+    up = cut >= np.uint32(0x1000)
+    kept = np.where(up, kept + np.uint32(0x2000), kept).astype(np.uint32)
+    return (sign | kept).view(np.float32)
+
+
+def test_split_tf32_is_rna_rounding_bit_for_bit():
+    """big and small are tf32 values (the low 13 bits zero), big is x
+    rounded to nearest with ties away from zero and small the same of
+    x - big, as cvt.rna.tf32.f32; big + small is x within 2^-22 of |x|, or
+    within 2^-137 where a part is subnormal (the cut bits are then a fixed
+    2^-136, as on the card). Ties, zeros, negatives and subnormals
+    included."""
+    rng = np.random.default_rng(22)
+    tiny = np.finfo(np.float32).tiny
+    ties = (np.array([1 + 2.0 ** -11, 1 + 3 * 2.0 ** -11, 3 * 2.0 ** -12], np.float64)
+            .astype(np.float32))  # exactly half a tf32 ulp past a tf32 value
+    special = np.array([0.0, -0.0, tiny, -tiny, tiny / 3, -tiny / 7, tiny * 0.5 + tiny / 4096,
+                        1.0, -1.0, 65504.0, 1e-30, -3e-38], np.float32)
+    x = np.concatenate([rng.standard_normal(4000).astype(np.float32) * 10.0 ** rng.integers(
+        -20, 20, 4000), ties, -ties, special]).astype(np.float32)
+    big, small = (t.numpy() for t in split_tf32(torch.from_numpy(x)))
+    want_big = _rna_tf32_reference(x)
+    assert np.array_equal(big.view(np.uint32), want_big.view(np.uint32))
+    assert np.array_equal(small.view(np.uint32),
+                          _rna_tf32_reference((x - want_big).astype(np.float32)).view(np.uint32))
+    for t in (big, small):
+        assert not np.any(t.view(np.uint32) & np.uint32(0x1FFF))
+    # ties round away from zero: 1 + 2^-11 -> 1 + 2^-10, and its negative
+    assert big[4000] == np.float32(1 + 2.0 ** -10) and big[4003] == -big[4000]
+    err = np.abs(big.astype(np.float64) + small - x.astype(np.float64))
+    assert np.all(err <= np.maximum(2.0 ** -22 * np.abs(x.astype(np.float64)), 2.0 ** -137))
+    normal = np.abs(x) >= tiny * 2.0 ** 12  # small is normal too
+    assert normal.sum() > 4000 and np.all(err[normal] <= 2.0 ** -22 * np.abs(x[normal]))
+    assert big.dtype == np.float32 and small.dtype == np.float32
+
+
+def _unpack_tf32_fragments(f):
+    """(M, K, C/8, C/16, 32, 4) -> (M, C_out, C_in, K) by PTX's A-fragment
+    layout of mma.m16n8k8.tf32: lane 4g + t, register i holds row
+    g + 8*(i % 2), column t + 4*(i // 2)."""
+    m, k, kc_n, mt_n = f.shape[:4]
+    lane, i = np.meshgrid(np.arange(32), np.arange(4), indexing="ij")
+    row = torch.from_numpy(lane // 4 + 8 * (i % 2))
+    col = torch.from_numpy(lane % 4 + 4 * (i // 2))
+    out = torch.empty((m, 16 * mt_n, 8 * kc_n, k), dtype=f.dtype)
+    for mt in range(mt_n):
+        for kc in range(kc_n):
+            out[:, 16 * mt + row, 8 * kc + col, :] = f[:, :, kc, mt].permute(0, 2, 3, 1)
+    return out
+
+
+@pytest.mark.parametrize("k", [3, 7, 11])
+@pytest.mark.parametrize("c", [16, 32, 64])
+def test_tf32_fragment_weights_are_the_tf32_split(c, k):
+    """The "highest" tier's weights: every (co, ci, tap) once in the A
+    fragments; the two planes unpacked are split_tf32's big and small bit
+    for bit."""
+    m = 3
+    idx = torch.arange(m * c * c * k).reshape(m, c, c, k)
+    frag = R.tf32_fragments(idx)
+    assert frag.shape == (m, k, c // 8, c // 16, 32, 4)
+    assert torch.equal(frag.flatten().sort().values, idx.flatten())
+    assert torch.equal(_unpack_tf32_fragments(frag), idx)
+
+    rng = np.random.default_rng(c * k + 1)
+    w = torch.from_numpy((rng.standard_normal((m, c, c, k)) / np.sqrt(c * k)).astype(np.float32))
+    big, small = split_tf32(w)
+    planes = R.tf32_weights(w)
+    assert planes.dtype == torch.float32 and planes.shape == (2, *frag.shape)
+    assert planes.is_contiguous()
+    assert torch.equal(_unpack_tf32_fragments(planes[0]).view(torch.int32),
+                       big.view(torch.int32))
+    assert torch.equal(_unpack_tf32_fragments(planes[1]).view(torch.int32),
+                       small.view(torch.int32))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        R.tf32_fragments(torch.zeros(1, 8, 8, 3))
+
+
+def test_highest_shared_memory_and_tiles(monkeypatch):
+    """At "highest" the window's act(y) and act(conv1) are one fp32 plane
+    each, rows of C + 4 words: 198,400 bytes at K2's widest branch (C=64,
+    halo 60, tile 128). Every tier takes the tensor-core tile rule: at the
+    medium voice's shapes K2 and K3 both run tiles of 128 (the CUDA-core
+    rule took 256 for K3), and the high voice's C=16 level the same."""
+    assert R._smem_bytes(64, 128, 60, False, 0) == 4 * 64 * 248 + 2 * 4 * 248 * 68 == 198400
+    assert R._smem_bytes(32, 128, 60, True, 0) == 4 * 32 * 248 + 2 * 4 * 248 * 36 + 4 * 32 * 128
+    assert R._smem_bytes(64, 128, 60, False, 1) == 4 * 64 * 248 + 2 * 2 * 2 * 248 * 72
+    assert R._smem_bytes(64, 128, 60, False, 2) == 4 * 64 * 248 + 2 * 2 * 248 * 72
+
+    class Props:
+        shared_memory_per_block_optin = 232448
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: Props())
+    halo = R.branch_halo(11, (1, 3, 5))
+    for tier in (0, 1, 2):
+        assert R._pick_tile(torch.zeros(1, 64, 8), halo, False, 256, tier) == 128  # K2
+        assert R._pick_tile(torch.zeros(1, 32, 8), halo, True, 256, tier) == 128   # K3
+        assert R._pick_tile(torch.zeros(1, 16, 8), halo, True, 256, tier) == 128
+    # tile 256 at C=64 would need 300,800 bytes at "highest": not offered
+    assert R._smem_bytes(64, 256, 60, False, 0) > Props.shared_memory_per_block_optin
+
+
+def _tf32x3_conv(x, w, b, padding, dilation):
+    """A conv as K2-K4 form it at "highest": big*big + big*small +
+    small*big of split_tf32's parts, summed in fp64 (each product exact),
+    the bias added, rounded to fp32 once."""
+    (xb, xs), (wb, ws) = split_tf32(x), split_tf32(w)
+
+    def conv(a, v):
+        return torch.nn.functional.conv1d(a.double(), v.double(), padding=padding,
+                                          dilation=dilation)
+
+    return (conv(xb, wb) + conv(xs, wb) + conv(xb, ws) + b.double()[:, None]).float()
+
+
+def _tf32x3_chain(x, w1s, b1s, w2s, b2s, k, dils, mask, slope=0.1):
+    def act(v):
+        return torch.nn.functional.leaky_relu(v, slope) * mask
+
+    y, h = x, (k - 1) // 2
+    for m, d in enumerate(dils):
+        t = _tf32x3_conv(act(y), w1s[m], b1s[m], h * d, d)
+        y = y + _tf32x3_conv(act(t), w2s[m], b2s[m], h, 1)
+    return y
+
+
+@pytest.mark.parametrize("ch", [16, 32])
+def test_tf32x3_chain_meets_the_module_bar_against_pallas(ch):
+    """The 3xTF32 recipe, emulated, against the Pallas kernels at "highest"
+    in interpret mode (fp32 products on the CPU): one branch at k = 11 and
+    the three-branch MRF stage, N = 300 with two-sided bounds, within
+    2e-5."""
+    rng = np.random.default_rng(ch + 300)
+    n = 300
+    x = rng.standard_normal((2, ch, n)).astype(np.float32) * 0.3
+    bounds = np.array([[37, 261], [0, 200]], np.int32)
+    pos = np.arange(n)
+    mask = torch.from_numpy(((pos >= bounds[:, :1]) & (pos < bounds[:, 1:]))[:, None, :]
+                            .astype(np.float32))
+    branches = _mrf_branches(rng, ch)
+    w1s, b1s, w2s, b2s, k, dils = branches[2]
+    got = _tf32x3_chain(torch.from_numpy(x), *_t((w1s, b1s, w2s, b2s)), k, dils, mask) * mask
+    want = pallas_resblock1_branch(jnp.asarray(x), *_j((w1s, b1s, w2s, b2s)), kernel=k,
+                                   dilations=dils, bounds=jnp.asarray(bounds), tile=128,
+                                   interpret=True, precision="highest")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
+
+    ys = [_tf32x3_chain(torch.from_numpy(x), *_t(b[:4]), b[4], b[5], mask) for b in branches]
+    got = sum(ys) / len(ys) * mask
+    want = pallas_resblock1_mrf(jnp.asarray(x), [(*_j(b[:4]), b[4], b[5]) for b in branches],
+                                bounds=jnp.asarray(bounds), tile=128, interpret=True,
+                                precision="highest")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
+    assert np.all(got.numpy()[0, :, :37] == 0.0) and np.all(got.numpy()[1, :, 200:] == 0.0)
+
+
+class _Counter:
+    """A wrapper's launch counter, as the kernel wrappers carry one."""
+    launches = 0
+
+
+def test_whole_wrapper_device_ms_refuses_a_short_window(monkeypatch):
+    """chip_smoke's whole-wrapper rows: the kernels per call are the count
+    that two profiled windows agree on, whose kernels by symbol equal the
+    wrapper's launches (its counter); then device_ms requires that count
+    per call. A timed window with fewer kernels is profiled again and, when
+    every window is short, raises: it is never summed."""
+    import chip_smoke
+
+    windows = []
+
+    class StubProfile:
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return windows.pop(0)
+
+    monkeypatch.setattr(torch.profiler, "profile", StubProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    counter = _Counter()
+
+    def fn():  # one wrapper call: 3 kernel launches
+        counter.launches += 3
+
+    kernel = "void (anonymous namespace)::resblock1_kernel<false, false, 0>(Args)"
+    reps = 10
+    short = [_event(kernel, 3 * reps, 3000.0), _event("elementwise_kernel", 15 * reps - 1, 199.0)]
+    full = [_event(kernel, 3 * reps, 3000.0), _event("elementwise_kernel", 15 * reps, 200.0)]
+    # Two windows agree on 18 kernels a call, 3 by symbol; one short timed
+    # window, then a whole one: only the whole one is summed.
+    windows[:] = [full, full, short, full]
+    row = chip_smoke._whole_call_ms(fn, chip_smoke.RESBLOCK_SYMBOL, counter)
+    assert row == {"device_ms": pytest.approx(3200.0 / reps / 1e3), "device_kernels": 18}
+    assert not windows
+    # A short first window does not set the count; every timed window
+    # short: raises.
+    windows[:] = [short, full, full] + [short] * timing._PROFILE_ATTEMPTS
+    with pytest.raises(RuntimeError, match=r"expected 180 kernels in 10 calls.*\[179, 179, 179\]"):
+        chip_smoke._whole_call_ms(fn, chip_smoke.RESBLOCK_SYMBOL, counter)
+    assert not windows
+    # The kernels by symbol must be the counter's launches per call.
+    two = [_event(kernel, 2 * reps, 200.0)]
+    windows[:] = [two, two]
+    with pytest.raises(AssertionError, match="2 kernels per call in the profiler's windows, "
+                                             "3 launched"):
+        chip_smoke._whole_call_ms(fn, chip_smoke.RESBLOCK_SYMBOL, counter)
+    # A plain version's row: its own count; windows that never agree, or
+    # counts that are no multiple of the calls, raise.
+    windows[:] = [[_event("copy", 4 * reps, 80.0)]] * 3
+    assert chip_smoke._whole_call_ms(fn, prefix="plain_") == {
+        "plain_device_ms": pytest.approx(80.0 / reps / 1e3), "plain_device_kernels": 4}
+    windows[:] = [[_event("copy", n, 1.0)] for n in (40, 39, 40, 39)]
+    with pytest.raises(RuntimeError, match="no two windows of 10 calls agree"):
+        chip_smoke._whole_call_ms(fn, prefix="plain_")
+    windows[:] = [[_event("copy", 41, 1.0)]] * 4
+    with pytest.raises(RuntimeError, match="no two windows of 10 calls agree"):
+        chip_smoke._whole_call_ms(fn, prefix="plain_")
