@@ -55,7 +55,12 @@ paths give it, and drives the main paths, counting each kernel's launches:
 Beside the paths, a profile phase puts one utterance of each voice (fp32
 and mixed, factors 1 and 8) under torch.profiler: its device kernels, their
 summed device time, the vocoder kernels' share (K2 + K3 for medium, K1 for
-x_low), and the unprofiled ms/utterance.
+x_low), and the unprofiled ms/utterance. A calibration phase prints the
+error by decode stage (piper_tpu_torch.tools.calibrate_precision, reduced:
+each stage alone at "high", its PyTorch convs as "high" runs them (fp32)
+and in TF32, its kernels; the serving batch against its rows), and a
+margin line lists every comparison held to the mixed gate (1e-3) against
+half of it, 5e-4: the run fails if any lands above that target.
 
 Each voice's result on the card is checked against the same port on the
 CPU. Each phase prints one JSON line; any failure raises and the exit code
@@ -129,10 +134,11 @@ K1_ATOL = 1e-4
 # How K2/K3/K4 form each tier's conv products (csrc/resblock1.cu).
 RESBLOCK_DESIGN = {"highest": "mma.sync tf32 x3", "high": "mma.sync bf16 x3",
                    "default": "mma.sync bf16 x1"}
-# How K1 forms them (csrc/conv1d.cu): at the bf16 tiers the kernel splits
-# the caller's fp32 weights once per persistent block, so no launch lays
-# them out.
-K1_DESIGN = {"highest": "cuda-core fp32",
+# How K1 forms them (csrc/conv1d.cu): at every tier the kernel stages the
+# caller's fp32 weights once per persistent block (split into bf16 planes,
+# or one fp32 plane split into tf32 parts on read), so no launch lays them
+# out.
+K1_DESIGN = {"highest": "mma.sync tf32 x3, weights split in the kernel",
              "high": "mma.sync bf16 x3, weights split in the kernel",
              "default": "mma.sync bf16 x1, weights split in the kernel"}
 RESBLOCK_SYMBOL = "resblock1_kernel"  # the device symbol of K2, K3 and K4
@@ -150,6 +156,10 @@ LAUNCHES_PER_CALL = {"medium": {"resblock1_branch": 3, "resblock1_mrf": 1},
                      "x_low": {"conv1d_same": 12}}
 WAVE_ATOL = 1e-4     # the fp32 waveform bar the JAX package is held to
 MIXED_ATOL = 1e-3    # the lowered-precision waveform gate (BASELINE.md)
+# Half the gate: where every mixed comparison must land (the margin phase
+# fails above it), and what each printed there (path, what, max-abs).
+MIXED_TARGET = 5e-4
+MIXED_MARGINS = []
 # bench.py's default configuration of the JAX package
 BENCH_MIX = {"precision": "highest", "vocoder_precision": "high", "flow_precision": "high"}
 FACTORS = (1, 2, 4, 8)
@@ -635,6 +645,7 @@ def phase_compare(torch, path: str, rt, other, atol: float, against: str, **spk)
     err = float(np.abs(a - b).max())
     if not err <= atol:
         raise AssertionError(f"{path}: waveform vs {against} max-abs {err} > {atol}")
+    _note_mixed(path, f"vs {against} {spk}", err, atol)
     emit(phase="compare", path=path, against=against, factor=1, w_ceil_equal=True,
          frames=int(wc.sum()), samples=int(a.shape[0]), max_abs_err=err, atol=atol,
          **{k: str(v) for k, v in spk.items()})
@@ -673,8 +684,18 @@ def phase_golden(path: str, rt, speakers: bool = False) -> dict:
     counters = _zero_counts()
     rows = [golden.check(rt, *key) for key in keys]
     launches = _require_launches(f"{path}_golden", counters)
+    for r in rows:
+        _note_mixed(path, f"golden f={r['factor']} {r['speaker'] or ''}".strip(),
+                    r["max_abs_err"], r["atol"])
     emit(phase="golden", path=path, rows=rows, launches=launches)
     return launches
+
+
+def _note_mixed(path: str, what: str, err: float, atol: float) -> None:
+    """Keep a comparison held to the mixed gate for the margin line."""
+    if atol == MIXED_ATOL:
+        MIXED_MARGINS.append({"path": path, "what": what, "max_abs_err": err,
+                              "within_target": err <= MIXED_TARGET})
 
 
 def _rows_close(path: str, what: str, got, want, atol: float) -> float:
@@ -687,6 +708,7 @@ def _rows_close(path: str, what: str, got, want, atol: float) -> float:
         errs.append(float(np.abs(g - w).max()))
     if not max(errs) <= atol:
         raise AssertionError(f"{path} {what}: max-abs {errs} > {atol}")
+    _note_mixed(path, what, max(errs), atol)
     return max(errs)
 
 
@@ -873,6 +895,7 @@ def _ms_checks(path: str, rt, atol: float) -> dict:
         bar = FORCED_ATOL if atol == WAVE_ATOL else atol
         if not err <= bar:
             raise AssertionError(f"{path} forced {spk}: max-abs {err} > {bar}")
+        _note_mixed(path, f"forced plan {spk}", err, bar)
         forced.append({**{k: str(v) for k, v in spk.items()}, "frames": int(durs.sum()),
                        "max_abs_err": err, "atol": bar})
     # Every plan's total in the 256-frame bucket: the seeded prior noise is
@@ -1012,6 +1035,7 @@ def phase_stream(torch, path: str, rt, atol: float) -> dict:
         err = float(np.abs(audio - g["audio"]).max())
         if not err <= atol:
             raise AssertionError(f"{name} golden {kw}: max-abs {err} > {atol}")
+        _note_mixed(name, f"golden {kw}", err, atol)
         goldens.append({"schedule": kw.get("chunk_frames", "growing"), "chunks": len(chunks),
                         "samples": len(audio), "max_abs_err": err, "atol": atol})
     row["golden"] = goldens
@@ -1073,6 +1097,7 @@ def phase_stream(torch, path: str, rt, atol: float) -> dict:
     if not max(head_errs + window_errs) <= atol or np.count_nonzero(batch[3]):
         raise AssertionError(f"{name}: batched head {head_errs} / window {window_errs} > "
                              f"{atol}, or the row past its end is not zero")
+    _note_mixed(name, "batched heads and windows vs solo", max(head_errs + window_errs), atol)
     row["batched"] = {"rows": len(rows), "frames": y_len.tolist(), "t_offsets": t_off.tolist(),
                       "head_max_abs_err": max(head_errs), "window_max_abs_err": max(window_errs),
                       "row_past_end_zero": True, "atol": atol}
@@ -1143,6 +1168,40 @@ def phase_ct_probe() -> dict:
     return total
 
 
+def phase_calibrate() -> None:
+    """A short run of piper_tpu_torch.tools.calibrate_precision per voice
+    (medium and x_low, f=8, 2 rows): the "high" schedule against the fp32
+    run, the table by stage (each decode stage alone at "high": its PyTorch
+    convs as "high" runs them and in TF32, its kernels) and the serving
+    batch of 32 against four of its rows at the mixed tiers. The schedule
+    and the batch are held to the mixed gate and noted for the margin."""
+    from piper_tpu_torch.tools import calibrate_precision
+
+    for quality in ("medium", "x_low"):
+        out = calibrate_precision.main(["--quality", quality, "--schedules", "high",
+                                        "--batch", "2", "--iters", "1"])
+        checks = [("\"high\" schedule vs fp32", out["rows"][0]["max_abs_err"]),
+                  ("serving batch vs its rows", out["batch_vs_rows"]["max_abs_err"])]
+        for what, err in checks:
+            if not err <= MIXED_ATOL:
+                raise AssertionError(f"calibrate {quality} {what}: max-abs {err} > {MIXED_ATOL}")
+            _note_mixed(f"calibrate_{quality}", what, err, MIXED_ATOL)
+        emit(phase="calibrate", quality=quality, schedules=out["rows"], stages=out["stages"],
+             batch_vs_rows=out["batch_vs_rows"])
+
+
+def phase_mixed_margin() -> None:
+    """Every comparison held to the mixed gate, against MIXED_TARGET: fails
+    if any lands above it."""
+    worst = max(MIXED_MARGINS, key=lambda m: m["max_abs_err"])
+    above = [m for m in MIXED_MARGINS if not m["within_target"]]
+    emit(phase="mixed_margin", gate=MIXED_ATOL, target=MIXED_TARGET,
+         comparisons=len(MIXED_MARGINS), worst=worst, all_within_target=not above,
+         above_target=above)
+    if above:
+        raise AssertionError(f"{len(above)} mixed comparisons above {MIXED_TARGET}: {above}")
+
+
 def _kernel_entry(name: str, tiers: dict, launches: int) -> dict:
     """A kernel's entry in the kernels line, at the "highest" tier: `ms`
     and `plain_ms` are device times (torch.profiler), beside `bound_ms`;
@@ -1187,6 +1246,7 @@ def main() -> None:
     # back empty late in a long process.
     count(phase_probe())
     count(phase_ct_probe())
+    phase_calibrate()
     for quality in ("medium", "x_low"):
         model, config = make_synthetic_voice(ROOT / "build" / f"chip_smoke_voice_{quality}",
                                              quality=quality, seed=0)
@@ -1216,6 +1276,9 @@ def main() -> None:
                      if m.split(".")[0] in ("jax", "jaxlib", "piper_tpu"))
     if foreign:
         raise AssertionError(f"imported {foreign}")
+    phase_mixed_margin()
+    from piper_tpu_torch.tools.timing import SENTINELS, WINDOWS
+    emit(phase="profiler_windows", sentinels=SENTINELS, **WINDOWS)
     emit(kernels=[_kernel_entry(name, tiers, launches[name]) for name, tiers in kernels.items()])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -89,7 +89,6 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
-#include <type_traits>
 
 #include "tiers.cuh"
 
@@ -104,6 +103,8 @@ constexpr int kMaxDils = 4;
 using piper::bf16;
 using piper::ldmatrix_x4;
 using piper::mma_bf16;
+using piper::Planes;
+using piper::store_act;
 
 struct Branch {
   // A fragments (ops/kernels/resblock.py::_kernel_weights). "highest": tf32
@@ -141,27 +142,6 @@ __device__ __forceinline__ size_t offset(const Args& p, int c, int g) {
 // act(v) at global sample index g: leaky ReLU, then zero outside [lo, hi).
 __device__ __forceinline__ float act(float v, int g, int lo, int hi, float slope) {
   return (g >= lo && g < hi) ? (v >= 0.f ? v : v * slope) : 0.f;
-}
-
-// How a tier keeps act(y) and act(conv1): the element type of a plane, its
-// row stride past C (C + kPad elements), and the planes per buffer.
-template <int kTier>
-struct Planes {
-  using T = std::conditional_t<kTier == 0, float, bf16>;
-  static constexpr int kPad = kTier == 0 ? 4 : 8;
-  static constexpr int kCount = kTier == 1 ? 2 : 1;
-};
-
-// act(v) into the planes at element `off`: as is at "highest", split into
-// bf16 planes at "high"/"default".
-template <int kTier>
-__device__ __forceinline__ void store_act(typename Planes<kTier>::T* planes, int plane,
-                                          int off, float v) {
-  if constexpr (kTier == 0) {
-    planes[off] = v;
-  } else {
-    piper::store_split<Planes<kTier>::kCount>(planes, plane, off, v);
-  }
 }
 
 // One conv of the chain over a window of `W` lanes, on the tensor cores at

@@ -14,9 +14,8 @@
 // every kernel (conv1d.cu's conv1d_same_mma_kernel, resblock1.cu's
 // conv_stage_mma): mma.sync on bf16 operands with fp32 sums forms exactly
 // these products, and the operands are split once, where they are written
-// (store_split), into planes that ldmatrix_x4 reads. "highest" on CUDA
-// cores in K1 (fma_tile, conv1d.cu) and on the tensor cores as 3xTF32 in
-// the ResBlock1 kernels (resblock1.cu's conv_stage_mma): v = big + small
+// (store_split), into planes that ldmatrix_x4 reads. "highest" on the
+// tensor cores as 3xTF32 in the same kernels: v = big + small
 // with big = tf32_rna(v), small = tf32_rna(v - big), and the same for w
 // (precision.py::split_tf32); big*big + big*small + small*big, each product
 // of two tf32 values exact in fp32. small*small and the rounding of small
@@ -28,22 +27,11 @@
 #include <cuda_bf16.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace piper {
 
 using bf16 = __nv_bfloat16;
-
-// acc[c][i] += w[c] * v[i] in fp32 (K1's "highest"), for a register tile of
-// kCo output channels by kT samples.
-template <int kCo, int kT>
-__device__ __forceinline__ void fma_tile(const float (&w)[kCo], const float (&v)[kT],
-                                         float (&acc)[kCo][kT]) {
-#pragma unroll
-  for (int c = 0; c < kCo; ++c) {
-#pragma unroll
-    for (int i = 0; i < kT; ++i) acc[c][i] = fmaf(w[c], v[i], acc[c][i]);
-  }
-}
 
 // v into bf16 planes at element `off`: bf16_rn(v) into the hi plane and,
 // with two planes, bf16_rn(v - hi) into the lo plane `plane` elements on
@@ -108,6 +96,41 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint4& a, uint32_t
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// How a tier keeps a plane of operands in shared memory: the element type,
+// the row stride past C (C + kPad elements), and the planes per buffer.
+// "highest" keeps one fp32 plane, split into tf32 parts on read
+// (split_tf32); "high" two bf16 planes (hi, lo) and "default" one, split
+// where they are written (store_split).
+template <int kTier>
+struct Planes {
+  using T = std::conditional_t<kTier == 0, float, bf16>;
+  static constexpr int kPad = kTier == 0 ? 4 : 8;
+  static constexpr int kCount = kTier == 1 ? 2 : 1;
+};
+
+// v into the tier's planes at element `off`.
+template <int kTier>
+__device__ __forceinline__ void store_act(typename Planes<kTier>::T* planes, int plane,
+                                          int off, float v) {
+  if constexpr (kTier == 0) {
+    planes[off] = v;
+  } else {
+    store_split<Planes<kTier>::kCount>(planes, plane, off, v);
+  }
+}
+
+// store_act of two neighbouring values (v0 at `off`, v1 at `off` + 1, `off`
+// even) as one store per plane.
+template <int kTier>
+__device__ __forceinline__ void store_act2(typename Planes<kTier>::T* planes, int plane,
+                                           int off, float v0, float v1) {
+  if constexpr (kTier == 0) {
+    *reinterpret_cast<float2*>(planes + off) = make_float2(v0, v1);
+  } else {
+    store_split2<Planes<kTier>::kCount>(planes, plane, off, v0, v1);
+  }
 }
 
 }  // namespace piper

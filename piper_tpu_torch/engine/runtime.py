@@ -144,8 +144,8 @@ class RuntimeOptions:
     def validate(self) -> None:
         if self.precision == "bfloat16":
             raise ValueError("precision 'bfloat16' (bf16 weights and activations end to "
-                             "end) is not ported; it comes in a later change, with the "
-                             "port of tools/calibrate_precision.py")
+                             "end) is not ported; it comes in a later change, as plain "
+                             "convs: the JAX package's Pallas kernels take fp32 inputs only")
         if self.precision not in TIERS:
             raise ValueError(f"precision {self.precision!r}: the tiers are {TIERS}")
         vp = self.vocoder_precision

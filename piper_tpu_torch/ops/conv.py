@@ -1,9 +1,10 @@
 """1-D convolutions in VITS's native (B, C, T) layout.
 
 Counterpart of piper_tpu.ops.conv. These convs ran in XLA outside any Pallas
-kernel, so here they are PyTorch's own; the runtime keeps them at full fp32
-(no TF32). The production `conv_transpose1d` is PyTorch's (cuDNN's on the
-card). `conv_transpose1d_polyphase` is the JAX package's lowering of it (one
+kernel, so here they are PyTorch's own, at the precision of the caller's
+tier_scope: fp32 at "highest" and "high", TF32 at "default". The
+production `conv_transpose1d` is PyTorch's (cuDNN's on the card).
+`conv_transpose1d_polyphase` is the JAX package's lowering of it (one
 dense conv to stride*C_out channels, then an interleave through K5), kept
 for `piper_tpu_torch.tools.ct_probe`, which times the two against each
 other. The packed narrow conv, which exists to fill the TPU's matrix unit,

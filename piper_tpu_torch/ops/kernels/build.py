@@ -96,7 +96,7 @@ def load() -> ctypes.CDLL:
         p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, i, i, p]
     lib.piper_resblock1_mrf_folded.argtypes = [
         p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, i, i, p]
-    lib.piper_conv1d_same.argtypes = [p, p, p, p, i, p, i, i, i, i, i, i, f, i, i, i, p]
+    lib.piper_conv1d_same.argtypes = [p, p, p, p, i, p, i, i, i, i, i, i, f, i, i, i, i, p]
     # (y, out, B, r, c, q, device, stream): no tier, a permutation.
     lib.piper_interleave.argtypes = [p, p, i, i, i, i, i, p]
     for fn in (lib.piper_resblock1_branch, lib.piper_resblock1_mrf,

@@ -3,9 +3,10 @@
 Counterpart of piper_tpu.ops.pallas.conv.pallas_conv1d_same: the ResBlock2
 convs and the unfused narrow ResBlock1 convs. The kernel is CUDA C++ for
 Hopper (`csrc/conv1d.cu`, whose header says what bounds it on the H100 and
-how the design answers it): fp32 FMAs on CUDA cores at "highest", bf16
-mma.sync on the tensor cores at "high" and "default". It sits beside its
-plain PyTorch version.
+how the design answers it): mma.sync on the tensor cores at every tier,
+3xTF32 at "highest" and bf16 at "high" and "default", from the caller's
+fp32 weights as they are (the kernel stages and splits them itself, so no
+launch lays them out). It sits beside its plain PyTorch version.
 
 Contract, as on the TPU: out = conv1d_same(leaky_relu(x, act_slope), w, b,
 dilation=d), zero padding on both sides, odd k, square weights (C, C, k);
@@ -14,7 +15,10 @@ act_slope 0 is the identity. `bounds`, where given, is (B,) meaning
 kernels take it: the activated input is also zero outside it, which is the
 TPU kernel on x * mask for the 0/1 mask of those bounds. The output is not
 masked. `precision` is the tier of the conv's products (`precision.py`), as
-mxu_dot gives it on the TPU.
+mxu_dot gives it on the TPU. At "high" and "default" the kernel differs
+from its plain version only in the order of its fp32 sums; at "highest" it
+forms each product as 3xTF32 (`precision.split_tf32`), about 2^-21 from
+the plain version's fp32 product.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernel or raises. `conv1d_same.launches` counts the kernel launches.
@@ -28,12 +32,18 @@ from typing import Optional, Tuple
 import torch
 
 from piper_tpu_torch.ops.kernels.precision import tier_code, tiered_conv1d
-from piper_tpu_torch.ops.kernels.resblock import (_MMA_PAD, _SMEM_LIMIT, _THREADS,
-                                                  _bounds_array, _mask, _stream)
+from piper_tpu_torch.ops.kernels.resblock import (_MMA_PAD, _SMEM_LIMIT, _TF32_PAD,
+                                                  _THREADS, _bounds_array, _mask, _stream)
 from piper_tpu_torch.ops.nn import leaky_relu
 
-_TILES = (256, 128, 64, 32)
-_MMA_TILES = (256, 128, 64, 32, 16)  # "high"/"default": multiples of 2 n-tiles of 8 lanes
+_MMA_TILES = (256, 128, 64, 32, 16)  # multiples of a warp's n-tiles of 8 lanes
+# A warp's 8-lane n-tiles by tier code: "highest" takes 4 (each A fragment
+# split on read then feeds 12 mma) or 2; the bf16 tiers 2 (one ldmatrix.x4
+# of B).
+_N_TILES = ((4, 2), (2,), (2,))
+# A warp's 16-channel m-tiles by tier code: "highest" takes at most 2 (4 by
+# its n-tiles would spill registers).
+_M_TILES = ((1, 2), (1, 2, 4), (1, 2, 4))
 _MMA_STAGE_PAD = 8  # the output stage's row is tile + 8 floats (conv1d.cu)
 _props = functools.lru_cache(maxsize=None)(torch.cuda.get_device_properties)
 
@@ -82,72 +92,65 @@ def _kernel_bounds(bounds, b: int, device: torch.device) -> Tuple[Optional[torch
     return t.contiguous(), 1 if t.ndim == 1 else 2
 
 
-def _pick_tile(x: torch.Tensor, k: int, pad: int, tile_max: int) -> int:
-    """Largest time tile (256/128/64/32, at most `tile_max`) that one pass of
-    the block covers (C/8 * tile/2 threads, at most 512), whose window
-    (tile + 2*pad samples) fits in shared memory beside the weights, and
-    whose grid still gives half the SMs a block; else the smallest that
-    fits. K1 recomputes no halo, so the tile trades the per-block staging
-    of the weights against spreading the same warps over more SMs:
-    measured on the H100 at x_low's shapes, this rule took the fastest tile
-    or one within 7% of it. The output does not depend on the tile."""
-    b, c, n = x.shape
-    props = _props(x.device)
-    limit = getattr(props, "shared_memory_per_block_optin", _SMEM_LIMIT)
-    fits = [t for t in _TILES if t <= tile_max and c // 8 * (t // 2) <= _THREADS
-            and 4 * c * (k * c + t + 2 * pad) <= limit]
-    if not fits:
-        raise ValueError(f"no time tile <= {tile_max} fits C={c}, k={k}, pad={pad}: "
-                         f"the weights and the window exceed {limit} bytes of shared memory")
-    half = props.multi_processor_count // 2
-    return next((t for t in fits if b * -(-n // t) >= half), fits[-1])
-
-
 def mma_smem_bytes(c: int, k: int, tile: int, pad: int, tier: int) -> int:
-    """The tensor-core kernel's shared memory: the weights as bf16 planes
-    [tap][C_out][C_in + 8] (two at "high", one at "default", C padded to a
-    multiple of 16), then the window's planes [lane][C_in + 8] or the fp32
-    output stage (C, tile + 8) over them, whichever is larger."""
+    """The kernel's shared memory at tier code `tier`: the weights as planes
+    [tap][C_out][C_in + row pad] (C padded to a multiple of 16), then the
+    window's planes [lane][C_in + row pad] or the fp32 output stage
+    (C, tile + 8) over them, whichever is larger. "highest" keeps the
+    weights in one fp32 plane and the window in two, its tf32 big and small
+    parts (row pad 4 words); "high" two bf16 planes of each (row pad 8),
+    "default" one."""
     cp = -(-c // 16) * 16
-    planes = 2 if tier == 1 else 1
-    row = 2 * (cp + _MMA_PAD)
-    window = planes * (tile + 2 * pad) * row
-    return planes * k * cp * row + max(window, 4 * c * (tile + _MMA_STAGE_PAD))
+    if tier == 0:
+        row = 4 * (cp + _TF32_PAD)
+        return k * cp * row + max(2 * (tile + 2 * pad) * row, 4 * c * (tile + _MMA_STAGE_PAD))
+    row = (2 if tier == 1 else 1) * 2 * (cp + _MMA_PAD)
+    return k * cp * row + max((tile + 2 * pad) * row, 4 * c * (tile + _MMA_STAGE_PAD))
 
 
-def _mma_warps(c: int, tile: int, m_tiles: int) -> int:
-    """Warps of the tensor-core kernel's block: one per work item of
-    m_tiles m-tiles by 2 n-tiles."""
-    return -(-c // 16) // m_tiles * (tile // 16)
+def _mma_warps(c: int, tile: int, m_tiles: int, n_tiles: int) -> int:
+    """Warps of the kernel's block: one per work item of m_tiles m-tiles by
+    n_tiles n-tiles of 8 lanes."""
+    return -(-c // 16) // m_tiles * (tile // (8 * n_tiles))
 
 
-def _mma_config(x: torch.Tensor, k: int, pad: int, tile_max: int, tier: int) -> Tuple[int, int]:
-    """(tile, m-tiles per warp) of the tensor-core kernel: the most warps a
-    block takes (16 where a tile allows it, each warp then owning the
-    fewest m-tiles), then the fewest lanes per SM (ceil(tiles / SMs) tiles,
-    blocks on one SM sharing it), the larger tile on a tie. Only tiles
-    (256 ... 16, at most `tile_max`) that fit in shared memory count. On
-    the H100 at x_low's two levels and both tiers this took the fastest
-    (tile, m-tiles) of `tools/conv1d_probe.py --sweep`. The output depends
-    on neither."""
+def _mma_config(x: torch.Tensor, k: int, pad: int, tile_max: int,
+                tier: int) -> Tuple[int, int, int]:
+    """(tile, m-tiles, n-tiles per warp) of the kernel, each warp owning the
+    fewest m-tiles a block of at most 16 warps allows. At "high"/"default"
+    (2 n-tiles): the most warps a block takes, then the fewest lanes per SM
+    (ceil(tiles / SMs) tiles, blocks on one SM sharing it). At "highest"
+    (2 or 4 n-tiles): the fewest window lanes per SM (the same count of
+    tiles, each tile + 2*pad lanes, staged and split once), then the most
+    warps, then 4 n-tiles. The larger tile on a tie. Only tiles (256 ... 16,
+    at most `tile_max`, a multiple of a warp's lanes) that fit in shared
+    memory count. On the H100 at x_low's two levels at B=1 this took the
+    fastest (tile, m-tiles, n-tiles) of `tools/conv1d_probe.py --sweep` at
+    every tier. The output depends on none of them."""
     b, c, n = x.shape
     props = _props(x.device)
     limit = getattr(props, "shared_memory_per_block_optin", _SMEM_LIMIT)
     n16 = -(-c // 16)
     best = None
     for t in _MMA_TILES:
-        ms = [m for m in (1, 2, 4) if n16 % m == 0 and _mma_warps(c, t, m) <= _THREADS // 32]
-        if t > tile_max or not ms or mma_smem_bytes(c, k, t, pad, tier) > limit:
+        if t > tile_max or mma_smem_bytes(c, k, t, pad, tier) > limit:
             continue
-        lanes = -(-(b * -(-n // t)) // props.multi_processor_count) * t
-        key = (-_mma_warps(c, t, ms[0]), lanes)
-        if best is None or key < best[0]:
-            best = (key, t, ms[0])
+        per_sm = -(-(b * -(-n // t)) // props.multi_processor_count)
+        for nt in _N_TILES[tier]:
+            ms = [m for m in _M_TILES[tier]
+                  if n16 % m == 0 and 0 < _mma_warps(c, t, m, nt) <= _THREADS // 32]
+            if t % (8 * nt) or not ms:
+                continue
+            warps = _mma_warps(c, t, ms[0], nt)
+            key = ((per_sm * (t + 2 * pad), -warps, -nt) if tier == 0
+                   else (-warps, per_sm * t))
+            if best is None or key < best[0]:
+                best = (key, t, ms[0], nt)
     if best is None:
         raise ValueError(f"no time tile <= {tile_max} fits C={c}, k={k}, pad={pad}: the "
-                         f"weights' bf16 planes and the window exceed {limit} bytes of "
+                         f"weights' planes and the window exceed {limit} bytes of "
                          f"shared memory")
-    return best[1], best[2]
+    return best[1:]
 
 
 def conv1d_same(x, weight, bias=None, *, dilation: int = 1, act_slope: float = 0.0,
@@ -172,26 +175,17 @@ def conv1d_same(x, weight, bias=None, *, dilation: int = 1, act_slope: float = 0
         raise ValueError(f"x must be contiguous with C a multiple of 8, got C={x.shape[1]} "
                          f"contiguous={x.is_contiguous()}")
     k = weight.shape[-1]
-    pad = (k - 1) // 2 * dilation
-    if tier == 0:
-        # (C_out, C_in, K) -> (C_in, K, C_out): 8 output channels of one
-        # (input channel, tap) are two float4 loads.
-        w = weight.permute(1, 2, 0).contiguous()
-        if w.data_ptr() % 16:
-            raise ValueError("transposed conv weights must be 16-byte aligned")
-        t, m_tiles = _pick_tile(x, k, pad, tile), 0
-    else:  # the kernel splits the caller's weights into bf16 planes itself
-        w = weight.contiguous()
-        t, m_tiles = _mma_config(x, k, pad, tile, tier)
-    out = _launch(x, w, k, bias, bounds, dilation, act_slope, tier, t, m_tiles)
+    t, m_tiles, n_tiles = _mma_config(x, k, (k - 1) // 2 * dilation, tile, tier)
+    out = _launch(x, weight.contiguous(), k, bias, bounds, dilation, act_slope, tier, t,
+                  m_tiles, n_tiles)
     conv1d_same.launches += 1
     return out
 
 
 def _launch(x, w, k: int, bias, bounds, dilation: int, act_slope: float, tier: int,
-            tile: int, m_tiles: int) -> torch.Tensor:
-    """One launch of the kernel on checked arguments, with `w` in the
-    tier's layout and the (tile, m_tiles) given."""
+            tile: int, m_tiles: int, n_tiles: int) -> torch.Tensor:
+    """One launch of the kernel on checked arguments, contiguous (C, C, k)
+    weights `w` and the (tile, m_tiles, n_tiles) given."""
     from piper_tpu_torch.ops.kernels import build
 
     lib = build.load()
@@ -203,7 +197,8 @@ def _launch(x, w, k: int, bias, bounds, dilation: int, act_slope: float, tier: i
     code = lib.piper_conv1d_same(
         x.data_ptr(), w.data_ptr(), None if bc is None else bc.data_ptr(),
         None if bnd is None else bnd.data_ptr(), cols, out.data_ptr(), b, c, n, k, dilation,
-        tile, act_slope if act_slope else 1.0, tier, m_tiles, x.device.index or 0, _stream(x))
+        tile, act_slope if act_slope else 1.0, tier, m_tiles, n_tiles, x.device.index or 0,
+        _stream(x))
     build.check(lib, code, "piper_conv1d_same")
     return out
 

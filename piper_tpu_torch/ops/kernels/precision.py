@@ -13,7 +13,7 @@ accumulation stay as they are:
 
 Every product of two bf16 values is exact in fp32, so at "high" and
 "default" a kernel and its plain version differ only in the order of their
-fp32 sums. At "highest" the plain version's products are fp32; K2-K4 form
+fp32 sums. At "highest" the plain version's products are fp32; K1-K4 form
 them on the tensor cores as 3xTF32 (`split_tf32`: big*big + big*small +
 small*big), which drops about 2^-21 of each product besides the order of
 the sums.
@@ -21,9 +21,14 @@ the sums.
 Outside the kernels a tier scopes what PyTorch may do with fp32 convs and
 matmuls on the card, as JAX's default_matmul_precision names its tiers by
 their GPU meaning ("high" is tensorfloat32, "default" bfloat16): "highest"
-is full fp32, "high" TF32 for cuDNN and matmuls, "default" TF32 for cuDNN
+is full fp32, "high" fp32 convs and TF32 matmuls, "default" TF32 for cuDNN
 (which has no bf16 mode for fp32 convs) and the "medium" matmul precision.
-On the CPU a scope changes nothing, as JAX's does not there.
+"high" keeps cuDNN's convs in fp32 because the reference's "high" is the
+3-pass bf16 split, about 16 mantissa bits, where TF32 keeps 10: on the
+H100 each decode stage's convs alone in TF32 land 2.5e-4 to 4.2e-4 from
+fp32, about 7.6e-4 together, against the mixed tiers' 1e-3 gate
+(`tools/calibrate_precision.py`, PERF.md). On the CPU a scope changes
+nothing, as JAX's does not there.
 """
 
 from __future__ import annotations
@@ -117,11 +122,12 @@ def fp32_exact():
 
 def tier_scope(precision: Optional[str], device):
     """PyTorch's fp32 conv and matmul precision at `precision` within the
-    block, on a CUDA device; None (inherit the outer tier) and the CPU
+    block, on a CUDA device: TF32 convs only at "default", TF32 matmuls
+    at "high" and "default"; None (inherit the outer tier) and the CPU
     leave everything as it is."""
     if precision is None:
         return contextlib.nullcontext()
     tier = kernel_tier(precision)
     if torch.device(device).type != "cuda":
         return contextlib.nullcontext()
-    return _torch_flags(tier != "highest", _MATMUL[tier])
+    return _torch_flags(tier == "default", _MATMUL[tier])

@@ -15,10 +15,9 @@ It uses only the public `conv1d_same` wrapper, so it times any tree whose
 package is first on the path: run it as a file with PYTHONPATH at another
 checkout's root to time that checkout's kernel on the same card.
 
-`--sweep` also times the tensor-core kernel at every (time tile, m-tiles
-per warp) that fits, at "high" and "default", each held bit-equal to the
-wrapper's own choice (the output does not depend on either), and lists the
-wrapper's choice per conv.
+`--sweep` also times the kernel at every (time tile, m-tiles, n-tiles per
+warp) that fits, at every tier, each held bit-equal to the wrapper's own choice (the
+output does not depend on either), and lists the wrapper's choice per conv.
 
 `--utterances` also profiles whole x_low utterances (the synthetic x_low
 voice, seed 0, written under build/conv1d_probe_voice/ beside the package)
@@ -27,6 +26,14 @@ flows "high"), phoneme factors 1 and 8: one utterance under torch.profiler
 after the median wall of `--reps` unprofiled ones (`profile_utterance`):
 device kernels, device-busy ms, and K1's kernels, ms and count (checked
 against the launch counter). It needs the card and has no other path.
+
+Beside K1 at "highest" it prints two yardsticks per level: `library_ms`,
+the same function by the library route (leaky_relu, then F.conv1d: two
+PyTorch calls per conv, TF32 off), and `host_tf32_layout_ms`, the device
+time that laying the six weights out on the host in the tensor cores'
+fragment order would add (`resblock.tf32_weights`, as K2-K4 take their
+weights; K1 splits them in the kernel instead); and the same level at a
+batch of 32 (`b32`: the kernel alone and the library route).
 
     python -m piper_tpu_torch.tools.conv1d_probe [--precision highest,high,default]
         [--frames 128] [--reps 10] [--sweep] [--utterances]
@@ -98,8 +105,8 @@ def _utterances(torch, reps: int) -> List[dict]:
 
 
 def _sweep(torch, K1, x, convs, tier: str, reps: int) -> dict:
-    """The tensor-core kernel's (tile, m_tiles) choices at one level, one
-    (tile, m_tiles) for all six convs, and the wrapper's choice per conv."""
+    """The kernel's (tile, m_tiles, n_tiles) choices at one level, one for
+    all six convs, and the wrapper's choice per conv."""
     from piper_tpu_torch.ops.kernels.precision import tier_code
     from piper_tpu_torch.tools.timing import device_ms
 
@@ -110,25 +117,56 @@ def _sweep(torch, K1, x, convs, tier: str, reps: int) -> dict:
     want = [K1.conv1d_same(x, w, bias, dilation=d, act_slope=0.1, precision=tier)
             for w, bias, k, d in convs]
     rows = []
-    for t in K1._MMA_TILES:
-        for m in (4, 2, 1):
-            if (-(-c // 16)) % m or K1._mma_warps(c, t, m) > 16 or any(
-                    K1.mma_smem_bytes(c, k, t, p, code) > limit
-                    for (_, _, k, _), p in zip(convs, pads)):
-                continue
+    for nt, t, m in ((nt, t, m) for nt in K1._N_TILES[code] for t in K1._MMA_TILES
+                     for m in K1._M_TILES[code]):
+        warps = K1._mma_warps(c, t, m, nt)
+        if (-(-c // 16)) % m or t % (8 * nt) or not 0 < warps <= 16 or any(
+                K1.mma_smem_bytes(c, k, t, p, code) > limit
+                for (_, _, k, _), p in zip(convs, pads)):
+            continue
 
-            def run():
-                return [K1._launch(x, w, k, bias, None, d, 0.1, code, t, m)
-                        for w, bias, k, d in convs]
+        def run():
+            return [K1._launch(x, w, k, bias, None, d, 0.1, code, t, m, nt)
+                    for w, bias, k, d in convs]
 
-            if not all(torch.equal(g, h) for g, h in zip(run(), want)):
-                raise AssertionError(f"conv1d_same {tier} C={c} tile {t} m_tiles {m}: "
-                                     f"differs from the wrapper's choice")
-            rows.append({"tile": t, "m_tiles": m, "warps": K1._mma_warps(c, t, m),
-                         "kernel_ms": device_ms(run, reps=reps, name="conv1d_same",
-                                                expected=len(convs))})
+        if not all(torch.equal(g, h) for g, h in zip(run(), want)):
+            raise AssertionError(f"conv1d_same {tier} C={c} tile {t} m_tiles {m} n_tiles "
+                                 f"{nt}: differs from the wrapper's choice")
+        rows.append({"tile": t, "m_tiles": m, "n_tiles": nt, "warps": warps,
+                     "kernel_ms": device_ms(run, reps=reps, name="conv1d_same",
+                                            expected=len(convs))})
     return {"rows": rows, "chosen": [list(K1._mma_config(x, k, p, 4096, code))
                                      for (_, _, k, _), p in zip(convs, pads)]}
+
+
+def _yardsticks(torch, K1, x, convs, reps: int) -> dict:
+    """At "highest": the library route's device time for the level's six
+    convs (leaky_relu then F.conv1d, TF32 off), the host tf32 layout's for
+    their weights, and both the kernel's and the library route's at a
+    batch of 32 (the rows copies of x)."""
+    import torch.nn.functional as F
+
+    from piper_tpu_torch.ops.kernels.resblock import tf32_weights
+    from piper_tpu_torch.tools.timing import call_kernels, device_ms
+
+    def library(xx):
+        return [F.conv1d(F.leaky_relu(xx, 0.1), w, b, padding=(k - 1) // 2 * d, dilation=d)
+                for w, b, k, d in convs]
+
+    def kernel(xx):
+        return [K1.conv1d_same(xx, w, b, dilation=d, act_slope=0.1, precision="highest")
+                for w, b, k, d in convs]
+
+    def layout():
+        return [tf32_weights(w[None]) for w, _, _, _ in convs]
+
+    x32 = x.expand(32, -1, -1).contiguous()
+    return {"library_ms": device_ms(lambda: library(x), reps=reps),
+            "host_tf32_layout_ms": device_ms(layout, reps=reps),
+            "host_tf32_layout_kernels": call_kernels(layout)[0],
+            "b32": {"kernel_ms": device_ms(lambda: kernel(x32), reps=reps, name="conv1d_same",
+                                           expected=len(convs)),
+                    "library_ms": device_ms(lambda: library(x32), reps=reps)}}
 
 
 def main(argv: Optional[List[str]] = None) -> List[dict]:
@@ -165,7 +203,9 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
                        "samples": x.shape[2], "wrapper_ms": device_ms(call, reps=args.reps),
                        "kernel_ms": device_ms(call, reps=args.reps, name="conv1d_same",
                                               expected=len(convs))}
-                if args.sweep and tier != "highest":
+                if tier == "highest":
+                    row.update(_yardsticks(torch, K1, x, convs, args.reps))
+                if args.sweep:
                     row["sweep"] = _sweep(torch, K1, x, convs, tier, args.reps)
                 for key in total:
                     total[key] += row[key]

@@ -25,7 +25,7 @@ reducer and no host-time correction: the time per call is the card's, the
 sum of the kernels' device times under torch.profiler over `--iters` calls,
 divided by `--iters`, the median of `--reps` such windows, with the median
 CUDA-event time of one call beside it. `--precision` is the tier of
-tier_scope (TF32 for cuDNN below "highest"). Before timing, the probe holds
+tier_scope (TF32 for cuDNN at "default" only). Before timing, the probe holds
 poly_ct and native_ct against full_ct (max-abs) and K5 against the plain
 interleave (bit-equal). It needs a CUDA device and has no other path; a
 piece that fails raises.
@@ -184,8 +184,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     name = torch.cuda.get_device_name(dev)
     shape, pieces = build_pieces(args.b, args.frames, args.level, dev)
     print(json.dumps({**shape, "what": "shapes"}), flush=True)
-    # cuDNN's fp32 convs run in TF32 below "highest" (tier_scope).
-    conv_rate = PEAK_FLOPS["fp32" if kernel_tier(args.precision) == "highest" else "tf32"]
+    # cuDNN's fp32 convs run in TF32 at "default" only (tier_scope).
+    conv_rate = PEAK_FLOPS["tf32" if kernel_tier(args.precision) == "default" else "fp32"]
     rows = []
     with torch.inference_mode(), tier_scope(args.precision, dev):
         agree = {"what": "agreement", "level": args.level, "precision": args.precision,

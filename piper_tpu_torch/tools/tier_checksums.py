@@ -1,13 +1,16 @@
-"""Checksums of K2-K4's outputs at the bf16 tiers, on a card.
+"""Checksums of K1-K4's outputs at the bf16 tiers, on a card.
 
     python -m piper_tpu_torch.tools.tier_checksums
     PYTHONPATH=<another checkout> python3 piper_tpu_torch/tools/tier_checksums.py
 
 Makes fixed inputs from seed 0 at the medium voice's shapes (K2's three
 branches at C=64, N = 128 frames' samples; K3 at C=32; K4 at fold 2, C=64
-and fold 4, C=32; B=2 with two-sided bounds), runs each kernel at "high"
-and "default" and prints one JSON line: {tier: {kernel: sha256 of its
-outputs' fp32 bytes}}. The kernels are deterministic, so two checkouts
+and fold 4, C=32), then at the x_low voice's (K1's six ResBlock2 convs at
+level 1, C=64, and level 2, C=32, act_slope 0.1), B=2 with two-sided
+bounds, runs each kernel at "high" and "default" and prints one JSON line:
+{tier: {kernel: sha256 of its outputs' fp32 bytes}}. K2-K4's inputs are
+drawn first, so their checksums compare with those of a tree that had no
+K1 case. The kernels are deterministic, so two checkouts
 whose checksums agree on one card compute the same bits; the second form
 above runs this file against another checkout's package (its kernels built
 under that checkout). chip_smoke.py prints the same line in its kernel
@@ -27,8 +30,10 @@ DILATIONS = (1, 3, 5)
 def checksums(tiers=TIERS) -> dict:
     import torch
 
+    from piper_tpu_torch.ops.kernels import conv as K1
     from piper_tpu_torch.ops.kernels import folded as K4
     from piper_tpu_torch.ops.kernels import resblock as R
+    from piper_tpu_torch.tools.conv1d_probe import X_LOW_CONVS
 
     if not torch.cuda.is_available():
         raise RuntimeError("tier_checksums runs the kernels on a CUDA card")
@@ -51,6 +56,11 @@ def checksums(tiers=TIERS) -> dict:
     cases = []
     for c, n in ((64, 128 * 128), (32, 128 * 256)):
         cases.append((c, n, branches(c), rand(2, c, n, scale=0.3)))
+    k1_cases = []
+    for c, n in ((64, 128 * 64), (32, 128 * 256)):
+        convs = [(rand(c, c, k, scale=(c * k) ** -0.5), rand(c, scale=0.02), d)
+                 for k, d in X_LOW_CONVS]
+        k1_cases.append((n, convs, rand(2, c, n, scale=0.3)))
 
     def k2(tier):
         _, n, brs, x = cases[0]
@@ -65,12 +75,16 @@ def checksums(tiers=TIERS) -> dict:
         return [K4.resblock1_mrf_folded(x, brs, fold=fold, bounds=bounds(n), precision=tier)
                 for (_, n, brs, x), fold in zip(cases, (2, 4))]
 
+    def k1(tier):
+        return [K1.conv1d_same(x, w, b, dilation=d, act_slope=0.1, bounds=bounds(n),
+                               precision=tier) for n, convs, x in k1_cases for w, b, d in convs]
+
     out = {}
     with torch.inference_mode():
         for tier in tiers:
             out[tier] = {}
             for name, run in (("resblock1_branch", k2), ("resblock1_mrf", k3),
-                              ("resblock1_mrf_folded", k4)):
+                              ("resblock1_mrf_folded", k4), ("conv1d_same", k1)):
                 h = hashlib.sha256()
                 for t in run(tier):
                     h.update(t.float().contiguous().cpu().numpy().tobytes())

@@ -16,7 +16,17 @@ PEAK_FLOPS = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
 # ("default") of bf16, on the tensor cores.
 TIER_FLOPS = {"highest": PEAK_FLOPS["tf32"] / 3, "high": PEAK_FLOPS["bf16"] / 3,
               "default": PEAK_FLOPS["bf16"]}
-_PROFILE_ATTEMPTS = 3
+_PROFILE_ATTEMPTS = 5
+# On the H100, torch.profiler now and then drops the first kernels of a
+# window: one, or some hundreds, in a few windows of a hundred (more on a
+# loaded host), never one further in. So every window opens with SENTINELS
+# launches of ATen's empty spin_kernel (torch.cuda._sleep(0)): a window that
+# kept one of them kept every kernel launched after it, and one that kept
+# none is profiled again. The sentinels are left out of every count and sum.
+SENTINEL = "spin_kernel"
+SENTINELS = 128
+# Windows profiled in this process, and those that lost every sentinel.
+WINDOWS = {"profiled": 0, "lost_head": 0}
 
 
 def bound_ms(nbytes: float, flops: float = 0.0,
@@ -52,16 +62,46 @@ def event_ms(fn: Callable, reps: int = 20, warmup: int = 3) -> float:
 def device_kernels(events: Iterable, name: Optional[str] = None) -> Tuple[int, float]:
     """(count, µs) of the device kernels among torch.profiler's averaged
     events (`prof.key_averages()`): those whose name holds `name`, or all of
-    them when `name` is None."""
+    them but the windows' sentinels when `name` is None."""
     from torch.autograd import DeviceType
 
     count, us = 0, 0.0
     for e in events:
-        if e.device_type != DeviceType.CUDA or (name is not None and name not in e.key):
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if (SENTINEL in e.key) if name is None else (name not in e.key):
             continue
         count += e.count
         us += getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
     return count, us
+
+
+def profiled(run: Callable) -> Optional[list]:
+    """run() under torch.profiler, behind the SENTINELS, until the card is
+    done: the window's averaged events, or None where the window lost every
+    sentinel (and so, maybe, the first of run()'s kernels)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(SENTINELS):
+            torch.cuda._sleep(0)
+        run()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    WINDOWS["profiled"] += 1
+    if device_kernels(events, SENTINEL)[0]:
+        return events
+    WINDOWS["lost_head"] += 1
+    return None
+
+
+def _calls(fn: Callable, reps: int) -> Callable:
+    def run():
+        for _ in range(reps):
+            fn()
+    return run
 
 
 def device_ms(fn: Callable, reps: int = 10, name: Optional[str] = None,
@@ -70,21 +110,16 @@ def device_ms(fn: Callable, reps: int = 10, name: Optional[str] = None,
     warm-up call: the sum over its kernels, or over those whose name holds
     `name`. With `expected` (kernels per call) the window must hold exactly
     expected * reps such kernels; without it, some device time. A window
-    that fails the check is profiled again, up to _PROFILE_ATTEMPTS times in
-    all, and then this raises (on the H100 a window late in a long process
-    has come back empty, once in some fifty)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    that fails the check, or lost its sentinels, is profiled again, up to
+    _PROFILE_ATTEMPTS times in all, and then this raises."""
     fn()
-    torch.cuda.synchronize()
     seen = []
     for _ in range(_PROFILE_ATTEMPTS):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        count, us = device_kernels(prof.key_averages(), name)
+        events = profiled(_calls(fn, reps))
+        if events is None:
+            seen.append("lost head")
+            continue
+        count, us = device_kernels(events, name)
         seen.append(count)
         if (count == expected * reps) if expected is not None else us > 0:
             return us / reps / 1e3
@@ -93,35 +128,31 @@ def device_ms(fn: Callable, reps: int = 10, name: Optional[str] = None,
         raise RuntimeError(f"torch.profiler: expected {expected * reps} {what} in {reps} "
                            f"calls, counted {seen} in {_PROFILE_ATTEMPTS} windows")
     raise RuntimeError(f"torch.profiler recorded no device time of {what} in "
-                       f"{_PROFILE_ATTEMPTS} windows")
+                       f"{_PROFILE_ATTEMPTS} windows: {seen}")
 
 
 def call_kernels(fn: Callable, name: Optional[str] = None, reps: int = 10,
                  attempts: int = _PROFILE_ATTEMPTS) -> Tuple[int, int]:
     """(all device kernels, those whose name holds `name`) that one call of
     fn() launches, from torch.profiler windows of `reps` calls each, as
-    device_ms profiles them: the first counts that two windows in a row
-    agree on, nonzero and a multiple of `reps`, divided by `reps`. Raises
-    after `attempts` + 1 windows without that. (On the H100 a window of one
-    call has counted one kernel fewer than its share of a longer window.)"""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    device_ms profiles them: the first counts that two whole windows in a
+    row agree on, nonzero and a multiple of `reps`, divided by `reps`; a
+    window that lost its sentinels is passed over. Raises after `attempts` + 1
+    windows without that."""
     fn()
-    torch.cuda.synchronize()
-    seen = []
+    seen, last = [], None
     for _ in range(attempts + 1):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = prof.key_averages()
+        events = profiled(_calls(fn, reps))
+        if events is None:
+            seen.append("lost head")
+            continue
         counts = [device_kernels(events)[0]]
         if name is not None:
             counts.append(device_kernels(events, name)[0])
-        if seen and counts == seen[-1] and all(n > 0 and n % reps == 0 for n in counts):
+        if counts == last and all(n > 0 and n % reps == 0 for n in counts):
             return counts[0] // reps, counts[-1] // reps if name is not None else 0
         seen.append(counts)
+        last = counts
     raise RuntimeError(f"torch.profiler: no two windows of {reps} calls agree on their "
                        f"kernels (all, named {name!r}) as a multiple of {reps}: {seen}")
 
@@ -131,21 +162,21 @@ def profile_call(fn: Callable, symbol: str, counters: Sequence[Callable],
     """fn() once under torch.profiler: its device kernels and their summed
     device time (device busy), and the kernels whose symbol holds `symbol`:
     their time and count. The count must equal the launches the wrappers
-    `counters` (each with a `.launches`) saw during the call, or the call
-    is profiled again, `attempts` times in all, and then this raises."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
+    `counters` (each with a `.launches`) saw during the call, and the window
+    must keep its sentinels, or the call is profiled again, `attempts` times
+    in all, and then this raises."""
+    seen = []
     for _ in range(attempts):
         before = sum(fn.launches for fn in counters)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
+        events = profiled(fn)
         want = sum(fn.launches for fn in counters) - before
-        events = prof.key_averages()
+        if events is None:
+            seen.append(f"lost head, {want} launched")
+            continue
         count, us = device_kernels(events)
         k_count, k_us = device_kernels(events, symbol)
         if k_count == want > 0:
             return {"device_kernels": count, "device_busy_ms": us / 1e3, "kernel_symbol": symbol,
                     "kernel_ms": k_us / 1e3, "kernel_launches": k_count}
-    raise AssertionError(f"profile: {k_count} {symbol} kernels in the window, {want} launched")
+        seen.append(f"{k_count} in the window, {want} launched")
+    raise AssertionError(f"profile: {symbol} kernels: {seen}")

@@ -296,13 +296,89 @@ def test_conv1d_same_kernel_bounds_layout():
 def test_mma_shared_memory_figures():
     """The tensor-core kernel's shared memory at x_low's widest convs: the
     weight planes [tap][C_out][C_in + 8] (two at "high") and the window's
-    planes or the output stage over them; C=24 is padded to 32 channels."""
+    planes or the output stage over them; C=24 is padded to 32 channels.
+    At "highest" one fp32 plane of each, rows of C + 4 words."""
     # C=64, k=7, d=12 (pad 36), tile 64, "high": 2*7*64*72*2 + 2*136*72*2
     assert K1.mma_smem_bytes(64, 7, 64, 36, 1) == 129024 + 39168
     # "default": one plane each; the stage (64 x 72 fp32) is the larger
     assert K1.mma_smem_bytes(64, 7, 64, 36, 2) == 64512 + max(19584, 18432)
     assert K1.mma_smem_bytes(64, 3, 256, 1, 2) == 27648 + max(37152, 67584)
     assert K1.mma_smem_bytes(24, 3, 32, 1, 1) == 2 * 3 * 32 * 40 * 2 + 2 * 34 * 40 * 2
+    # "highest", C=64, k=7, d=12, tile 128: one weight plane 7*64*68*4 and
+    # the window's big and small planes 2*(128+72)*68*4
+    assert K1.mma_smem_bytes(64, 7, 128, 36, 0) == 121856 + 108800 == 230656
+    assert K1.mma_smem_bytes(32, 7, 256, 36, 0) == 7 * 32 * 144 + 2 * 328 * 144
+    # tf32 planes of the split weights (big and small) would not fit: 243,712
+    assert 2 * 7 * 64 * 68 * 4 == 243712 > 232448
+
+
+def test_highest_tile_rule_at_x_low_shapes(monkeypatch):
+    """At x_low's levels (B=1, 128 frames) "high" takes 16-warp blocks:
+    level 1 (C=64, N=8192) in tiles of 64 with one m-tile a warp, level 2
+    (C=32, N=32768) in tiles of 256 with two. "highest" (32 lanes a warp)
+    takes the fewest window lanes per SM first, then the most warps: level
+    1 in 16-warp blocks of 64 samples, 2 n-tiles a warp (4 would need a
+    tile of 128 and leave half the SMs idle), level 2 in 16-warp blocks of
+    256 with one m-tile and 4 n-tiles; at B=32 level 1 in tiles of 256
+    where the window's two planes fit (k=3), else 128, never the 32-sample
+    tiles whose halo the staging would repeat. C=120 at k=11 fits no tile
+    at any tier."""
+
+    class Props:
+        shared_memory_per_block_optin = 232448
+        multi_processor_count = 132
+
+    monkeypatch.setattr(K1, "_props", lambda device: Props())
+    for k, d in ((3, 1), (5, 6), (7, 12)):
+        pad = (k - 1) // 2 * d
+        assert K1._mma_config(torch.zeros(1, 64, 8192), k, pad, 4096, 1) == (64, 1, 2)
+        assert K1._mma_config(torch.zeros(1, 32, 32768), k, pad, 4096, 1) == (256, 2, 2)
+        assert K1._mma_config(torch.zeros(1, 64, 8192), k, pad, 4096, 0) == (64, 1, 2)
+        assert K1._mma_config(torch.zeros(1, 32, 32768), k, pad, 4096, 0) == (256, 1, 4)
+        assert K1._mma_config(torch.zeros(32, 64, 8192), k, pad, 4096, 0) == \
+            ((256, 2, 4) if k == 3 else (128, 1, 4))
+    # C=64 at k=11 (the unfused narrow ResBlock1 convs): the window's two
+    # planes fit no 32-lane tile beside the weights (236,096 bytes at 32),
+    # so "highest" takes 2 n-tiles a warp and tiles of 16
+    assert K1.mma_smem_bytes(64, 11, 32, 25, 0) == 236096
+    assert K1._mma_config(torch.zeros(2, 64, 1001), 11, 25, 4096, 0) == (16, 1, 2)
+    for tier in (0, 1, 2):
+        with pytest.raises(ValueError, match="shared memory"):
+            K1._mma_config(torch.zeros(1, 120, 64), 11, 5, 4096, tier)
+
+
+def _k1_tf32x3(x, w, b, d, slope, mask):
+    """K1 as its "highest" kernel forms it: act(x) masked, then the 3xTF32
+    conv (_tf32x3_conv: split_tf32's three products, an fp64 sum)."""
+    xin = torch.nn.functional.leaky_relu(x, slope) * mask
+    return _tf32x3_conv(xin, w, b, (w.shape[-1] - 1) // 2 * d, d)
+
+
+@pytest.mark.parametrize("ch", [16, 32])
+@pytest.mark.parametrize("k,d", [(3, 1), (5, 6), (7, 12)])
+def test_k1_tf32x3_meets_the_module_bar_against_pallas(ch, k, d):
+    """K1's 3xTF32 recipe, emulated, against pallas_conv1d_same at
+    "highest" in interpret mode on the masked input (N = 300, two-sided
+    bounds), within 2e-5; farther than the conv's reach outside [lo, hi)
+    the output is exactly the bias, as the kernel's dead tiles write it."""
+    rng = np.random.default_rng(ch * 100 + k * 10 + d)
+    n = 300
+    x = rng.standard_normal((2, ch, n)).astype(np.float32)
+    w = (rng.standard_normal((ch, ch, k)) / np.sqrt(ch * k)).astype(np.float32)
+    bias = (rng.standard_normal((ch,)) * 0.02).astype(np.float32)
+    bounds = np.array([[37, 261], [0, 200]], np.int32)
+    pos = np.arange(n)
+    mask = ((pos >= bounds[:, :1]) & (pos < bounds[:, 1:]))[:, None, :].astype(np.float32)
+    got = _k1_tf32x3(*_t((x, w, bias)), d, 0.1, torch.from_numpy(mask))
+    want = pallas_conv1d_same(jnp.asarray(x * mask), jnp.asarray(w), jnp.asarray(bias),
+                              dilation=d, act_slope=0.1, tile=128, interpret=True,
+                              precision="highest")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
+    reach = (k - 1) // 2 * d
+    dead = (pos < bounds[:, :1] - reach) | (pos >= bounds[:, 1:] + reach)
+    for r in range(2):
+        out = got.numpy()[r][:, dead[r]]
+        assert out.size == 0 or np.array_equal(out, np.broadcast_to(bias[:, None], out.shape))
 
 
 def test_conv1d_same_refuses_what_the_kernel_does_not_take():
@@ -523,6 +599,39 @@ def _event(key, count, us, device="CUDA"):
                            device_type=getattr(torch.autograd.DeviceType, device))
 
 
+LOST_HEAD = "lost head"
+
+
+def _stub_profiler(monkeypatch) -> list:
+    """torch.profiler.profile and the card's calls stubbed: each profiled
+    window's averaged events are the next entry of the returned list, behind
+    its sentinels, or a window that lost them (LOST_HEAD: one kernel
+    before the first call's)."""
+    windows = []
+
+    class StubProfile:
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            w = windows.pop(0)
+            if w == LOST_HEAD:
+                return [_event("copy", 1, 1.0)]
+            return [_event("at::cuda::(anonymous namespace)::spin_kernel(long)",
+                           timing.SENTINELS, 128.0)] + w
+
+    monkeypatch.setattr(torch.profiler, "profile", StubProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
+    return windows
+
+
 def test_device_kernels_sums_only_the_named_kernels():
     events = [_event("void (anonymous namespace)::resblock1_kernel<false, false, 1>(Args)",
                      6, 600.0),
@@ -537,23 +646,7 @@ def test_device_kernels_sums_only_the_named_kernels():
 def test_device_ms_requires_the_expected_kernel_count(monkeypatch):
     """A window with another count than expected * reps is profiled again,
     and after _PROFILE_ATTEMPTS such windows device_ms raises."""
-    windows = []
-
-    class StubProfile:
-        def __init__(self, *args, **kwargs):
-            pass
-
-        def __enter__(self):
-            return self
-
-        def __exit__(self, *exc):
-            return False
-
-        def key_averages(self):
-            return windows.pop(0)
-
-    monkeypatch.setattr(torch.profiler, "profile", StubProfile)
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    windows = _stub_profiler(monkeypatch)
     calls = []
     fn = lambda: calls.append(1)  # noqa: E731
     kernel = "resblock1_kernel<true, false, 2>"
@@ -563,12 +656,61 @@ def test_device_ms_requires_the_expected_kernel_count(monkeypatch):
         pytest.approx(630.0 / 3 / 1e3)
     assert len(calls) == 1 + 3 + 3 and not windows
     windows[:] = [[_event(kernel, 7, 700.0)]] * timing._PROFILE_ATTEMPTS
+    sevens = ", ".join(["7"] * timing._PROFILE_ATTEMPTS)
     with pytest.raises(RuntimeError, match=r"expected 6 kernels named 'resblock1_kernel'.*"
-                                           r"\[7, 7, 7\]"):
+                                           rf"\[{sevens}\]"):
         timing.device_ms(fn, reps=3, name="resblock1_kernel", expected=2)
     # Without `expected`, only an empty window is refused.
     windows[:] = [[], [_event("copy", 3, 30.0)]]
     assert timing.device_ms(fn, reps=3) == pytest.approx(30.0 / 3 / 1e3)
+
+
+def test_device_kernels_leave_out_the_windows_sentinels():
+    events = [_event("at::cuda::(anonymous namespace)::spin_kernel(long)", 128, 90.0),
+              _event("void at::native::elementwise_kernel<128, 4>(...)", 12, 50.0)]
+    assert timing.device_kernels(events) == (12, 50.0)
+    assert timing.device_kernels(events, timing.SENTINEL) == (128, 90.0)
+
+
+@pytest.mark.parametrize("timer", ["device_ms", "call_kernels", "profile_call"])
+def test_a_window_that_lost_its_sentinels_is_profiled_again(monkeypatch, timer):
+    """On the card torch.profiler has dropped the first kernels of a window
+    (one kernel, or hundreds): a window that kept none of its sentinels may
+    have lost the first call's kernels too, so it is never counted or summed
+    but profiled again; a window of lost heads only raises."""
+    windows = _stub_profiler(monkeypatch)
+    counter = _Counter()
+
+    def fn():  # one call: 3 launches of the kernel
+        counter.launches += 3
+
+    kernel = "resblock1_kernel<false, false, 0>"
+    whole = [_event(kernel, 30, 300.0), _event("copy", 150, 15.0)]
+    if timer == "device_ms":
+        windows[:] = [LOST_HEAD, whole]
+        assert timing.device_ms(fn, name="resblock1_kernel", expected=3) == \
+            pytest.approx(300.0 / 10 / 1e3)
+        windows[:] = [LOST_HEAD] * timing._PROFILE_ATTEMPTS
+        with pytest.raises(RuntimeError, match=r"expected 30 kernels.*'lost head'"):
+            timing.device_ms(fn, name="resblock1_kernel", expected=3)
+    elif timer == "call_kernels":
+        # A lost head between two whole windows does not part them.
+        windows[:] = [whole, LOST_HEAD, whole]
+        assert timing.call_kernels(fn, "resblock1_kernel") == (18, 3)
+        windows[:] = [LOST_HEAD] * (timing._PROFILE_ATTEMPTS + 1)
+        with pytest.raises(RuntimeError, match="no two windows of 10 calls agree"):
+            timing.call_kernels(fn, "resblock1_kernel")
+    else:
+        one = [_event(kernel, 3, 30.0), _event("copy", 15, 1.5)]
+        windows[:] = [LOST_HEAD, one]
+        assert timing.profile_call(fn, "resblock1_kernel", [counter]) == {
+            "device_kernels": 18, "device_busy_ms": pytest.approx(0.0315),
+            "kernel_symbol": "resblock1_kernel", "kernel_ms": pytest.approx(0.03),
+            "kernel_launches": 3}
+        windows[:] = [LOST_HEAD] * timing._PROFILE_ATTEMPTS
+        with pytest.raises(AssertionError, match="lost head, 3 launched"):
+            timing.profile_call(fn, "resblock1_kernel", [counter])
+    assert not windows
 
 
 # ---- "highest" on the tensor cores: 3xTF32 ----
@@ -751,23 +893,7 @@ def test_whole_wrapper_device_ms_refuses_a_short_window(monkeypatch):
     every window is short, raises: it is never summed."""
     import chip_smoke
 
-    windows = []
-
-    class StubProfile:
-        def __init__(self, *args, **kwargs):
-            pass
-
-        def __enter__(self):
-            return self
-
-        def __exit__(self, *exc):
-            return False
-
-        def key_averages(self):
-            return windows.pop(0)
-
-    monkeypatch.setattr(torch.profiler, "profile", StubProfile)
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    windows = _stub_profiler(monkeypatch)
     counter = _Counter()
 
     def fn():  # one wrapper call: 3 kernel launches
@@ -786,7 +912,8 @@ def test_whole_wrapper_device_ms_refuses_a_short_window(monkeypatch):
     # A short first window does not set the count; every timed window
     # short: raises.
     windows[:] = [short, full, full] + [short] * timing._PROFILE_ATTEMPTS
-    with pytest.raises(RuntimeError, match=r"expected 180 kernels in 10 calls.*\[179, 179, 179\]"):
+    shorts = ", ".join(["179"] * timing._PROFILE_ATTEMPTS)
+    with pytest.raises(RuntimeError, match=rf"expected 180 kernels in 10 calls.*\[{shorts}\]"):
         chip_smoke._whole_call_ms(fn, chip_smoke.RESBLOCK_SYMBOL, counter)
     assert not windows
     # The kernels by symbol must be the counter's launches per call.
@@ -800,9 +927,9 @@ def test_whole_wrapper_device_ms_refuses_a_short_window(monkeypatch):
     windows[:] = [[_event("copy", 4 * reps, 80.0)]] * 3
     assert chip_smoke._whole_call_ms(fn, prefix="plain_") == {
         "plain_device_ms": pytest.approx(80.0 / reps / 1e3), "plain_device_kernels": 4}
-    windows[:] = [[_event("copy", n, 1.0)] for n in (40, 39, 40, 39)]
+    windows[:] = [[_event("copy", 40 - i % 2, 1.0)] for i in range(timing._PROFILE_ATTEMPTS + 1)]
     with pytest.raises(RuntimeError, match="no two windows of 10 calls agree"):
         chip_smoke._whole_call_ms(fn, prefix="plain_")
-    windows[:] = [[_event("copy", 41, 1.0)]] * 4
+    windows[:] = [[_event("copy", 41, 1.0)]] * (timing._PROFILE_ATTEMPTS + 1)
     with pytest.raises(RuntimeError, match="no two windows of 10 calls agree"):
         chip_smoke._whole_call_ms(fn, prefix="plain_")
