@@ -41,6 +41,13 @@ paths give it, and drives the main paths, counting each kernel's launches:
   against synthesize, and synthesize_batch_forced against its solo runs;
 - the port's bench, `piper_tpu_torch.bench.main(["--quick"])`, its
   multispeaker row (8 speakers) included;
+- the continuous batcher (`serve`): one MultiVoiceBatchingServer over the
+  medium and x_low voices at the mixed tiers (fused, int16), prewarmed,
+  serving the serving mix of piper_tpu_torch.tools.serving_sim from several
+  threads: nothing failed or shed, zero-noise requests held to the fp32
+  synthesize, served durations equal to phoneme_durations, K1, K2 and K3
+  launched in the served groups, and close() releasing each voice's
+  weights from the card;
 - incremental streaming on each voice, fp32 and mixed (paths
   `{voice}_stream`, `{voice}_mixed_stream`): the f=8 JAX golden streamed
   with its injected noise at the growing schedule and at 16-frame windows
@@ -92,9 +99,9 @@ MS_PATHS = tuple(f"medium_ms{suffix}{part}" for suffix in ("", "_mixed")
                  for part in ("", "_golden", "_batch", "_forced"))
 RESBLOCK1_PATHS = ("medium", "medium_mixed", "medium_golden", "medium_mixed_golden",
                    "medium_batch", "medium_mixed_batch", "pipeline", "high", "high_mixed",
-                   "bench", "medium_stream", "medium_mixed_stream") + MS_PATHS
+                   "bench", "medium_stream", "medium_mixed_stream", "serve") + MS_PATHS
 CONV1D_PATHS = ("x_low", "x_low_mixed", "x_low_golden", "x_low_mixed_golden", "x_low_batch",
-                "x_low_mixed_batch", "x_low_stream", "x_low_mixed_stream")
+                "x_low_mixed_batch", "x_low_stream", "x_low_mixed_stream", "serve")
 # kernel -> (its source, the TPU kernel it replaces, the paths that run it)
 KERNELS = {
     "resblock1_branch": ("piper_tpu_torch/csrc/resblock1.cu",
@@ -182,6 +189,13 @@ CT_ATOL = 1e-4  # poly_ct and native_ct vs full_ct, fp32 sums in other orders
 # same inputs), and the bench's first window (c0 = max(32, 2048 // hop)).
 FUSED_SPLIT_ATOL = 1e-6
 STREAM_C0 = 32
+# The serve phase: the serving mix (serving_sim.LENGTH_MIX) from SERVE_THREADS
+# submitter threads, Poisson at SERVE_RATE requests/s in all, for SERVE_S
+# seconds, through one MultiVoiceBatchingServer of the two voices.
+SERVE_RATE = 40.0
+SERVE_THREADS = 4
+SERVE_S = 4.0
+SERVE_MAX_BATCH = 32  # serving_sim's --max-batch
 
 
 def emit(**fields) -> None:
@@ -1122,6 +1136,136 @@ def phase_stream(torch, path: str, rt, atol: float) -> dict:
     return launches
 
 
+def phase_serve(torch, voices: dict) -> dict:
+    """The continuous batcher on the card: one MultiVoiceBatchingServer over
+    the medium and x_low voices at the bench's mixed tiers, fused mode and
+    int16 (serving_sim's runtime), prewarmed over the serving mix's grid.
+    With every count at 0: SERVE_THREADS threads submit the seeded serving
+    mix for SERVE_S seconds at SERVE_RATE requests/s in all, beside (a)
+    zero-noise requests of f = 1/2/4/8 per voice, each held to the card's
+    fp32 synthesize of the same ids at zero noise (int16 against the clipped
+    float: the mixed gate, noted for the margin), and (b) submit_durations
+    at noise_w=0, equal to the runtime's phoneme_durations. Before the
+    prewarm, one group shape off the grid is timed at its first and next
+    runs (what a first-seen shape costs). Every future
+    must resolve, nothing fail or shed, K1 (x_low) and K2+K3 (medium)
+    launch. Then close() must release each runtime's weights from the card
+    (memory_allocated falls by >= 90% of hbm_bytes)."""
+    import gc
+    import threading
+
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.engine.batcher import MultiVoiceBatchingServer
+    from piper_tpu_torch.engine.bucketing import bucket_for
+    from piper_tpu_torch.engine.runtime import PiperRuntime, RuntimeOptions
+    from piper_tpu_torch.tools.serving_sim import LENGTH_MIX, run_traffic
+
+    opts = RuntimeOptions(mode="fused", output_dtype="int16", **BENCH_MIX)
+    runtimes = {q: PiperRuntime(*voices[q], opts, device="cuda") for q in ("medium", "x_low")}
+    server = MultiVoiceBatchingServer(runtimes, max_batch=SERVE_MAX_BATCH, max_wait_ms=10.0)
+    row = {}
+    try:
+        p_buckets = sorted({bucket_for(len((FIXTURE_PHONEME_IDS * f)[:4096]),
+                                       runtimes["medium"].options.phoneme_buckets, "phoneme")
+                            for f, _ in LENGTH_MIX})
+        # What a (rows, frames) shape costs the first time it runs, against
+        # its next runs: one fused group off the grid (3 rows, 128 frames).
+        first_ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            runtimes["medium"].fetch_batch(*runtimes["medium"].dispatch_batch(
+                [FIXTURE_PHONEME_IDS * 4] * 3, fused=True, pad_rows_to=3, budget_frames=100))
+            first_ms.append((time.perf_counter() - t0) * 1e3)
+        row["first_seen_shape_ms"] = {"rows": 3, "frames": 128, "runs_ms": first_ms}
+        t0 = time.perf_counter()
+        warm = server.prewarm(p_buckets=p_buckets)
+        row["prewarm"] = {"wall_s": time.perf_counter() - t0, **warm}
+        zero = [(q, f) for q in runtimes for f in FACTORS]
+
+        counters = _zero_counts()
+        served: list = []
+        keys = list(runtimes)
+
+        def submit(rng, ids):
+            return server.submit(keys[int(rng.integers(len(keys)))], ids)
+
+        def submitter(i):
+            served.append(run_traffic(submit, SERVE_S, np.random.default_rng(100 + i),
+                                      SERVE_RATE / SERVE_THREADS, runtimes["medium"].sample_rate))
+
+        threads = [threading.Thread(target=submitter, args=(i,), name=f"serve-client-{i}")
+                   for i in range(SERVE_THREADS)]
+        for t in threads:
+            t.start()
+        zero_futs = [server.submit(q, FIXTURE_PHONEME_IDS * f, noise_scale=0.0, noise_w=0.0)
+                     for q, f in zero]
+        dur_futs = [server.submit_durations(q, FIXTURE_PHONEME_IDS * f, noise_w=0.0)
+                    for q, f in zero]
+        for t in threads:
+            t.join()
+        zero_audio = [fut.result(timeout=300) for fut in zero_futs]
+        durs = [fut.result(timeout=300) for fut in dur_futs]
+        launches = _require_launches("serve", counters)
+        metrics = server.metrics()
+    finally:
+        server.close()
+    for key, m in metrics.items():
+        if m["failed"] or m["shed_overload"] or m["shed_deadline"]:
+            raise AssertionError(f"serve: voice {key} failed or shed requests: {m}")
+    if len(served) != SERVE_THREADS or any(sum(shed.values()) for _, _, _, shed in served):
+        raise AssertionError(f"serve: a submitter failed or was shed: {[r[3] for r in served]}")
+    lat = sorted(latency * 1e3 for results, _, _, _ in served for latency, _, _ in results)
+    for pcm in zero_audio:
+        if pcm.dtype != np.int16:
+            raise AssertionError(f"serve: served {pcm.dtype}, not int16")
+
+    errs = []
+    fp32 = {q: PiperRuntime(*voices[q], device="cuda") for q in runtimes}
+    for (q, f), got, d in zip(zero, zero_audio, durs):
+        ids = FIXTURE_PHONEME_IDS * f
+        want = np.clip(fp32[q].synthesize(ids, noise_scale=0.0, noise_w=0.0), -1.0, 1.0)
+        if got.shape != want.shape:
+            raise AssertionError(f"serve {q} f={f}: {got.shape} samples, fp32 {want.shape}")
+        err = float(np.abs(got.astype(np.float32) / 32767.0 - want).max())
+        if not err <= MIXED_ATOL:
+            raise AssertionError(f"serve {q} f={f}: served vs fp32 max-abs {err} > {MIXED_ATOL}")
+        _note_mixed(f"serve_{q}", f"served f={f} at zero noise vs fp32", err, MIXED_ATOL)
+        plan = runtimes[q].phoneme_durations([ids], noise_w=0.0)[0]
+        if not np.array_equal(d, plan):
+            raise AssertionError(f"serve {q} f={f}: submit_durations {d} != phoneme_durations "
+                                 f"{plan}")
+        errs.append((q, f, err))
+
+    released = {}
+    for q, rt in runtimes.items():
+        weights = rt.hbm_bytes()
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        rt.close()
+        gc.collect()
+        freed = before - torch.cuda.memory_allocated()
+        if not (weights > 0 and freed >= 0.9 * weights and rt.closed):
+            raise AssertionError(f"serve {q}: close() freed {freed} of {weights} weight bytes")
+        released[q] = {"hbm_bytes": weights, "freed_bytes": freed}
+
+    def pct(p):
+        k = (len(lat) - 1) * p / 100.0
+        lo, hi = int(np.floor(k)), int(np.ceil(k))
+        return lat[lo] + (lat[hi] - lat[lo]) * (k - lo)
+
+    emit(phase="serve", voices=list(runtimes), rate_req_s=SERVE_RATE, threads=SERVE_THREADS,
+         seconds=SERVE_S, requests=len(lat), latency_ms={"p50": pct(50), "p95": pct(95),
+                                                          "p99": pct(99), "max": lat[-1]},
+         rows_per_group={q: m["rows_per_group"] for q, m in metrics.items()},
+         groups={q: m["groups"] for q, m in metrics.items()},
+         padded_rows={q: m["padded_rows"] for q, m in metrics.items()},
+         wait_ms_mean={q: m["wait_ms_mean"] for q, m in metrics.items()},
+         zero_noise_vs_fp32=[{"voice": q, "factor": f, "max_abs_err": e} for q, f, e in errs],
+         durations_equal=True, released=released, **row, launches=launches)
+    return launches
+
+
 def phase_probe() -> dict:
     """The folded-kernel probe's main function, reduced to a batch of 2 and
     one timed window of 2 calls per kernel, at its default tier ("high");
@@ -1247,9 +1391,11 @@ def main() -> None:
     count(phase_probe())
     count(phase_ct_probe())
     phase_calibrate()
+    voices = {}
     for quality in ("medium", "x_low"):
         model, config = make_synthetic_voice(ROOT / "build" / f"chip_smoke_voice_{quality}",
                                              quality=quality, seed=0)
+        voices[quality] = (model, config)
         rt, counts = phase_main_path(torch, quality, model, config)
         count(counts)
         phase_compare(torch, quality, rt, PiperRuntime(model, config, device="cpu"),
@@ -1269,6 +1415,7 @@ def main() -> None:
         count(phase_batch(mixed, rt_mixed, MIXED_ATOL, serving))
         if serving:
             count(phase_pipeline(model, config))
+    count(phase_serve(torch, voices))
     count(phase_high(torch))
     count(phase_multispeaker(torch))
     count(phase_bench())

@@ -61,7 +61,7 @@ ROOT = Path(__file__).resolve().parent.parent
 BASELINE_MS_FACTOR1 = 147.39  # reference Swift/Metal ms_mean @ factor 1 (BASELINE.md)
 # Rows of the root bench whose parts of the port are not written yet.
 UNPORTED = {
-    "streams": "the streaming server is not ported yet (ROADMAP §1 item 8)",
+    "streams": "the streaming server is not ported yet (ROADMAP §1 item 2)",
     "roofline": "the roofline report (piper_tpu/utils/roofline.py) is not ported",
 }
 

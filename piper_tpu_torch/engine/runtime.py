@@ -11,12 +11,18 @@ voices on one device: the CUDA card unless the caller asks for the CPU
   them, at the heuristic frame budget max(32, len * fused_frames_per_phoneme)
   rounded up to a frame bucket, then one host copy of (audio, y_len,
   y_total). A run whose durations overflow the budget is redone exactly in
-  split mode. Batches take the split path, as in the JAX package.
+  split mode. Blocking batches take the split path, as in the JAX package.
 - dispatch/fetch: `dispatch_fused` and `dispatch_batch` queue the work and
   the audio's copy to pinned host memory behind it and return at once (split
   mode reads only the frame counts); `fetch_fused` and `fetch_batch` wait for
-  the copy's event and slice each row. `engine/pipeline.py` builds the
-  serving pipeline on them.
+  the copy's event and slice each row. `dispatch_batch(fused=True)` runs a
+  whole group the fused way, its rows and frame budget pinned by the caller
+  (`pad_rows_to`, `budget_frames`), with no host read at all; rows that
+  overflow are redone at fetch. `engine/pipeline.py` builds the serving
+  pipeline on them, `engine/batcher.py` the continuous batcher.
+- Serving contracts: `hbm_bytes()` (the weights' bytes on the device),
+  `close()`/`closed` (drop the weights; later synthesis raises), `prewarm()`
+  (pay first-run costs ahead of traffic) and `RuntimeOptions.from_env()`.
 - Duration controls: `phoneme_durations` runs the encoder only and returns
   each phoneme's frames; `synthesize_with_alignment` adds their sample
   spans to the audio (`core/alignment.py`); `synthesize_forced` and
@@ -83,6 +89,7 @@ import torch
 from piper_tpu_torch.core.alignment import PhonemeAlignment, make_alignment
 from piper_tpu_torch.core.audio import AudioChunk, AudioFormat
 from piper_tpu_torch.core.config import VoiceConfig
+from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
 from piper_tpu_torch.engine.bucketing import (
     DEFAULT_FRAME_BUCKETS,
     DEFAULT_PHONEME_BUCKETS,
@@ -140,6 +147,29 @@ class RuntimeOptions:
     frame_buckets: Tuple[int, ...] = tuple(DEFAULT_FRAME_BUCKETS)
     batch_buckets: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 48, 64, 96, 128)
     output_dtype: str = "float32"  # or "int16": clip * 32767, cast on the device
+
+    @staticmethod
+    def from_env() -> "RuntimeOptions":
+        """Default options with PIPER_TPU_PRECISION, PIPER_TPU_MODE,
+        PIPER_TPU_VOCODER_PRECISION and PIPER_TPU_FLOW_PRECISION applied,
+        read as the JAX package reads them; validated, so a value the port
+        does not carry (precision "bfloat16") raises here."""
+        from piper_tpu_torch.utils.env import flag
+
+        kwargs = {}
+        if flag("PIPER_TPU_PRECISION"):
+            kwargs["precision"] = flag("PIPER_TPU_PRECISION")
+        if flag("PIPER_TPU_MODE"):
+            kwargs["mode"] = flag("PIPER_TPU_MODE")
+        vp = flag("PIPER_TPU_VOCODER_PRECISION")
+        if vp:
+            kwargs["vocoder_precision"] = parse_precision_spec(vp)
+        fp = flag("PIPER_TPU_FLOW_PRECISION")
+        if fp:
+            kwargs["flow_precision"] = parse_precision_spec(fp)
+        options = RuntimeOptions(**kwargs)
+        options.validate()
+        return options
 
     def validate(self) -> None:
         if self.precision == "bfloat16":
@@ -368,12 +398,53 @@ class PiperRuntime:
                 f"vocoder_precision has {len(vp)} per-level entries but this voice has "
                 f"{self.hparams.num_upsamples} upsample levels: give one tier per level "
                 f"(or a single tier name for all levels)")
+        self._hbm_bytes: Optional[int] = None
         self.params = params_to_torch(host_arrays_from_graph(graph), self.device)
         self._compiled_keys: set = set()
         # Serializes device work (the tier flags are process-wide) and the
         # bookkeeping (_compiled_keys, last_run_timings) for threaded callers.
         self._lock = threading.RLock()
         self.last_run_timings: Optional[RunTimings] = None
+
+    # -- lifecycle -------------------------------------------------------------
+
+    @property
+    def params(self) -> dict:
+        """The weight tensors on the runtime's device. Every synthesis path
+        reads them here, so a closed runtime fails at once with a
+        RuntimeError instead of deep inside a call."""
+        p = self._params
+        if p is None:
+            raise RuntimeError("PiperRuntime is closed: its weights were released "
+                               "(PiperRuntime.close())")
+        return p
+
+    @params.setter
+    def params(self, value: dict) -> None:
+        self._params = value
+        self._hbm_bytes = None
+
+    def hbm_bytes(self) -> int:
+        """Bytes of this voice's weight tensors on the runtime's device (on
+        the card, its HBM; the JAX package's name), 0 once closed. Serving
+        metrics report it per voice, so resident voices can be budgeted
+        against the card's memory."""
+        if self._hbm_bytes is None:
+            self._hbm_bytes = sum(t.numel() * t.element_size() for t in self.params.values())
+        return self._hbm_bytes
+
+    @property
+    def closed(self) -> bool:
+        return self._params is None
+
+    def close(self) -> None:
+        """Release this voice's weights: the runtime drops its references to
+        them, so the caching allocator takes their memory back (no queued
+        copy, stream state or kernel layout keeps a weight alive). Further
+        synthesis raises RuntimeError. Idempotent."""
+        with self._lock:
+            self._params = None
+            self._hbm_bytes = 0
 
     @property
     def sample_rate(self) -> int:
@@ -608,11 +679,13 @@ class PiperRuntime:
                                    flow_precision=o.flow_precision)
         return self._as_output(audio), y_len
 
-    def _run_fused(self, ids, lengths, scales, seed, sid):
-        """Encode and decode at the budget bucket with no host read; returns
-        ((audio, y_len, y_total) on the device, f_bucket, compiled)."""
+    def _run_fused(self, ids, lengths, scales, seed, sid, f_bucket: Optional[int] = None):
+        """Encode and decode at `f_bucket` (by default the budget bucket of
+        the longest row) with no host read; returns ((audio, y_len,
+        y_total) on the device, f_bucket, compiled)."""
         ns, ls, nw = scales
-        f_bucket = self._budget_bucket(int(lengths.max()))
+        if f_bucket is None:
+            f_bucket = self._budget_bucket(int(lengths.max()))
         compiled = self._mark("fused", (ids.shape[0], ids.shape[1], f_bucket,
                                         self._sid_kind(sid)))
         enc = self._encode(ids, lengths, ls, nw, seed, sid=sid)
@@ -806,6 +879,33 @@ class PiperRuntime:
             enc = self._encode(ids, lengths, ls, nw,
                                self.options.seed if seed is None else seed, dp_noise, sid)
             return enc.w[:b].cpu().numpy(), enc.w_ceil[:b].cpu().numpy()
+
+    def prewarm(
+        self,
+        phoneme_lengths: Sequence[int] = (14, 28, 56, 112),
+        batch_sizes: Sequence[int] = (1,),
+    ) -> dict:
+        """Pay the first-run costs of a serving sweep ahead of traffic: one
+        dummy synthesis per (batch, phoneme length) through the runtime's
+        configured mode. On the card that is every kernel's build, cuDNN's
+        algorithm choice for each shape, the caching allocator's growth and
+        the pinned host buffers. In split mode the decode bucket follows
+        the predicted durations, so real inputs can still meet a
+        neighbouring frame bucket first; fused mode's budget buckets are
+        covered exactly. Returns {"programs": keys run for the first time,
+        "seconds": wall}."""
+        t0 = time.perf_counter()
+        before = len(self._compiled_keys)
+        base = [i % self.hparams.n_vocab for i in FIXTURE_PHONEME_IDS]
+        for b in batch_sizes:
+            for length in phoneme_lengths:
+                ids = (base * (-(-length // len(base))))[:length]
+                if b == 1:
+                    self.synthesize(ids)
+                else:
+                    self.synthesize_batch([ids] * int(b))
+        return {"programs": len(self._compiled_keys) - before,
+                "seconds": time.perf_counter() - t0}
 
     # -- duration controls -----------------------------------------------------
 
@@ -1036,17 +1136,24 @@ class PiperRuntime:
         right behind its decode: on one stream a copy queued at fetch time
         would wait for the next batch's decode too.
 
+        `fused=True` runs the whole group the fused way instead: encode and
+        decode at a frame budget with no host read, and one copy of (audio,
+        y_len, y_total) queued behind them. The budget is `budget_frames`,
+        or the longest real row's length * fused_frames_per_phoneme, rounded
+        up to a frame bucket; rows pad to `pad_rows_to` (row-0 copies) in
+        place of the batch ladder. A serving layer pins both, so its groups
+        run a bounded grid of (rows, frames) shapes. Rows whose durations
+        overflow the budget are redone at fetch: on the fused grid at
+        `overflow_budget_frames` x `overflow_pad_rows` rows when both are
+        given and the rows fit, else with a blocking split synthesize_batch
+        (the same seed, scales, speakers and mixes; its noise realization
+        differs, as the one-row fused redo's does). The continuous batcher
+        (engine/batcher.py) serves through this path.
+
         A 1-row batch on a fused-mode runtime with `fused=None` delegates to
         dispatch_fused, so its audio equals synthesize_batch's (which takes
-        the fused path for one row). `fused=True` and its `pad_rows_to`,
-        `budget_frames` and `overflow_*` arguments are the batcher's
-        whole-group fused path: they raise until the serving layers are
-        ported (ROADMAP §1 item 8)."""
-        if fused or any(v is not None for v in (pad_rows_to, budget_frames,
-                                                overflow_budget_frames, overflow_pad_rows)):
-            raise NotImplementedError(
-                "the whole-group fused dispatch (fused=True, pad_rows_to, budget_frames, "
-                "overflow_*) is not ported yet: it comes with the batcher (ROADMAP §1 item 8)")
+        the fused path for one row). Without `fused=True` the grid
+        arguments are ignored, as in the JAX package."""
         ids_batch = [list(x) for x in phoneme_ids_batch]
         b = len(ids_batch)
         if b == 1 and self.options.mode == "fused" and fused is None:
@@ -1056,6 +1163,12 @@ class PiperRuntime:
                 speaker_mix=speaker_mixes[0] if speaker_mixes else None)
             meta["fused1"] = True
             return outs, meta
+        if fused:
+            return self._dispatch_batch_fused(
+                ids_batch, noise_scale=noise_scale, length_scale=length_scale, noise_w=noise_w,
+                speaker_ids=speaker_ids, seed=seed, pad_rows_to=pad_rows_to,
+                budget_frames=budget_frames, overflow_budget_frames=overflow_budget_frames,
+                overflow_pad_rows=overflow_pad_rows, speaker_mixes=speaker_mixes)
         lengths, _, ids = self._validate_and_pad(ids_batch)
         scales = self._scales(noise_scale, length_scale, noise_w)
         sid = self._row_sids(speaker_ids, speaker_mixes, b, ids.shape[0])
@@ -1066,11 +1179,73 @@ class PiperRuntime:
             copy = _HostCopy((audio,))
         return audio, {"y_len": y_len, "f_bucket": f_bucket, "b": b, "copy": copy}
 
+    def _dispatch_batch_fused(self, ids_batch: List[List[int]], *, noise_scale, length_scale,
+                              noise_w, speaker_ids, seed, pad_rows_to: Optional[int] = None,
+                              budget_frames: Optional[int] = None,
+                              overflow_budget_frames: Optional[int] = None,
+                              overflow_pad_rows: Optional[int] = None,
+                              speaker_mixes: Optional[Sequence[dict]] = None):
+        """The whole-group fused dispatch of dispatch_batch(fused=True):
+        queue the work and its one copy, read nothing back."""
+        b = len(ids_batch)
+        lengths, _, ids = self._validate_and_pad(ids_batch, pad_rows_to=pad_rows_to)
+        scales = self._scales(noise_scale, length_scale, noise_w)
+        sid = self._row_sids(speaker_ids, speaker_mixes, b, ids.shape[0])
+        base_seed = self.options.seed if seed is None else seed
+        # The caller's pinned budget, or _run_fused's of the longest row
+        # (dummy rows copy row 0, so they need no more than the real rows).
+        pinned = None if budget_frames is None else self._frame_bucket(max(32, int(budget_frames)))
+        with self._device_work():
+            outs, f_bucket, compiled = self._run_fused(ids, lengths, scales, base_seed, sid,
+                                                       f_bucket=pinned)
+            copy = _HostCopy(outs)
+        meta = {"fused_batch": True, "b": b, "f_bucket": f_bucket, "compiled": compiled,
+                "copy": copy,
+                # For the overflow redo; the mixes are copied, as dispatch_fused's.
+                "ids_batch": ids_batch, "scales": scales,
+                "speaker_ids": list(speaker_ids) if speaker_ids is not None else None,
+                "speaker_mixes": ([dict(m) for m in speaker_mixes]
+                                  if speaker_mixes is not None else None),
+                "seed": seed, "overflow_budget_frames": overflow_budget_frames,
+                "overflow_pad_rows": overflow_pad_rows}
+        return outs, meta
+
+    def _fetch_batch_fused(self, meta) -> List[np.ndarray]:
+        """Complete a fused group: one wait for its copy, then the rows that
+        overflowed the budget redone (dispatch_batch(fused=True))."""
+        audio, y_len, y_total = meta["copy"].wait()
+        b, hop = meta["b"], self.hparams.hop_length
+        out = [audio[i, : int(y_len[i]) * hop].copy() for i in range(b)]
+        overflow = [i for i in range(b) if int(y_total[i]) > meta["f_bucket"]]
+        if not overflow:
+            return out
+        ns, ls, nw = meta["scales"]
+        sids, mixes = meta["speaker_ids"], meta["speaker_mixes"]
+        kw = dict(noise_scale=ns, length_scale=ls, noise_w=nw, seed=meta["seed"],
+                  speaker_ids=[sids[i] for i in overflow] if sids is not None else None,
+                  speaker_mixes=[mixes[i] for i in overflow] if mixes is not None else None)
+        o_ids = [meta["ids_batch"][i] for i in overflow]
+        budget, rows = meta["overflow_budget_frames"], meta["overflow_pad_rows"]
+        if budget and rows and len(overflow) <= rows:
+            # The taller grid shape; a row that overflows even this budget
+            # is redone in split mode by the inner fetch (no redo keys).
+            _, meta2 = self._dispatch_batch_fused(o_ids, pad_rows_to=rows, budget_frames=budget,
+                                                  **kw)
+            redone = self._fetch_batch_fused(meta2)
+        else:
+            redone = self.synthesize_batch(o_ids, **kw)
+        for k, i in enumerate(overflow):
+            out[i] = redone[k]
+        return out
+
     def fetch_batch(self, outs, meta) -> List[np.ndarray]:
         """Complete a dispatch_batch: wait for the audio's copy (meta's copy
-        holds `outs` until then) and slice each row to its exact length."""
+        holds `outs` until then) and slice each row to its exact length;
+        a fused group also redoes the rows that overflowed its budget."""
         if meta.get("fused1"):
             return [self.fetch_fused(outs, meta)]
+        if meta.get("fused_batch"):
+            return self._fetch_batch_fused(meta)
         (audio,) = meta["copy"].wait()
         y_len, hop = meta["y_len"], self.hparams.hop_length
         return [audio[i, : int(y_len[i]) * hop].copy() for i in range(meta["b"])]

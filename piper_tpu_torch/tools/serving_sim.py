@@ -1,0 +1,431 @@
+"""Realistic serving simulation on the port: Poisson arrivals, mixed
+utterance lengths (the port of tools/serving_sim.py: its length mix, flags,
+defaults and JSON line).
+
+The headline bench measures saturated uniform batches; production traffic is
+neither. This tool drives the continuous BatchingServer with Poisson request
+arrivals over a mix of utterance lengths (short prompts to paragraph-length)
+and reports end-to-end request latency percentiles, achieved batch grouping,
+and aggregate real-time factor — the numbers a capacity plan needs.
+
+Usage (the card by default; the checkout root on PYTHONPATH):
+    python -m piper_tpu_torch.tools.serving_sim                  # 60 req/s, 30 s
+    python -m piper_tpu_torch.tools.serving_sim --rates 100,200,400 --duration 20
+    python -m piper_tpu_torch.tools.serving_sim --device cpu --quality test --rate 20 --duration 2
+
+The runtime is the bench's: its mixed tiers (encoder "highest", vocoder
+and flows "high"), fused mode, int16, built by piper_tpu_torch.bench's
+get_runtime. The server is prewarmed over its whole grid, a warm-up pass of
+traffic runs, then one measured pass per rate prints one JSON line: the JAX
+tool's keys (latency p50/p95/p99/max in ms, rtf_aggregate, the server's
+grouping and sheds), plus `device` (the card's name and power limit, as
+nvidia-smi gives them), `prewarm` (grid shapes run and seconds) and
+`hbm_bytes` (the weights' bytes per voice). `--profile-s S` adds `profile`:
+after each measured pass, a second pass of the same traffic whose middle S
+seconds run under torch.profiler (behind tools/timing.py's sentinels; the
+profiler perturbs the host, so its latencies are not reported): the device
+kernels' summed time (device busy) and its share of that window's wall.
+
+`--http`, `--unified` and `--stream-rate` drive serving layers that are not
+ported yet: they raise NotImplementedError naming the ROADMAP item that
+brings them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import threading
+import time
+
+import numpy as np
+
+from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS as FIXTURE_IDS
+from piper_tpu_torch.engine.batcher import (BatchingServer, DeadlineExceeded,
+                                            MultiVoiceBatchingServer, ServerOverloaded)
+
+# (repeat-factor, weight): 14-phoneme prompts dominate, with a tail of
+# paragraph-length requests — a chat/assistant-style mix.
+LENGTH_MIX = [(1, 0.45), (2, 0.25), (4, 0.15), (8, 0.10), (16, 0.05)]
+# Flags of the JAX tool whose serving layers the port does not have yet.
+UNPORTED = {
+    "http": "--http: the HTTP server is not ported yet (ROADMAP §1 item 7)",
+    "unified": "--unified: UnifiedServer is not ported yet (ROADMAP §1 item 5)",
+    "stream_rate": "--stream-rate: streams need UnifiedServer, not ported yet "
+                   "(ROADMAP §1 item 5)",
+}
+
+
+def _merge_voice_metrics(per: dict) -> dict:
+    """Aggregate MultiVoiceBatchingServer.metrics() (per-voice dicts) into
+    the single-server shape report() expects."""
+    m = {k: 0 for k in ("groups", "rows", "padded_rows",
+                        "shed_overload", "shed_deadline")}
+    m["cache_hits"] = sum(v.get("cache_hits", 0) for v in per.values())
+    m["cache_bytes"] = sum(v.get("cache_bytes", 0) for v in per.values())
+    wait_sum = wait_max = 0.0
+    for v in per.values():
+        for k in m:
+            m[k] += v[k]
+        wait_sum += v["wait_ms_mean"] * v["rows"]
+        wait_max = max(wait_max, v["wait_ms_max"])
+    m["wait_ms_mean"] = wait_sum / m["rows"] if m["rows"] else 0.0
+    m["wait_ms_max"] = wait_max
+    m["rows_per_group"] = m["rows"] / m["groups"] if m["groups"] else 0.0
+    m["per_voice_rows"] = {k: v["rows"] for k, v in per.items()}
+    return m
+
+
+def _parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rate", type=float, default=60.0, help="requests/second")
+    ap.add_argument("--rates", default="",
+                    help="comma list of rates to sweep IN ONE PROCESS (one "
+                         "prewarm, one JSON line per rate)")
+    ap.add_argument("--duration", type=float, default=30.0, help="seconds of traffic")
+    ap.add_argument("--max-batch", type=int, default=32)
+    ap.add_argument("--max-wait-ms", type=float, default=10.0)
+    ap.add_argument("--max-pending", type=int, default=None,
+                    help="admission cap: shed (503) beyond this many queued")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="shed queued requests older than this before dispatch")
+    ap.add_argument("--quality", default="medium")
+    ap.add_argument("--voices", type=int, default=1,
+                    help=">1 serves the mix across N resident voices through "
+                         "MultiVoiceBatchingServer (requests pick a voice "
+                         "uniformly; the same synthetic checkpoint, so the cost "
+                         "being measured is the scheduler splitting traffic into "
+                         "per-voice groups)")
+    ap.add_argument("--http", action="store_true", help="not ported: raises")
+    ap.add_argument("--cache-mb", type=float, default=0.0,
+                    help="response-cache budget (MB) per voice; see "
+                         "BatchingServer(cache_mb=)")
+    ap.add_argument("--phrase-pool", type=int, default=0,
+                    help="distinct phrase variants per length factor "
+                         "(0 = one canonical phrase per factor; with "
+                         "--cache-mb that is a near-100%% hit canned-phrase "
+                         "workload, larger pools lower the hit rate)")
+    ap.add_argument("--unified", action="store_true", help="not ported: raises")
+    ap.add_argument("--stream-rate", type=float, default=0.0,
+                    help="not ported: raises unless 0")
+    ap.add_argument("--add-voice-at", type=float, default=None,
+                    help="seconds into the measured pass to add_voice a new "
+                         "voice on the live server (non-pausing warm); "
+                         "reports resident-voice p50 before/during/after "
+                         "the warm")
+    ap.add_argument("--add-voice-quality", default=None,
+                    help="architecture of the added voice (default: same "
+                         "as --quality)")
+    ap.add_argument("--warm-every", type=int, default=2,
+                    help="one add_voice warm step per this many traffic "
+                         "groups (higher = gentler on resident latency, "
+                         "longer warm)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    ap.add_argument("--profile-s", type=float, default=0.0,
+                    help="seconds of a second pass at each rate under "
+                         "torch.profiler: device busy and its share of the "
+                         "window (the card only)")
+    return ap
+
+
+def run_traffic(submit, duration, rng, rate, sample_rate, phrase_pool=0):
+    """Poisson arrivals at `rate` for `duration` seconds, each a draw of
+    LENGTH_MIX from `rng` handed to `submit(rng, ids)` (a future); then
+    waits for every request. Returns ([(latency s, factor, submit time
+    from the start)] of the served ones, their audio seconds at
+    `sample_rate`, the wall, and the sheds {"overload", "deadline"})."""
+    factors = [f for f, _ in LENGTH_MIX]
+    weights = np.asarray([w for _, w in LENGTH_MIX])
+    weights = weights / weights.sum()
+    recs = []
+    shed = {"overload": 0, "deadline": 0}
+    t_start = time.perf_counter()
+    next_at = t_start
+    while True:
+        now = time.perf_counter()
+        if now - t_start >= duration:
+            break
+        if now < next_at:
+            time.sleep(min(next_at - now, 0.005))
+            continue
+        f = int(rng.choice(factors, p=weights))
+        ids = (FIXTURE_IDS * f)[:4096]
+        if phrase_pool:
+            # rotate the phrase: valid ids, distinct sequence per
+            # variant — a cheap stand-in for a phrase pool
+            r = int(rng.integers(phrase_pool)) % len(ids)
+            ids = ids[r:] + ids[:r]
+        t_submit = time.perf_counter()
+        try:
+            fut = submit(rng, ids)
+        except ServerOverloaded:
+            shed["overload"] += 1
+            next_at += rng.exponential(1.0 / rate)
+            continue
+        done_at = {}
+        fut.add_done_callback(lambda fu, d=done_at: d.setdefault("t", time.perf_counter()))
+        recs.append((t_submit, f, fut, done_at))
+        next_at += rng.exponential(1.0 / rate)
+    out = []
+    audio_s = 0.0
+    for t_submit, f, fut, done_at in recs:
+        try:
+            audio = fut.result(timeout=600)
+        except DeadlineExceeded:
+            shed["deadline"] += 1
+            continue
+        audio_s += len(audio) / sample_rate
+        out.append(((done_at.get("t", time.perf_counter())) - t_submit, f,
+                    t_submit - t_start))
+    return out, audio_s, time.perf_counter() - t_start, shed
+
+
+def main(argv=None):
+    args = _parser().parse_args(argv)
+    for flag, msg in UNPORTED.items():
+        if getattr(args, flag):
+            raise NotImplementedError(msg)
+    if args.profile_s and args.device != "cuda":
+        raise SystemExit("--profile-s profiles the card: it needs --device cuda")
+
+    import torch
+
+    from piper_tpu_torch import bench as bench_mod
+    from piper_tpu_torch.engine.bucketing import bucket_for
+
+    device = bench_mod._device_info(torch, args.device)
+    rt_args = argparse.Namespace(
+        model=None, config=None, quality=args.quality, precision="highest",
+        mode="fused", vocoder_precision="high", flow_precision="high",
+        output_dtype="int16", device=args.device,
+    )
+    rt = bench_mod.get_runtime(rt_args)
+    runtimes = {"v0": rt}
+    for i in range(1, args.voices):
+        # Same synthetic checkpoint, separate runtime instances: the
+        # scheduler still has to split traffic into per-voice groups — the
+        # multi-voice cost under study.
+        runtimes[f"v{i}"] = bench_mod.get_runtime(rt_args)
+
+    factors = [f for f, _ in LENGTH_MIX]
+
+    multi = args.voices > 1 or args.add_voice_at is not None
+    if multi:
+        server = MultiVoiceBatchingServer(
+            runtimes, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+            max_pending=args.max_pending, deadline_ms=args.deadline_ms,
+            cache_mb=args.cache_mb, warm_every=args.warm_every)
+        voice_keys = list(runtimes)
+
+        def submit(rng, ids):
+            return server.submit(voice_keys[int(rng.integers(len(voice_keys)))],
+                                 ids, noise_scale=None)
+
+        def merged_metrics():
+            return _merge_voice_metrics(server.metrics())
+    else:
+        server = BatchingServer(rt, max_batch=args.max_batch,
+                                max_wait_ms=args.max_wait_ms,
+                                max_pending=args.max_pending,
+                                deadline_ms=args.deadline_ms,
+                                cache_mb=args.cache_mb)
+
+        def submit(rng, ids):
+            return server.submit(ids, noise_scale=None)
+
+        merged_metrics = server.metrics
+    with server:
+        # Prewarm the server's ENTIRE fused grid (each phoneme bucket of the
+        # mix x its <=3 row rungs, and the overflow shape): a (rows, frames)
+        # shape first seen mid-traffic pays its first-run costs there.
+        p_buckets = sorted({
+            bucket_for(len((FIXTURE_IDS * f)[:4096]),
+                       rt.options.phoneme_buckets, "phoneme")
+            for f in factors})
+        warm = server.prewarm(p_buckets=p_buckets)
+        if multi:
+            programs = sum(w["programs"] for w in warm.values())
+            secs = sum(w["seconds"] for w in warm.values())
+            fpp = next(iter(warm.values()))["frames_per_phoneme"]
+        else:
+            programs, secs, fpp = (warm["programs"], warm["seconds"],
+                                   warm["frames_per_phoneme"])
+        print(f"[serving_sim] prewarmed {programs} grid programs in "
+              f"{secs:.0f}s (fpp {fpp:.2f})", file=sys.stderr)
+        extra = {"device": device,
+                 "prewarm": {"programs": programs, "seconds": secs,
+                             "frames_per_phoneme": fpp},
+                 "hbm_bytes": {k: r.hbm_bytes() for k, r in runtimes.items()}}
+        add_rt = None
+        if args.add_voice_at is not None:
+            # Build the new voice's runtime BEFORE the measured pass (the
+            # checkpoint build/load is host work; the cost under study is
+            # the on-worker warming).
+            add_args = argparse.Namespace(**vars(rt_args))
+            add_args.quality = args.add_voice_quality or args.quality
+            add_rt = bench_mod.get_runtime(add_args)
+        rates = ([float(r) for r in args.rates.split(",")] if args.rates
+                 else [args.rate])
+        if args.profile_s:
+            # The profiler's first start (its CUDA tracing set up) before
+            # any traffic, on this thread as every later window.
+            from piper_tpu_torch.tools.timing import profiled
+
+            profiled(lambda: None)
+        # Short warmup traffic pass (steady-state queues), then one measured
+        # pass per rate.
+        run_traffic(submit, min(args.duration, 10.0), np.random.default_rng(args.seed + 1),
+                    rates[0], rt.sample_rate, args.phrase_pool)
+        for rate in rates:
+            # Each pass reports its own counters, not the warmup's or the
+            # previous rates' (the server is shared across the sweep).
+            server.reset_metrics()
+            t_start = time.perf_counter()
+            add_state: dict = {}
+            add_th = None
+            if args.add_voice_at is not None:
+
+                def _adder():
+                    time.sleep(args.add_voice_at)
+                    add_state["t_add"] = time.perf_counter() - t_start
+                    fut = server.add_voice(f"vnew_{rate:g}", add_rt, p_buckets=p_buckets)
+                    stats = fut.result(timeout=1200)
+                    add_state["t_done"] = time.perf_counter() - t_start
+                    add_state["stats"] = stats
+
+                add_th = threading.Thread(target=_adder)
+                add_th.start()
+            results, audio_s, wall, shed = run_traffic(
+                submit, args.duration, np.random.default_rng(args.seed), rate, rt.sample_rate,
+                args.phrase_pool)
+            if add_th is not None:
+                add_th.join(timeout=1800)
+            metrics = merged_metrics()
+            prof = {}
+            if args.profile_s:
+                # The same traffic again from a side thread; this thread
+                # profiles its middle.
+                th = threading.Thread(target=run_traffic, args=(
+                    submit, args.profile_s + 2.0, np.random.default_rng(args.seed + 2), rate,
+                    rt.sample_rate, args.phrase_pool))
+                th.start()
+                time.sleep(1.0)
+                prof = {"profile": _profile_window(args.profile_s)}
+                th.join(timeout=600)
+            report(args, rate, results, audio_s, wall, shed, metrics,
+                   factors, add_state=add_state, extra={**extra, **prof})
+
+
+def _profile_window(window_s: float) -> dict:
+    """`window_s` seconds of the card under torch.profiler while traffic
+    runs (tools/timing.py::profiled: the sentinels first): the device
+    kernels' summed time and its share of the window's wall, the window
+    ending when the card has done what was queued in it."""
+    import torch
+
+    from piper_tpu_torch.tools.timing import SENTINELS, device_kernels, profiled
+
+    t = {}
+
+    def run():
+        t0 = time.perf_counter()
+        time.sleep(window_s)
+        torch.cuda.synchronize()
+        t["wall_ms"] = (time.perf_counter() - t0) * 1e3
+
+    events = profiled(run)
+    if events is None:
+        return {"window_ms": t["wall_ms"], "error": "the window lost its sentinels"}
+    count, us = device_kernels(events)
+    return {"window_ms": t["wall_ms"], "device_kernels": count, "device_busy_ms": us / 1e3,
+            "busy_share": us / 1e3 / t["wall_ms"], "sentinels": SENTINELS}
+
+
+def _pctl(sorted_vals, p):
+    if not sorted_vals:
+        return None
+    k = (len(sorted_vals) - 1) * p / 100.0
+    lo, hi = int(np.floor(k)), int(np.ceil(k))
+    return sorted_vals[lo] if lo == hi else (
+        sorted_vals[lo] + (sorted_vals[hi] - sorted_vals[lo]) * (k - lo))
+
+
+def report(args, rate, results, audio_s, wall, shed, server_metrics, factors,
+           add_state=None, extra=None):
+    lats_ms = sorted(l * 1e3 for l, _, _ in results)
+    if not lats_ms:
+        # Tiny rate/--duration (or all requests failed) can leave the
+        # measured window empty; report that instead of an IndexError.
+        print(json.dumps({
+            "metric": "serving_sim", "error": "no completed requests",
+            "rate_req_s": rate, "offered_duration_s": args.duration,
+            **(extra or {}),
+        }), flush=True)
+        return
+
+    def pct(p):
+        return _pctl(lats_ms, p)
+
+    print(json.dumps({
+        "metric": "serving_sim",
+        "platform": args.device,
+        "rate_req_s": rate,
+        "offered_duration_s": args.duration,
+        "requests": len(results),
+        "length_mix_factors": factors,
+        "latency_ms": {"p50": round(pct(50), 1), "p95": round(pct(95), 1),
+                       "p99": round(pct(99), 1), "max": round(lats_ms[-1], 1)},
+        "audio_s_total": round(audio_s, 1),
+        "offered_rtf": round(audio_s / args.duration, 1),
+        "wall_s": round(wall, 2),
+        "rtf_aggregate": round(audio_s / wall, 1),
+        "max_batch": args.max_batch,
+        "max_wait_ms": args.max_wait_ms,
+        "shed": shed,
+        "server": {
+            "rows_per_group": round(server_metrics["rows_per_group"], 1),
+            "groups": server_metrics["groups"],
+            "padded_rows": server_metrics["padded_rows"],
+            "wait_ms_mean": round(server_metrics["wait_ms_mean"], 1),
+            "wait_ms_max": round(server_metrics["wait_ms_max"], 1),
+            "shed_overload": server_metrics["shed_overload"],
+            "shed_deadline": server_metrics["shed_deadline"],
+            **({"cache_hits": server_metrics.get("cache_hits", 0),
+                "cache_bytes": server_metrics.get("cache_bytes", 0)}
+               if args.cache_mb else {}),
+            **({"per_voice_rows": server_metrics["per_voice_rows"]}
+               if "per_voice_rows" in server_metrics else {}),
+        },
+        **({"voices": args.voices} if args.voices > 1 else {}),
+        **_add_voice_report(results, add_state),
+        **(extra or {}),
+    }), flush=True)
+
+
+def _add_voice_report(results, add_state) -> dict:
+    """Resident-voice latency windows around a live add_voice: the
+    non-pausing criterion is p50(during warm) staying near p50(before)."""
+    if not add_state or "t_add" not in add_state:
+        return {}
+    t_add = add_state["t_add"]
+    t_done = add_state.get("t_done")
+
+    def win(lo, hi):
+        w = sorted(l * 1e3 for l, _, t in results if lo <= t < hi)
+        return ({"p50": round(_pctl(w, 50), 1), "max": round(w[-1], 1),
+                 "n": len(w)} if w else None)
+
+    return {"add_voice": {
+        "at_s": round(t_add, 2),
+        "warm_s": round(t_done - t_add, 2) if t_done else None,
+        "programs": (add_state.get("stats") or {}).get("programs"),
+        "resident_before": win(0.0, t_add),
+        "resident_during_warm": win(t_add, t_done if t_done else 1e9),
+        "resident_after": win(t_done, 1e9) if t_done else None,
+    }}
+
+
+if __name__ == "__main__":
+    main()

@@ -136,13 +136,6 @@ def test_batch_speaker_arguments(port_rt):
                                speaker_mixes=[{0: 1.0}, {0: 1.0}])
 
 
-@pytest.mark.parametrize("kw", [dict(fused=True), dict(pad_rows_to=4), dict(budget_frames=64),
-                                dict(overflow_budget_frames=128), dict(overflow_pad_rows=4)])
-def test_whole_group_fused_dispatch_raises(port_rt, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 8"):
-        port_rt.dispatch_batch([IDS, IDS[:8]], **kw)
-
-
 def test_batch_parameters_match_reference():
     """synthesize_batch, dispatch_batch and dispatch_fused take the JAX
     package's parameters in its order."""

@@ -110,7 +110,7 @@ def test_multispeaker_row_serves_speaker_ids(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--streams", "2"], "ROADMAP §1 item 8"),
+    (["--streams", "2"], "ROADMAP §1 item 2"),
     (["--roofline"], "roofline"),
 ])
 def test_unported_rows_raise(flags, match):

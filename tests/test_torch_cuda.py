@@ -623,3 +623,52 @@ def test_a_bad_speaker_leaves_the_card_usable(tmp_path):
     torch.cuda.synchronize()
     np.testing.assert_array_equal(rt.synthesize(FIXTURE_PHONEME_IDS, speaker_id=3, seed=1),
                                   before)
+
+
+@pytest.mark.parametrize("quality", ["medium", "x_low"])
+def test_fused_group_dispatch_does_not_synchronize(card_voices, quality):
+    """dispatch_batch(fused=True, ...) queues encode, decode and the copy to
+    the host with no host read: under torch.cuda's sync debug mode "error"
+    any synchronizing call inside it would raise. Its rows equal the same
+    group fetched again."""
+    import numpy as np
+
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.engine.runtime import PiperRuntime, RuntimeOptions
+
+    rt = PiperRuntime(*card_voices[quality], RuntimeOptions(mode="fused"), device="cuda")
+    rows = [FIXTURE_PHONEME_IDS * f for f in (2, 1, 2)]
+    kw = dict(pad_rows_to=8, budget_frames=256, seed=3)
+    want = rt.fetch_batch(*rt.dispatch_batch(rows, fused=True, **kw))  # first run
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs, meta = rt.dispatch_batch(rows, fused=True, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    got = rt.fetch_batch(outs, meta)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+
+
+def test_close_releases_the_weights_card_memory(card_voices):
+    """close() drops the runtime's weights: memory_allocated() falls by at
+    least 90% of hbm_bytes() once the runtime has served a fused group."""
+    import gc
+
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.engine.runtime import PiperRuntime, RuntimeOptions
+
+    rt = PiperRuntime(*card_voices["medium"], RuntimeOptions(mode="fused"), device="cuda")
+    rt.fetch_batch(*rt.dispatch_batch([FIXTURE_PHONEME_IDS] * 2, fused=True, pad_rows_to=2))
+    weights = rt.hbm_bytes()
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    rt.close()
+    gc.collect()
+    after = torch.cuda.memory_allocated()
+    assert rt.hbm_bytes() == 0 and weights > 0
+    assert before - after >= 0.9 * weights, (before, after, weights)
+    with pytest.raises(RuntimeError, match="closed"):
+        rt.synthesize(FIXTURE_PHONEME_IDS)

@@ -2,8 +2,8 @@
 
 piper_tpu_torch keeps its own copies of the jax-free modules it needs
 (onnx.{ir,wire,loader,writer}, core.{config,test_vector,alignment,audio},
-models.vits.{hparams,synthetic}, and engine.runtime's speaker and scale
-helpers). These tests scan every module of the port
+models.vits.{hparams,synthetic}, utils.env, and engine.runtime's speaker and
+scale helpers). These tests scan every module of the port
 and chip_smoke.py for such imports, run the port in a process that refuses
 them, and hold each copy equal to its original: the same synthetic voice
 bytes, the same decoded graphs, hparams and configs.
@@ -78,7 +78,9 @@ def test_port_runs_where_jax_and_the_jax_package_cannot_load(tmp_path):
         "from piper_tpu_torch.engine.runtime import PiperRuntime\n"
         "from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS\n"
         "from piper_tpu_torch.models.vits.synthetic import make_synthetic_voice\n"
-        "from piper_tpu_torch.tools import ct_probe, folded_probe\n"
+        "from piper_tpu_torch.tools import ct_probe, folded_probe, serving_sim\n"
+        "from piper_tpu_torch.engine import batcher\n"
+        "from piper_tpu_torch.utils import env\n"
         f"model, config = make_synthetic_voice({str(tmp_path)!r}, quality='x_low', seed=0)\n"
         "pcm = PiperRuntime(model, config, device='cpu').synthesize(FIXTURE_PHONEME_IDS)\n"
         "assert len(pcm) > 0 and np.isfinite(pcm).all()\n"
@@ -188,6 +190,31 @@ def test_voice_config_load_is_equal(voices, quality):
     (_, j_config), (_, config) = voices(quality)
     assert dataclasses.asdict(VoiceConfig.load(config)) == dataclasses.asdict(
         JVoiceConfig.load(j_config))
+
+
+def test_env_module_is_a_copy(monkeypatch):
+    """utils/env.py holds the JAX package's jax-free flag readers, their
+    source unchanged (apply_platform_override, which imports jax, stays
+    behind), and they read the same environment the same way."""
+    import inspect
+
+    from piper_tpu.utils import env as j_env
+    from piper_tpu_torch.utils import env
+
+    names = ("flag", "flag_bool", "cache_root", "profile_enabled", "trace_enabled")
+    assert sorted(n for n, v in vars(env).items() if inspect.isfunction(v)) == sorted(names)
+    for name in names:
+        assert inspect.getsource(getattr(env, name)) == inspect.getsource(getattr(j_env, name))
+    for value in (None, "", "1", "0", "/some/dir"):
+        for var in ("PIPER_TPU_PROFILE", "PIPER_TPU_TRACE", "PIPER_TPU_CACHE"):
+            if value is None:
+                monkeypatch.delenv(var, raising=False)
+            else:
+                monkeypatch.setenv(var, value)
+        for name in ("cache_root", "profile_enabled", "trace_enabled"):
+            assert getattr(env, name)() == getattr(j_env, name)(), (name, value)
+        assert env.flag("PIPER_TPU_CACHE", "d") == j_env.flag("PIPER_TPU_CACHE", "d")
+        assert env.flag_bool("PIPER_TPU_TRACE") == j_env.flag_bool("PIPER_TPU_TRACE")
 
 
 def test_fixture_phoneme_ids_are_equal():
