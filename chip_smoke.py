@@ -48,6 +48,17 @@ paths give it, and drives the main paths, counting each kernel's launches:
   synthesize, served durations equal to phoneme_durations, K1, K2 and K3
   launched in the served groups, and close() releasing each voice's
   weights from the card;
+- concurrent streams (`stream_serve`, on medium and x_low at the mixed
+  tiers and on medium at fp32): eight clients at once through one
+  StreamingServer at 64 frames a window, each stream contiguous and equal
+  to its synthesize_stream_incremental alone (1e-4 fp32, 5e-4 mixed), the
+  windows batched across streams, K1-K3 launched their count per head and
+  window call;
+- batch and stream traffic on one worker (`unified`): a UnifiedServer of
+  medium and x_low at the mixed tiers serving the serving mix with streams
+  opened during it, nothing failed or shed, zero-noise rows within 5e-5 of
+  the fp32 synthesize, the streams equal to their solo runs, and
+  remove_voice(close_runtime=True) releasing x_low's weights from the card;
 - incremental streaming on each voice, fp32 and mixed (paths
   `{voice}_stream`, `{voice}_mixed_stream`): the f=8 JAX golden streamed
   with its injected noise at the growing schedule and at 16-frame windows
@@ -99,9 +110,11 @@ MS_PATHS = tuple(f"medium_ms{suffix}{part}" for suffix in ("", "_mixed")
                  for part in ("", "_golden", "_batch", "_forced"))
 RESBLOCK1_PATHS = ("medium", "medium_mixed", "medium_golden", "medium_mixed_golden",
                    "medium_batch", "medium_mixed_batch", "pipeline", "high", "high_mixed",
-                   "bench", "medium_stream", "medium_mixed_stream", "serve") + MS_PATHS
+                   "bench", "medium_stream", "medium_mixed_stream", "serve",
+                   "medium_stream_serve", "medium_mixed_stream_serve", "unified") + MS_PATHS
 CONV1D_PATHS = ("x_low", "x_low_mixed", "x_low_golden", "x_low_mixed_golden", "x_low_batch",
-                "x_low_mixed_batch", "x_low_stream", "x_low_mixed_stream", "serve")
+                "x_low_mixed_batch", "x_low_stream", "x_low_mixed_stream", "serve",
+                "x_low_mixed_stream_serve", "unified")
 # kernel -> (its source, the TPU kernel it replaces, the paths that run it)
 KERNELS = {
     "resblock1_branch": ("piper_tpu_torch/csrc/resblock1.cu",
@@ -196,6 +209,19 @@ SERVE_RATE = 40.0
 SERVE_THREADS = 4
 SERVE_S = 4.0
 SERVE_MAX_BATCH = 32  # serving_sim's --max-batch
+# The concurrent-stream phases: STREAM_CLIENTS threads at once, client i
+# streaming the fixture phrase x STREAM_FACTORS[i % 4] twice (two seeds)
+# through one StreamingServer at 64 emitted frames a window (so each stream
+# has several windows) and the default c0. UNIFIED_STREAMS: (voice, factor,
+# seconds into the unified phase) of the streams opened beside its traffic.
+STREAM_CLIENTS = 8
+STREAM_FACTORS = (2, 4, 8, 16)
+STREAM_EMIT = 64
+UNIFIED_STREAMS = (("medium", 2, 0.4), ("x_low", 2, 1.0), ("medium", 4, 1.6),
+                   ("x_low", 4, 2.2), ("medium", 8, 2.8), ("x_low", 8, 3.4))
+# int16 served rows against the fp32 synthesize at zero noise: the int16
+# rounding (1.5e-5) and the kernels' "high" products (~5e-6).
+ZERO_NOISE_ATOL = 5e-5
 
 
 def emit(**fields) -> None:
@@ -1136,6 +1162,10 @@ def phase_stream(torch, path: str, rt, atol: float) -> dict:
     return launches
 
 
+def _pct(values, p):
+    return float(np.percentile(values, p)) if values else None
+
+
 def phase_serve(torch, voices: dict) -> dict:
     """The continuous batcher on the card: one MultiVoiceBatchingServer over
     the medium and x_low voices at the bench's mixed tiers, fused mode and
@@ -1249,20 +1279,255 @@ def phase_serve(torch, voices: dict) -> dict:
             raise AssertionError(f"serve {q}: close() freed {freed} of {weights} weight bytes")
         released[q] = {"hbm_bytes": weights, "freed_bytes": freed}
 
-    def pct(p):
-        k = (len(lat) - 1) * p / 100.0
-        lo, hi = int(np.floor(k)), int(np.ceil(k))
-        return lat[lo] + (lat[hi] - lat[lo]) * (k - lo)
-
     emit(phase="serve", voices=list(runtimes), rate_req_s=SERVE_RATE, threads=SERVE_THREADS,
-         seconds=SERVE_S, requests=len(lat), latency_ms={"p50": pct(50), "p95": pct(95),
-                                                          "p99": pct(99), "max": lat[-1]},
+         seconds=SERVE_S, requests=len(lat),
+         latency_ms={"p50": _pct(lat, 50), "p95": _pct(lat, 95), "p99": _pct(lat, 99),
+                     "max": lat[-1]},
          rows_per_group={q: m["rows_per_group"] for q, m in metrics.items()},
          groups={q: m["groups"] for q, m in metrics.items()},
          padded_rows={q: m["padded_rows"] for q, m in metrics.items()},
          wait_ms_mean={q: m["wait_ms_mean"] for q, m in metrics.items()},
          zero_noise_vs_fp32=[{"voice": q, "factor": f, "max_abs_err": e} for q, f, e in errs],
          durations_equal=True, released=released, **row, launches=launches)
+    return launches
+
+
+def _served_streams(name: str, rt, streams, atol: float, hop: int) -> float:
+    """Each served stream [(ids, seed, chunks)]: chunks contiguous, the last
+    final, the audio equal to the same-seed synthesize_stream_incremental
+    on the card alone within `atol` (int16 compared as float / 32767; at
+    the mixed tiers noted for the margin line). Returns the worst max-abs."""
+    worst = 0.0
+    for ids, seed, chunks in streams:
+        got = _stream_chunks(name, chunks, hop)
+        want = np.concatenate([c.samples for c in rt.synthesize_stream_incremental(
+            ids, seed=seed)])
+        if got.shape != want.shape:
+            raise AssertionError(f"{name}: a stream of {len(ids)} ids, seed {seed}: "
+                                 f"{got.shape} samples, alone {want.shape}")
+        scale = 32767.0 if got.dtype == np.int16 else 1.0
+        worst = max(worst, float(np.abs(got.astype(np.float32) - want.astype(np.float32))
+                                 .max()) / scale)
+    if not worst <= atol:
+        raise AssertionError(f"{name}: served streams vs alone max-abs {worst} > {atol}")
+    return worst
+
+
+def phase_stream_serve(torch, path: str, rt, atol: float) -> dict:
+    """Concurrent streams on the card (`{path}_stream_serve`): one
+    StreamingServer over `rt` at STREAM_EMIT frames a window, prewarmed at
+    the phrases' lengths. With every count at 0, STREAM_CLIENTS threads at
+    once, client i streaming the fixture phrase x STREAM_FACTORS[i % 4]
+    twice at its own seeds. Every stream must be contiguous and equal its
+    same-seed synthesize_stream_incremental alone within `atol` (fp32 1e-4;
+    the mixed tiers MIXED_TARGET, noted for the margin line); the windows
+    must have batched rows (window_rows / window_dispatches > 1); each head
+    and window dispatch must have launched the voice's vocoder kernels
+    their count per call."""
+    import threading
+
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.engine.stream_server import StreamingServer
+
+    name = f"{path}_stream_serve"
+    hop = rt.hparams.hop_length
+    srv = StreamingServer(rt, emit_frames=STREAM_EMIT)
+    try:
+        t0 = time.perf_counter()
+        warm = srv.prewarm(phoneme_lengths=tuple(len(FIXTURE_PHONEME_IDS * f)
+                                                 for f in STREAM_FACTORS),
+                           row_rungs=tuple(r for r in srv.row_rungs if r <= STREAM_CLIENTS))
+        warm["wall_s"] = time.perf_counter() - t0
+        m0 = srv.metrics()
+        counters = _zero_counts()
+        served, ttfb, total, errors = [], [], [], []
+
+        def client(i):
+            try:
+                for rep in range(2):
+                    ids = FIXTURE_PHONEME_IDS * STREAM_FACTORS[i % len(STREAM_FACTORS)]
+                    seed = 1000 + 10 * i + rep
+                    t0c = time.perf_counter()
+                    chunks = []
+                    for chunk in srv.submit(ids, seed=seed):
+                        if not chunks:
+                            ttfb.append((time.perf_counter() - t0c) * 1e3)
+                        chunks.append(chunk)
+                    total.append((time.perf_counter() - t0c) * 1e3)
+                    served.append((ids, seed, chunks))
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(i,), name=f"stream-client-{i}")
+                   for i in range(STREAM_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        wall = time.perf_counter() - t0
+        launches = _require_launches(name, counters)
+        m1 = srv.metrics()
+    finally:
+        srv.shutdown()
+    if errors or len(served) != 2 * STREAM_CLIENTS:
+        raise AssertionError(f"{name}: {len(served)} streams served, errors {errors}")
+    m = {k: m1[k] - m0[k] for k in m0 if k != "open_sessions"}
+    _require_per_call(name, launches, m["head_dispatches"] + m["window_dispatches"])
+    if not m["window_rows"] > m["window_dispatches"]:
+        raise AssertionError(f"{name}: windows not batched: {m}")
+    bar = MIXED_TARGET if atol == MIXED_ATOL else atol
+    err = _served_streams(name, rt, served, bar, hop)
+    _note_mixed(name, "served streams vs alone", err, atol)
+    audio_s = sum(sum(len(c.samples) for c in chunks) for _, _, chunks in served)
+    audio_s /= rt.sample_rate
+    emit(phase="stream_serve", path=name, clients=STREAM_CLIENTS, streams=len(served),
+         factors=STREAM_FACTORS, emit_frames=STREAM_EMIT, c0=srv.c0, halo=srv.halo,
+         ttfb_ms={"p50": _pct(ttfb, 50), "p95": _pct(ttfb, 95), "max": max(ttfb)},
+         total_ms_p50=_pct(total, 50), wall_s=wall, audio_s=audio_s,
+         aggregate_rtf=audio_s / wall,
+         window_rows_per_dispatch=m["window_rows"] / m["window_dispatches"],
+         max_abs_err=err, atol=bar, prewarm=warm, **m, launches=launches)
+    return launches
+
+
+def phase_unified(torch, voices: dict) -> dict:
+    """Batch and stream traffic on one worker: a UnifiedServer of the medium
+    and x_low voices at the mixed tiers (fused, int16, serving_sim's
+    runtime), its batch grid and a stream grid prewarmed. With every count
+    at 0: SERVE_THREADS threads submit the seeded serving mix for SERVE_S
+    seconds at SERVE_RATE requests/s in all, zero-noise requests of f =
+    1/2/4/8 per voice go in beside them, and the UNIFIED_STREAMS open during
+    it, one thread each. Nothing may fail or be shed; the zero-noise rows
+    must lie within ZERO_NOISE_ATOL of the card's fp32 synthesize, each
+    stream within MIXED_TARGET of its synthesize_stream_incremental alone;
+    K1-K3 must launch. Last, remove_voice("x_low", close_runtime=True):
+    once its streams drained the worker closes the runtime, and
+    memory_allocated falls by >= 90% of its hbm_bytes."""
+    import gc
+    import threading
+
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.engine.bucketing import bucket_for
+    from piper_tpu_torch.engine.runtime import PiperRuntime, RuntimeOptions
+    from piper_tpu_torch.engine.unified import UnifiedServer
+    from piper_tpu_torch.tools.serving_sim import LENGTH_MIX, run_traffic
+
+    opts = RuntimeOptions(mode="fused", output_dtype="int16", **BENCH_MIX)
+    runtimes = {q: PiperRuntime(*voices[q], opts, device="cuda") for q in ("medium", "x_low")}
+    server = UnifiedServer(runtimes, max_batch=SERVE_MAX_BATCH, max_wait_ms=10.0,
+                           stream_kwargs=dict(emit_frames=STREAM_EMIT))
+    row = {}
+    try:
+        p_buckets = sorted({bucket_for(len((FIXTURE_PHONEME_IDS * f)[:4096]),
+                                       runtimes["medium"].options.phoneme_buckets, "phoneme")
+                            for f, _ in LENGTH_MIX})
+        t0 = time.perf_counter()
+        warm = server.prewarm(p_buckets=p_buckets, stream_kwargs=dict(
+            phoneme_lengths=sorted({len(FIXTURE_PHONEME_IDS * f) for _, f, _ in UNIFIED_STREAMS}),
+            row_rungs=(1, 2, 4), head_rungs=(1, 2)))
+        row["prewarm"] = {"wall_s": time.perf_counter() - t0, **warm}
+        zero = [(q, f) for q in runtimes for f in FACTORS]
+
+        counters = _zero_counts()
+        served, streams, errors = [], [], []
+        keys = list(runtimes)
+        t_start = time.perf_counter()
+
+        def submit(rng, ids):
+            return server.submit(keys[int(rng.integers(len(keys)))], ids)
+
+        def submitter(i):
+            served.append(run_traffic(submit, SERVE_S, np.random.default_rng(200 + i),
+                                      SERVE_RATE / SERVE_THREADS, runtimes["medium"].sample_rate))
+
+        def streamer(i, q, f, at):
+            try:
+                time.sleep(max(0.0, t_start + at - time.perf_counter()))
+                ids, seed = FIXTURE_PHONEME_IDS * f, 2000 + i
+                t0s = time.perf_counter()
+                chunks = []
+                for chunk in server.submit_stream(q, ids, seed=seed):
+                    if not chunks:
+                        ttfb = (time.perf_counter() - t0s) * 1e3
+                    chunks.append(chunk)
+                streams.append((q, ids, seed, chunks, ttfb))
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(repr(e))
+
+        threads = ([threading.Thread(target=submitter, args=(i,), name=f"unified-client-{i}")
+                    for i in range(SERVE_THREADS)]
+                   + [threading.Thread(target=streamer, args=(i, *s), name=f"unified-stream-{i}")
+                      for i, s in enumerate(UNIFIED_STREAMS)])
+        for t in threads:
+            t.start()
+        zero_futs = [server.submit(q, FIXTURE_PHONEME_IDS * f, noise_scale=0.0, noise_w=0.0)
+                     for q, f in zero]
+        for t in threads:
+            t.join()
+        zero_audio = [fut.result(timeout=300) for fut in zero_futs]
+        launches = _require_launches("unified", counters)
+        metrics = server.metrics()
+        if errors or len(streams) != len(UNIFIED_STREAMS):
+            raise AssertionError(f"unified: {len(streams)} streams served, errors {errors}")
+        for key, m in metrics["batch"].items():
+            if m["failed"] or m["shed_overload"] or m["shed_deadline"]:
+                raise AssertionError(f"unified: voice {key} failed or shed requests: {m}")
+        if len(served) != SERVE_THREADS or any(sum(shed.values()) for *_, shed in served):
+            raise AssertionError(f"unified: a submitter failed or was shed: "
+                                 f"{[r[3] for r in served]}")
+        stream_err = max(
+            _served_streams(f"unified_{q}", runtimes[q], [(ids, seed, chunks)], MIXED_TARGET,
+                            runtimes[q].hparams.hop_length)
+            for q, ids, seed, chunks, _ in streams)
+        _note_mixed("unified", "served streams vs alone", stream_err, MIXED_ATOL)
+
+        x_low = runtimes["x_low"]
+        weights = x_low.hbm_bytes()
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        server.remove_voice("x_low", close_runtime=True).result(timeout=120)
+        deadline = time.monotonic() + 60
+        while not x_low.closed and time.monotonic() < deadline:
+            time.sleep(0.01)
+        gc.collect()
+        freed = before - torch.cuda.memory_allocated()
+        if not (x_low.closed and weights > 0 and freed >= 0.9 * weights):
+            raise AssertionError(f"unified: remove_voice(close_runtime=True) closed "
+                                 f"{x_low.closed}, freed {freed} of {weights} weight bytes")
+        row["released"] = {"x_low": {"hbm_bytes": weights, "freed_bytes": freed}}
+    finally:
+        server.close()
+
+    errs = []
+    fp32 = {q: PiperRuntime(*voices[q], device="cuda") for q in runtimes}
+    for (q, f), got in zip(zero, zero_audio):
+        want = np.clip(fp32[q].synthesize(FIXTURE_PHONEME_IDS * f, noise_scale=0.0, noise_w=0.0),
+                       -1.0, 1.0)
+        if got.dtype != np.int16 or got.shape != want.shape:
+            raise AssertionError(f"unified {q} f={f}: {got.dtype} {got.shape}, fp32 {want.shape}")
+        err = float(np.abs(got.astype(np.float32) / 32767.0 - want).max())
+        if not err <= ZERO_NOISE_ATOL:
+            raise AssertionError(f"unified {q} f={f}: served vs fp32 max-abs {err} > "
+                                 f"{ZERO_NOISE_ATOL}")
+        _note_mixed(f"unified_{q}", f"served f={f} at zero noise vs fp32", err, MIXED_ATOL)
+        errs.append({"voice": q, "factor": f, "max_abs_err": err})
+    lat = [latency * 1e3 for results, *_ in served for latency, _, _ in results]
+    ttfb = [s[4] for s in streams]
+    emit(phase="unified", voices=list(runtimes), rate_req_s=SERVE_RATE, threads=SERVE_THREADS,
+         seconds=SERVE_S, requests=len(lat),
+         latency_ms={"p50": _pct(lat, 50), "p95": _pct(lat, 95), "p99": _pct(lat, 99),
+                     "max": max(lat)},
+         streams=[{"voice": q, "phonemes": len(ids), "ttfb_ms": t} for q, ids, _, _, t in streams],
+         stream_ttfb_ms={"p50": _pct(ttfb, 50), "p95": _pct(ttfb, 95)},
+         stream_max_abs_err=stream_err,
+         batch={q: {k: m[k] for k in ("rows_per_group", "groups", "padded_rows", "wait_ms_mean")}
+                for q, m in metrics["batch"].items()},
+         stream={q: {k: m[k] for k in ("head_dispatches", "window_dispatches", "window_rows",
+                                       "padded_rows")}
+                 for q, m in metrics["stream"].items()},
+         zero_noise_vs_fp32=errs, atol=ZERO_NOISE_ATOL, **row, launches=launches)
     return launches
 
 
@@ -1391,7 +1656,7 @@ def main() -> None:
     count(phase_probe())
     count(phase_ct_probe())
     phase_calibrate()
-    voices = {}
+    voices, card = {}, {}
     for quality in ("medium", "x_low"):
         model, config = make_synthetic_voice(ROOT / "build" / f"chip_smoke_voice_{quality}",
                                              quality=quality, seed=0)
@@ -1405,6 +1670,7 @@ def main() -> None:
                                            RuntimeOptions(**BENCH_MIX))
         count(counts)
         phase_compare(torch, mixed, rt_mixed, rt, MIXED_ATOL, "card highest")
+        card[quality], card[mixed] = rt, rt_mixed
         phase_profile(torch, {quality: rt, mixed: rt_mixed})
         count(phase_stream(torch, quality, rt, WAVE_ATOL))
         count(phase_stream(torch, mixed, rt_mixed, MIXED_ATOL))
@@ -1416,6 +1682,11 @@ def main() -> None:
         if serving:
             count(phase_pipeline(model, config))
     count(phase_serve(torch, voices))
+    count(phase_stream_serve(torch, "medium_mixed", card["medium_mixed"], MIXED_ATOL))
+    count(phase_stream_serve(torch, "x_low_mixed", card["x_low_mixed"], MIXED_ATOL))
+    count(phase_stream_serve(torch, "medium", card["medium"], WAVE_ATOL))
+    count(phase_unified(torch, voices))
+    del card
     count(phase_high(torch))
     count(phase_multispeaker(torch))
     count(phase_bench())

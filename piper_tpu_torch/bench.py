@@ -15,15 +15,19 @@ N-speaker voice, gin 512, B rows of f=8 with speaker ids 0..B-1 mod N
 through `submit_batch`: the en_US-libritts-high class, N=904 by default,
 8 under --quick), `high` (the five-level `high` preset) and, unless
 --quick, `streaming` (incremental streams of the 224-id fixture utterance:
-time to the first chunk and to the last, p50). `streaming_server` and
-`roofline` are null: their parts of the port are not written yet, their
-flags default to off, and turning one on raises.
+time to the first chunk and to the last, p50) and `streaming_server`
+(`--streams` clients, 8 by default, streaming that utterance at once
+through one StreamingServer: aggregate audio seconds per wall second, TTFB
+p50/p95, total p50, window rows per dispatch). `roofline` is null: its part
+of the port is not written yet, its flag defaults to off, and turning it on
+raises.
 
 `--device` takes `--platform`'s place: the card by default, or the CPU.
 On the card the wall is launch-bound and noisy, so each factor row, the
-throughput batch and the streaming row also carry, from one call under torch.profiler after the
-timed ones, the device's kernels, their summed time (`device_busy_ms`) and
-its share of the row's unprofiled wall, with the voice's vocoder kernels
+throughput batch and the streaming rows also carry, from one call (a round
+of streams for `streaming_server`) under torch.profiler after the timed
+ones, the device's kernels, their summed time (`device_busy_ms`) and its
+share of the row's unprofiled wall, with the voice's vocoder kernels
 (K2+K3 `resblock1_kernel`, or K1 `conv1d_same`) checked against their
 launch counters; the throughput rows carry `torch.cuda.max_memory_allocated`.
 On the CPU those keys are null (not measured).
@@ -61,7 +65,6 @@ ROOT = Path(__file__).resolve().parent.parent
 BASELINE_MS_FACTOR1 = 147.39  # reference Swift/Metal ms_mean @ factor 1 (BASELINE.md)
 # Rows of the root bench whose parts of the port are not written yet.
 UNPORTED = {
-    "streams": "the streaming server is not ported yet (ROADMAP §1 item 2)",
     "roofline": "the roofline report (piper_tpu/utils/roofline.py) is not ported",
 }
 
@@ -100,7 +103,9 @@ def _parser() -> argparse.ArgumentParser:
                         help="bench the high-quality (five upsample levels) config")
     parser.add_argument("--no-high", dest="high", action="store_false")
     parser.add_argument("--roofline", action="store_true", help="not ported: raises")
-    parser.add_argument("--streams", type=int, default=0, help="not ported: raises unless 0")
+    parser.add_argument("--streams", type=int, default=8,
+                        help="concurrent streaming clients for the multi-stream serving row "
+                             "(0 = skip)")
     parser.add_argument("--quick", action="store_true", help="fast smoke (small sweep)")
     parser.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return parser
@@ -269,6 +274,87 @@ def measure_streaming(runtime, iters: int) -> dict:
     }
 
 
+def measure_streaming_server(runtime, streams: int) -> dict:
+    """Concurrent streams, as the root bench measures them: `streams`
+    clients stream the 224-id utterance at once through one StreamingServer
+    (each stream's own fused head, the steady-state windows of all of them
+    batched in one call a tick), prewarmed at the row rungs up to
+    `streams`. One untimed warm-up round, then two timed rounds, client i
+    of round r at seed 100 r + i: the aggregate audio seconds per wall
+    second (median of the rounds), TTFB p50/p95 and total p50 over every
+    timed stream, the window rows per dispatch in the timed rounds, and the
+    last round's samples per stream; then one more round under
+    torch.profiler (`_profile`). A client's error makes the row
+    {"error": [...]}, as in the root bench."""
+    import threading
+
+    from piper_tpu_torch.engine.stream_server import StreamingServer
+
+    ids_long = (FIXTURE_IDS * 16)[:4096]
+    srv = StreamingServer(runtime, max_sessions=max(16, streams))
+
+    def one_round(rnd):
+        ttfbs, totals, samples = [None] * streams, [None] * streams, [None] * streams
+        errs = []
+
+        def client(i):
+            try:
+                t0c = time.perf_counter()
+                first, n = None, 0
+                for chunk in srv.submit(ids_long, seed=rnd * 100 + i):
+                    if first is None:
+                        first = time.perf_counter() - t0c
+                    n += len(chunk.samples)
+                ttfbs[i], samples[i] = first * 1e3, n
+                totals[i] = (time.perf_counter() - t0c) * 1e3
+            except Exception as e:  # noqa: BLE001 — report, don't crash the bench
+                errs.append(repr(e))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(streams)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        return ttfbs, totals, samples, time.perf_counter() - t0, errs
+
+    try:
+        rungs = [r for r in srv.row_rungs if r <= streams] or [srv.row_rungs[0]]
+        srv.prewarm(phoneme_lengths=(len(ids_long),), row_rungs=rungs)
+        agg, ttfb_all, total_all, walls = [], [], [], []
+        m0 = None
+        # Round -1 is an untimed warm-up: the first rounds with several
+        # streams in flight meet shapes and allocator growth the prewarm
+        # did not.
+        for rnd in range(-1, 2):
+            ttfbs, totals, samples, wall, errs = one_round(rnd)
+            if errs:
+                return {"error": errs[:3]}
+            if rnd < 0:
+                m0 = srv.metrics()
+                continue
+            agg.append(sum(samples) / runtime.sample_rate / wall)
+            ttfb_all += ttfbs
+            total_all += totals
+            walls.append(wall * 1e3)
+        m1 = srv.metrics()
+        rows, dispatches = (m1[k] - m0[k] for k in ("window_rows", "window_dispatches"))
+        row = {
+            "streams": streams,
+            "aggregate_rtf": round(float(np.median(agg)), 1),
+            "ttfb_ms_p50": round(float(np.percentile(ttfb_all, 50)), 1),
+            "ttfb_ms_p95": round(float(np.percentile(ttfb_all, 95)), 1),
+            "total_ms_p50": round(float(np.percentile(total_all, 50)), 1),
+            "phonemes": len(ids_long),
+            "window_rows_per_dispatch": rows / dispatches if dispatches else None,
+            "samples": samples,
+        }
+        row.update(_profile(runtime, lambda: one_round(2), float(np.median(walls))))
+        return row
+    finally:
+        srv.shutdown()
+
+
 def _golden_rows(args, rt, speakers: bool = False):
     """The voice against its committed JAX goldens, or None where it has
     none; with `speakers`, the multi-speaker voice against the speaker
@@ -366,8 +452,11 @@ def main(argv=None) -> dict:
             "rtf": round(audio_s / wall, 1),
         }
 
-    # Streaming time to first audio (incremental windowed decode).
+    # Streaming time to first audio (incremental windowed decode), one
+    # stream, then `--streams` at once through the streaming server.
     streaming_row = None if args.quick else measure_streaming(rt, args.iters)
+    streaming_server_row = (measure_streaming_server(rt, args.streams)
+                            if args.streams and not args.quick else None)
 
     # Multi-speaker batched serving (the en_US-libritts-high class: 900+
     # speaker embeddings, a batch of rows with different speaker ids),
@@ -447,7 +536,7 @@ def main(argv=None) -> dict:
         "batch_sweep": batch_sweep_rows,
         "pipeline": pipeline_row,
         "streaming": streaming_row,
-        "streaming_server": None,
+        "streaming_server": streaming_server_row,
         "multispeaker": multispeaker_row,
         "high": high_row,
         "roofline": None,

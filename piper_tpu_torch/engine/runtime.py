@@ -443,8 +443,10 @@ class PiperRuntime:
         copy, stream state or kernel layout keeps a weight alive). Further
         synthesis raises RuntimeError. Idempotent."""
         with self._lock:
-            self._params = None
+            # hbm_bytes() reads without the lock: zero it before `closed`
+            # turns True, so no reader sees a closed runtime's old bytes.
             self._hbm_bytes = 0
+            self._params = None
 
     @property
     def sample_rate(self) -> int:

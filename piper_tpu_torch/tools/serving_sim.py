@@ -11,6 +11,7 @@ and aggregate real-time factor — the numbers a capacity plan needs.
 Usage (the card by default; the checkout root on PYTHONPATH):
     python -m piper_tpu_torch.tools.serving_sim                  # 60 req/s, 30 s
     python -m piper_tpu_torch.tools.serving_sim --rates 100,200,400 --duration 20
+    python -m piper_tpu_torch.tools.serving_sim --unified --stream-rate 4
     python -m piper_tpu_torch.tools.serving_sim --device cpu --quality test --rate 20 --duration 2
 
 The runtime is the bench's: its mixed tiers (encoder "highest", vocoder
@@ -24,11 +25,17 @@ nvidia-smi gives them), `prewarm` (grid shapes run and seconds) and
 after each measured pass, a second pass of the same traffic whose middle S
 seconds run under torch.profiler (behind tools/timing.py's sentinels; the
 profiler perturbs the host, so its latencies are not reported): the device
-kernels' summed time (device busy) and its share of that window's wall.
+kernels' summed time (device busy) and its share of that window's wall;
+with `--stream-rate` the streams run in that pass too.
 
-`--http`, `--unified` and `--stream-rate` drive serving layers that are not
-ported yet: they raise NotImplementedError naming the ROADMAP item that
-brings them.
+`--unified` serves the mix through UnifiedServer (batch and stream traffic
+on one worker) instead of the batcher; with `--stream-rate R` Poisson
+stream arrivals (R streams/s of the fixture phrase x `--stream-factor`)
+open beside the batch traffic during each measured pass, and the line
+gains `streams` (count, sheds, TTFB p50/p95/max, audio seconds, realtime
+factor per stream). `--stream-group-frac` shrinks batch groups while
+streams are open. `--http` drives a serving layer that is not ported yet:
+it raises NotImplementedError naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -50,10 +57,7 @@ from piper_tpu_torch.engine.batcher import (BatchingServer, DeadlineExceeded,
 LENGTH_MIX = [(1, 0.45), (2, 0.25), (4, 0.15), (8, 0.10), (16, 0.05)]
 # Flags of the JAX tool whose serving layers the port does not have yet.
 UNPORTED = {
-    "http": "--http: the HTTP server is not ported yet (ROADMAP §1 item 7)",
-    "unified": "--unified: UnifiedServer is not ported yet (ROADMAP §1 item 5)",
-    "stream_rate": "--stream-rate: streams need UnifiedServer, not ported yet "
-                   "(ROADMAP §1 item 5)",
+    "http": "--http: the HTTP server is not ported yet (ROADMAP §1 item 5)",
 }
 
 
@@ -106,9 +110,23 @@ def _parser() -> argparse.ArgumentParser:
                          "(0 = one canonical phrase per factor; with "
                          "--cache-mb that is a near-100%% hit canned-phrase "
                          "workload, larger pools lower the hit rate)")
-    ap.add_argument("--unified", action="store_true", help="not ported: raises")
+    ap.add_argument("--unified", action="store_true",
+                    help="serve through UnifiedServer (batch + streaming on "
+                         "ONE worker) instead of the dedicated batcher — "
+                         "run both in one session to measure the "
+                         "unification tax")
     ap.add_argument("--stream-rate", type=float, default=0.0,
-                    help="not ported: raises unless 0")
+                    help="with --unified: additionally open low-latency "
+                         "streams at this Poisson rate (streams/s) during "
+                         "the measured pass; reports stream TTFB p50/p95 "
+                         "alongside the batch numbers")
+    ap.add_argument("--stream-factor", type=int, default=4,
+                    help="stream utterance length (x the 14-phoneme fixture)")
+    ap.add_argument("--stream-group-frac", type=float, default=1.0,
+                    help="with --unified: batch groups pop at this fraction "
+                         "of their size while streams are open (TTFB vs "
+                         "batch-efficiency tradeoff; 0.25 = prewarmed mid "
+                         "rung)")
     ap.add_argument("--add-voice-at", type=float, default=None,
                     help="seconds into the measured pass to add_voice a new "
                          "voice on the live server (non-pausing warm); "
@@ -182,11 +200,55 @@ def run_traffic(submit, duration, rng, rate, sample_rate, phrase_pool=0):
     return out, audio_s, time.perf_counter() - t_start, shed
 
 
+def run_streams(server, voice, ids, duration, rng, rate, t_start, sample_rate):
+    """Poisson stream arrivals at `rate` streams/s on a UnifiedServer's
+    `voice` for `duration` seconds from `t_start`, beside the batch traffic;
+    one pool thread per stream drains its chunks. Returns per-stream dicts:
+    ttfb_ms, audio_s, wall_s (or {"shed": True})."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    stats: list = []
+    futs = []
+
+    def one_stream():
+        t0 = time.perf_counter()
+        try:
+            handle = server.submit_stream(voice, ids)
+        except ServerOverloaded:
+            stats.append({"shed": True})
+            return
+        first = None
+        n = 0
+        for chunk in handle:
+            if first is None:
+                first = time.perf_counter() - t0
+            n += len(chunk.samples)
+        stats.append({"ttfb_ms": first * 1e3, "audio_s": n / sample_rate,
+                      "wall_s": time.perf_counter() - t0})
+
+    with ThreadPoolExecutor(max_workers=64, thread_name_prefix="sim-stream") as pool:
+        next_at = t_start
+        while True:
+            now = time.perf_counter()
+            if now - t_start >= duration:
+                break
+            if now < next_at:
+                time.sleep(min(next_at - now, 0.005))
+                continue
+            futs.append(pool.submit(one_stream))
+            next_at += rng.exponential(1.0 / rate)
+        for f in futs:
+            f.result(timeout=600)
+    return stats
+
+
 def main(argv=None):
     args = _parser().parse_args(argv)
     for flag, msg in UNPORTED.items():
         if getattr(args, flag):
             raise NotImplementedError(msg)
+    if args.stream_rate > 0 and not args.unified:
+        raise SystemExit("--stream-rate requires --unified")
     if args.profile_s and args.device != "cuda":
         raise SystemExit("--profile-s profiles the card: it needs --device cuda")
 
@@ -212,7 +274,23 @@ def main(argv=None):
     factors = [f for f, _ in LENGTH_MIX]
 
     multi = args.voices > 1 or args.add_voice_at is not None
-    if multi:
+    if args.unified:
+        from piper_tpu_torch.engine.unified import UnifiedServer
+
+        server = UnifiedServer(
+            runtimes, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+            max_pending=args.max_pending, deadline_ms=args.deadline_ms,
+            cache_mb=args.cache_mb, warm_every=args.warm_every,
+            stream_group_frac=args.stream_group_frac)
+        voice_keys = list(runtimes)
+
+        def submit(rng, ids):
+            return server.submit(voice_keys[int(rng.integers(len(voice_keys)))],
+                                 ids, noise_scale=None)
+
+        def merged_metrics():
+            return _merge_voice_metrics(server.batch.metrics())
+    elif multi:
         server = MultiVoiceBatchingServer(
             runtimes, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
             max_pending=args.max_pending, deadline_ms=args.deadline_ms,
@@ -244,12 +322,21 @@ def main(argv=None):
             bucket_for(len((FIXTURE_IDS * f)[:4096]),
                        rt.options.phoneme_buckets, "phoneme")
             for f in factors})
-        warm = server.prewarm(p_buckets=p_buckets)
-        if multi:
+        stream_ids = (FIXTURE_IDS * args.stream_factor)[:4096]
+        if args.unified:
+            warm = server.prewarm(p_buckets=p_buckets, stream=args.stream_rate > 0,
+                                  stream_kwargs=dict(phoneme_lengths=(len(stream_ids),)))
+            parts = list(warm["batch"].values()) + list(warm.get("stream", {}).values())
+            programs = sum(w["programs"] for w in parts)
+            secs = sum(w["seconds"] for w in parts)
+            fpp = next(iter(warm["batch"].values()))["frames_per_phoneme"]
+        elif multi:
+            warm = server.prewarm(p_buckets=p_buckets)
             programs = sum(w["programs"] for w in warm.values())
             secs = sum(w["seconds"] for w in warm.values())
             fpp = next(iter(warm.values()))["frames_per_phoneme"]
         else:
+            warm = server.prewarm(p_buckets=p_buckets)
             programs, secs, fpp = (warm["programs"], warm["seconds"],
                                    warm["frames_per_phoneme"])
         print(f"[serving_sim] prewarmed {programs} grid programs in "
@@ -283,6 +370,18 @@ def main(argv=None):
             # previous rates' (the server is shared across the sweep).
             server.reset_metrics()
             t_start = time.perf_counter()
+            stream_stats: list = []
+            stream_th = None
+            if args.stream_rate > 0:
+
+                def _streams():
+                    stream_stats.extend(run_streams(
+                        server, "v0", stream_ids, args.duration,
+                        np.random.default_rng(args.seed + 7), args.stream_rate, t_start,
+                        rt.sample_rate))
+
+                stream_th = threading.Thread(target=_streams)
+                stream_th.start()
             add_state: dict = {}
             add_th = None
             if args.add_voice_at is not None:
@@ -290,7 +389,9 @@ def main(argv=None):
                 def _adder():
                     time.sleep(args.add_voice_at)
                     add_state["t_add"] = time.perf_counter() - t_start
-                    fut = server.add_voice(f"vnew_{rate:g}", add_rt, p_buckets=p_buckets)
+                    fut = server.add_voice(f"vnew_{rate:g}", add_rt, p_buckets=p_buckets,
+                                           **({"stream_prewarm": False} if args.unified
+                                              else {}))
                     stats = fut.result(timeout=1200)
                     add_state["t_done"] = time.perf_counter() - t_start
                     add_state["stats"] = stats
@@ -302,20 +403,30 @@ def main(argv=None):
                 args.phrase_pool)
             if add_th is not None:
                 add_th.join(timeout=1800)
+            if stream_th is not None:
+                stream_th.join(timeout=1800)
             metrics = merged_metrics()
             prof = {}
             if args.profile_s:
-                # The same traffic again from a side thread; this thread
-                # profiles its middle.
-                th = threading.Thread(target=run_traffic, args=(
+                # The same traffic again (streams too) from side threads;
+                # this thread profiles its middle.
+                side = [threading.Thread(target=run_traffic, args=(
                     submit, args.profile_s + 2.0, np.random.default_rng(args.seed + 2), rate,
-                    rt.sample_rate, args.phrase_pool))
-                th.start()
+                    rt.sample_rate, args.phrase_pool))]
+                if args.stream_rate > 0:
+                    side.append(threading.Thread(target=run_streams, args=(
+                        server, "v0", stream_ids, args.profile_s + 2.0,
+                        np.random.default_rng(args.seed + 9), args.stream_rate,
+                        time.perf_counter(), rt.sample_rate)))
+                for th in side:
+                    th.start()
                 time.sleep(1.0)
                 prof = {"profile": _profile_window(args.profile_s)}
-                th.join(timeout=600)
+                for th in side:
+                    th.join(timeout=600)
             report(args, rate, results, audio_s, wall, shed, metrics,
-                   factors, add_state=add_state, extra={**extra, **prof})
+                   factors, stream_stats=stream_stats, add_state=add_state,
+                   extra={**extra, **prof})
 
 
 def _profile_window(window_s: float) -> dict:
@@ -353,7 +464,7 @@ def _pctl(sorted_vals, p):
 
 
 def report(args, rate, results, audio_s, wall, shed, server_metrics, factors,
-           add_state=None, extra=None):
+           stream_stats=None, add_state=None, extra=None):
     lats_ms = sorted(l * 1e3 for l, _, _ in results)
     if not lats_ms:
         # Tiny rate/--duration (or all requests failed) can leave the
@@ -399,9 +510,29 @@ def report(args, rate, results, audio_s, wall, shed, server_metrics, factors,
                if "per_voice_rows" in server_metrics else {}),
         },
         **({"voices": args.voices} if args.voices > 1 else {}),
+        **({"unified": True} if getattr(args, "unified", False) else {}),
+        **_stream_report(stream_stats),
         **_add_voice_report(results, add_state),
         **(extra or {}),
     }), flush=True)
+
+
+def _stream_report(stream_stats) -> dict:
+    if not stream_stats:
+        return {}
+    ok = [s for s in stream_stats if "ttfb_ms" in s]
+    ttfbs = sorted(s["ttfb_ms"] for s in ok)
+    walls = sum(s["wall_s"] for s in ok)
+    audio = sum(s["audio_s"] for s in ok)
+    return {"streams": {
+        "count": len(ok),
+        "shed": sum(1 for s in stream_stats if s.get("shed")),
+        "ttfb_ms": {"p50": round(_pctl(ttfbs, 50), 1),
+                    "p95": round(_pctl(ttfbs, 95), 1),
+                    "max": round(ttfbs[-1], 1)} if ttfbs else None,
+        "audio_s_total": round(audio, 1),
+        "rtf_per_stream_mean": round(audio / walls, 1) if walls else None,
+    }}
 
 
 def _add_voice_report(results, add_state) -> dict:

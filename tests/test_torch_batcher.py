@@ -931,12 +931,57 @@ def test_serving_sim_prints_the_reference_keys(capsys, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--http"], "ROADMAP §1 item 7"),
-    (["--unified"], "ROADMAP §1 item 5"),
-    (["--stream-rate", "2"], "ROADMAP §1 item 5"),
+    (["--http"], "ROADMAP §1 item 5"),
 ])
 def test_serving_sim_unported_flags_raise(flags, match):
     from piper_tpu_torch.tools import serving_sim
 
     with pytest.raises(NotImplementedError, match=match):
         serving_sim.main(["--device", "cpu", *flags])
+
+
+def test_serving_sim_unified_streams_print_the_reference_keys(capsys, tmp_path, monkeypatch):
+    """`--unified --stream-rate 2` on the CPU, a short pass: the batch mix
+    and Poisson streams on one UnifiedServer; the JSON line holds every key
+    of the JAX tool's unified line with streams (its `report`), and the
+    streams' TTFB."""
+    import importlib.util
+    import json
+    from pathlib import Path
+
+    from piper_tpu_torch.tools import serving_sim
+
+    monkeypatch.setenv("PIPER_TPU_CACHE", str(tmp_path))
+    serving_sim.main(["--device", "cpu", "--quality", "test", "--rate", "10",
+                      "--duration", "2", "--max-batch", "2", "--unified", "--stream-rate", "2",
+                      "--stream-factor", "2", "--stream-group-frac", "0.25"])
+    lines = [x for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    assert len(lines) == 1
+    got = json.loads(lines[0])
+
+    path = Path(__file__).resolve().parent.parent / "tools" / "serving_sim.py"
+    spec = importlib.util.spec_from_file_location("jax_serving_sim", path)
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    args = SimpleNamespace(platform=None, duration=2.0, max_batch=2, max_wait_ms=10.0,
+                           cache_mb=0.0, voices=1, unified=True)
+    metrics = {"rows_per_group": 1.0, "groups": 1, "padded_rows": 0, "wait_ms_mean": 0.0,
+               "wait_ms_max": 0.0, "shed_overload": 0, "shed_deadline": 0}
+    ref.report(args, 10.0, [(0.1, 1, 0.0)], 1.0, 2.0, {"overload": 0, "deadline": 0},
+               metrics, [1, 2, 4, 8, 16],
+               stream_stats=[{"ttfb_ms": 5.0, "audio_s": 1.0, "wall_s": 0.5}])
+    want = json.loads(capsys.readouterr().out)
+    assert set(want) <= set(got) and set(want["streams"]) <= set(got["streams"])
+    assert got["unified"] is True and got["shed"] == {"overload": 0, "deadline": 0}
+    streams = got["streams"]
+    assert streams["count"] >= 1 and streams["shed"] == 0 and streams["audio_s_total"] > 0
+    assert 0 < streams["ttfb_ms"]["p50"] <= streams["ttfb_ms"]["p95"]
+    assert got["requests"] > 0 and got["prewarm"]["programs"] > 0
+
+
+def test_serving_sim_stream_rate_needs_unified():
+    """--stream-rate without --unified exits, as the JAX tool does."""
+    from piper_tpu_torch.tools import serving_sim
+
+    with pytest.raises(SystemExit, match="requires --unified"):
+        serving_sim.main(["--device", "cpu", "--stream-rate", "2"])

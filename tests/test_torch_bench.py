@@ -1,8 +1,8 @@
 """The port's bench (mirrors tests/test_bench_driver.py): one JSON
 line with the root bench's keys, its headline the best serving row, on the
 CPU with the tiny test preset (its multispeaker row on an 8-speaker test
-voice, its streaming row on the test voice); the rows whose parts are not
-ported raise when asked for."""
+voice, its streaming rows on the test voice); the row whose part is not
+ported raises when asked for."""
 
 import ast
 import json
@@ -72,8 +72,8 @@ def test_bench_quick_schema(capsys, monkeypatch, tmp_path):
 
 def test_bench_flags_match_the_root_bench():
     """Every flag of the port bench is the root bench's, but --device for
-    --platform; the defaults agree but those of the unported rows (off):
-    --multi-speaker is the root bench's 904."""
+    --platform; the defaults agree but that of the unported row (off):
+    --multi-speaker is the root bench's 904, --streams its 8."""
     import bench as root_bench
 
     ours = {a.dest: a.default for a in bench._parser()._actions if a.dest != "help"}
@@ -82,8 +82,9 @@ def test_bench_flags_match_the_root_bench():
         if dest != "device":
             assert f"--{dest.replace('_', '-')}" in src, dest
     assert ours["mode"] == "fused" and ours["batch"] == 32 and ours["precision"] == "highest"
-    assert (ours["multi_speaker"], ours["streams"], ours["roofline"]) == (904, 0, False)
+    assert (ours["multi_speaker"], ours["streams"], ours["roofline"]) == (904, 8, False)
     assert 'parser.add_argument("--multi-speaker", type=int, default=904' in src
+    assert 'parser.add_argument("--streams", type=int, default=8' in src
 
 
 def test_multispeaker_row_serves_speaker_ids(monkeypatch, tmp_path):
@@ -110,7 +111,6 @@ def test_multispeaker_row_serves_speaker_ids(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--streams", "2"], "ROADMAP §1 item 2"),
     (["--roofline"], "roofline"),
 ])
 def test_unported_rows_raise(flags, match):
@@ -118,14 +118,21 @@ def test_unported_rows_raise(flags, match):
         bench.main(["--device", "cpu", *flags])
 
 
+def _root_row_keys(name: str) -> set:
+    """The keys of the root bench's row `name` (its largest dict literal
+    assigned to that name), read from its source."""
+    src = (Path(__file__).resolve().parent.parent / "bench.py").read_text()
+    rows = [{k.value for k in node.value.keys} for node in ast.walk(ast.parse(src))
+            if isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+            and any(getattr(t, "id", None) == name for t in node.targets)]
+    if not rows:
+        raise AssertionError(f"the root bench has no {name} dict")
+    return max(rows, key=len)
+
+
 def _root_streaming_keys() -> set:
     """The keys of the root bench's streaming row, read from its source."""
-    src = (Path(__file__).resolve().parent.parent / "bench.py").read_text()
-    for node in ast.walk(ast.parse(src)):
-        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
-                and any(getattr(t, "id", None) == "streaming_row" for t in node.targets)):
-            return {k.value for k in node.value.keys}
-    raise AssertionError("the root bench has no streaming_row dict")
+    return _root_row_keys("streaming_row")
 
 
 def test_streaming_row(capsys, monkeypatch, tmp_path):
@@ -146,3 +153,30 @@ def test_streaming_row(capsys, monkeypatch, tmp_path):
     assert row["phonemes"] == 224 and row["utterance_s"] > 0
     assert 0 < row["ttfb_ms_p50"] <= row["total_ms_p50"]
     assert row["kernels"] is None and row["device_busy_ms"] is None
+
+
+def test_streaming_server_row(capsys, monkeypatch, tmp_path):
+    """`--streams 2` on the CPU: the streaming_server row carries the root
+    bench's keys, and each stream of the last timed round (client i at
+    seed 100 + i) is as long as the same stream run alone on the bench's
+    runtime; the profile keys are null off the card."""
+    monkeypatch.setenv("PIPER_TPU_CACHE", str(tmp_path))
+    argv = ["--device", "cpu", "--quality", "test", "--factors", "1", "--warmup", "0",
+            "--iters", "1", "--batch", "0", "--no-pipeline", "--multi-speaker", "0",
+            "--no-high", "--streams", "2"]
+    result = bench.main(argv)
+    row = result["streaming_server"]
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["streaming_server"] == \
+        json.loads(json.dumps(row))
+    root = _root_row_keys("streaming_server_row")
+    assert root == {"streams", "aggregate_rtf", "ttfb_ms_p50", "ttfb_ms_p95", "total_ms_p50"}
+    assert set(row) == root | {"phonemes", "window_rows_per_dispatch", "samples", "kernels",
+                               "device_busy_ms", "busy_share"}
+    assert row["streams"] == 2 and row["phonemes"] == 224 and row["aggregate_rtf"] > 0
+    assert 0 < row["ttfb_ms_p50"] <= row["ttfb_ms_p95"] and row["ttfb_ms_p50"] < row["total_ms_p50"]
+    assert row["window_rows_per_dispatch"] >= 1 and row["kernels"] is None
+    rt = bench.get_runtime(bench._parser().parse_args(argv))
+    ids_long = (bench.FIXTURE_IDS * 16)[:4096]
+    solo = [sum(len(c.samples) for c in rt.synthesize_stream_incremental(ids_long, seed=100 + i))
+            for i in range(2)]
+    assert row["samples"] == solo

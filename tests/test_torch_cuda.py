@@ -672,3 +672,126 @@ def test_close_releases_the_weights_card_memory(card_voices):
     assert before - after >= 0.9 * weights, (before, after, weights)
     with pytest.raises(RuntimeError, match="closed"):
         rt.synthesize(FIXTURE_PHONEME_IDS)
+
+
+def _stream_audio(chunks):
+    sizes = [len(c.samples) for c in chunks]
+    assert [c.start_sample_index for c in chunks] == [sum(sizes[:i]) for i in range(len(sizes))]
+    assert [c.is_final for c in chunks] == [False] * (len(chunks) - 1) + [True]
+    import numpy as np
+
+    return np.concatenate([c.samples for c in chunks])
+
+
+def _solo_stream(rt, ids, seed):
+    return _stream_audio(list(rt.synthesize_stream_incremental(ids, seed=seed)))
+
+
+@pytest.mark.parametrize("quality", ["medium", "x_low"])
+def test_stream_tick_dispatch_does_not_synchronize(card_voices, quality):
+    """StreamingServer driven tick by tick: the tick that dispatches two new
+    streams' heads and two running streams' batched window (and waits for
+    no copy, the previous tick's having been processed) runs under
+    torch.cuda's sync debug mode "error", so no call inside it reads the
+    card. Every stream then equals its solo incremental stream."""
+    import numpy as np
+
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.engine.runtime import PiperRuntime
+    from piper_tpu_torch.engine.stream_server import StreamingServer
+
+    rt = PiperRuntime(*card_voices[quality], device="cuda")
+    ids = FIXTURE_PHONEME_IDS * 4
+
+    def run(seed0, checked):
+        srv = StreamingServer(rt, emit_frames=64, start_worker=False)
+        handles = [srv.submit(ids, seed=seed0 + i) for i in range(2)]
+        srv.tick()  # two heads, nothing in flight before
+        srv.tick()  # their copies waited for, windows not yet dispatched
+        assert not srv._inflight and len(srv._active) == 2
+        handles += [srv.submit(ids, seed=seed0 + i) for i in range(2, 4)]
+        torch.cuda.synchronize()
+        if checked:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            srv.tick()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        kinds = sorted(w[0] for w in srv._inflight)
+        assert kinds == ["headb", "window"], kinds
+        chunks = [[] for _ in handles]
+        while srv.pending():
+            srv.tick()
+            for out, h in zip(chunks, handles):
+                while not h._s.out.empty():
+                    out.append(h._s.out.get_nowait())
+        srv.shutdown()
+        return [_stream_audio(c) for c in chunks]
+
+    run(100, checked=False)  # first runs of the shapes
+    got = run(200, checked=True)
+    for i, audio in enumerate(got):
+        want = _solo_stream(rt, ids, 200 + i)
+        assert audio.shape == want.shape
+        np.testing.assert_allclose(audio, want, atol=ATOL, rtol=0)
+
+
+def test_concurrent_streams_on_the_card_match_solo(card_voices):
+    """Four clients stream phrases of 2/4/8/16 x the fixture at once through
+    one StreamingServer (its worker): each equals its solo incremental
+    stream within 1e-4, the windows were batched, and the vocoder kernels
+    ran on the card."""
+    import threading
+
+    import numpy as np
+
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.engine.runtime import PiperRuntime
+    from piper_tpu_torch.engine.stream_server import StreamingServer
+
+    rt = PiperRuntime(*card_voices["medium"], device="cuda")
+    cases = [(FIXTURE_PHONEME_IDS * f, 300 + f) for f in (2, 4, 8, 16)]
+    out, errors = {}, []
+    srv = StreamingServer(rt, emit_frames=64)
+
+    def client(i, ids, seed):
+        try:
+            out[i] = _stream_audio(list(srv.submit(ids, seed=seed)))
+        except Exception as e:  # noqa: BLE001
+            errors.append(e)
+
+    before = R.resblock1_branch.launches
+    threads = [threading.Thread(target=client, args=(i, *c)) for i, c in enumerate(cases)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    srv.shutdown()
+    assert not errors, errors
+    m = srv.metrics()
+    assert m["window_rows"] > m["window_dispatches"]
+    assert R.resblock1_branch.launches > before
+    for i, (ids, seed) in enumerate(cases):
+        want = _solo_stream(rt, ids, seed)
+        assert out[i].shape == want.shape
+        np.testing.assert_allclose(out[i], want, atol=ATOL, rtol=0)
+
+
+def test_stream_server_shutdown_leaves_no_worker(card_voices):
+    """shutdown() joins the server's worker: no piper-stream-server thread
+    is alive after it, streams served or not."""
+    import threading
+
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.engine.runtime import PiperRuntime
+    from piper_tpu_torch.engine.stream_server import StreamingServer
+
+    rt = PiperRuntime(*card_voices["x_low"], device="cuda")
+    for streams in (0, 2):
+        srv = StreamingServer(rt, emit_frames=64)
+        for i in range(streams):
+            assert list(srv.submit(FIXTURE_PHONEME_IDS * 2, seed=i))[-1].is_final
+        srv.shutdown()
+        assert not srv._worker.is_alive()
+    assert not [t for t in threading.enumerate()
+                if t.name == "piper-stream-server" and t.is_alive()]
