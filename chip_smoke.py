@@ -59,6 +59,14 @@ paths give it, and drives the main paths, counting each kernel's launches:
   opened during it, nothing failed or shed, zero-noise rows within 5e-5 of
   the fp32 synthesize, the streams equal to their solo runs, and
   remove_voice(close_runtime=True) releasing x_low's weights from the card;
+- the HTTP door (`http`): PiperHTTPServer(stream=True) over the same two
+  voices, the serving mix POSTed to /v1/synthesize through serving_sim's
+  HttpClient, zero-noise WAV and pcm responses within 5e-5 of the fp32
+  synthesize, chunked /v1/stream responses equal to their solo streams,
+  /v1/durations equal to phoneme_durations, the GET routes, a 404 and a
+  400, K1-K3 launched; then the serving CLI (`python -m
+  piper_tpu_torch.cli --serve --stream --prewarm`) as a subprocess, one
+  request of each kind through it, and its SIGTERM drain (exit 0);
 - incremental streaming on each voice, fp32 and mixed (paths
   `{voice}_stream`, `{voice}_mixed_stream`): the f=8 JAX golden streamed
   with its injected noise at the growing schedule and at 16-frame windows
@@ -111,10 +119,11 @@ MS_PATHS = tuple(f"medium_ms{suffix}{part}" for suffix in ("", "_mixed")
 RESBLOCK1_PATHS = ("medium", "medium_mixed", "medium_golden", "medium_mixed_golden",
                    "medium_batch", "medium_mixed_batch", "pipeline", "high", "high_mixed",
                    "bench", "medium_stream", "medium_mixed_stream", "serve",
-                   "medium_stream_serve", "medium_mixed_stream_serve", "unified") + MS_PATHS
+                   "medium_stream_serve", "medium_mixed_stream_serve", "unified",
+                   "http") + MS_PATHS
 CONV1D_PATHS = ("x_low", "x_low_mixed", "x_low_golden", "x_low_mixed_golden", "x_low_batch",
                 "x_low_mixed_batch", "x_low_stream", "x_low_mixed_stream", "serve",
-                "x_low_mixed_stream_serve", "unified")
+                "x_low_mixed_stream_serve", "unified", "http")
 # kernel -> (its source, the TPU kernel it replaces, the paths that run it)
 KERNELS = {
     "resblock1_branch": ("piper_tpu_torch/csrc/resblock1.cu",
@@ -1531,6 +1540,277 @@ def phase_unified(torch, voices: dict) -> dict:
     return launches
 
 
+def _http_stream(host: str, port: int, body: dict):
+    """POST /v1/stream and read the chunked body as it arrives: (status,
+    headers, the concatenated int16 PCM, ms to the first body bytes)."""
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=300)
+    try:
+        t0 = time.perf_counter()
+        conn.request("POST", "/v1/stream", body=json.dumps(body).encode(),
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        parts, ttfb = [], None
+        while True:
+            part = resp.read1(1 << 16)
+            if not part:
+                break
+            if ttfb is None:
+                ttfb = (time.perf_counter() - t0) * 1e3
+            parts.append(part)
+        return resp.status, dict(resp.getheaders()), np.frombuffer(b"".join(parts), "<i2"), ttfb
+    finally:
+        conn.close()
+
+
+def _http_request(host: str, port: int, path: str, body=None):
+    """(status, content type, body) of a POST of `body` as JSON, or of a
+    GET when `body` is None."""
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=120)
+    try:
+        if body is None:
+            conn.request("GET", path)
+        else:
+            conn.request("POST", path, body=json.dumps(body).encode(),
+                         headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Content-Type"), resp.read()
+    finally:
+        conn.close()
+
+
+def phase_http(torch, voices: dict) -> dict:
+    """The HTTP door on the card: PiperHTTPServer(stream=True) of the medium
+    and x_low voices at the mixed tiers (fused, int16; the unified phase's
+    runtimes and server), prewarmed as the unified phase prewarms. With
+    every count at 0: SERVE_THREADS threads POST the seeded serving mix to
+    /v1/synthesize ("format": "pcm") for SERVE_S seconds at SERVE_RATE
+    requests/s in all through serving_sim's HttpClient; zero-noise requests
+    of f = 1/2/4/8 per voice go beside them, every other one as a WAV (read
+    back with utils/wav.py's parse_wav_bytes) and the rest as pcm; the
+    UNIFIED_STREAMS go as chunked POST /v1/stream with their seeds;
+    /v1/durations at noise_w=0 for f = 1 and 8 per voice; GET /healthz
+    (ready), /v1/voices, /v1/metrics and /metrics; one unknown voice (404)
+    and one bad body (400). Every request must answer as it should, nothing
+    fail or be shed; each zero-noise response must lie within
+    ZERO_NOISE_ATOL of the card's fp32 synthesize at zero noise, each
+    stream's PCM within MIXED_TARGET of its synthesize_stream_incremental
+    alone, each durations plan equal to phoneme_durations; K1-K3 must
+    launch. Then the serving CLI as a user starts it: `python -m
+    piper_tpu_torch.cli --serve --stream --port 0 --model <medium>,<x_low>
+    --prewarm` on the card, one /v1/synthesize and one /v1/stream through
+    it, then SIGTERM: it must drain ("draining") and exit 0."""
+    import threading
+
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.engine.bucketing import bucket_for
+    from piper_tpu_torch.engine.http_server import PiperHTTPServer
+    from piper_tpu_torch.engine.runtime import PiperRuntime, RuntimeOptions
+    from piper_tpu_torch.tools.serving_sim import LENGTH_MIX, HttpClient, run_traffic
+    from piper_tpu_torch.utils.wav import parse_wav_bytes
+
+    t_phase = time.perf_counter()
+    opts = RuntimeOptions(mode="fused", output_dtype="int16", **BENCH_MIX)
+    runtimes = {q: PiperRuntime(*voices[q], opts, device="cuda") for q in ("medium", "x_low")}
+    srv = PiperHTTPServer(runtimes, port=0, stream=True, max_batch=SERVE_MAX_BATCH,
+                          max_wait_ms=10.0, stream_kwargs=dict(emit_frames=STREAM_EMIT))
+    srv.start()
+    client = HttpClient(srv.host, srv.port, workers=64)
+    row = {}
+    try:
+        p_buckets = sorted({bucket_for(len((FIXTURE_PHONEME_IDS * f)[:4096]),
+                                       runtimes["medium"].options.phoneme_buckets, "phoneme")
+                            for f, _ in LENGTH_MIX})
+        t0 = time.perf_counter()
+        warm = srv.prewarm(p_buckets=p_buckets, stream_kwargs=dict(
+            phoneme_lengths=sorted({len(FIXTURE_PHONEME_IDS * f) for _, f, _ in UNIFIED_STREAMS}),
+            row_rungs=(1, 2, 4), head_rungs=(1, 2)))
+        row["prewarm"] = {"wall_s": time.perf_counter() - t0, **warm}
+        zero = [(q, f, ("wav", "pcm")[i % 2]) for q in runtimes
+                for i, f in enumerate(FACTORS)]
+        dur_cases = [(q, f) for q in runtimes for f in (1, 8)]
+
+        counters = _zero_counts()
+        served, streams, errors = [], [], []
+        keys = list(runtimes)
+        t_start = time.perf_counter()
+
+        def submit(rng, ids):
+            return client.post({"voice": keys[int(rng.integers(len(keys)))],
+                                "phoneme_ids": list(ids), "format": "pcm"})
+
+        def submitter(i):
+            served.append(run_traffic(submit, SERVE_S, np.random.default_rng(300 + i),
+                                      SERVE_RATE / SERVE_THREADS, runtimes["medium"].sample_rate))
+
+        def streamer(i, q, f, at):
+            try:
+                time.sleep(max(0.0, t_start + at - time.perf_counter()))
+                ids, seed = FIXTURE_PHONEME_IDS * f, 3000 + i
+                st, headers, pcm, ttfb = _http_stream(srv.host, srv.port,
+                                                      {"voice": q, "phoneme_ids": ids,
+                                                       "seed": seed})
+                if st != 200 or int(headers["X-Sample-Rate"]) != runtimes[q].sample_rate:
+                    raise AssertionError(f"stream {i}: HTTP {st}, headers {headers}")
+                streams.append((q, ids, seed, pcm, ttfb))
+            except Exception as e:  # noqa: BLE001 — raised below
+                errors.append(repr(e))
+
+        threads = ([threading.Thread(target=submitter, args=(i,), name=f"http-client-{i}")
+                    for i in range(SERVE_THREADS)]
+                   + [threading.Thread(target=streamer, args=(i, *s), name=f"http-stream-{i}")
+                      for i, s in enumerate(UNIFIED_STREAMS)])
+        for t in threads:
+            t.start()
+        zero_futs = [client.post({"voice": q, "phoneme_ids": FIXTURE_PHONEME_IDS * f,
+                                  "noise_scale": 0.0, "noise_w": 0.0,
+                                  **({"format": "pcm"} if fmt == "pcm" else {})})
+                     for q, f, fmt in zero]
+        dur_futs = [client.post({"voice": q, "phoneme_ids": FIXTURE_PHONEME_IDS * f,
+                                 "noise_w": 0.0}, path="/v1/durations") for q, f in dur_cases]
+        for t in threads:
+            t.join()
+        zero_audio = [fut.result(timeout=300) for fut in zero_futs]
+        durs = [fut.result(timeout=300) for fut in dur_futs]
+        launches = _require_launches("http", counters)
+        gets = {path: _http_request(srv.host, srv.port, path)
+                for path in ("/healthz", "/v1/voices", "/v1/metrics", "/metrics")}
+        not_found = _http_request(srv.host, srv.port, "/v1/synthesize",
+                                  {"voice": "nope", "phoneme_ids": [1, 2]})[0]
+        bad = _http_request(srv.host, srv.port, "/v1/synthesize",
+                            {"phoneme_ids": "not-a-list"})[0]
+        metrics = srv.server.metrics()
+    finally:
+        client.close()
+        srv.close()
+    if errors or len(streams) != len(UNIFIED_STREAMS):
+        raise AssertionError(f"http: {len(streams)} streams served, errors {errors}")
+    for key, m in metrics["batch"].items():
+        if m["failed"] or m["shed_overload"] or m["shed_deadline"]:
+            raise AssertionError(f"http: voice {key} failed or shed requests: {m}")
+    if (len(served) != SERVE_THREADS or any(sum(shed.values()) for *_, shed in served)
+            or client.transport_errors):
+        raise AssertionError(f"http: a client failed or was shed: {[r[3] for r in served]}, "
+                             f"{client.transport_errors} failed connections")
+    health = json.loads(gets["/healthz"][2])
+    voices_doc = json.loads(gets["/v1/voices"][2])
+    if any(st != 200 for st, _, _ in gets.values()) or health.get("ready") is not True:
+        raise AssertionError(f"http: GETs {[(p, g[0]) for p, g in gets.items()]}, "
+                             f"healthz {health}")
+    if set(voices_doc) != set(runtimes) or "piper_tpu_completed{" not in gets["/metrics"][2].decode():
+        raise AssertionError(f"http: /v1/voices {voices_doc} or /metrics lacks the counters")
+    if (not_found, bad) != (404, 400):
+        raise AssertionError(f"http: unknown voice {not_found}, bad body {bad}")
+    stream_err = 0.0
+    for q, ids, seed, pcm, _ in streams:
+        want = np.concatenate([c.samples for c in runtimes[q].synthesize_stream_incremental(
+            ids, seed=seed)])
+        if pcm.shape != want.shape:
+            raise AssertionError(f"http stream {q} of {len(ids)} ids: {pcm.shape} samples, "
+                                 f"alone {want.shape}")
+        stream_err = max(stream_err, float(np.abs(pcm.astype(np.float32) - want.astype(
+            np.float32)).max()) / 32767.0)
+    if not stream_err <= MIXED_TARGET:
+        raise AssertionError(f"http: streams vs alone max-abs {stream_err} > {MIXED_TARGET}")
+    _note_mixed("http", "streams over HTTP vs alone", stream_err, MIXED_ATOL)
+
+    errs = []
+    fp32 = {q: PiperRuntime(*voices[q], device="cuda") for q in runtimes}
+    for (q, f, fmt), got in zip(zero, zero_audio):
+        want = np.clip(fp32[q].synthesize(FIXTURE_PHONEME_IDS * f, noise_scale=0.0,
+                                          noise_w=0.0), -1.0, 1.0)
+        got = got.astype(np.float32) / 32767.0 if fmt == "pcm" else got
+        if got.shape != want.shape:
+            raise AssertionError(f"http {q} f={f} {fmt}: {got.shape} samples, fp32 {want.shape}")
+        err = float(np.abs(got - want).max())
+        if not err <= ZERO_NOISE_ATOL:
+            raise AssertionError(f"http {q} f={f} {fmt}: served vs fp32 max-abs {err} > "
+                                 f"{ZERO_NOISE_ATOL}")
+        _note_mixed(f"http_{q}", f"served {fmt} f={f} at zero noise vs fp32", err, MIXED_ATOL)
+        errs.append({"voice": q, "factor": f, "format": fmt, "max_abs_err": err})
+    for (q, f), doc in zip(dur_cases, durs):
+        plan = runtimes[q].phoneme_durations([FIXTURE_PHONEME_IDS * f], noise_w=0.0)[0]
+        (utt,) = doc["utterances"]
+        if [p["frames"] for p in utt["phonemes"]] != plan.tolist():
+            raise AssertionError(f"http {q} f={f}: /v1/durations {utt['phonemes']} != "
+                                 f"phoneme_durations {plan}")
+    for rt in list(runtimes.values()) + list(fp32.values()):
+        rt.close()
+    lat = [latency * 1e3 for results, *_ in served for latency, _, _ in results]
+    ttfb = [s[4] for s in streams]
+    row["cli"] = _http_cli(voices)
+    emit(phase="http", voices=list(runtimes), rate_req_s=SERVE_RATE, threads=SERVE_THREADS,
+         seconds=SERVE_S, requests=len(lat),
+         latency_ms={"p50": _pct(lat, 50), "p95": _pct(lat, 95), "p99": _pct(lat, 99),
+                     "max": max(lat)},
+         streams=[{"voice": q, "phonemes": len(ids), "ttfb_ms": t} for q, ids, _, _, t in streams],
+         stream_ttfb_ms={"p50": _pct(ttfb, 50), "p95": _pct(ttfb, 95)},
+         stream_max_abs_err=stream_err, zero_noise_vs_fp32=errs, atol=ZERO_NOISE_ATOL,
+         durations_equal=True, healthz=health,
+         batch={q: {k: m[k] for k in ("rows_per_group", "groups", "padded_rows", "wait_ms_mean")}
+                for q, m in metrics["batch"].items()},
+         **row, wall_s=time.perf_counter() - t_phase, launches=launches)
+    return launches
+
+
+def _http_cli(voices: dict) -> dict:
+    """`python -m piper_tpu_torch.cli --serve --stream --port 0 --model
+    <medium>,<x_low> --prewarm` on the card as a subprocess: read its banner
+    for the port, POST one /v1/synthesize and one /v1/stream, send SIGTERM,
+    and require "draining" and exit 0 within 60 s. The process is killed
+    if it outlives the phase."""
+    import os
+    import re
+    import signal
+
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+
+    keys = {q: Path(voices[q][0]).stem for q in ("medium", "x_low")}
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "piper_tpu_torch.cli", "--serve", "--stream", "--port", "0",
+         "--model", f"{voices['medium'][0]},{voices['x_low'][0]}", "--prewarm"],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), stderr=subprocess.PIPE,
+        text=True)
+    try:
+        port, lines = None, []
+        while port is None:
+            line = proc.stderr.readline()
+            if not line and proc.poll() is not None:
+                raise AssertionError(f"http cli: exited {proc.returncode} before its banner: "
+                                     f"{lines[-20:]}")
+            lines.append(line)
+            m = re.search(r"serving voice\(s\) .* on http://[\d.]+:(\d+)", line)
+            if m:
+                port = int(m.group(1))
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError(f"http cli: no banner in 300 s: {lines[-20:]}")
+        banner_s = time.perf_counter() - t0
+        synth_st, _, wav = _http_request("127.0.0.1", port, "/v1/synthesize",
+                                         {"voice": keys["medium"],
+                                          "phoneme_ids": FIXTURE_PHONEME_IDS})
+        st, _, pcm, ttfb = _http_stream("127.0.0.1", port, {"voice": keys["x_low"],
+                                                            "phoneme_ids": FIXTURE_PHONEME_IDS,
+                                                            "seed": 1})
+        if synth_st != 200 or wav[:4] != b"RIFF" or st != 200 or not len(pcm):
+            raise AssertionError(f"http cli: synthesize {synth_st}, stream {st}")
+        proc.send_signal(signal.SIGTERM)
+        rest = proc.stderr.read()
+        code = proc.wait(timeout=60)
+        if code != 0 or "draining" not in rest:
+            raise AssertionError(f"http cli: exit {code} after SIGTERM: {rest[-2000:]}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    prewarmed = next((ln.strip() for ln in lines if ln.startswith("prewarmed")), None)
+    return {"banner": lines[-1].strip(), "banner_s": banner_s, "prewarmed": prewarmed,
+            "stream_ttfb_ms": ttfb, "exit_code": code, "wall_s": time.perf_counter() - t0}
+
+
 def phase_probe() -> dict:
     """The folded-kernel probe's main function, reduced to a batch of 2 and
     one timed window of 2 calls per kernel, at its default tier ("high");
@@ -1686,6 +1966,7 @@ def main() -> None:
     count(phase_stream_serve(torch, "x_low_mixed", card["x_low_mixed"], MIXED_ATOL))
     count(phase_stream_serve(torch, "medium", card["medium"], WAVE_ATOL))
     count(phase_unified(torch, voices))
+    count(phase_http(torch, voices))
     del card
     count(phase_high(torch))
     count(phase_multispeaker(torch))

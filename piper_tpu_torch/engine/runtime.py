@@ -22,7 +22,9 @@ voices on one device: the CUDA card unless the caller asks for the CPU
   pipeline on them, `engine/batcher.py` the continuous batcher.
 - Serving contracts: `hbm_bytes()` (the weights' bytes on the device),
   `close()`/`closed` (drop the weights; later synthesis raises), `prewarm()`
-  (pay first-run costs ahead of traffic) and `RuntimeOptions.from_env()`.
+  (pay first-run costs ahead of traffic), `RuntimeOptions.from_env()` and
+  `load_voice(voice_id)` (a voice of the bundled index, fetched and cached
+  by `core/voices.py`).
 - Duration controls: `phoneme_durations` runs the encoder only and returns
   each phoneme's frames; `synthesize_with_alignment` adds their sample
   spans to the audio (`core/alignment.py`); `synthesize_forced` and
@@ -405,6 +407,25 @@ class PiperRuntime:
         # bookkeeping (_compiled_keys, last_run_timings) for threaded callers.
         self._lock = threading.RLock()
         self.last_run_timings: Optional[RunTimings] = None
+
+    @classmethod
+    def load_voice(
+        cls,
+        voice_id: str,
+        options: Optional[RuntimeOptions] = None,
+        manager=None,
+        *,
+        device: Union[str, torch.device] = "cuda",
+    ) -> "PiperRuntime":
+        """Download (or reuse cached) voice assets through a VoiceManager
+        (core/voices.py) and load them on `device`; a missing card raises
+        before anything is fetched."""
+        from piper_tpu_torch.core.voices import VoiceManager
+
+        _resolve_device(device)
+        manager = manager or VoiceManager()
+        model_path, config_path = manager.ensure_voice(voice_id)
+        return cls(model_path, config_path, options, device=device)
 
     # -- lifecycle -------------------------------------------------------------
 

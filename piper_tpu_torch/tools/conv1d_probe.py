@@ -33,7 +33,11 @@ PyTorch calls per conv, TF32 off), and `host_tf32_layout_ms`, the device
 time that laying the six weights out on the host in the tensor cores'
 fragment order would add (`resblock.tf32_weights`, as K2-K4 take their
 weights; K1 splits them in the kernel instead); and the same level at a
-batch of 32 (`b32`: the kernel alone and the library route).
+batch of 32 (`b32`: the kernel alone and the library route). Beside K1 at
+"default" it prints `library_bf16_ms`: the library route on bf16 operands
+(x, weights and bias cast once, outside the timed calls; bf16 products
+summed in fp32 as K1's "default" forms them), the one PyTorch route with
+that tier's arithmetic. "high" (bf16x3) has no single-call counterpart.
 
     python -m piper_tpu_torch.tools.conv1d_probe [--precision highest,high,default]
         [--frames 128] [--reps 10] [--sweep] [--utterances]
@@ -169,6 +173,19 @@ def _yardsticks(torch, K1, x, convs, reps: int) -> dict:
                     "library_ms": device_ms(lambda: library(x32), reps=reps)}}
 
 
+def _library_bf16_ms(torch, x, convs, reps: int) -> float:
+    """The device time of the level's six convs by the library route on
+    bf16 operands (leaky_relu, then F.conv1d), the operands cast first."""
+    import torch.nn.functional as F
+
+    from piper_tpu_torch.tools.timing import device_ms
+
+    xb = x.to(torch.bfloat16)
+    cb = [(w.to(torch.bfloat16), b.to(torch.bfloat16), k, d) for w, b, k, d in convs]
+    return device_ms(lambda: [F.conv1d(F.leaky_relu(xb, 0.1), w, b, padding=(k - 1) // 2 * d,
+                                       dilation=d) for w, b, k, d in cb], reps=reps)
+
+
 def main(argv: Optional[List[str]] = None) -> List[dict]:
     """Run the probe; print and return one row per (tier, level) and the sums."""
     args = _parser().parse_args(argv)
@@ -205,9 +222,14 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
                                               expected=len(convs))}
                 if tier == "highest":
                     row.update(_yardsticks(torch, K1, x, convs, args.reps))
+                    total["library_ms"] = total.get("library_ms", 0.0) + row["library_ms"]
+                elif tier == "default":
+                    row["library_bf16_ms"] = _library_bf16_ms(torch, x, convs, args.reps)
+                    total["library_bf16_ms"] = (total.get("library_bf16_ms", 0.0)
+                                                + row["library_bf16_ms"])
                 if args.sweep:
                     row["sweep"] = _sweep(torch, K1, x, convs, tier, args.reps)
-                for key in total:
+                for key in ("wrapper_ms", "kernel_ms"):
                     total[key] += row[key]
                 print(json.dumps(row), flush=True)
                 rows.append(row)

@@ -34,8 +34,17 @@ stream arrivals (R streams/s of the fixture phrase x `--stream-factor`)
 open beside the batch traffic during each measured pass, and the line
 gains `streams` (count, sheds, TTFB p50/p95/max, audio seconds, realtime
 factor per stream). `--stream-group-frac` shrinks batch groups while
-streams are open. `--http` drives a serving layer that is not ported yet:
-it raises NotImplementedError naming the ROADMAP item that brings it.
+streams are open.
+
+`--http` drives the same traffic through the door users hit: the port's
+PiperHTTPServer (engine/http_server.py) over its MultiVoiceBatchingServer,
+on loopback TCP, each request a POST /v1/synthesize with "format": "pcm"
+from a pool of client threads in this process (HttpClient below), so the
+latency includes JSON, the PCM body and TCP, and the line gains
+"http": true and `door`: the pass's failed connections (counted by the
+client, left out of the latency). The clients share the interpreter with
+the server's handler threads and its worker, so the numbers bound the
+door's cost from above.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ import json
 import sys
 import threading
 import time
+from concurrent.futures import Future
 
 import numpy as np
 
@@ -55,10 +65,63 @@ from piper_tpu_torch.engine.batcher import (BatchingServer, DeadlineExceeded,
 # (repeat-factor, weight): 14-phoneme prompts dominate, with a tail of
 # paragraph-length requests — a chat/assistant-style mix.
 LENGTH_MIX = [(1, 0.45), (2, 0.25), (4, 0.15), (8, 0.10), (16, 0.05)]
-# Flags of the JAX tool whose serving layers the port does not have yet.
-UNPORTED = {
-    "http": "--http: the HTTP server is not ported yet (ROADMAP §1 item 5)",
-}
+
+
+class HttpClient:
+    """Concurrent clients of a PiperHTTPServer at host:port: a pool of
+    `workers` threads, each request on a connection of its own. `post`
+    returns a Future of the parsed body: int16 PCM for "format": "pcm",
+    float32 samples for a WAV (utils/wav.py's parse_wav_bytes), the JSON
+    document otherwise. A 429 resolves to the batcher's ServerOverloaded or
+    DeadlineExceeded (the body's message says which), any other status but
+    200 to a RuntimeError. A connection that fails (refused, reset, timed
+    out) raises its OSError and adds one to `transport_errors`."""
+
+    def __init__(self, host: str, port: int, workers: int):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self.host, self.port = host, port
+        self.pool = ThreadPoolExecutor(max_workers=workers, thread_name_prefix="sim-http")
+        self.transport_errors = 0
+        self._lock = threading.Lock()
+
+    def request(self, path: str, body: dict):
+        import http.client
+
+        conn = http.client.HTTPConnection(self.host, self.port, timeout=600)
+        try:
+            conn.request("POST", path, body=json.dumps(body).encode(),
+                         headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            data = resp.read()
+        except OSError:
+            with self._lock:
+                self.transport_errors += 1
+            raise
+        finally:
+            conn.close()
+        if resp.status == 429:
+            # both admission sheds map to 429; the body says which
+            msg = data.decode()[:200]
+            if "pending" in msg:
+                raise ServerOverloaded(msg)
+            raise DeadlineExceeded(msg)
+        if resp.status != 200:
+            raise RuntimeError(f"HTTP {resp.status} on {path}: {data[:200]!r}")
+        ctype = resp.getheader("Content-Type") or ""
+        if ctype == "audio/x-raw-int16":
+            return np.frombuffer(data, "<i2")
+        if ctype == "audio/wav":
+            from piper_tpu_torch.utils.wav import parse_wav_bytes
+
+            return parse_wav_bytes(data)[0]
+        return json.loads(data)
+
+    def post(self, body: dict, path: str = "/v1/synthesize") -> Future:
+        return self.pool.submit(self.request, path, body)
+
+    def close(self) -> None:
+        self.pool.shutdown(wait=True)
 
 
 def _merge_voice_metrics(per: dict) -> dict:
@@ -101,7 +164,10 @@ def _parser() -> argparse.ArgumentParser:
                          "uniformly; the same synthetic checkpoint, so the cost "
                          "being measured is the scheduler splitting traffic into "
                          "per-voice groups)")
-    ap.add_argument("--http", action="store_true", help="not ported: raises")
+    ap.add_argument("--http", action="store_true",
+                    help="drive the SAME traffic through PiperHTTPServer "
+                         "over loopback TCP (measures the full deployment "
+                         "stack: JSON parse + batcher + PCM encode + HTTP)")
     ap.add_argument("--cache-mb", type=float, default=0.0,
                     help="response-cache budget (MB) per voice; see "
                          "BatchingServer(cache_mb=)")
@@ -194,6 +260,11 @@ def run_traffic(submit, duration, rng, rate, sample_rate, phrase_pool=0):
         except DeadlineExceeded:
             shed["deadline"] += 1
             continue
+        except ServerOverloaded:  # --http surfaces sheds at result time
+            shed["overload"] += 1
+            continue
+        except OSError:  # --http: the connection failed (HttpClient counts it)
+            continue
         audio_s += len(audio) / sample_rate
         out.append(((done_at.get("t", time.perf_counter())) - t_submit, f,
                     t_submit - t_start))
@@ -244,9 +315,9 @@ def run_streams(server, voice, ids, duration, rng, rate, t_start, sample_rate):
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    for flag, msg in UNPORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(msg)
+    if args.http and args.unified:
+        raise SystemExit("--http drives the batcher's door (PiperHTTPServer without "
+                         "stream=True); it does not combine with --unified")
     if args.stream_rate > 0 and not args.unified:
         raise SystemExit("--stream-rate requires --unified")
     if args.profile_s and args.device != "cuda":
@@ -273,8 +344,35 @@ def main(argv=None):
 
     factors = [f for f, _ in LENGTH_MIX]
 
-    multi = args.voices > 1 or args.add_voice_at is not None
-    if args.unified:
+    multi = args.voices > 1 or args.add_voice_at is not None or args.http
+    http_srv = client = None
+    if args.http:
+        # Full-stack mode: requests travel over real (loopback) HTTP into
+        # PiperHTTPServer's multi-voice batcher; a thread pool stands in
+        # for concurrent clients, one worker per plausibly-in-flight
+        # request (a small fixed pool would queue clients at high rates
+        # and bill that wait as server latency).
+        from piper_tpu_torch.engine.http_server import PiperHTTPServer
+
+        http_srv = PiperHTTPServer(
+            runtimes, port=0, max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+            max_pending=args.max_pending, deadline_ms=args.deadline_ms,
+            cache_mb=args.cache_mb, warm_every=args.warm_every)
+        http_srv.start()
+        server = http_srv.server
+        peak_rate = max([float(r) for r in args.rates.split(",")] if args.rates
+                        else [args.rate])
+        client = HttpClient(http_srv.host, http_srv.port,
+                            workers=min(2048, max(256, int(peak_rate * 8))))
+        voice_keys = list(runtimes)
+
+        def submit(rng, ids):
+            voice = voice_keys[int(rng.integers(len(voice_keys)))]
+            return client.post({"voice": voice, "phoneme_ids": list(ids), "format": "pcm"})
+
+        def merged_metrics():
+            return _merge_voice_metrics(server.metrics())
+    elif args.unified:
         from piper_tpu_torch.engine.unified import UnifiedServer
 
         server = UnifiedServer(
@@ -314,7 +412,7 @@ def main(argv=None):
             return server.submit(ids, noise_scale=None)
 
         merged_metrics = server.metrics
-    with server:
+    with (http_srv if http_srv is not None else server):
         # Prewarm the server's ENTIRE fused grid (each phoneme bucket of the
         # mix x its <=3 row rungs, and the overflow shape): a (rows, frames)
         # shape first seen mid-traffic pays its first-run costs there.
@@ -369,6 +467,7 @@ def main(argv=None):
             # Each pass reports its own counters, not the warmup's or the
             # previous rates' (the server is shared across the sweep).
             server.reset_metrics()
+            errors0 = client.transport_errors if client is not None else 0
             t_start = time.perf_counter()
             stream_stats: list = []
             stream_th = None
@@ -407,6 +506,8 @@ def main(argv=None):
                 stream_th.join(timeout=1800)
             metrics = merged_metrics()
             prof = {}
+            if client is not None:
+                prof["door"] = {"transport_errors": client.transport_errors - errors0}
             if args.profile_s:
                 # The same traffic again (streams too) from side threads;
                 # this thread profiles its middle.
@@ -421,37 +522,52 @@ def main(argv=None):
                 for th in side:
                     th.start()
                 time.sleep(1.0)
-                prof = {"profile": _profile_window(args.profile_s)}
+                prof["profile"] = _profile_window(args.profile_s)
                 for th in side:
                     th.join(timeout=600)
             report(args, rate, results, audio_s, wall, shed, metrics,
                    factors, stream_stats=stream_stats, add_state=add_state,
                    extra={**extra, **prof})
+    if client is not None:
+        client.close()
 
 
-def _profile_window(window_s: float) -> dict:
+# Fewer device kernels than this in a profiled window of traffic means the
+# profiler kept the sentinels but lost the worker's launches: one served
+# group alone launches ~1,400-1,900 kernels.
+MIN_WINDOW_KERNELS = 1000
+
+
+def _profile_window(window_s: float, tries: int = 3) -> dict:
     """`window_s` seconds of the card under torch.profiler while traffic
     runs (tools/timing.py::profiled: the sentinels first): the device
-    kernels' summed time and its share of the window's wall, the window
-    ending when the card has done what was queued in it."""
+    kernels' summed time (device busy) and its share of the window's wall,
+    the window ending when the card has done what was queued in it. A
+    window that lost its sentinels, or kept fewer than MIN_WINDOW_KERNELS
+    kernels, is profiled again, up to `tries` windows; `windows` says how
+    many ran."""
     import torch
 
     from piper_tpu_torch.tools.timing import SENTINELS, device_kernels, profiled
 
-    t = {}
+    for n in range(1, tries + 1):
+        t = {}
 
-    def run():
-        t0 = time.perf_counter()
-        time.sleep(window_s)
-        torch.cuda.synchronize()
-        t["wall_ms"] = (time.perf_counter() - t0) * 1e3
+        def run():
+            t0 = time.perf_counter()
+            time.sleep(window_s)
+            torch.cuda.synchronize()
+            t["wall_ms"] = (time.perf_counter() - t0) * 1e3
 
-    events = profiled(run)
-    if events is None:
-        return {"window_ms": t["wall_ms"], "error": "the window lost its sentinels"}
-    count, us = device_kernels(events)
-    return {"window_ms": t["wall_ms"], "device_kernels": count, "device_busy_ms": us / 1e3,
-            "busy_share": us / 1e3 / t["wall_ms"], "sentinels": SENTINELS}
+        events = profiled(run)
+        count, us = device_kernels(events) if events is not None else (0, 0.0)
+        if count >= MIN_WINDOW_KERNELS:
+            return {"window_ms": t["wall_ms"], "device_kernels": count,
+                    "device_busy_ms": us / 1e3, "busy_share": us / 1e3 / t["wall_ms"],
+                    "sentinels": SENTINELS, "windows": n}
+    return {"window_ms": t["wall_ms"], "windows": tries,
+            "error": f"every window lost its sentinels or kept < {MIN_WINDOW_KERNELS} kernels "
+                     f"(the last kept {count})"}
 
 
 def _pctl(sorted_vals, p):
@@ -510,6 +626,7 @@ def report(args, rate, results, audio_s, wall, shed, server_metrics, factors,
                if "per_voice_rows" in server_metrics else {}),
         },
         **({"voices": args.voices} if args.voices > 1 else {}),
+        **({"http": True} if getattr(args, "http", False) else {}),
         **({"unified": True} if getattr(args, "unified", False) else {}),
         **_stream_report(stream_stats),
         **_add_voice_report(results, add_state),

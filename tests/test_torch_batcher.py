@@ -931,13 +931,48 @@ def test_serving_sim_prints_the_reference_keys(capsys, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,match", [
-    (["--http"], "ROADMAP §1 item 5"),
+    (["--http", "--unified"], "does not combine with --unified"),
 ])
 def test_serving_sim_unported_flags_raise(flags, match):
+    """No flag of the JAX tool is left unported: the port's parser takes
+    every one of them (--platform is --device here), and only the pair the
+    JAX tool would silently resolve (--http wins over --unified) exits."""
+    import re
+    from pathlib import Path
+
     from piper_tpu_torch.tools import serving_sim
 
-    with pytest.raises(NotImplementedError, match=match):
+    source = (Path(__file__).resolve().parent.parent / "tools" / "serving_sim.py").read_text()
+    jax_flags = set(re.findall(r'add_argument\(\s*"(--[\w-]+)"', source))
+    assert jax_flags - set(serving_sim._parser()._option_string_actions) == {"--platform"}
+    assert not hasattr(serving_sim, "UNPORTED")
+    with pytest.raises(SystemExit, match=match):
         serving_sim.main(["--device", "cpu", *flags])
+
+
+def test_serving_sim_http_prints_the_reference_keys(capsys, tmp_path, monkeypatch):
+    """`--http` on the CPU, a short low-rate pass: the serving mix goes over
+    loopback HTTP into the port's PiperHTTPServer, one JSON line with the
+    in-process run's keys and "http": true, nothing shed."""
+    import json
+
+    from piper_tpu_torch.tools import serving_sim
+
+    monkeypatch.setenv("PIPER_TPU_CACHE", str(tmp_path))
+    serving_sim.main(["--device", "cpu", "--quality", "test", "--rate", "10",
+                      "--duration", "2", "--max-batch", "2", "--http"])
+    lines = [x for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    assert len(lines) == 1
+    got = json.loads(lines[0])
+    assert got["http"] is True
+    assert got["shed"] == {"overload": 0, "deadline": 0}
+    assert got["server"]["shed_overload"] == got["server"]["shed_deadline"] == 0
+    assert got["requests"] > 0 and got["rtf_aggregate"] > 0
+    for key in ("latency_ms", "audio_s_total", "offered_rtf", "wall_s", "server", "device",
+                "prewarm", "hbm_bytes", "length_mix_factors", "rate_req_s"):
+        assert key in got, key
+    assert got["server"]["per_voice_rows"]["v0"] == got["requests"]
+    assert got["door"]["transport_errors"] == 0
 
 
 def test_serving_sim_unified_streams_print_the_reference_keys(capsys, tmp_path, monkeypatch):

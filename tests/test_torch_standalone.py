@@ -1,9 +1,10 @@
 """The port stands alone: it imports neither JAX nor the JAX package.
 
 piper_tpu_torch keeps its own copies of the jax-free modules it needs
-(onnx.{ir,wire,loader,writer}, core.{config,test_vector,alignment,audio},
-models.vits.{hparams,synthetic}, utils.env, and engine.runtime's speaker and
-scale helpers). These tests scan every module of the port
+(onnx.{ir,wire,loader,writer}, core.{config,test_vector,alignment,audio,
+phonemes,text,ssml,voices}, phonemize, utils.{env,wav},
+models.vits.{hparams,synthetic}, and engine.runtime's speaker and scale
+helpers). These tests scan every module of the port
 and chip_smoke.py for such imports, run the port in a process that refuses
 them, and hold each copy equal to its original: the same synthetic voice
 bytes, the same decoded graphs, hparams and configs.
@@ -70,8 +71,9 @@ sys.meta_path.insert(0, Refuse())
 
 def test_port_runs_where_jax_and_the_jax_package_cannot_load(tmp_path):
     """In a process whose importer refuses jax and piper_tpu: import the
-    runtime, both probes and chip_smoke, write an x_low voice with the
-    port's own make_synthetic_voice and synthesize it on the CPU."""
+    runtime, both probes, the HTTP server, VoiceServer, the CLI, the text
+    front end and chip_smoke, write an x_low voice with the port's own
+    make_synthetic_voice and synthesize it on the CPU."""
     code = BLOCKER.format(foreign=FOREIGN) + (
         "import numpy as np\n"
         "import chip_smoke\n"
@@ -79,7 +81,10 @@ def test_port_runs_where_jax_and_the_jax_package_cannot_load(tmp_path):
         "from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS\n"
         "from piper_tpu_torch.models.vits.synthetic import make_synthetic_voice\n"
         "from piper_tpu_torch.tools import ct_probe, folded_probe, serving_sim\n"
-        "from piper_tpu_torch.engine import batcher\n"
+        "from piper_tpu_torch.engine import batcher, http_server, server\n"
+        "from piper_tpu_torch import cli, phonemize\n"
+        "from piper_tpu_torch.core import phonemes, ssml, text, voices\n"
+        "from piper_tpu_torch.utils import wav\n"
         "from piper_tpu_torch.utils import env\n"
         f"model, config = make_synthetic_voice({str(tmp_path)!r}, quality='x_low', seed=0)\n"
         "pcm = PiperRuntime(model, config, device='cpu').synthesize(FIXTURE_PHONEME_IDS)\n"
