@@ -64,9 +64,21 @@ paths give it, and drives the main paths, counting each kernel's launches:
   HttpClient, zero-noise WAV and pcm responses within 5e-5 of the fp32
   synthesize, chunked /v1/stream responses equal to their solo streams,
   /v1/durations equal to phoneme_durations, the GET routes, a 404 and a
-  400, K1-K3 launched; then the serving CLI (`python -m
-  piper_tpu_torch.cli --serve --stream --prewarm`) as a subprocess, one
-  request of each kind through it, and its SIGTERM drain (exit 0);
+  400, K1-K3 launched, the client SDK (PiperClient: health, voices,
+  zero-noise WAVs within 5e-5 of fp32, durations, a 404); then the serving
+  CLI (`python -m piper_tpu_torch.cli --serve --stream --prewarm`) as a
+  subprocess, one request of each kind through it, and its SIGTERM drain
+  (exit 0);
+- the layer split (`roofline`): the device's GEMM and HBM ceilings beside
+  the published peaks, then piper_tpu_torch.utils.roofline's report on
+  medium mixed (K2, K3) and x_low (K1) at B=4, P=32, T=128, every stage
+  and level with a device time, its kernels per call and an mfu and
+  hbm_frac in (0, 1.05]; and a reduced level probe
+  (piper_tpu_torch.tools.level_probe) at level 3, through K3;
+- the command line (`cli`): --record-vectors and --microbench in process
+  (K2 and K3 launched; both chain times), then as subprocesses a one-shot
+  --phoneme-ids WAV at zero noise within 1e-4 + 1/32767 of synthesize, and
+  --verify-summary of the recorded vector within 1e-4;
 - incremental streaming on each voice, fp32 and mixed (paths
   `{voice}_stream`, `{voice}_mixed_stream`): the f=8 JAX golden streamed
   with its injected noise at the growing schedule and at 16-frame windows
@@ -127,11 +139,13 @@ CONV1D_PATHS = ("x_low", "x_low_mixed", "x_low_golden", "x_low_mixed_golden", "x
 # kernel -> (its source, the TPU kernel it replaces, the paths that run it)
 KERNELS = {
     "resblock1_branch": ("piper_tpu_torch/csrc/resblock1.cu",
-                         "piper_tpu/ops/pallas/resblock.py:157", RESBLOCK1_PATHS + ("probe",)),
+                         "piper_tpu/ops/pallas/resblock.py:157",
+                         RESBLOCK1_PATHS + ("probe", "roofline_medium", "cli")),
     "resblock1_mrf": ("piper_tpu_torch/csrc/resblock1.cu",
-                      "piper_tpu/ops/pallas/resblock.py:328", RESBLOCK1_PATHS + ("probe",)),
+                      "piper_tpu/ops/pallas/resblock.py:328",
+                      RESBLOCK1_PATHS + ("probe", "roofline_medium", "level_probe", "cli")),
     "conv1d_same": ("piper_tpu_torch/csrc/conv1d.cu",
-                    "piper_tpu/ops/pallas/conv.py:107", CONV1D_PATHS),
+                    "piper_tpu/ops/pallas/conv.py:107", CONV1D_PATHS + ("roofline_x_low",)),
     "resblock1_mrf_folded": ("piper_tpu_torch/csrc/resblock1.cu",
                              "piper_tpu/ops/pallas/folded.py:220", ("probe",)),
     "interleave": ("piper_tpu_torch/csrc/interleave.cu", "tools/ct_probe.py:151",
@@ -231,6 +245,15 @@ UNIFIED_STREAMS = (("medium", 2, 0.4), ("x_low", 2, 1.0), ("medium", 4, 1.6),
 # int16 served rows against the fp32 synthesize at zero noise: the int16
 # rounding (1.5e-5) and the kernels' "high" products (~5e-6).
 ZERO_NOISE_ATOL = 5e-5
+# The roofline phase: (B, P, T) of its reports, timed windows of ROOFLINE_ITERS
+# calls; every stage's mfu and hbm_frac must lie in (0, ROOFLINE_MAX_FRAC].
+ROOFLINE_SHAPE = (4, 32, 128)
+ROOFLINE_ITERS = 2
+ROOFLINE_MAX_FRAC = 1.05
+# The CLI phase: a WAV (int16) against the fp32 synthesize of the same ids at
+# zero noise, and a recorded vector replayed.
+WAV_ATOL = WAVE_ATOL + 1.0 / 32767
+REPLAY_ATOL = 1e-4
 
 
 def emit(**fields) -> None:
@@ -1683,6 +1706,7 @@ def phase_http(torch, voices: dict) -> dict:
         bad = _http_request(srv.host, srv.port, "/v1/synthesize",
                             {"phoneme_ids": "not-a-list"})[0]
         metrics = srv.server.metrics()
+        sdk = _sdk_requests(srv.host, srv.port, list(runtimes))
     finally:
         client.close()
         srv.close()
@@ -1731,6 +1755,7 @@ def phase_http(torch, voices: dict) -> dict:
                                  f"{ZERO_NOISE_ATOL}")
         _note_mixed(f"http_{q}", f"served {fmt} f={f} at zero noise vs fp32", err, MIXED_ATOL)
         errs.append({"voice": q, "factor": f, "format": fmt, "max_abs_err": err})
+    row["client"] = _check_sdk(sdk, fp32, runtimes)
     for (q, f), doc in zip(dur_cases, durs):
         plan = runtimes[q].phoneme_durations([FIXTURE_PHONEME_IDS * f], noise_w=0.0)[0]
         (utt,) = doc["utterances"]
@@ -1754,6 +1779,52 @@ def phase_http(torch, voices: dict) -> dict:
                 for q, m in metrics["batch"].items()},
          **row, wall_s=time.perf_counter() - t_phase, launches=launches)
     return launches
+
+
+def _sdk_requests(host: str, port: int, keys) -> dict:
+    """Through piper_tpu_torch.client.PiperClient: health, voices, per voice
+    one zero-noise synthesize of the f=2 phrase and its durations, and an
+    unknown voice's status."""
+    from piper_tpu_torch.client import PiperClient, PiperClientError
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+
+    c = PiperClient(host, port)
+    ids = FIXTURE_PHONEME_IDS * 2
+    out = {"health": c.health(), "voices": sorted(c.voices()),
+           "audio": {q: c.synthesize(phoneme_ids=ids, voice=q, noise_scale=0.0,
+                                     noise_w=0.0)[0] for q in keys},
+           "durations": {q: c.durations(phoneme_ids=ids, voice=q, noise_w=0.0) for q in keys}}
+    try:
+        c.synthesize(phoneme_ids=[1, 2], voice="nope")
+        out["unknown_voice"] = 200
+    except PiperClientError as e:
+        out["unknown_voice"] = e.status
+    return out
+
+
+def _check_sdk(sdk: dict, fp32: dict, runtimes: dict) -> dict:
+    """The PiperClient answers: healthy, both voices, each zero-noise WAV
+    within ZERO_NOISE_ATOL of the card's fp32 synthesize, each plan equal to
+    phoneme_durations, a 404 for an unknown voice."""
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+
+    ids = FIXTURE_PHONEME_IDS * 2
+    if not sdk["health"] or sdk["voices"] != sorted(runtimes) or sdk["unknown_voice"] != 404:
+        raise AssertionError(f"http client: {({k: sdk[k] for k in ('health', 'voices')})}, "
+                             f"unknown voice {sdk['unknown_voice']}")
+    errs = {}
+    for q, got in sdk["audio"].items():
+        want = np.clip(fp32[q].synthesize(ids, noise_scale=0.0, noise_w=0.0), -1.0, 1.0)
+        if got.shape != want.shape:
+            raise AssertionError(f"http client {q}: {got.shape} samples, fp32 {want.shape}")
+        errs[q] = float(np.abs(got - want).max())
+        if not errs[q] <= ZERO_NOISE_ATOL:
+            raise AssertionError(f"http client {q}: vs fp32 max-abs {errs[q]} > {ZERO_NOISE_ATOL}")
+        plan = runtimes[q].phoneme_durations([ids], noise_w=0.0)[0]
+        (utt,) = sdk["durations"][q]["utterances"]
+        if [p["frames"] for p in utt["phonemes"]] != plan.tolist():
+            raise AssertionError(f"http client {q}: durations {utt['phonemes']} != {plan}")
+    return {"voices": sdk["voices"], "zero_noise_vs_fp32": errs, "unknown_voice": 404}
 
 
 def _http_cli(voices: dict) -> dict:
@@ -1857,6 +1928,141 @@ def phase_ct_probe() -> dict:
     return total
 
 
+def phase_level_probe() -> dict:
+    """The level probe's main function at level 3 (C=32: K3), reduced to a
+    batch of 2 at 32 frames and one timed window of 2 calls per piece, at
+    its default tier ("high"); the counts are set to 0 just before it and
+    read just after. Every piece must time (none refused)."""
+    from piper_tpu_torch.tools import level_probe
+
+    counters = _zero_counts()
+    rows = level_probe.main(["--b", "2", "--frames", "32", "--level", "3", "--iters", "2",
+                             "--reps", "1"])
+    launches = _require_launches("level_probe", counters)
+    pieces = [r["piece"] for r in rows]
+    if pieces != ["lrelu_only", "lrelu+conv_transpose", "mrf_fused", "whole_level"] or any(
+            "error" in r or not r["ms_per_call"] > 0 or not r["kernels"] for r in rows):
+        raise AssertionError(f"level_probe: {rows}")
+    emit(phase="level_probe", rows=rows, launches=launches)
+    return launches
+
+
+def phase_roofline(torch, runtimes: dict) -> dict:
+    """piper_tpu_torch.utils.roofline on the card: the ceilings measured once
+    and printed beside the published peaks with the card's name and power
+    limit, then roofline_report at ROOFLINE_SHAPE on medium mixed
+    (`roofline_medium`: K2 at level 2, K3 at level 3) and on x_low at fp32
+    (`roofline_x_low`: K1), every level's row. The counts are set to 0 just
+    before each report and read just after. Every stage must have a device
+    time, its kernels per call, and mfu and hbm_frac in
+    (0, ROOFLINE_MAX_FRAC]."""
+    from piper_tpu_torch.tools.timing import card
+    from piper_tpu_torch.utils import roofline as rl
+
+    t0 = time.perf_counter()
+    ceilings = rl.measure_ceilings(iters=4)
+    peaks = rl.published_peaks()
+    emit(phase="roofline_ceilings", device=card("cuda"), ceilings=ceilings, peaks=peaks,
+         of_peak={k: ceilings[k] / peaks[k] for k in ceilings},
+         seconds=time.perf_counter() - t0)
+    total = {}
+    for path, key in (("roofline_medium", "medium_mixed"), ("roofline_x_low", "x_low")):
+        rt = runtimes[key]
+        t0 = time.perf_counter()
+        counters = _zero_counts()
+        rep = rl.roofline_report(rt, *ROOFLINE_SHAPE, iters=ROOFLINE_ITERS, ceilings=ceilings)
+        launches = _require_launches(path, counters)
+        want = ["encode(enc+dp)", "flow", "vocoder"] + [
+            f"vocoder.up{i}" for i in range(rt.hparams.num_upsamples)]
+        if [s["stage"] for s in rep["stages"]] != want:
+            raise AssertionError(f"{path}: stages {[s['stage'] for s in rep['stages']]}")
+        for s in rep["stages"]:
+            if not (s["ms"] > 0 and s["kernels"] and 0 < s["mfu"] <= ROOFLINE_MAX_FRAC
+                    and 0 < s["hbm_frac"] <= ROOFLINE_MAX_FRAC):
+                raise AssertionError(f"{path}: stage {s}")
+        emit(phase="roofline", path=path, voice=key, **rep, launches=launches,
+             seconds=time.perf_counter() - t0)
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    return total
+
+
+def phase_cli(torch, voices: dict, card: dict) -> dict:
+    """The command line on the card. In this process, with every count at
+    0: `--record-vectors` of the medium voice's f=2 phrase (launches K2 and
+    K3, read just after) and `--microbench` (both chain times). Then, as
+    subprocesses at once: one-shot `--phoneme-ids` on the medium voice file
+    at zero noise, its WAV within WAV_ATOL of the card's fp32 synthesize of
+    the same ids, and `--verify-summary --tolerance 1e-4` of the recorded
+    vector: exit 0, max_abs_err_worst <= REPLAY_ATOL, lengths equal."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    from piper_tpu_torch import cli
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.utils.wav import read_wav
+
+    t_phase = time.perf_counter()
+    model = str(voices["medium"][0])
+    ids = FIXTURE_PHONEME_IDS * 2
+    ids_arg = ",".join(map(str, ids))
+    out_dir = ROOT / "build" / "chip_smoke_cli"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    counters = _zero_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["--model", model, "--phoneme-ids", ids_arg, "--record-vectors",
+                  str(out_dir / "vectors"), "--test-id", "medium_f2"])
+        recorded = buf.getvalue()
+        cli.main(["--microbench"])
+    launches = _require_launches("cli", counters)
+    micro = json.loads(buf.getvalue()[len(recorded):])
+    if not (micro["eager_chain_ms"] > 0 and micro["jit_chain_ms"] > 0):
+        raise AssertionError(f"cli --microbench: {micro}")
+
+    env = {k: v for k, v in os.environ.items() if not k.startswith("PIPER_TPU_")}
+    env["PYTHONPATH"] = str(ROOT)
+    wav = out_dir / "oneshot.wav"
+    cmds = {"oneshot": ["--model", model, "--phoneme-ids", ids_arg, "--noise-scale", "0",
+                        "--noise-w", "0", "-o", str(wav)],
+            "verify": ["--verify-summary", str(out_dir / "vectors" / "test_summary.json"),
+                       "--tolerance", str(REPLAY_ATOL)]}
+    procs = {k: subprocess.Popen([sys.executable, "-m", "piper_tpu_torch.cli", *argv], cwd=ROOT,
+                                 env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                 text=True) for k, argv in cmds.items()}
+    outs = {}
+    try:
+        for k, proc in procs.items():
+            out, err = proc.communicate(timeout=300)
+            if proc.returncode != 0:
+                raise AssertionError(f"cli {k}: exit {proc.returncode}: {err[-2000:]}")
+            outs[k] = out
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    got, sr = read_wav(wav)
+    want = np.clip(card["medium"].synthesize(ids, noise_scale=0.0, noise_w=0.0), -1.0, 1.0)
+    if got.shape != want.shape or sr != card["medium"].sample_rate:
+        raise AssertionError(f"cli one-shot: {got.shape} at {sr} Hz, synthesize {want.shape}")
+    wav_err = float(np.abs(got - want).max())
+    if not wav_err <= WAV_ATOL:
+        raise AssertionError(f"cli one-shot WAV vs synthesize max-abs {wav_err} > {WAV_ATOL}")
+    verify = json.loads(outs["verify"])
+    if not (verify["passed"] and verify["max_abs_err_worst"] <= REPLAY_ATOL
+            and all(r["length_match"] for r in verify["results"])):
+        raise AssertionError(f"cli --verify-summary: {verify}")
+    emit(phase="cli", oneshot=outs["oneshot"].strip(), oneshot_vs_synthesize=wav_err,
+         atol=WAV_ATOL, recorded=recorded.strip(),
+         verify={k: verify[k] for k in ("passed", "max_abs_err_worst", "tolerance")},
+         microbench=micro, launches=launches, wall_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def phase_calibrate() -> None:
     """A short run of piper_tpu_torch.tools.calibrate_precision per voice
     (medium and x_low, f=8, 2 rows): the "high" schedule against the fp32
@@ -1935,6 +2141,7 @@ def main() -> None:
     # back empty late in a long process.
     count(phase_probe())
     count(phase_ct_probe())
+    count(phase_level_probe())
     phase_calibrate()
     voices, card = {}, {}
     for quality in ("medium", "x_low"):
@@ -1967,6 +2174,8 @@ def main() -> None:
     count(phase_stream_serve(torch, "medium", card["medium"], WAVE_ATOL))
     count(phase_unified(torch, voices))
     count(phase_http(torch, voices))
+    count(phase_roofline(torch, card))
+    count(phase_cli(torch, voices, card))
     del card
     count(phase_high(torch))
     count(phase_multispeaker(torch))

@@ -18,9 +18,10 @@ through `submit_batch`: the en_US-libritts-high class, N=904 by default,
 time to the first chunk and to the last, p50) and `streaming_server`
 (`--streams` clients, 8 by default, streaming that utterance at once
 through one StreamingServer: aggregate audio seconds per wall second, TTFB
-p50/p95, total p50, window rows per dispatch). `roofline` is null: its part
-of the port is not written yet, its flag defaults to off, and turning it on
-raises.
+p50/p95, total p50, window rows per dispatch). `--roofline` embeds the
+per-stage roofline report (`utils/roofline.py`) as the root bench does: B =
+`--batch` (or 32), P = 128, T = 768, 3 iterations with --quick and 8
+without, the per-level rows unless --quick; it is null without the flag.
 
 `--device` takes `--platform`'s place: the card by default, or the CPU.
 On the card the wall is launch-bound and noisy, so each factor row, the
@@ -50,7 +51,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 from dataclasses import replace
@@ -63,10 +63,6 @@ from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS as FIXTURE_IDS
 
 ROOT = Path(__file__).resolve().parent.parent
 BASELINE_MS_FACTOR1 = 147.39  # reference Swift/Metal ms_mean @ factor 1 (BASELINE.md)
-# Rows of the root bench whose parts of the port are not written yet.
-UNPORTED = {
-    "roofline": "the roofline report (piper_tpu/utils/roofline.py) is not ported",
-}
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -102,7 +98,9 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--high", action="store_true", default=True,
                         help="bench the high-quality (five upsample levels) config")
     parser.add_argument("--no-high", dest="high", action="store_false")
-    parser.add_argument("--roofline", action="store_true", help="not ported: raises")
+    parser.add_argument("--roofline", action="store_true",
+                        help="embed the per-stage roofline report (tools/roofline.py) in "
+                             "the result JSON")
     parser.add_argument("--streams", type=int, default=8,
                         help="concurrent streaming clients for the multi-stream serving row "
                              "(0 = skip)")
@@ -136,13 +134,9 @@ def get_runtime(args, quality: str = None, n_speakers: int = 1, gin: int = 0):
 
 
 def _device_info(torch, device: str) -> dict:
-    if device != "cuda":
-        return {"name": "cpu", "power_limit": None}
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    return {"name": torch.cuda.get_device_name(0), "power_limit": smi.split(",")[-1].strip(),
-            "nvidia_smi": smi}
+    from piper_tpu_torch.tools.timing import card
+
+    return card(device) or {"name": "cpu", "power_limit": None}
 
 
 def _vocoder_kernels(rt):
@@ -378,9 +372,6 @@ def _golden_rows(args, rt, speakers: bool = False):
 def main(argv=None) -> dict:
     """Run the bench; print its one JSON line and return it as a dict."""
     args = _parser().parse_args(argv)
-    for flag, why in UNPORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag.replace('_', '-')}: {why}")
     if args.quick:
         args.factors = "1,2"
         args.warmup, args.iters = 1, 2
@@ -506,6 +497,13 @@ def main(argv=None) -> dict:
         }
         del rt_high
 
+    roofline = None
+    if args.roofline:
+        from piper_tpu_torch.utils.roofline import roofline_report
+
+        roofline = roofline_report(rt, args.batch or 32, 128, 768,
+                                   iters=3 if args.quick else 8, per_level=not args.quick)
+
     golden_rows = (_golden_rows(args, rt) or []) + (ms_golden_rows or []) or None
 
     f1 = next((r for r in rows if r["factor"] == 1), rows[0])
@@ -539,7 +537,7 @@ def main(argv=None) -> dict:
         "streaming_server": streaming_server_row,
         "multispeaker": multispeaker_row,
         "high": high_row,
-        "roofline": None,
+        "roofline": roofline,
         "rows": rows,
         "golden": golden_rows,
     }

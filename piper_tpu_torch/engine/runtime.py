@@ -24,7 +24,9 @@ voices on one device: the CUDA card unless the caller asks for the CPU
   `close()`/`closed` (drop the weights; later synthesis raises), `prewarm()`
   (pay first-run costs ahead of traffic), `RuntimeOptions.from_env()` and
   `load_voice(voice_id)` (a voice of the bundled index, fetched and cached
-  by `core/voices.py`).
+  by `core/voices.py`), and `profiler` (utils/profiling.py: host wall ms per
+  (stage, bucket) where the JAX runtime records them; PIPER_TPU_PROFILE=1
+  prints the table at exit).
 - Duration controls: `phoneme_durations` runs the encoder only and returns
   each phoneme's frames; `synthesize_with_alignment` adds their sample
   spans to the audio (`core/alignment.py`); `synthesize_forced` and
@@ -105,6 +107,8 @@ from piper_tpu_torch.models.vits.hparams import (VitsHParams, derive_hparams,
 from piper_tpu_torch.models.vits.params import host_arrays_from_graph, params_to_torch
 from piper_tpu_torch.onnx.loader import load_model
 from piper_tpu_torch.ops.kernels.precision import TIERS, kernel_tier, tier_scope
+from piper_tpu_torch.utils.env import profile_enabled
+from piper_tpu_torch.utils.profiling import Profiler
 
 MODES = ("split", "fused")
 
@@ -407,6 +411,18 @@ class PiperRuntime:
         # bookkeeping (_compiled_keys, last_run_timings) for threaded callers.
         self._lock = threading.RLock()
         self.last_run_timings: Optional[RunTimings] = None
+        # Host wall time per (stage, bucket), as the JAX runtime records it;
+        # PIPER_TPU_PROFILE=1 dumps the table at exit.
+        self.profiler = Profiler()
+        if profile_enabled():
+            import atexit
+
+            atexit.register(self._dump_profile)
+
+    def _dump_profile(self) -> None:
+        if self.profiler.stats:
+            print(f"\n[piper-tpu profile] {self.model_path.name}:", file=sys.stderr)
+            self.profiler.dump()
 
     @classmethod
     def load_voice(
@@ -864,6 +880,11 @@ class PiperRuntime:
 
         hop = self.hparams.hop_length
         out = [audio[i, : int(y_len[i]) * hop].copy() for i in range(b)]
+        if use_fused:
+            self.profiler.record("fused", f_bucket, (t_end - t_start) * 1e3, compiled)
+        else:
+            self.profiler.record("encode", p_bucket, (t_encode - t_start) * 1e3, compiled)
+            self.profiler.record("decode", f_bucket, (t_end - t_encode) * 1e3, compiled)
         return out, self._timings(t_start, t_encode, t_end, p_bucket, f_bucket,
                                   int(np.sum(y_len[:b])), out, compiled)
 
@@ -959,10 +980,13 @@ class PiperRuntime:
         _, ls, nw = self._scales(None, length_scale, noise_w)
         sid = self._row_sids(speaker_ids, speaker_mixes, b, bp)
         with self._device_work():
-            self._mark("enc_key", (bp, p_bucket, self._sid_kind(sid)))
+            t0 = time.perf_counter()
+            compiled = self._mark("enc_key", (bp, p_bucket, self._sid_kind(sid)))
             enc = self._encode(ids, lengths, ls, nw,
                                self.options.seed if seed is None else seed, sid=sid)
             w = enc.w_ceil.cpu().numpy().astype(np.int64)
+            self.profiler.record("durations", p_bucket, (time.perf_counter() - t0) * 1e3,
+                                 compiled)
         return [w[i, : len(ids_batch[i])] for i in range(b)]
 
     def synthesize_with_alignment(
@@ -1088,6 +1112,7 @@ class PiperRuntime:
         y_len = np.clip(np.asarray(totals, np.int64), 1, f_bucket)
         hop = self.hparams.hop_length
         out = [audio[i, : int(y_len[i]) * hop].copy() for i in range(b)]
+        self.profiler.record("forced", f_bucket, (t_end - t_start) * 1e3, compiled)
         return out, self._timings(t_start, t_start, t_end, p_bucket, f_bucket,
                                   int(y_len.sum()), out, compiled)
 
@@ -1197,10 +1222,13 @@ class PiperRuntime:
         sid = self._row_sids(speaker_ids, speaker_mixes, b, ids.shape[0])
         base_seed = self.options.seed if seed is None else seed
         with self._device_work():
-            audio, y_len, f_bucket, _, _ = self._run_split(ids, lengths, b, scales, base_seed,
-                                                           sid)
+            t_start = time.perf_counter()
+            audio, y_len, f_bucket, compiled, t_dispatch = self._run_split(
+                ids, lengths, b, scales, base_seed, sid)
             copy = _HostCopy((audio,))
-        return audio, {"y_len": y_len, "f_bucket": f_bucket, "b": b, "copy": copy}
+        self.profiler.record("encode", ids.shape[1], (t_dispatch - t_start) * 1e3, compiled)
+        return audio, {"y_len": y_len, "f_bucket": f_bucket, "b": b, "copy": copy,
+                       "t_dispatch": t_dispatch, "compiled": compiled}
 
     def _dispatch_batch_fused(self, ids_batch: List[List[int]], *, noise_scale, length_scale,
                               noise_w, speaker_ids, seed, pad_rows_to: Optional[int] = None,
@@ -1218,12 +1246,13 @@ class PiperRuntime:
         # The caller's pinned budget, or _run_fused's of the longest row
         # (dummy rows copy row 0, so they need no more than the real rows).
         pinned = None if budget_frames is None else self._frame_bucket(max(32, int(budget_frames)))
+        t_dispatch = time.perf_counter()
         with self._device_work():
             outs, f_bucket, compiled = self._run_fused(ids, lengths, scales, base_seed, sid,
                                                        f_bucket=pinned)
             copy = _HostCopy(outs)
         meta = {"fused_batch": True, "b": b, "f_bucket": f_bucket, "compiled": compiled,
-                "copy": copy,
+                "copy": copy, "t_dispatch": t_dispatch,
                 # For the overflow redo; the mixes are copied, as dispatch_fused's.
                 "ids_batch": ids_batch, "scales": scales,
                 "speaker_ids": list(speaker_ids) if speaker_ids is not None else None,
@@ -1237,6 +1266,8 @@ class PiperRuntime:
         """Complete a fused group: one wait for its copy, then the rows that
         overflowed the budget redone (dispatch_batch(fused=True))."""
         audio, y_len, y_total = meta["copy"].wait()
+        self.profiler.record("fused", meta["f_bucket"],
+                             (time.perf_counter() - meta["t_dispatch"]) * 1e3, meta["compiled"])
         b, hop = meta["b"], self.hparams.hop_length
         out = [audio[i, : int(y_len[i]) * hop].copy() for i in range(b)]
         overflow = [i for i in range(b) if int(y_total[i]) > meta["f_bucket"]]
@@ -1270,6 +1301,8 @@ class PiperRuntime:
         if meta.get("fused_batch"):
             return self._fetch_batch_fused(meta)
         (audio,) = meta["copy"].wait()
+        self.profiler.record("decode", meta["f_bucket"],
+                             (time.perf_counter() - meta["t_dispatch"]) * 1e3, meta["compiled"])
         y_len, hop = meta["y_len"], self.hparams.hop_length
         return [audio[i, : int(y_len[i]) * hop].copy() for i in range(meta["b"])]
 

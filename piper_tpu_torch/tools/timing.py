@@ -40,6 +40,22 @@ def bound_ms(nbytes: float, flops: float = 0.0,
     return (t_ops, "operations") if t_ops > t_bytes else (t_bytes, "bytes")
 
 
+def card(device) -> Optional[dict]:
+    """The card's name and power limit as nvidia-smi gives them
+    ({"name", "power_limit", "nvidia_smi"}), or None on the CPU."""
+    import subprocess
+
+    import torch
+
+    if torch.device(device).type != "cuda":
+        return None
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    return {"name": torch.cuda.get_device_name(0), "power_limit": smi.split(",")[-1].strip(),
+            "nvidia_smi": smi}
+
+
 def event_ms(fn: Callable, reps: int = 20, warmup: int = 3) -> float:
     """Median of `reps` CUDA-event timings of fn() (ms). Around small
     launches this is the host's enqueue time where the host is the slower."""

@@ -1,8 +1,8 @@
 """The port's bench (mirrors tests/test_bench_driver.py): one JSON
 line with the root bench's keys, its headline the best serving row, on the
 CPU with the tiny test preset (its multispeaker row on an 8-speaker test
-voice, its streaming rows on the test voice); the row whose part is not
-ported raises when asked for."""
+voice, its streaming rows on the test voice); --roofline embeds the
+per-stage report."""
 
 import ast
 import json
@@ -72,7 +72,7 @@ def test_bench_quick_schema(capsys, monkeypatch, tmp_path):
 
 def test_bench_flags_match_the_root_bench():
     """Every flag of the port bench is the root bench's, but --device for
-    --platform; the defaults agree but that of the unported row (off):
+    --platform; the defaults agree (--roofline off, as the root bench's):
     --multi-speaker is the root bench's 904, --streams its 8."""
     import bench as root_bench
 
@@ -113,9 +113,26 @@ def test_multispeaker_row_serves_speaker_ids(monkeypatch, tmp_path):
 @pytest.mark.parametrize("flags,match", [
     (["--roofline"], "roofline"),
 ])
-def test_unported_rows_raise(flags, match):
-    with pytest.raises(NotImplementedError, match=match):
-        bench.main(["--device", "cpu", *flags])
+def test_unported_rows_raise(flags, match, monkeypatch, tmp_path, capsys):
+    """No row of the root bench is left unported: --roofline embeds the report at B = --batch, P=128,
+    T=768 (the root bench's shapes; the ceilings at a tiny size so the CPU
+    run stays short), without the level rows under --quick."""
+    from piper_tpu_torch.utils import roofline as rl
+
+    assert not hasattr(bench, "UNPORTED")
+    monkeypatch.setenv("PIPER_TPU_CACHE", str(tmp_path))
+    real = rl.measure_ceilings
+    monkeypatch.setattr(rl, "measure_ceilings",
+                        lambda iters=8, n=4096, device="cuda", stream_mb=256:
+                        real(iters=1, n=64, device=device, stream_mb=4))
+    result = bench.main(["--device", "cpu", "--quick", "--quality", "test", "--batch", "1",
+                         "--multi-speaker", "0", "--no-pipeline", *flags])
+    row = result[match]
+    assert (row["batch"], row["phoneme_bucket"], row["frame_bucket"]) == (1, 128, 768)
+    assert [s["stage"] for s in row["stages"]] == ["encode(enc+dp)", "flow", "vocoder"]
+    assert all(s["ms"] > 0 for s in row["stages"]) and row["device"] is None
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])[match] == json.loads(
+        json.dumps(row))
 
 
 def _root_row_keys(name: str) -> set:

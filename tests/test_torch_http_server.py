@@ -15,8 +15,9 @@ CLI), on the CPU.
   within 1e-4 + 1/32767, equal /v1/durations JSON and /v1/voices, and
   equal status codes over a table of malformed bodies.
 - The thread rule: no handler thread ever runs the runtime's device work.
-- The CLI serves only: its other modes exit naming their ROADMAP item, and
-  it defaults to the card.
+- The CLI's serve mode wins over the other modes' flags, as in the JAX
+  CLI, and it defaults to the card; without --serve it runs the mode it
+  was called for (tests/test_torch_cli.py holds those modes).
 
 Torch runs one intra-op thread in this module (see
 tests/test_torch_stream_server.py).
@@ -1189,19 +1190,45 @@ def test_handler_threads_never_run_device_work(tmp_path_factory):
     ["--model", "m.onnx", "--phoneme-ids", "1,2"], ["--list-voices"], [],
     ["--model", "m.onnx", "--text", "Hi."],
 ])
-def test_cli_without_serve_names_the_roadmap_item(argv, capsys):
+def test_cli_without_serve_names_the_roadmap_item(argv, tiny_voice, tmp_path, monkeypatch,
+                                                  capsys):
+    """Without --serve the CLI runs the mode it was called for, as the JAX
+    CLI does: one-shot --phoneme-ids writes its WAV, --list-voices prints the index,
+    no mode at all is the REPL (which needs a voice), and --text without
+    espeak-ng raises the phonemizer's error."""
     from piper_tpu_torch import cli
+    from piper_tpu_torch.phonemize import PhonemizerError
 
-    with pytest.raises(SystemExit, match="ROADMAP §1 item 6"):
+    model = str(tiny_voice[0])
+    argv = [model if a == "m.onnx" else a for a in argv]
+    out = tmp_path / "o.wav"
+    if "--list-voices" in argv:
         cli.main(argv)
+        assert "149 voices" in capsys.readouterr().out
+    elif not argv:
+        with pytest.raises(SystemExit, match="pass --voice <id> or --model"):
+            cli.main(argv)
+    elif "--text" in argv:
+        monkeypatch.setattr("piper_tpu_torch.phonemize.find_espeak", lambda: None)
+        with pytest.raises(PhonemizerError, match="espeak-ng not found"):
+            cli.main([*argv, "--device", "cpu", "-o", str(out)])
+    else:
+        cli.main([*argv, "--device", "cpu", "-o", str(out)])
+        assert "wrote" in capsys.readouterr().out and out.stat().st_size > 44
 
 
-def test_cli_serve_rejects_flags_of_other_modes(capsys):
+def test_cli_serve_rejects_flags_of_other_modes(monkeypatch):
+    """--serve wins over the one-shot flags, as in the JAX CLI's dispatch:
+    `--serve --text` serves, and an unknown flag is a usage error (exit 2)."""
     from piper_tpu_torch import cli
 
+    served = []
+    monkeypatch.setattr(cli, "run_serve", lambda args: served.append(args.text))
+    cli.main(["--serve", "--model", "m.onnx", "--text", "Hi."])
+    assert served == ["Hi."]
     with pytest.raises(SystemExit) as e:
-        cli.main(["--serve", "--model", "m.onnx", "--text", "Hi."])
-    assert e.value.code == 2 and "--text" in capsys.readouterr().err
+        cli.main(["--serve", "--no-such-flag"])
+    assert e.value.code == 2
 
 
 @pytest.mark.skipif(torch.cuda.is_available(),

@@ -4,9 +4,9 @@ rendering, on the CPU.
 Every case of tests/test_ssml.py under its own name, on the port's module
 and runtime (device="cpu"); the HTTP cases serve through the port's
 PiperHTTPServer and PiperStreamingHTTPServer and read the responses with
-http.client (the client SDK, client.py, waits for ROADMAP §1 item 6, as
-does the CLI's one-shot --ssml mode: test_cli_ssml renders its documents
-through render_ssml and checks that the port's CLI names that item).
+http.client; test_cli_ssml renders its documents through render_ssml and
+through the port's CLI's one-shot --ssml mode (tests/test_torch_client.py
+holds the client SDK).
 Then the copy held to its original: the same documents through both
 packages' parse_ssml and plan_ssml give equal segments, ignored reports,
 utterances, assembly scripts and groups, or the same SsmlError.
@@ -300,13 +300,14 @@ def test_render_volume(runtime):
 
 def test_cli_ssml(runtime, tmp_path):
     """The JAX CLI's --ssml cases on the library path the CLI renders
-    through (render_ssml); the port's CLI itself serves only, so its
-    one-shot --ssml exits naming the ROADMAP item that brings it."""
+    through (render_ssml), then through the port's CLI's one-shot --ssml
+    mode on the CPU: the same document written as a WAV of the same audio."""
     from piper_tpu_torch import cli
     from piper_tpu_torch.utils.wav import read_wav, write_wav
 
-    audio = render_ssml(runtime, '<speak><voice name="1"><phoneme ph="AB"/></voice>'
-                                 '<break time="250ms"/><phoneme ph="BA"/></speak>')
+    doc = ('<speak><voice name="1"><phoneme ph="AB"/></voice>'
+           '<break time="250ms"/><phoneme ph="BA"/></speak>')
+    audio = render_ssml(runtime, doc)
     out = tmp_path / "ssml.wav"
     write_wav(out, audio, runtime.sample_rate)
     back, sr = read_wav(out)
@@ -318,8 +319,13 @@ def test_cli_ssml(runtime, tmp_path):
     # wrong speaker
     with pytest.raises(ValueError):
         render_ssml(runtime, '<speak><voice name="99"><phoneme ph="AB"/></voice></speak>')
-    with pytest.raises(SystemExit, match="ROADMAP §1 item 6"):
-        cli.main(["--model", "m.onnx", "--ssml", "<speak>x</speak>", "-o", str(out)])
+    out_cli = tmp_path / "cli.wav"
+    cli.main(["--model", str(runtime.model_path), "--device", "cpu", "--seed",
+              str(runtime.options.seed), "--ssml", doc, "-o", str(out_cli)])
+    np.testing.assert_array_equal(read_wav(out_cli)[0], back)
+    with pytest.raises(SystemExit):
+        cli.main(["--model", str(runtime.model_path), "--device", "cpu", "--ssml",
+                  "<speak><broken", "-o", str(tmp_path / "x.wav")])
 
 
 def test_render_out_of_range_voice_raises(runtime):

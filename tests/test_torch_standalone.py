@@ -2,9 +2,9 @@
 
 piper_tpu_torch keeps its own copies of the jax-free modules it needs
 (onnx.{ir,wire,loader,writer}, core.{config,test_vector,alignment,audio,
-phonemes,text,ssml,voices}, phonemize, utils.{env,wav},
-models.vits.{hparams,synthetic}, and engine.runtime's speaker and scale
-helpers). These tests scan every module of the port
+phonemes,text,ssml,voices}, phonemize, utils.{env,wav,profiling,playback},
+models.vits.{hparams,synthetic}, client, testing, version, the roofline
+cost model, and engine.runtime's speaker and scale helpers). These tests scan every module of the port
 and chip_smoke.py for such imports, run the port in a process that refuses
 them, and hold each copy equal to its original: the same synthetic voice
 bytes, the same decoded graphs, hparams and configs.
@@ -318,3 +318,62 @@ def test_audio_module_is_a_copy():
     chunk = audio.AudioChunk(format=fmt, start_sample_index=5, samples=x, is_final=True)
     assert dataclasses.asdict(fmt) == dataclasses.asdict(j_audio.AudioFormat(sample_rate=16000))
     assert chunk.duration_seconds == 7 / 16000
+
+
+@pytest.mark.parametrize("rel", ["core/test_vector.py", "utils/profiling.py",
+                                 "utils/playback.py", "version.py"])
+def test_jax_free_module_is_a_byte_copy(rel):
+    """The JAX package's jax-free modules the CLI and the package surface
+    need, copied byte for byte."""
+    assert (ROOT / "piper_tpu_torch" / rel).read_bytes() == (ROOT / "piper_tpu" / rel).read_bytes()
+
+
+@pytest.mark.parametrize("rel", ["client.py", "testing.py"])
+def test_module_is_a_copy_but_for_the_package_name(rel):
+    """client.py (stdlib and numpy) and testing.py (over the runtime) are the
+    JAX package's with each `piper_tpu.` import pointed at the port."""
+    ours = (ROOT / "piper_tpu_torch" / rel).read_text()
+    theirs = (ROOT / "piper_tpu" / rel).read_text()
+    assert ours.replace("piper_tpu_torch.", "piper_tpu.") == theirs
+    assert "piper_tpu." not in ours.replace("piper_tpu_torch.", "")
+
+
+def test_package_exports_the_reference_names():
+    """piper_tpu_torch exports piper_tpu's 17 names (and RunTimings), each
+    loaded on first access from the port's own module."""
+    import piper_tpu
+    import piper_tpu_torch
+
+    assert set(piper_tpu.__all__) <= set(piper_tpu_torch.__all__)
+    assert set(piper_tpu_torch.__all__) - set(piper_tpu.__all__) == {"RunTimings"}
+    assert len(piper_tpu.__all__) == 17
+    for name in piper_tpu_torch.__all__ + ["MultiVoiceBatchingServer"]:
+        value = getattr(piper_tpu_torch, name)
+        if name == "__version__":
+            assert value == piper_tpu.__version__
+        else:
+            assert value.__module__.startswith("piper_tpu_torch."), name
+            assert value.__name__ == name
+    with pytest.raises(AttributeError):
+        piper_tpu_torch.no_such_name
+
+
+def test_cli_client_testing_and_roofline_import_no_jax():
+    """In a fresh process: the CLI, the client, testing.py, the roofline
+    module and tools and the package's names load, and neither jax nor
+    piper_tpu is in sys.modules after."""
+    code = (
+        "import sys\n"
+        "import piper_tpu_torch\n"
+        "from piper_tpu_torch import cli, client, testing\n"
+        "from piper_tpu_torch.utils import roofline, profiling, playback\n"
+        "from piper_tpu_torch.tools import roofline as rl_tool, level_probe\n"
+        "names = [getattr(piper_tpu_torch, n) for n in piper_tpu_torch.__all__]\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FOREIGN!r})\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

@@ -3,8 +3,8 @@ utils/wav.py and core/voices.py with its bundled VOICES.md.
 
 The cases of tests/test_text.py, tests/test_phonemize.py and the phoneme,
 voice-index and audio cases of tests/test_core.py, on the port's copies
-(the CLI's --text, --stream and REPL cases wait for the rest of the CLI,
-ROADMAP §1 item 6). Each copy is also held to its original in the JAX
+(the CLI's --text, --stream and REPL cases are in tests/test_torch_cli.py).
+Each copy is also held to its original in the JAX
 package: the same sentences, the same framed ids or the same error, the
 same WAV bytes, a byte-equal VOICES.md and equal index entries.
 """
