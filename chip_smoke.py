@@ -79,6 +79,25 @@ paths give it, and drives the main paths, counting each kernel's launches:
   (K2 and K3 launched; both chain times), then as subprocesses a one-shot
   --phoneme-ids WAV at zero noise within 1e-4 + 1/32767 of synthesize, and
   --verify-summary of the recorded vector within 1e-4;
+- the "bfloat16" capacity tier (`bf16`, paths `medium_bf16`, `x_low_bf16`):
+  bf16 weights and activations, K1-K3 on bf16 at "default"; synthesize at
+  f=1 and 8, a B=32 batch of f=8 and one incremental stream, float32 PCM,
+  finite, in [-1, 1], each vocoder kernel its count per call and the
+  profiled batch's bf16 kernels (symbol `__nv_bfloat16`) equal to their
+  launches; printed, not gated: the max-abs against the card's fp32 run,
+  the share of w_ceil that differs from fp32, and the batch's device busy
+  and rtf beside medium mixed's. The kernel phase holds each of K1-K3 on
+  bf16 input against its plain version (its bar plus one bf16 ulp) and
+  within one bf16 ulp of the fp32-input "default" kernel on the same bf16
+  values, its output rounded to bf16 (the kernels line's "bfloat16" tier);
+- the per-layer trace (`debug_trace`): medium fp32 synthesize_debug(
+  per_layer=True) on the card against the port on the CPU, one seed: the
+  same keys in the same order, w_ceil equal, audio within 1e-4, the other
+  module tensors within 2e-5 (logw 5e-5), each layer's max-abs printed;
+- the operator's tools (`tools`), reduced: bench_sessions (two fresh
+  processes of a small x_low bench), cold_start (a fresh process on built
+  kernels, and the warm call), padding_tax --iters 2 and streaming_bench
+  --streams 4 --rounds 1 --ab-heads, each line with the JAX tool's keys;
 - incremental streaming on each voice, fp32 and mixed (paths
   `{voice}_stream`, `{voice}_mixed_stream`): the f=8 JAX golden streamed
   with its injected noise at the growing schedule and at 16-frame windows
@@ -132,10 +151,10 @@ RESBLOCK1_PATHS = ("medium", "medium_mixed", "medium_golden", "medium_mixed_gold
                    "medium_batch", "medium_mixed_batch", "pipeline", "high", "high_mixed",
                    "bench", "medium_stream", "medium_mixed_stream", "serve",
                    "medium_stream_serve", "medium_mixed_stream_serve", "unified",
-                   "http") + MS_PATHS
+                   "http", "medium_bf16", "tools") + MS_PATHS
 CONV1D_PATHS = ("x_low", "x_low_mixed", "x_low_golden", "x_low_mixed_golden", "x_low_batch",
                 "x_low_mixed_batch", "x_low_stream", "x_low_mixed_stream", "serve",
-                "x_low_mixed_stream_serve", "unified", "http")
+                "x_low_mixed_stream_serve", "unified", "http", "x_low_bf16", "debug_trace")
 # kernel -> (its source, the TPU kernel it replaces, the paths that run it)
 KERNELS = {
     "resblock1_branch": ("piper_tpu_torch/csrc/resblock1.cu",
@@ -185,6 +204,10 @@ K1_DESIGN = {"highest": "mma.sync tf32 x3, weights split in the kernel",
              "high": "mma.sync bf16 x3, weights split in the kernel",
              "default": "mma.sync bf16 x1, weights split in the kernel"}
 RESBLOCK_SYMBOL = "resblock1_kernel"  # the device symbol of K2, K3 and K4
+# K1-K3 on bf16 activations ("bfloat16" mode, the "default" tier): the
+# "default" stage with bf16 loads and stores; "__nv_bfloat16" is in the
+# symbols of those variants only.
+BF16_DESIGN = "mma.sync bf16 x1, bf16 loads and stores"
 K1_SYMBOL = "conv1d_same"  # held by both K1 kernels' symbols (fp32 and mma)
 K5_SYMBOL = "interleave_kernel"
 # A voice's vocoder kernels: their device symbol and their launch counters.
@@ -254,6 +277,14 @@ ROOFLINE_MAX_FRAC = 1.05
 # zero noise, and a recorded vector replayed.
 WAV_ATOL = WAVE_ATOL + 1.0 / 32767
 REPLAY_ATOL = 1e-4
+# debug_infer's module-boundary keys, in its order (after the layers'). On
+# the card against the CPU at full width, a module tensor's bar (2e-5, 5e-5
+# logw, 1e-4 audio) scales with its peak where that exceeds 1: fp32 sums in
+# another order leave ~3e-6 on m_p and logs_p, and z_p = m_p + noise *
+# exp(logs_p) * noise_scale carries logs_p's error times |z_p - m_p| (up to
+# ~10), 3.4e-5 on the H100.
+DEBUG_MODULE_KEYS = ["enc_hidden", "m_p", "logs_p", "x_mask", "logw", "w_ceil", "y_lengths",
+                     "y_mask", "path", "m_p_expanded", "logs_p_expanded", "z_p", "z", "audio"]
 
 
 def emit(**fields) -> None:
@@ -320,12 +351,14 @@ def _check_zero_outside(torch, name, case, bnd, n, outs) -> None:
             raise AssertionError(f"{name} {case}: nonzero output outside [lo, hi)")
 
 
-def _chain_work(c, n, live, ks, outputs, convs=6) -> tuple:
+def _chain_work(c, n, live, ks, outputs, convs=6, elem=4) -> tuple:
     """(bytes, flops) of `convs` convs of C channels per kernel size in
     `ks`: x (1, C, n) read once, `outputs` (1, C, n) written once, the
-    weights and biases read once; 2*C*C*k flops per conv and live sample."""
+    weights and biases read once, `elem` bytes each (4 fp32, 2 bf16);
+    2*C*C*k flops per conv and live sample."""
     weights = sum(convs * (c * c * k + c) for k in ks)
-    return 4 * (c * n * (1 + outputs) + weights), sum(2 * c * c * k * convs * live for k in ks)
+    return elem * (c * n * (1 + outputs) + weights), sum(2 * c * c * k * convs * live
+                                                         for k in ks)
 
 
 def _whole_call_ms(fn, symbol=None, counter=None, prefix="") -> dict:
@@ -428,12 +461,151 @@ def phase_kernels(torch) -> dict:
                 note="ms covers the 3 branch launches of one level" if c == 64 else
                 "ms covers one launch (3 branches + mean)") for tier in TIERS}
         results["conv1d_same"] = _conv1d_same_check(torch, gen)
+        _bf16_kernel_rows(torch, gen, results)
         results["resblock1_mrf_folded"] = _folded_check(torch, gen, K4, R)
         results["interleave"] = _interleave_check(torch, gen)
         # K2-K4's outputs at the bf16 tiers, to hold against another
         # checkout's on the same card (tools/tier_checksums.py).
         emit(phase="checksums", checksums=tier_checksums.checksums())
     return results
+
+
+def _bf16_row(torch, name, call, cases, n, x1, bnd1, work, per_call, atol, default_row,
+             **fields) -> dict:
+    """One of K1-K3 on bf16 activations at "default" (the "bfloat16" mode):
+    call(x, bounds, variant) -> outputs, variant "kernel" (the wrapper on
+    bf16 x, weights and biases), "plain" (its plain version) or "fp32" (the
+    fp32-input "default" kernel on the same bf16 values, its output rounded
+    to bf16). On every bounds case the kernel's output is bf16, bit-equal
+    or within one bf16 ulp of "fp32" (the same products summed in the same
+    order), and within `atol` plus one ulp of "plain" (sums in another
+    order, then each rounded to bf16). Timed at a batch of one beside the
+    fp32-input "default" row (`default_row`): `device_ms` the whole wrapper
+    (its kernels per call required), `kernel_device_ms` the bf16 kernels
+    alone by their symbol (`__nv_bfloat16`, `per_call` of them per call)."""
+    from piper_tpu_torch.ops.kernels.precision import bf16_ulp, bf16_ulps
+    from piper_tpu_torch.tools.timing import TIER_FLOPS, bound_ms, device_ms, event_ms
+
+    errs, excess, ulps = {}, {}, {}
+    for case, (x2, bnd) in cases.items():
+        got = call(x2, bnd, "kernel")
+        torch.cuda.synchronize()
+        if any(g.dtype != torch.bfloat16 for g in got):
+            raise AssertionError(f"{name} bf16: output dtype {[g.dtype for g in got]}")
+        want, ref = call(x2, bnd, "plain"), call(x2, bnd, "fp32")
+        errs[case] = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        excess[case] = max(float(((g.float() - w.float()).abs() - bf16_ulp(
+            torch.maximum(g.float().abs(), w.float().abs()))).max()) for g, w in zip(got, want))
+        ulps[case] = max(bf16_ulps(g, r) for g, r in zip(got, ref))
+        if name != "conv1d_same":  # K1 masks its input, not its output
+            _check_zero_outside(torch, name, case, bnd, n, got)
+    if not max(excess.values()) <= atol:
+        raise AssertionError(f"{name} bf16 vs plain: {excess} past one bf16 ulp > {atol}")
+    if not max(ulps.values()) <= 1.0:
+        raise AssertionError(f"{name} bf16 vs the fp32-input kernel: {ulps} bf16 ulps > 1")
+
+    def kernel():
+        return call(x1, bnd1, "kernel")
+
+    def plain():
+        return call(x1, bnd1, "plain")
+
+    symbol = K1_SYMBOL if name == "conv1d_same" else RESBLOCK_SYMBOL
+    row = {"max_abs_err": max(errs.values()), "excess_over_one_ulp": max(excess.values()),
+           "ulps_vs_fp32_input": max(ulps.values()), "ms": event_ms(kernel),
+           "plain_ms": event_ms(plain), **_whole_call_ms(kernel, symbol, _counters()[name]),
+           "kernel_device_ms": device_ms(kernel, name="__nv_bfloat16", expected=per_call),
+           **_whole_call_ms(plain, prefix="plain_"), "design": BF16_DESIGN,
+           "default_fp32_device_ms": default_row["device_ms"],
+           "default_fp32_kernel_device_ms": default_row["kernel_device_ms"], **fields}
+    row["bound_ms"], row["bound_by"] = bound_ms(*work, TIER_FLOPS["default"])
+    emit(phase="kernel", name=name, precision="bfloat16", samples=n, batch_timed=1,
+         errs=errs, ulps=ulps, atol=atol, **row)
+    return row
+
+
+def _bf16_kernel_rows(torch, gen, results) -> None:
+    """K1-K3 on bf16 activations at the main paths' shapes (K2 medium level
+    2, K3 level 3, K1 x_low's levels 1 and 2, 128 frames): each kernel's
+    "bfloat16" row into results[name] (`_bf16_row`). K1's row also times
+    the two PyTorch calls that compute its function on bf16 tensors,
+    leaky_relu then F.conv1d (`library_ms`), and sums its two levels."""
+    import torch.nn.functional as F
+
+    from piper_tpu_torch.ops.kernels import conv as K1
+    from piper_tpu_torch.ops.kernels import resblock as R
+    from piper_tpu_torch.tools.timing import device_ms
+
+    bf = torch.bfloat16
+    dils = (1, 3, 5)
+    for name, c, n in (("resblock1_branch", 64, 128 * 128), ("resblock1_mrf", 32, 128 * 256)):
+        branches = [tuple(t.to(bf) for t in _branch_weights(torch, gen, c, k)) + (k, dils)
+                    for k in (3, 7, 11)]
+        fp32 = [tuple(t.float() for t in br[:4]) + br[4:] for br in branches]
+
+        def call(x, bnd, variant, name=name, branches=branches, fp32=fp32):
+            brs = fp32 if variant == "fp32" else branches
+            xin = x.float() if variant == "fp32" else x
+            if name == "resblock1_mrf":
+                fn = R.resblock1_mrf_plain if variant == "plain" else R.resblock1_mrf
+                outs = [fn(xin, brs, bounds=bnd, precision="default")]
+            else:
+                fn = R.resblock1_branch_plain if variant == "plain" else R.resblock1_branch
+                outs = [fn(xin, *br[:4], kernel=br[4], dilations=br[5], bounds=bnd,
+                           precision="default") for br in brs]
+            return [o.to(bf) for o in outs]
+
+        x2 = _rand(torch, gen, 2, c, n, scale=0.3).to(bf)
+        cases = {case: (x2, bnd) for case, bnd in _bounds_cases(torch, n).items()}
+        bnd1 = torch.tensor([n - 100], dtype=torch.int32, device="cuda")
+        work = _chain_work(c, n, n - 100, (3, 7, 11), outputs=3 if c == 64 else 1, elem=2)
+        results[name]["bfloat16"] = _bf16_row(
+            torch, name, call, cases, n, x2[:1].contiguous(), bnd1, work,
+            3 if c == 64 else 1, KERNEL_ATOL["default"], results[name]["default"], channels=c)
+
+    total = None
+    for level, c, n in ((1, 64, 128 * 64), (2, 32, 128 * 256)):
+        convs = [(_rand(torch, gen, c, c, k, scale=(c * k) ** -0.5).to(bf),
+                  _rand(torch, gen, c, scale=0.02).to(bf), k, d) for k, d in X_LOW_CONVS]
+
+        def call(x, bnd, variant, convs=convs):
+            if variant == "fp32":
+                return [K1.conv1d_same(x.float(), w.float(), b.float(), dilation=d,
+                                       act_slope=0.1, bounds=bnd, precision="default").to(bf)
+                        for w, b, k, d in convs]
+            fn = K1.conv1d_same_plain if variant == "plain" else K1.conv1d_same
+            return [fn(x, w, b, dilation=d, act_slope=0.1, bounds=bnd, precision="default")
+                    for w, b, k, d in convs]
+
+        x2 = _rand(torch, gen, 2, c, n, scale=0.3).to(bf)
+        cases = {case: (x2, bnd) for case, bnd in _bounds_cases(torch, n).items()}
+        x1 = x2[:1].contiguous()
+        work = _chain_work(c, n, n, [k for k, _ in X_LOW_CONVS], outputs=6, convs=1, elem=2)
+        row = _bf16_row(torch, "conv1d_same", call, cases, n, x1, None, work, len(convs),
+                        K1_ATOL, {"device_ms": None, "kernel_device_ms": None},
+                        level=level, channels=c)
+
+        def library(x1=x1, convs=convs):
+            return [F.conv1d(F.leaky_relu(x1, 0.1), w, b, padding=(k - 1) // 2 * d, dilation=d)
+                    for w, b, k, d in convs]
+
+        row["library_ms"] = device_ms(library)
+        if total is None:
+            total = dict(row, level="1+2")
+        else:
+            total["max_abs_err"] = max(total["max_abs_err"], row["max_abs_err"])
+            total["excess_over_one_ulp"] = max(total["excess_over_one_ulp"],
+                                               row["excess_over_one_ulp"])
+            total["ulps_vs_fp32_input"] = max(total["ulps_vs_fp32_input"],
+                                              row["ulps_vs_fp32_input"])
+            for key in ("ms", "plain_ms", "device_ms", "kernel_device_ms", "plain_device_ms",
+                        "bound_ms", "library_ms"):
+                total[key] += row[key]
+    total["channels"] = "64+32"
+    total["default_fp32_device_ms"] = results["conv1d_same"]["default"]["device_ms"]
+    total["default_fp32_kernel_device_ms"] = results["conv1d_same"]["default"][
+        "kernel_device_ms"]
+    results["conv1d_same"]["bfloat16"] = total
 
 
 def _folded_check(torch, gen, K4, R) -> dict:
@@ -2063,6 +2235,180 @@ def phase_cli(torch, voices: dict, card: dict) -> dict:
     return launches
 
 
+def _bf16_batch(rt, rows: int, f: int) -> dict:
+    """A B=`rows` batch of the f-times phrase: its blocking wall (median of
+    3), audio seconds per wall second, and one call under torch.profiler:
+    device busy, and the voice's vocoder kernels by symbol against their
+    counters. In the "bfloat16" mode a second window also requires every
+    one of those kernels to be a bf16 variant (`__nv_bfloat16` in its
+    symbol)."""
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.tools.timing import profile_call, profiled
+
+    batch = [FIXTURE_PHONEME_IDS * f] * rows
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        audios = rt.synthesize_batch(batch)
+        walls.append(time.perf_counter() - t0)
+    wall = statistics.median(walls)
+    audio_s = sum(len(a) for a in audios) / rt.sample_rate
+    symbol, names = VOCODER_KERNELS[_voice(rt.config.audio.quality)]
+    counters = _counters()
+    row = profile_call(lambda: rt.synthesize_batch(batch), symbol,
+                       [counters[n] for n in names])
+    if rt.options.precision == "bfloat16":
+        events = next(filter(None, (profiled(lambda: rt.synthesize_batch(batch))
+                                    for _ in range(3))), None)
+        keys = [(e.key, e.count) for e in events or () if symbol in e.key]
+        row["bf16_variant_launches"] = sum(c for k, c in keys if "__nv_bfloat16" in k)
+        if events is None or row["bf16_variant_launches"] != row["kernel_launches"]:
+            raise AssertionError(f"{rt.config.audio.quality} bf16 batch: vocoder kernels "
+                                 f"{keys}, not all bf16 variants")
+    return {"wall_ms": wall * 1e3, "rtf_blocking": audio_s / wall, **row}
+
+
+def phase_bf16(torch, voices: dict, card: dict) -> dict:
+    """The "bfloat16" capacity tier (bf16 weights and activations, K1-K3 on
+    bf16 at "default") on medium and x_low at full width: synthesize at f=1
+    and f=8, a B=32 batch of f=8, one seeded incremental stream; float32
+    PCM, finite, |x| <= 1; each vocoder kernel its count per call (and the
+    profiled batch's bf16 kernels, by symbol, equal to the launches). Not
+    gated, printed: the waveform's max-abs against the card's fp32 run with
+    injected noise, the share of phonemes whose w_ceil differs from fp32,
+    and medium's batch beside medium mixed's (device busy, rtf)."""
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.engine.runtime import PiperRuntime, RuntimeOptions
+
+    total = {name: 0 for name in _counters()}
+    for quality in ("medium", "x_low"):
+        path = f"{quality}_bf16"
+        rt = PiperRuntime(*voices[quality], RuntimeOptions(precision="bfloat16"),
+                          device="cuda")
+        batch = [FIXTURE_PHONEME_IDS * 8] * SERVING_BATCH
+        for f in (1, 8):  # first run of each shape
+            rt.synthesize(FIXTURE_PHONEME_IDS * f)
+        rt.synthesize_batch(batch)
+        counters = _zero_counts()
+        outs = {f"f{f}": rt.synthesize(FIXTURE_PHONEME_IDS * f) for f in (1, 8)}
+        outs.update({f"batch_row{i}": a for i, a in enumerate(rt.synthesize_batch(batch))})
+        launches = {name: fn.launches for name, fn in counters.items()}
+        _require_per_call(path, launches, 3)
+        _zero_counts()
+        chunks = list(rt.synthesize_stream(FIXTURE_PHONEME_IDS * 8, incremental=True, seed=1))
+        stream = _stream_chunks(path, chunks, rt.hparams.hop_length)
+        outs["stream"] = stream
+        stream_launches = {name: fn.launches for name, fn in counters.items()}
+        for name in LAUNCHES_PER_CALL[quality]:
+            launches[name] += stream_launches[name]
+            if stream_launches[name] <= 0:
+                raise AssertionError(f"{path} stream: {name} launched no time")
+        for what, a in outs.items():
+            if a.dtype != np.float32 or not len(a) or not np.isfinite(a).all() \
+                    or float(np.abs(a).max()) > 1.0:
+                raise AssertionError(f"{path} {what}: {a.dtype}, {len(a)} samples, not "
+                                     f"finite float32 PCM in [-1, 1]")
+        for name, n in launches.items():
+            total[name] += n
+        ids = FIXTURE_PHONEME_IDS * 8
+        dp_noise, main_noise = _injected_noise(rt.hparams, len(ids))
+        fp32 = card[quality]
+        wc = rt._durations([ids], dp_noise=dp_noise[None])[1]
+        wc32 = fp32._durations([ids], dp_noise=dp_noise[None])[1]
+        a = rt.synthesize(ids, dp_noise=dp_noise, main_noise=main_noise)
+        b = fp32.synthesize(ids, dp_noise=dp_noise, main_noise=main_noise)
+        n = min(len(a), len(b))
+        row = {"path": path, "launches": launches, "stream_chunks": len(chunks),
+               "vs_fp32_max_abs": float(np.abs(a[:n] - b[:n]).max()),
+               "vs_fp32_samples": [len(a), len(b)],
+               "w_ceil_differs_share": float(np.mean(wc != wc32)),
+               "hbm_bytes": rt.hbm_bytes(), "fp32_hbm_bytes": fp32.hbm_bytes(),
+               "batch": _bf16_batch(rt, SERVING_BATCH, 8)}
+        if quality == "medium":
+            row["medium_mixed_batch"] = _bf16_batch(card["medium_mixed"], SERVING_BATCH, 8)
+        emit(phase="bf16", **row)
+        rt.close()
+    return total
+
+
+def phase_debug_trace(torch, voices: dict, card: dict) -> dict:
+    """synthesize_debug(per_layer=True) of medium fp32 on the card against
+    the port on the CPU, one seed: the same keys in the same order (the
+    layers', then the module boundaries'), w_ceil equal, audio within 1e-4,
+    every other module tensor within 2e-5 (logw 5e-5) per unit of its peak
+    where that exceeds 1; each layer's max-abs printed, the
+    worst named. On the card the debug path's narrow unfused convs run
+    K1."""
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.engine.runtime import PiperRuntime
+
+    cpu = PiperRuntime(*voices["medium"], device="cpu")
+    counters = _zero_counts()
+    got = card["medium"].synthesize_debug(FIXTURE_PHONEME_IDS, seed=3, per_layer=True)
+    launches = _require_launches("debug_trace", counters)
+    want = cpu.synthesize_debug(FIXTURE_PHONEME_IDS, seed=3, per_layer=True)
+    if list(got) != list(want) or list(got)[-len(DEBUG_MODULE_KEYS):] != DEBUG_MODULE_KEYS:
+        raise AssertionError(f"debug_trace: keys differ: {list(got)} vs {list(want)}")
+    if not np.array_equal(got["w_ceil"], want["w_ceil"]):
+        raise AssertionError(f"debug_trace: w_ceil {got['w_ceil']} vs {want['w_ceil']}")
+    errs = {k: float(np.abs(got[k] - want[k]).max()) for k in want}
+    bars = {k: (1e-4 if k == "audio" else 5e-5 if k == "logw" else 2e-5)
+            * max(1.0, float(np.abs(want[k]).max())) for k in DEBUG_MODULE_KEYS}
+    over = {k: errs[k] for k, bar in bars.items() if not errs[k] <= bar}
+    layers = {k: v for k, v in errs.items() if k not in bars}
+    worst = max(layers, key=layers.get)
+    emit(phase="debug_trace", keys=len(got), layers=len(layers), module_errs=
+         {k: errs[k] for k in DEBUG_MODULE_KEYS}, module_bars=bars, worst_layer=worst,
+         worst_layer_max_abs=layers[worst],
+         worst_layers=dict(sorted(layers.items(), key=lambda kv: -kv[1])[:8]),
+         launches=launches)
+    if over:
+        raise AssertionError(f"debug_trace: above the parity bars: {over}")
+    return launches
+
+
+def phase_tools(torch, voices: dict) -> dict:
+    """The operator's tools, reduced, one after another: bench_sessions (2
+    fresh processes of a small x_low bench), cold_start's built-kernels and
+    warm rows (one fresh process), padding_tax --iters 2 and
+    streaming_bench --streams 4 --rounds 1 --ab-heads in this process (both
+    on medium mixed: K2 and K3 launch). Each must print its line with the
+    JAX tool's keys; the numbers are printed."""
+    import contextlib
+    import io
+
+    from piper_tpu_torch.tools import bench_sessions, cold_start, padding_tax, streaming_bench
+
+    model, config = voices["x_low"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = bench_sessions.main(["--sessions", "2", "--", "--quick", "--model", str(model),
+                                  "--config", str(config), "--quality", "x_low",
+                                  "--batch", "4", "--multi-speaker", "0", "--no-pipeline"])
+    sessions = json.loads(out.getvalue().strip().splitlines()[-1])
+    if rc != 0 or sessions["sessions"] != 2 or not sessions["value"]:
+        raise AssertionError(f"bench_sessions: rc {rc}: {sessions}")
+    sessions.pop("all")
+    emit(phase="tools", tool="bench_sessions", **sessions)
+    with contextlib.redirect_stdout(io.StringIO()):
+        cold = cold_start.main(["--model", str(voices["medium"][0]),
+                                "--config", str(voices["medium"][1])])
+    if not cold["cold_process_warm_cache"]["samples"]:
+        raise AssertionError(f"cold_start: {cold}")
+    emit(phase="tools", tool="cold_start", **cold)
+    counters = _zero_counts()
+    with contextlib.redirect_stdout(io.StringIO()):
+        tax = padding_tax.main(["--iters", "2"])
+        streams = streaming_bench.main(["--streams", "4", "--rounds", "1", "--ab-heads"])
+    launches = _require_launches("tools", counters)
+    if not tax["rows"] or not tax["waste"] or len(streams["ab"]) != 2 \
+            or not all(run["rows"] for run in streams["ab"]):
+        raise AssertionError(f"padding_tax / streaming_bench: {tax} {streams}")
+    emit(phase="tools", tool="padding_tax", **tax)
+    emit(phase="tools", tool="streaming_bench", **streams)
+    return launches
+
+
 def phase_calibrate() -> None:
     """A short run of piper_tpu_torch.tools.calibrate_precision per voice
     (medium and x_low, f=8, 2 rows): the "high" schedule against the fp32
@@ -2176,7 +2522,10 @@ def main() -> None:
     count(phase_http(torch, voices))
     count(phase_roofline(torch, card))
     count(phase_cli(torch, voices, card))
+    count(phase_bf16(torch, voices, card))
+    count(phase_debug_trace(torch, voices, card))
     del card
+    count(phase_tools(torch, voices))
     count(phase_high(torch))
     count(phase_multispeaker(torch))
     count(phase_bench())

@@ -65,6 +65,15 @@ ROOT = Path(__file__).resolve().parent.parent
 BASELINE_MS_FACTOR1 = 147.39  # reference Swift/Metal ms_mean @ factor 1 (BASELINE.md)
 
 
+class _Unset(str):
+    """A stage tier the command line left at its default (argparse keeps
+    the default object, so `stage_tiers` can tell it from an explicit
+    value)."""
+
+
+_STAGE_DEFAULT = _Unset("high")
+
+
 def _parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--model", help="real voice checkpoint (.onnx)")
@@ -81,12 +90,15 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--batch-sweep", default="",
                         help="comma-separated batch sizes to sweep for throughput "
                              "(e.g. 16,32,64,128); headline uses the best point")
-    parser.add_argument("--vocoder-precision", default="high",
+    parser.add_argument("--vocoder-precision", default=_STAGE_DEFAULT,
                         help="vocoder tier: highest/high/default, 'none' (= --precision) "
-                             "or comma-separated per-level tiers")
-    parser.add_argument("--flow-precision", default="high",
+                             "or comma-separated per-level tiers (default: high; none "
+                             "under --precision bfloat16, whose activations carry "
+                             "'default' only)")
+    parser.add_argument("--flow-precision", default=_STAGE_DEFAULT,
                         help="decode-flow tier ('none' = inherit --precision); the "
-                             "encoder and duration path always run at --precision")
+                             "encoder and duration path always run at --precision "
+                             "(default: high; none under --precision bfloat16)")
     parser.add_argument("--output-dtype", default="int16", choices=["int16", "float32"],
                         help="PCM format; int16 is converted on the device")
     parser.add_argument("--pipeline", action="store_true", default=True,
@@ -109,15 +121,26 @@ def _parser() -> argparse.ArgumentParser:
     return parser
 
 
+def stage_tiers(args):
+    """(vocoder, flow) tier specs of the args: left at the default (or None,
+    for args not from the parser), "high", or "none" (inherit) under
+    --precision bfloat16, whose bf16 activations carry the "default" tier
+    only."""
+    unset = "none" if args.precision == "bfloat16" else "high"
+    return tuple(unset if v is None or isinstance(v, _Unset) else v
+                 for v in (args.vocoder_precision, args.flow_precision))
+
+
 def get_runtime(args, quality: str = None, n_speakers: int = 1, gin: int = 0):
     from piper_tpu_torch.engine.runtime import PiperRuntime, RuntimeOptions, parse_precision_spec
     from piper_tpu_torch.models.vits.synthetic import make_synthetic_voice
 
     quality = quality or args.quality
+    vocoder, flow = stage_tiers(args)
     options = RuntimeOptions(
         precision=args.precision, mode=args.mode,
-        vocoder_precision=parse_precision_spec(args.vocoder_precision),
-        flow_precision=parse_precision_spec(args.flow_precision),
+        vocoder_precision=parse_precision_spec(vocoder),
+        flow_precision=parse_precision_spec(flow),
         output_dtype=args.output_dtype,
     )
     if args.model and quality == args.quality and n_speakers <= 1:
@@ -352,7 +375,11 @@ def measure_streaming_server(runtime, streams: int) -> dict:
 def _golden_rows(args, rt, speakers: bool = False):
     """The voice against its committed JAX goldens, or None where it has
     none; with `speakers`, the multi-speaker voice against the speaker
-    goldens (those exist for the 904-speaker voice only)."""
+    goldens (those exist for the 904-speaker voice only). None under
+    --precision bfloat16: the capacity tier diverges audibly from fp32 by
+    design, so no golden bar applies to it."""
+    if args.precision == "bfloat16":
+        return None
     if speakers:
         keys = ([k for k in golden.SPEAKER_GOLDENS if k[0] == args.quality]
                 if args.multi_speaker == golden.N_SPEAKERS else [])
@@ -525,10 +552,10 @@ def main(argv=None) -> dict:
         "mode": args.mode,
         "quality": args.quality,
         "compile_count": rt.last_run_timings.compile_count,
-        "vocoder_precision": (None if args.vocoder_precision in ("", "none")
-                              else args.vocoder_precision),
-        "flow_precision": (None if args.flow_precision in ("", "none")
-                           else args.flow_precision),
+        "vocoder_precision": (None if stage_tiers(args)[0] in ("", "none")
+                              else stage_tiers(args)[0]),
+        "flow_precision": (None if stage_tiers(args)[1] in ("", "none")
+                           else stage_tiers(args)[1]),
         "throughput": throughput,
         "throughput_pipelined": throughput_pipelined,
         "batch_sweep": batch_sweep_rows,

@@ -1,6 +1,9 @@
 // Same-padded dilated conv1d with a fused leaky-ReLU input, for Hopper
 // (sm_90a), on the tensor cores at every tier: 3xTF32 mma.sync at
-// "highest", bf16 mma.sync at "high" and "default".
+// "highest", bf16 mma.sync at "high" and "default". At "default" it also
+// takes bf16 activations, weights and bias (the runtime's "bfloat16" mode):
+// the same stage, its loads and stores of that type (conv1d.cuh's TIO), fp32
+// sums, the output rounded to bf16 once.
 //
 // Replaces the Pallas TPU kernel piper_tpu/ops/pallas/conv.py:
 //   piper_conv1d_same  <- pallas_conv1d_same (_kernel):
@@ -70,21 +73,34 @@ extern "C" {
 // 2: [lo, hi); 1: [0, hi)) or null with bounds_cols 0. C is a multiple of
 // 8. tier 0 "highest", 1 "high", 2 "default"; m_tiles (1, 2 or 4) and
 // n_tiles (2, or 4 at tier 0) are a warp's 16-channel m-tiles and 8-lane
-// n-tiles. Returns a cudaError_t code (0 on success).
-int piper_conv1d_same(const float* x, const float* w, const float* bias, const int* bounds,
-                      int bounds_cols, float* out, int B, int C, int N, int k, int dil,
-                      int tile, float slope, int tier, int m_tiles, int n_tiles, int device,
-                      void* stream) {
+// n-tiles. x, w, bias and out are float, or bf16 when bf16_io is 1 (tier 2
+// only: bf16 activations are the "bfloat16" mode's, which runs at
+// "default"). Returns a cudaError_t code (0 on success).
+int piper_conv1d_same(const void* x, const void* w, const void* bias, const int* bounds,
+                      int bounds_cols, void* out, int B, int C, int N, int k, int dil,
+                      int tile, float slope, int tier, int m_tiles, int n_tiles, int bf16_io,
+                      int device, void* stream) {
   if (C < 8 || C % 8 != 0 || k < 1 || k % 2 == 0 || dil < 1 || tile < 1 ||
       N < 1 || B < 1 || bounds_cols < 0 || bounds_cols > 2 || (bounds_cols > 0) != (bounds != nullptr))
     return (int)cudaErrorInvalidValue;
+  if (bf16_io) {
+    if (tier != 2 || n_tiles != 2) return (int)cudaErrorInvalidValue;
+    return launch_tier<2, 2>(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+                             static_cast<const bf16*>(bias), bounds, bounds_cols,
+                             static_cast<bf16*>(out), B, C, N, k, dil, tile, slope, m_tiles,
+                             device, stream);
+  }
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(w);
+  const float* bf = static_cast<const float*>(bias);
+  float* of = static_cast<float*>(out);
   if (tier == 0)
-    return conv1d_highest(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope,
+    return conv1d_highest(xf, wf, bf, bounds, bounds_cols, of, B, C, N, k, dil, tile, slope,
                           m_tiles, n_tiles, device, stream);
   if (n_tiles != 2) return (int)cudaErrorInvalidValue;
   switch (tier) {
-    case 1: return launch_tier<1, 2>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, m_tiles, device, stream);
-    case 2: return launch_tier<2, 2>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, m_tiles, device, stream);
+    case 1: return launch_tier<1, 2>(xf, wf, bf, bounds, bounds_cols, of, B, C, N, k, dil, tile, slope, m_tiles, device, stream);
+    case 2: return launch_tier<2, 2>(xf, wf, bf, bounds, bounds_cols, of, B, C, N, k, dil, tile, slope, m_tiles, device, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }

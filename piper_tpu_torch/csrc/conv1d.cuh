@@ -11,6 +11,7 @@
 namespace {
 
 using piper::bf16;
+using piper::load_f;
 using piper::Planes;
 using piper::store_act2;
 
@@ -56,12 +57,17 @@ __device__ __forceinline__ float act(float v, int g, int lo, int hi, float slope
 // "high"/"default" (one ldmatrix.x4 of B); "highest" also takes 4, where
 // each A fragment split on read feeds 12 mma. The grid is persistent:
 // block i takes tiles i, i + gridDim.x, ... of the B * ceil(N/tile)
-// (row, time tile) pairs.
-template <int K, int kTier, int kMT, int kNT>
+// (row, time tile) pairs. TIO is the element type of x, w, bias and out:
+// float at every tier, or bf16 at "default" only, where the window and the
+// weights are read straight into the bf16 planes they are staged in (a bf16
+// value rounds to itself) and the fp32 sums are stored rounded to bf16.
+template <int K, int kTier, int kMT, int kNT, typename TIO>
 __global__ void __launch_bounds__(kMaxThreads) conv1d_same_mma_kernel(
-    const float* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ bias, const int* __restrict__ bounds, int bounds_cols,
-    float* __restrict__ out, int B, int C, int N, int k_rt, int dil, int tile, float slope) {
+    const TIO* __restrict__ x, const TIO* __restrict__ w,
+    const TIO* __restrict__ bias, const int* __restrict__ bounds, int bounds_cols,
+    TIO* __restrict__ out, int B, int C, int N, int k_rt, int dil, int tile, float slope) {
+  static_assert(std::is_same_v<TIO, float> || kTier == 2,
+                "bf16 activations run at \"default\" only");
   static_assert(kTier == 0 || kNT == 2, "the bf16 tiers' B fragment covers 2 n-tiles");
   using P = Planes<kTier>;
   using T = typename P::T;
@@ -88,11 +94,11 @@ __global__ void __launch_bounds__(kMaxThreads) conv1d_same_mma_kernel(
   for (int co = warp; co < Cp; co += nwarps) {
     for (int ci = 2 * lane; ci < Cp; ci += 64) {
       const bool real = co < C && ci < C;
-      const float* wp = w + ((size_t)co * C + ci) * taps;
+      const TIO* wp = w + ((size_t)co * C + ci) * taps;
 #pragma unroll
       for (int j = 0; j < taps; ++j)
-        store_act2<kTier>(wbuf, wplane, (j * Cp + co) * S + ci, real ? __ldg(wp + j) : 0.f,
-                          real ? __ldg(wp + taps + j) : 0.f);
+        store_act2<kTier>(wbuf, wplane, (j * Cp + co) * S + ci, real ? load_f(wp + j) : 0.f,
+                          real ? load_f(wp + taps + j) : 0.f);
     }
   }
 
@@ -114,14 +120,14 @@ __global__ void __launch_bounds__(kMaxThreads) conv1d_same_mma_kernel(
       // act(x) over the window into the planes: a warp walks pairs of
       // channels, its lanes consecutive samples, so the loads are coalesced
       // rows and each lane stores one pair per plane.
-      const float* xb = x + (size_t)b * C * N;
+      const TIO* xb = x + (size_t)b * C * N;
       for (int c = 2 * warp; c < Cp; c += 2 * nwarps) {
-        const float* row = xb + (size_t)c * N;
+        const TIO* row = xb + (size_t)c * N;
         for (int l = lane; l < W; l += 32) {
           const int g = t0 - pad + l;
           const bool in = c < C && g >= 0 && g < N;
-          const float v0 = act(in ? __ldg(row + g) : 0.f, g, lo, hi, slope);
-          const float v1 = act(in ? __ldg(row + N + g) : 0.f, g, lo, hi, slope);
+          const float v0 = act(in ? load_f(row + g) : 0.f, g, lo, hi, slope);
+          const float v1 = act(in ? load_f(row + N + g) : 0.f, g, lo, hi, slope);
           if constexpr (kTier == 0) {
             store_tf32_split2(xbuf, xplane, l * S + c, v0, v1);
           } else {
@@ -136,8 +142,8 @@ __global__ void __launch_bounds__(kMaxThreads) conv1d_same_mma_kernel(
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt) {
       const int co = (mt0 + mt) * 16 + gid;
-      const float b_top = bias && co < C ? __ldg(bias + co) : 0.f;
-      const float b_bot = bias && co + 8 < C ? __ldg(bias + co + 8) : 0.f;
+      const float b_top = bias && co < C ? load_f(bias + co) : 0.f;
+      const float b_bot = bias && co + 8 < C ? load_f(bias + co + 8) : 0.f;
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt) {
         acc[mt][nt][0] = acc[mt][nt][1] = b_top;
@@ -243,9 +249,9 @@ __global__ void __launch_bounds__(kMaxThreads) conv1d_same_mma_kernel(
       }
     }
     __syncthreads();
-    float* ob = out + (size_t)b * C * N + t0;
+    TIO* ob = out + (size_t)b * C * N + t0;
     for (int c = warp; c < C; c += nwarps) {
-      for (int l = lane; l < n_out; l += 32) ob[(size_t)c * N + l] = stage[c * TS + l];
+      for (int l = lane; l < n_out; l += 32) piper::store_f(ob + (size_t)c * N + l, stage[c * TS + l]);
     }
     __syncthreads();  // the next tile's window goes over the stage
   }
@@ -257,9 +263,9 @@ cudaError_t prepare(const void* kernel, size_t smem, int device) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int K, int kTier, int kMT, int kNT>
-int launch_mma(const float* x, const float* w, const float* bias, const int* bounds,
-               int bounds_cols, float* out, int B, int C, int N, int k, int dil, int tile,
+template <int K, int kTier, int kMT, int kNT, typename TIO>
+int launch_mma(const TIO* x, const TIO* w, const TIO* bias, const int* bounds,
+               int bounds_cols, TIO* out, int B, int C, int N, int k, int dil, int tile,
                float slope, int device, void* stream) {
   using P = Planes<kTier>;
   const int Cp = (C + 15) / 16 * 16;
@@ -271,7 +277,7 @@ int launch_mma(const float* x, const float* w, const float* bias, const int* bou
   const size_t window = el * kXPlanes<kTier> * (tile + (size_t)(k - 1) * dil) * S;
   const size_t stage = sizeof(float) * (size_t)C * (tile + kStagePad);
   const size_t smem = el * P::kCount * (size_t)k * Cp * S + (window > stage ? window : stage);
-  const void* kernel = (const void*)conv1d_same_mma_kernel<K, kTier, kMT, kNT>;
+  const void* kernel = (const void*)conv1d_same_mma_kernel<K, kTier, kMT, kNT, TIO>;
   cudaError_t e = prepare(kernel, smem, device);
   if (e != cudaSuccess) return (int)e;
   int per_sm = 0, sms = 0;
@@ -282,38 +288,38 @@ int launch_mma(const float* x, const float* w, const float* bias, const int* bou
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const long long tiles = (long long)B * ((N + tile - 1) / tile);
   const int grid = (int)(tiles < (long long)per_sm * sms ? tiles : (long long)per_sm * sms);
-  conv1d_same_mma_kernel<K, kTier, kMT, kNT>
+  conv1d_same_mma_kernel<K, kTier, kMT, kNT, TIO>
       <<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
           x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope);
   return (int)cudaGetLastError();
 }
 
-template <int K, int kTier, int kNT>
-int launch_mt(const float* x, const float* w, const float* bias, const int* bounds,
-              int bounds_cols, float* out, int B, int C, int N, int k, int dil, int tile,
+template <int K, int kTier, int kNT, typename TIO>
+int launch_mt(const TIO* x, const TIO* w, const TIO* bias, const int* bounds,
+              int bounds_cols, TIO* out, int B, int C, int N, int k, int dil, int tile,
               float slope, int m_tiles, int device, void* stream) {
   switch (m_tiles) {
-    case 1: return launch_mma<K, kTier, 1, kNT>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, device, stream);
-    case 2: return launch_mma<K, kTier, 2, kNT>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, device, stream);
+    case 1: return launch_mma<K, kTier, 1, kNT, TIO>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, device, stream);
+    case 2: return launch_mma<K, kTier, 2, kNT, TIO>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, device, stream);
     case 4:  // "highest" takes 1 or 2: 4 m-tiles by its n-tiles would spill
       if constexpr (kTier == 0) return (int)cudaErrorInvalidValue;
-      else return launch_mma<K, kTier, 4, kNT>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, device, stream);
+      else return launch_mma<K, kTier, 4, kNT, TIO>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, device, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 // One tier and n-tile count over HiFi-GAN's kernel sizes (an unrolled tap
 // loop each; other odd k take the runtime loop).
-template <int kTier, int kNT>
-int launch_tier(const float* x, const float* w, const float* bias, const int* bounds,
-                int bounds_cols, float* out, int B, int C, int N, int k, int dil, int tile,
+template <int kTier, int kNT, typename TIO>
+int launch_tier(const TIO* x, const TIO* w, const TIO* bias, const int* bounds,
+                int bounds_cols, TIO* out, int B, int C, int N, int k, int dil, int tile,
                 float slope, int m_tiles, int device, void* stream) {
   switch (k) {
-    case 3: return launch_mt<3, kTier, kNT>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, m_tiles, device, stream);
-    case 5: return launch_mt<5, kTier, kNT>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, m_tiles, device, stream);
-    case 7: return launch_mt<7, kTier, kNT>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, m_tiles, device, stream);
-    case 11: return launch_mt<11, kTier, kNT>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, m_tiles, device, stream);
-    default: return launch_mt<0, kTier, kNT>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, m_tiles, device, stream);
+    case 3: return launch_mt<3, kTier, kNT, TIO>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, m_tiles, device, stream);
+    case 5: return launch_mt<5, kTier, kNT, TIO>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, m_tiles, device, stream);
+    case 7: return launch_mt<7, kTier, kNT, TIO>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, m_tiles, device, stream);
+    case 11: return launch_mt<11, kTier, kNT, TIO>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, m_tiles, device, stream);
+    default: return launch_mt<0, kTier, kNT, TIO>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, m_tiles, device, stream);
   }
 }
 

@@ -79,6 +79,15 @@
 //   need 278 KB at K2's widest shape (C=64, halo 60, tile 128); one fp32
 //   plane per buffer needs 198 KB and keeps the tile.
 //
+// bf16 activations (the runtime's "bfloat16" mode, at "default" only): the
+// branch and MRF kernels also take x, out and the biases as bf16 (a
+// template parameter, TIO), read into fp32 where they are loaded and
+// rounded to bf16 where the output is stored. Inside the block nothing
+// changes: the residual is fp32 and act(y), act(conv1) the same bf16
+// planes as at "default" on fp32 input, so the kernel on bf16 x equals the
+// fp32-input kernel on the same (bf16-valued) x with its output rounded to
+// bf16. The weights' fragments are bf16 at "default" either way.
+//
 // The folded kernel is the MRF kernel with a folded gather and scatter: the
 // TPU kernel's zero-padded folded weight GEMM fills the MXU's 128 sublanes
 // at the cost of S/k redundant FLOPs, which no tier needs here, so the
@@ -102,6 +111,7 @@ constexpr int kMaxDils = 4;
 
 using piper::bf16;
 using piper::ldmatrix_x4;
+using piper::load_f;
 using piper::mma_bf16;
 using piper::Planes;
 using piper::store_act;
@@ -111,10 +121,10 @@ struct Branch {
   // (2, M, K, C_in/8, C_out/16, 32 lanes, 4), planes (big, small).
   // "high"/"default": bf16 (P, M, K, C_in/16, C_out/16, 32 lanes, 8), P = 2
   // planes (hi, lo) at "high" and 1 at "default".
-  const void* w1;   // conv1 (dilated) weights
-  const float* b1;  // (M, C)
-  const void* w2;   // conv2 (dense) weights
-  const float* b2;  // (M, C)
+  const void* w1;  // conv1 (dilated) weights
+  const void* b1;  // (M, C), the kernel's TIO
+  const void* w2;  // conv2 (dense) weights
+  const void* b2;  // (M, C), the kernel's TIO
   int k;
   int n_dil;
   int halo;  // this branch's one-sided receptive field
@@ -122,8 +132,8 @@ struct Branch {
 };
 
 struct Args {
-  const float* x;      // (B, C, N), or (B, fold*C, nq) folded
-  float* out;          // the layout of x
+  const void* x;       // (B, C, N), or (B, fold*C, nq) folded; the kernel's TIO
+  void* out;           // the layout and type of x
   const int* bounds;   // (B, 2) [lo, hi) with 0 <= lo, hi <= N
   int C, N, tile, width, halo, n_branches;
   int fold, nq;        // folded layout: N = fold * nq samples
@@ -151,13 +161,14 @@ __device__ __forceinline__ float act(float v, int g, int lo, int hi, float slope
 // W * (C + kPad) elements; the second after the first); w points at this
 // conv's A fragments in the first plane, and the second is w_lo uint4s on.
 // kConv1: store act(conv) into dst. Otherwise add the conv into the fp32
-// residual ybuf ((C, W)) and store act(new residual) into dst.
-template <int K, int kTier, int kMT, bool kConv1>
+// residual ybuf ((C, W)) and store act(new residual) into dst. The bias
+// is float or bf16 (TB).
+template <int K, int kTier, int kMT, bool kConv1, typename TB>
 __device__ void conv_stage_mma(const typename Planes<kTier>::T* __restrict__ src,
                                float* __restrict__ ybuf,
                                typename Planes<kTier>::T* __restrict__ dst,
                                const uint4* __restrict__ w, size_t w_lo,
-                               const float* __restrict__ bias, int C, int W, int k_rt,
+                               const TB* __restrict__ bias, int C, int W, int k_rt,
                                int step, int h, int a, int width, float slope, int g0, int lo,
                                int hi) {
   constexpr int kPasses = kTier == 2 ? 1 : 3;
@@ -177,8 +188,8 @@ __device__ void conv_stage_mma(const typename Planes<kTier>::T* __restrict__ src
     float acc[kMT][kNT][4];
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt) {
-      const float b_top = __ldg(bias + (mt0 + mt) * 16 + gid);
-      const float b_bot = __ldg(bias + (mt0 + mt) * 16 + gid + 8);
+      const float b_top = load_f(bias + (mt0 + mt) * 16 + gid);
+      const float b_bot = load_f(bias + (mt0 + mt) * 16 + gid + 8);
 #pragma unroll
       for (int nt = 0; nt < kNT; ++nt) {
         acc[mt][nt][0] = acc[mt][nt][1] = b_top;
@@ -286,8 +297,8 @@ __device__ void conv_stage_mma(const typename Planes<kTier>::T* __restrict__ src
 // as the tier's planes). `margin0` is the margin already consumed on each
 // side: 0 when the window halo equals this branch's receptive field, more
 // for a narrower MRF branch. On return ybuf is exact on
-// [margin0 + br.halo, W - margin0 - br.halo).
-template <int K, int kTier, int kMT>
+// [margin0 + br.halo, W - margin0 - br.halo). TIO is the biases' type.
+template <int K, int kTier, int kMT, typename TIO>
 __device__ void run_chain_k(float* ybuf, typename Planes<kTier>::T* abuf,
                             typename Planes<kTier>::T* tbuf, const Branch& br, const Args& p,
                             int margin0, int g0, int lo, int hi) {
@@ -299,53 +310,57 @@ __device__ void run_chain_k(float* ybuf, typename Planes<kTier>::T* abuf,
   const size_t w_lo = wstride * br.n_dil;
   const uint4* w1 = static_cast<const uint4*>(br.w1);
   const uint4* w2 = static_cast<const uint4*>(br.w2);
+  const TIO* b1 = static_cast<const TIO*>(br.b1);
+  const TIO* b2 = static_cast<const TIO*>(br.b2);
   int margin = margin0;
   for (int m = 0; m < br.n_dil; ++m) {
     const int d = br.dils[m];
     const int h1 = h2 * d;
     const int a1 = margin + h1;
     conv_stage_mma<K, kTier, kMT, true>(abuf, ybuf, tbuf, w1 + m * wstride, w_lo,
-                                        br.b1 + m * C, C, W, br.k, d, h1, a1, W - 2 * a1,
+                                        b1 + m * C, C, W, br.k, d, h1, a1, W - 2 * a1,
                                         p.slope, g0, lo, hi);
     __syncthreads();
     const int a2 = a1 + h2;
     conv_stage_mma<K, kTier, kMT, false>(tbuf, ybuf, abuf, w2 + m * wstride, w_lo,
-                                         br.b2 + m * C, C, W, br.k, 1, h2, a2, W - 2 * a2,
+                                         b2 + m * C, C, W, br.k, 1, h2, a2, W - 2 * a2,
                                          p.slope, g0, lo, hi);
     __syncthreads();
     margin = a2;
   }
 }
 
-template <int kTier, int kMT>
+template <int kTier, int kMT, typename TIO>
 __device__ void run_chain_mt(float* ybuf, typename Planes<kTier>::T* abuf,
                              typename Planes<kTier>::T* tbuf, const Branch& br, const Args& p,
                              int margin0, int g0, int lo, int hi) {
   switch (br.k) {  // ResBlock1's kernel sizes; others (k = 5 in tests) take the runtime loop
-    case 3: run_chain_k<3, kTier, kMT>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi); break;
-    case 7: run_chain_k<7, kTier, kMT>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi); break;
-    case 11: run_chain_k<11, kTier, kMT>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi); break;
-    default: run_chain_k<0, kTier, kMT>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi); break;
+    case 3: run_chain_k<3, kTier, kMT, TIO>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi); break;
+    case 7: run_chain_k<7, kTier, kMT, TIO>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi); break;
+    case 11: run_chain_k<11, kTier, kMT, TIO>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi); break;
+    default: run_chain_k<0, kTier, kMT, TIO>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi); break;
   }
 }
 
 // m-tiles per warp work item: 4 when C/16 allows (C = 64), else 2, else 1.
-template <int kTier>
+template <int kTier, typename TIO>
 __device__ void run_chain(float* ybuf, typename Planes<kTier>::T* abuf,
                           typename Planes<kTier>::T* tbuf, const Branch& br, const Args& p,
                           int margin0, int g0, int lo, int hi) {
   const int n16 = p.C / 16;
   if (n16 % 4 == 0) {
-    run_chain_mt<kTier, 4>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi);
+    run_chain_mt<kTier, 4, TIO>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi);
   } else if (n16 % 2 == 0) {
-    run_chain_mt<kTier, 2>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi);
+    run_chain_mt<kTier, 2, TIO>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi);
   } else {
-    run_chain_mt<kTier, 1>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi);
+    run_chain_mt<kTier, 1, TIO>(ybuf, abuf, tbuf, br, p, margin0, g0, lo, hi);
   }
 }
 
-template <bool kMean, bool kFolded, int kTier>
+template <bool kMean, bool kFolded, int kTier, typename TIO>
 __global__ void __launch_bounds__(kThreads, 1) resblock1_kernel(const Args p) {
+  static_assert(std::is_same_v<TIO, float> || (kTier == 2 && !kFolded),
+                "bf16 activations run the unfolded kernels at \"default\" only");
   extern __shared__ __align__(16) float smem[];
   using T = typename Planes<kTier>::T;
   const int C = p.C;
@@ -363,18 +378,18 @@ __global__ void __launch_bounds__(kThreads, 1) resblock1_kernel(const Args p) {
   const int lo = p.bounds[2 * b];
   const int hi = p.bounds[2 * b + 1];
   const int n_out = min(p.tile, p.N - t0);
-  float* out = p.out + (size_t)b * C * p.N;
+  TIO* out = static_cast<TIO*>(p.out) + (size_t)b * C * p.N;
 
   if (t0 >= hi || t0 + p.tile <= lo) {  // dead tile: the output is zero
     for (int idx = threadIdx.x; idx < C * n_out; idx += kThreads) {
       const int c = idx / n_out;
-      out[offset<kFolded>(p, c, t0 + idx - c * n_out)] = 0.f;
+      piper::store_f(out + offset<kFolded>(p, c, t0 + idx - c * n_out), 0.f);
     }
     return;
   }
 
   const int g0 = t0 - p.halo;  // global sample index of window lane 0
-  const float* x = p.x + (size_t)b * C * p.N;
+  const TIO* x = static_cast<const TIO*>(p.x) + (size_t)b * C * p.N;
   if (kMean) {
     for (int idx = threadIdx.x; idx < C * p.tile; idx += kThreads) acc[idx] = 0.f;
   }
@@ -383,12 +398,12 @@ __global__ void __launch_bounds__(kThreads, 1) resblock1_kernel(const Args p) {
       const int c = idx / W;
       const int l = idx - c * W;
       const int g = g0 + l;
-      const float v = (g >= 0 && g < p.N) ? __ldg(x + offset<kFolded>(p, c, g)) : 0.f;
+      const float v = (g >= 0 && g < p.N) ? load_f(x + offset<kFolded>(p, c, g)) : 0.f;
       ybuf[idx] = v;
       store_act<kTier>(abuf, plane, l * S + c, act(v, g, lo, hi, p.slope));
     }
     __syncthreads();
-    run_chain<kTier>(ybuf, abuf, tbuf, p.br[bi], p, p.halo - p.br[bi].halo, g0, lo, hi);
+    run_chain<kTier, TIO>(ybuf, abuf, tbuf, p.br[bi], p, p.halo - p.br[bi].halo, g0, lo, hi);
     if (kMean) {
       for (int idx = threadIdx.x; idx < C * p.tile; idx += kThreads) {
         const int c = idx / p.tile;
@@ -404,7 +419,7 @@ __global__ void __launch_bounds__(kThreads, 1) resblock1_kernel(const Args p) {
     const int l = idx - c * n_out;
     const int g = t0 + l;
     const float v = kMean ? acc[c * p.tile + l] * inv : ybuf[c * W + p.halo + l];
-    out[offset<kFolded>(p, c, g)] = (g >= lo && g < hi) ? v : 0.f;
+    piper::store_f(out + offset<kFolded>(p, c, g), (g >= lo && g < hi) ? v : 0.f);
   }
 }
 
@@ -414,23 +429,25 @@ int branch_halo(int k, int n_dil, const int* dils) {
   return h;
 }
 
-template <bool kMean, bool kFolded, int kTier>
+template <bool kMean, bool kFolded, int kTier, typename TIO = float>
 int start(const Args& a, int B, size_t smem, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
-  e = cudaFuncSetAttribute(resblock1_kernel<kMean, kFolded, kTier>,
+  e = cudaFuncSetAttribute(resblock1_kernel<kMean, kFolded, kTier, TIO>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((a.N + a.tile - 1) / a.tile, B);
-  resblock1_kernel<kMean, kFolded, kTier>
+  resblock1_kernel<kMean, kFolded, kTier, TIO>
       <<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
+// bf16_io: x, out and the biases are bf16 (tier 2, unfolded only).
 template <bool kMean, bool kFolded>
-int launch(Args& a, int B, int tier, int device, void* stream) {
+int launch(Args& a, int B, int tier, int bf16_io, int device, void* stream) {
   // Every tier runs on the tensor cores: C a multiple of 16 (m16).
   if (a.C < 16 || a.C % 16 != 0 || tier < 0 || tier > 2 || a.n_branches < 1 ||
+      (bf16_io && (tier != 2 || kFolded)) ||
       a.n_branches > kMaxBranches || a.tile < 1 || a.N < 1 || B < 1 || a.fold < 1)
     return (int)cudaErrorInvalidValue;
   a.halo = 0;
@@ -449,6 +466,9 @@ int launch(Args& a, int B, int tier, int device, void* stream) {
                                 : 2 * sizeof(bf16) * (tier == 1 ? 2 : 1) * a.width *
                                       (a.C + Planes<1>::kPad);
   const size_t smem = sizeof(float) * a.C * a.width + acts + mean;
+  if constexpr (!kFolded) {
+    if (bf16_io) return start<kMean, false, 2, bf16>(a, B, smem, device, stream);
+  }
   switch (tier) {
     case 0: return start<kMean, kFolded, 0>(a, B, smem, device, stream);
     case 1: return start<kMean, kFolded, 1>(a, B, smem, device, stream);
@@ -457,8 +477,8 @@ int launch(Args& a, int B, int tier, int device, void* stream) {
 }
 
 // The per-branch arguments of the MRF entries into `a`.
-int set_branches(Args& a, int n_branches, const void* const* w1, const float* const* b1,
-                 const void* const* w2, const float* const* b2, const int* ks,
+int set_branches(Args& a, int n_branches, const void* const* w1, const void* const* b1,
+                 const void* const* w2, const void* const* b2, const int* ks,
                  const int* n_dils, const int* dils) {
   if (n_branches < 1 || n_branches > kMaxBranches) return (int)cudaErrorInvalidValue;
   a.n_branches = n_branches;
@@ -480,12 +500,13 @@ const char* piper_cuda_error_string(int code) {
 
 // One ResBlock1 branch. Weights w1/w2 are 16-byte aligned and contiguous,
 // in the layout of Branch for the tier; dils is a host array of M ints;
-// bounds a device (B, 2) int32 array; tier 0/1/2 (tiers.cuh). Returns a
+// bounds a device (B, 2) int32 array; tier 0/1/2 (tiers.cuh). x, out, b1
+// and b2 are float, or bf16 when bf16_io is 1 (tier 2 only). Returns a
 // cudaError_t code (0 on success).
-int piper_resblock1_branch(const float* x, const void* w1, const float* b1, const void* w2,
-                           const float* b2, int k, int n_dil, const int* dils,
-                           const int* bounds, float* out, int B, int C, int N, int tile,
-                           float slope, int tier, int device, void* stream) {
+int piper_resblock1_branch(const void* x, const void* w1, const void* b1, const void* w2,
+                           const void* b2, int k, int n_dil, const int* dils,
+                           const int* bounds, void* out, int B, int C, int N, int tile,
+                           float slope, int tier, int bf16_io, int device, void* stream) {
   Args a = {};
   a.x = x;
   a.out = out;
@@ -500,18 +521,19 @@ int piper_resblock1_branch(const float* x, const void* w1, const float* b1, cons
   if (n_dil < 1 || n_dil > kMaxDils) return (int)cudaErrorInvalidValue;
   a.br[0] = Branch{w1, b1, w2, b2, k, n_dil, 0, {0, 0, 0, 0}};
   for (int m = 0; m < n_dil; ++m) a.br[0].dils[m] = dils[m];
-  return launch<false, false>(a, B, tier, device, stream);
+  return launch<false, false>(a, B, tier, bf16_io, device, stream);
 }
 
 // Every branch of the multi-receptive-field stage and their mean. Per-branch
 // arguments are host arrays of length n_branches (device pointers for the
 // weights); dils is a host array of n_branches * 4 ints (row i holds branch
-// i's n_dils[i] dilations).
-int piper_resblock1_mrf(const float* x, int n_branches, const void* const* w1,
-                        const float* const* b1, const void* const* w2,
-                        const float* const* b2, const int* ks, const int* n_dils,
-                        const int* dils, const int* bounds, float* out, int B, int C,
-                        int N, int tile, float slope, int tier, int device, void* stream) {
+// i's n_dils[i] dilations); bf16_io as for the branch entry.
+int piper_resblock1_mrf(const void* x, int n_branches, const void* const* w1,
+                        const void* const* b1, const void* const* w2,
+                        const void* const* b2, const int* ks, const int* n_dils,
+                        const int* dils, const int* bounds, void* out, int B, int C,
+                        int N, int tile, float slope, int tier, int bf16_io, int device,
+                        void* stream) {
   Args a = {};
   a.x = x;
   a.out = out;
@@ -523,16 +545,16 @@ int piper_resblock1_mrf(const float* x, int n_branches, const void* const* w1,
   a.fold = 1;
   a.nq = N;
   const int e = set_branches(a, n_branches, w1, b1, w2, b2, ks, n_dils, dils);
-  return e ? e : launch<true, false>(a, B, tier, device, stream);
+  return e ? e : launch<true, false>(a, B, tier, bf16_io, device, stream);
 }
 
 // The MRF stage on the folded layout: x and out are (B, fold*C, nq), the
 // time axis of N = fold*nq samples folded into rows (zero-padded past the
 // true length, which bounds must not exceed). Otherwise as
-// piper_resblock1_mrf; the tile counts samples, not lanes.
+// piper_resblock1_mrf; the tile counts samples, not lanes. fp32 only.
 int piper_resblock1_mrf_folded(const float* x, int n_branches, const void* const* w1,
-                               const float* const* b1, const void* const* w2,
-                               const float* const* b2, const int* ks, const int* n_dils,
+                               const void* const* b1, const void* const* w2,
+                               const void* const* b2, const int* ks, const int* n_dils,
                                const int* dils, const int* bounds, float* out, int B,
                                int C, int nq, int fold, int tile, float slope, int tier,
                                int device, void* stream) {
@@ -548,7 +570,7 @@ int piper_resblock1_mrf_folded(const float* x, int n_branches, const void* const
   a.fold = fold;
   a.nq = nq;
   const int e = set_branches(a, n_branches, w1, b1, w2, b2, ks, n_dils, dils);
-  return e ? e : launch<true, true>(a, B, tier, device, stream);
+  return e ? e : launch<true, true>(a, B, tier, 0, device, stream);
 }
 
 }  // extern "C"

@@ -55,6 +55,15 @@ __device__ __forceinline__ void store_split2(bf16* planes, int plane, int off, f
         __floats2bfloat162_rn(v0 - __low2float(h), v1 - __high2float(h));
 }
 
+// The kernels' loads and stores of activations, weights and biases, whose
+// element type (float, or bf16 for bf16 activations at "default") is a
+// template parameter: a value is read into fp32 and written from fp32 (to
+// bf16 by round to nearest even, as torch.Tensor.to(torch.bfloat16)).
+__device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load_f(const bf16* p) { return __bfloat162float(__ldg(p)); }
+__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
 // Four 8x8 b16 matrices from shared memory; thread t gives the address of
 // row t % 8 of matrix t / 8 and receives, of matrix i in r[i], row t / 4,
 // columns 2 * (t % 4) and 2 * (t % 4) + 1.

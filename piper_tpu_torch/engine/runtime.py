@@ -52,7 +52,13 @@ Encode and decode run at the `precision` tier (by default "highest", fp32
 with TF32 off for matmuls and cuDNN convs: a duration error can flip a
 ceil() and shift the whole waveform); the reverse flows and the vocoder may
 take lower tiers of their own, as in the JAX package (`precision.py` says
-what each tier means in the kernels and around them). The tiers are
+what each tier means in the kernels and around them). precision
+"bfloat16" is the JAX package's capacity tier: the weights are uploaded in
+bf16 and every activation is bf16 end to end; the vocoder's kernels run at
+"default" on bf16 activations (K1-K3 take them as they are), the card's
+flags are "default"'s, and the PCM comes back as float32 (or int16). Its
+durations may round differently from fp32 and the waveform diverges
+audibly: for capacity, never for fidelity. The tiers are
 process-wide flags, so every piece of a runtime's device work runs under
 its lock (`_lock`, reentrant); a fetch only waits for its copy.
 
@@ -134,7 +140,10 @@ class RuntimeOptions:
     """The knobs of piper_tpu's RuntimeOptions that the port carries.
 
     `precision` is the tier of encode and decode: "highest", "high" or
-    "default". `vocoder_precision` is None (inherit), one tier, or one entry
+    "default", or "bfloat16" (bf16 weights and activations end to end; its
+    vocoder and flow tiers may only be None or "default"/"bfloat16", the
+    one tier of products bf16 activations carry). `vocoder_precision` is
+    None (inherit), one tier, or one entry
     per upsample level (None entries run that level's kernels at "highest"
     and its PyTorch convs at the outer tier, as in JAX); `flow_precision` is
     None or one tier. `mode` is "split" or "fused" (the module docstring);
@@ -159,7 +168,7 @@ class RuntimeOptions:
         """Default options with PIPER_TPU_PRECISION, PIPER_TPU_MODE,
         PIPER_TPU_VOCODER_PRECISION and PIPER_TPU_FLOW_PRECISION applied,
         read as the JAX package reads them; validated, so a value the port
-        does not carry (precision "bfloat16") raises here."""
+        does not carry raises here."""
         from piper_tpu_torch.utils.env import flag
 
         kwargs = {}
@@ -178,16 +187,18 @@ class RuntimeOptions:
         return options
 
     def validate(self) -> None:
-        if self.precision == "bfloat16":
-            raise ValueError("precision 'bfloat16' (bf16 weights and activations end to "
-                             "end) is not ported; it comes in a later change, as plain "
-                             "convs: the JAX package's Pallas kernels take fp32 inputs only")
-        if self.precision not in TIERS:
-            raise ValueError(f"precision {self.precision!r}: the tiers are {TIERS}")
+        if self.precision not in TIERS + ("bfloat16",):
+            raise ValueError(f"precision {self.precision!r}: the tiers are {TIERS} and "
+                             f"'bfloat16'")
         vp = self.vocoder_precision
-        for tier in (vp if isinstance(vp, (tuple, list)) else (vp,)):
-            kernel_tier(tier, "vocoder_precision")
-        kernel_tier(self.flow_precision, "flow_precision")
+        stages = [("vocoder_precision", t)
+                  for t in (vp if isinstance(vp, (tuple, list)) else (vp,))]
+        for what, tier in stages + [("flow_precision", self.flow_precision)]:
+            name = kernel_tier(tier, what)
+            if self.precision == "bfloat16" and tier is not None and name != "default":
+                raise ValueError(f"{what} {tier!r} under precision 'bfloat16': bf16 "
+                                 f"activations carry one bf16 product per pair, the "
+                                 f"'default' tier; give None, 'default' or 'bfloat16'")
         if self.mode not in MODES:
             raise ValueError(f"mode {self.mode!r}: the modes are {MODES}")
         if self.output_dtype not in ("float32", "int16"):
@@ -405,7 +416,8 @@ class PiperRuntime:
                 f"{self.hparams.num_upsamples} upsample levels: give one tier per level "
                 f"(or a single tier name for all levels)")
         self._hbm_bytes: Optional[int] = None
-        self.params = params_to_torch(host_arrays_from_graph(graph), self.device)
+        dtype = torch.bfloat16 if self.options.precision == "bfloat16" else torch.float32
+        self.params = params_to_torch(host_arrays_from_graph(graph), self.device, dtype)
         self._compiled_keys: set = set()
         # Serializes device work (the tier flags are process-wide) and the
         # bookkeeping (_compiled_keys, last_run_timings) for threaded callers.
@@ -504,7 +516,10 @@ class PiperRuntime:
 
     def _as_output(self, audio: torch.Tensor) -> torch.Tensor:
         """The waveform in the runtime's output dtype, on the device: int16
-        is clip * 32767 cast there, so the host copy moves half the bytes."""
+        is clip * 32767 cast there, so the host copy moves half the bytes;
+        float32 PCM from the "bfloat16" mode's bf16 waveform too (int16 from
+        its fp32 values)."""
+        audio = audio.float()
         if self.options.output_dtype == "int16":
             return (torch.clamp(audio, -1.0, 1.0) * 32767.0).to(torch.int16)
         return audio
@@ -923,6 +938,45 @@ class PiperRuntime:
             enc = self._encode(ids, lengths, ls, nw,
                                self.options.seed if seed is None else seed, dp_noise, sid)
             return enc.w[:b].cpu().numpy(), enc.w_ceil[:b].cpu().numpy()
+
+    def synthesize_debug(
+        self,
+        phoneme_ids: Sequence[int],
+        *,
+        max_frames: int = 256,
+        seed: Optional[int] = None,
+        per_layer: bool = False,
+        **scales,
+    ) -> dict:
+        """Run the full graph returning every module boundary tensor as numpy
+        (float32), the JAX package's synthesize_debug: the same numpy noise
+        from default_rng(seed) (dp (1, 2, P bucket), then the prior (1, C,
+        max_frames)), the phoneme bucket, the scales and speaker_id.
+        per_layer=True adds one tensor per conv/flow-step/attention layer
+        keyed by its checkpoint parameter path, in the order they ran, for
+        bisecting a divergence to one layer (`model.debug_infer`). It runs
+        eagerly at the runtime's tiers under inference mode; PyTorch
+        compiles nothing, so there is no per-settings program cache to keep
+        (the JAX package caches its jitted debug programs)."""
+        ids = np.asarray(list(phoneme_ids), np.int64)[None]
+        p_bucket = bucket_for(ids.shape[1], self.options.phoneme_buckets, "phoneme")
+        ids = np.pad(ids, ((0, 0), (0, p_bucket - ids.shape[1])))
+        rng = np.random.default_rng(self.options.seed if seed is None else seed)
+        dp_noise = rng.standard_normal((1, 2, p_bucket)).astype(np.float32)
+        main_noise = rng.standard_normal(
+            (1, self.hparams.inter_channels, max_frames)).astype(np.float32)
+        ns, ls, nw = self._scales(scales.get("noise_scale"), scales.get("length_scale"),
+                                  scales.get("noise_w"))
+        sid = self._sid_array(
+            [scales["speaker_id"]] if scales.get("speaker_id") is not None else None, 1)
+        with self._device_work():
+            out = vits.debug_infer(
+                self.params, self.hparams, self._to_device(ids),
+                self._to_device(np.asarray([len(phoneme_ids)], np.int64)),
+                self._to_device(dp_noise), self._to_device(main_noise),
+                max_frames=max_frames, noise_scale=ns, length_scale=ls, noise_w=nw,
+                sid=self._to_device(sid), per_layer=per_layer)
+            return {k: v.float().cpu().numpy() for k, v in out.items()}
 
     def prewarm(
         self,

@@ -1,7 +1,7 @@
 """Stochastic duration predictor, reverse (inference) path.
 
 Counterpart of piper_tpu.models.vits.duration_predictor: masked convs plus
-spline flows.
+spline flows, with its per-layer trace points (`utils/debug_trace.py`).
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from piper_tpu_torch.models.vits.params import Params, Prefix
 from piper_tpu_torch.ops.conv import conv1d, conv1d_same
 from piper_tpu_torch.ops.nn import gelu_exact, layer_norm_channels
 from piper_tpu_torch.ops.spline import rational_quadratic_spline_inverse
+from piper_tpu_torch.utils.debug_trace import trace_put
 
 
 def _dds_conv(
@@ -41,6 +42,7 @@ def _dds_conv(
         n2 = p.sub(f"norms_2.{i}")
         y = gelu_exact(layer_norm_channels(y, n2["gamma"], n2["beta"]))
         x = x + y
+        trace_put(f"{p.prefix}.layer.{i}", x)
     return x * x_mask
 
 
@@ -105,6 +107,8 @@ def stochastic_duration_predictor_reverse(
     for idx in reversed(conv_flow_indices[1:]):  # 7, 5, 3
         z = torch.flip(z, dims=[1])
         z = _conv_flow_reverse(z, x_mask, p.sub(f"flows.{idx}"), hp, g=h)
+        trace_put(f"{prefix}.flows.{idx}", z)
     z = torch.flip(z, dims=[1])
     z = _elementwise_affine_reverse(z, x_mask, p.sub("flows.0"))
+    trace_put(f"{prefix}.flows.0", z)
     return z[:, :1]

@@ -1,6 +1,7 @@
 """Residual-coupling flow decoder (z_p -> z) and the shared WaveNet stack.
 
-Counterpart of piper_tpu.models.vits.flows. Weight-norm is already fused in
+Counterpart of piper_tpu.models.vits.flows, with its per-layer trace points
+(`utils/debug_trace.py`). Weight-norm is already fused in
 exported checkpoints, so parameters are plain conv weights.
 """
 
@@ -14,6 +15,7 @@ from piper_tpu_torch.models.vits.hparams import VitsHParams
 from piper_tpu_torch.models.vits.params import Params, Prefix
 from piper_tpu_torch.ops.conv import conv1d, conv1d_same
 from piper_tpu_torch.ops.nn import fused_add_tanh_sigmoid_multiply
+from piper_tpu_torch.utils.debug_trace import trace_put
 
 
 def wavenet(
@@ -36,6 +38,7 @@ def wavenet(
             x, p[f"in_layers.{i}.weight"], p[f"in_layers.{i}.bias"],
             dilation=dilation_rate**i,
         )
+        trace_put(f"{p.prefix}.in_layers.{i}", x_in)
         if g_all is not None:
             g_l = g_all[:, i * 2 * hidden_channels : (i + 1) * 2 * hidden_channels]
         else:
@@ -44,6 +47,7 @@ def wavenet(
         res_skip = conv1d(
             acts, p[f"res_skip_layers.{i}.weight"], p[f"res_skip_layers.{i}.bias"]
         )
+        trace_put(f"{p.prefix}.res_skip_layers.{i}", res_skip)
         if i < n_layers - 1:
             x = (x + res_skip[:, :hidden_channels]) * x_mask
             output = output + res_skip[:, hidden_channels:]
@@ -93,4 +97,5 @@ def flow_reverse(
     for i in reversed(range(hp.flow_n_flows)):
         z = torch.flip(z, dims=[1])  # inverse of the Flip that follows RCL@2i
         z = _residual_coupling_reverse(z, y_mask, p.sub(f"flows.{2 * i}"), hp, g)
+        trace_put(f"{prefix}.flows.{2 * i}", z)
     return z

@@ -20,6 +20,13 @@ path is the unfused reference with the kernels' semantics.
 `level_precisions` sets each upsample level's tier, as in JAX: the level's
 kernels run at that tier (None meaning "highest", as _pallas_precision maps
 it) and its PyTorch convs under tier_scope (None inheriting the caller's).
+On bf16 activations (the runtime's "bfloat16" mode) a None level runs at
+"bfloat16", which the kernels take as "default", the one tier they run on
+bf16 activations.
+
+While a per-layer trace collects (`utils/debug_trace.py`), every level
+keeps its per-branch kernels in place of the fused MRF kernel, so that each
+branch's output is recorded, as in JAX.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ from piper_tpu_torch.ops.kernels import conv as K1
 from piper_tpu_torch.ops.kernels.precision import tier_scope
 from piper_tpu_torch.ops.kernels.resblock import resblock1_branch, resblock1_mrf
 from piper_tpu_torch.ops.nn import leaky_relu
+from piper_tpu_torch.utils.debug_trace import trace_put, tracing
 
 LRELU_SLOPE = 0.1
 
@@ -60,8 +68,10 @@ def _resblock1(x, p: Prefix, dilations, t_mask=None, precision=None):
     for m, d in enumerate(dilations):
         xt = _lrelu_conv(x, p[f"convs1.{m}.weight"], p[f"convs1.{m}.bias"],
                          dilation=d, t_mask=t_mask, precision=precision)
+        trace_put(f"{p.prefix}.convs1.{m}", xt)
         xt = _lrelu_conv(xt, p[f"convs2.{m}.weight"], p[f"convs2.{m}.bias"], t_mask=t_mask,
                          precision=precision)
+        trace_put(f"{p.prefix}.convs2.{m}", xt)
         x = x + xt
     return x
 
@@ -69,8 +79,10 @@ def _resblock1(x, p: Prefix, dilations, t_mask=None, precision=None):
 def _resblock2(x, p: Prefix, dilations, t_mask=None, bounds=None, precision=None):
     """Single-conv residual block (HiFi-GAN ResBlock2, Piper's x_low voices)."""
     for m, d in enumerate(dilations):
-        x = x + _lrelu_conv(x, p[f"convs.{m}.weight"], p[f"convs.{m}.bias"],
-                            dilation=d, t_mask=t_mask, bounds=bounds, precision=precision)
+        xt = _lrelu_conv(x, p[f"convs.{m}.weight"], p[f"convs.{m}.bias"],
+                         dilation=d, t_mask=t_mask, bounds=bounds, precision=precision)
+        trace_put(f"{p.prefix}.convs.{m}", xt)
+        x = x + xt
     return x
 
 
@@ -113,6 +125,8 @@ def hifigan_generator(
     if len(lp) != hp.num_upsamples:
         raise ValueError(f"level_precisions has {len(lp)} entries for "
                          f"{hp.num_upsamples} upsample levels")
+    if z.dtype == torch.bfloat16:
+        lp = ["bfloat16" if t is None else t for t in lp]
 
     def masked(x, m):
         return x if m is None else x * m
@@ -124,6 +138,7 @@ def hifigan_generator(
         x = conv1d(masked(z, m), p["conv_pre.weight"], p["conv_pre.bias"], padding=3)
         if g is not None:
             x = x + conv1d(g, p["cond.weight"], p["cond.bias"])
+        trace_put(f"{prefix}.conv_pre", x)
 
     num_kernels = hp.num_resblock_kernels
     use_resblock2 = f"{prefix}.resblocks.0.convs.0.weight" in params
@@ -139,6 +154,7 @@ def hifigan_generator(
     with tier_scope(lp[-1], dev):
         x = leaky_relu(masked(x, m))  # final activation: torch default slope 0.01
         x = conv1d(masked(x, m), p["conv_post.weight"], p["conv_post.bias"], padding=3)
+        trace_put(f"{prefix}.conv_post", x)
     out = torch.tanh(x)
     return out if m is None else out * m
 
@@ -152,6 +168,7 @@ def _level(x, m, bounds, i: int, p: Prefix, hp: VitsHParams, use_resblock2: bool
     k, u = hp.upsample_kernel_sizes[i], hp.upsample_rates[i]
     x = conv_transpose1d(x if m is None else x * m, p[f"ups.{i}.weight"], p[f"ups.{i}.bias"],
                          stride=u, padding=(k - u) // 2)
+    trace_put(f"{p.prefix}.ups.{i}", x)
     if m is not None:
         m = torch.repeat_interleave(m, u, dim=2)
         x = x * m
@@ -161,7 +178,7 @@ def _level(x, m, bounds, i: int, p: Prefix, hp: VitsHParams, use_resblock2: bool
     num_kernels = hp.num_resblock_kernels
     fused = not use_resblock2 and ch_here < 128 and (m is None or bounds is not None)
     rbs = [p.sub(f"resblocks.{i * num_kernels + j}") for j in range(num_kernels)]
-    if fused and ch_here <= 32:
+    if fused and ch_here <= 32 and not tracing():
         branches = [
             (*_stacked(rb, len(hp.resblock_dilation_sizes[j])),
              hp.resblock_kernel_sizes[j], hp.resblock_dilation_sizes[j])
@@ -181,5 +198,6 @@ def _level(x, m, bounds, i: int, p: Prefix, hp: VitsHParams, use_resblock2: bool
                            precision=precision)
         else:
             y = _resblock1(x, rb, dils, t_mask=m, precision=precision)
+        trace_put(rb.prefix, y)
         acc = y if acc is None else acc + y
     return acc / num_kernels, m, bounds

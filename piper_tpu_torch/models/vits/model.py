@@ -5,8 +5,17 @@ frame count on the host between them to pick the frame bucket.
 `encode_forced` takes the caller's per-phoneme frame plan in place of the
 duration predictor. `infer` runs encode and decode; `debug_infer` returns
 every module-boundary tensor, with the same keys as the JAX package's, for
-parity checks. A multi-speaker voice takes `sid`: (B,) speaker ids or
-(B, n_speakers) mixing weights (`speaker_embedding`).
+parity checks, and with per_layer=True one tensor per layer under its
+parameter path (`utils/debug_trace.py`). A multi-speaker voice takes `sid`:
+(B,) speaker ids or (B, n_speakers) mixing weights (`speaker_embedding`).
+
+Every function runs in the weights' dtype (fp32, or bf16 in the runtime's
+"bfloat16" mode, as in the JAX package): noise arrives fp32 and is cast to
+it, masks and the alignment path take m_p's. The frame durations (w,
+w_ceil, y_total) and the path's frame arithmetic stay fp32 in every mode:
+bf16 holds integers exactly only up to 256, so a cumulative frame index or
+a frame count past that would round (the JAX package's bf16 mode rounds
+them; ROADMAP §3).
 
 Streaming decodes frame windows: `decode_window` decodes frames
 [t_offset, t_offset + window) of each row, whose prior noise comes from
@@ -16,6 +25,7 @@ frame) so that overlapping windows agree.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple, Union
@@ -30,6 +40,7 @@ from piper_tpu_torch.models.vits.params import Params
 from piper_tpu_torch.models.vits.text_encoder import text_encoder
 from piper_tpu_torch.ops.kernels.precision import tier_scope
 from piper_tpu_torch.ops.masking import generate_path, sequence_mask
+from piper_tpu_torch.utils.debug_trace import collecting
 
 
 @dataclass(frozen=True)
@@ -39,9 +50,9 @@ class EncodeResult:
     m_p: torch.Tensor        # (B, C, P) prior mean
     logs_p: torch.Tensor     # (B, C, P) prior log-std
     x_mask: torch.Tensor     # (B, 1, P)
-    w: torch.Tensor          # (B, P) frame durations before their ceil
-    w_ceil: torch.Tensor     # (B, P) integer-valued frame durations
-    y_total: torch.Tensor    # (B,) total frame counts (sum of w_ceil)
+    w: torch.Tensor          # (B, P) frame durations before their ceil, fp32
+    w_ceil: torch.Tensor     # (B, P) integer-valued frame durations, fp32
+    y_total: torch.Tensor    # (B,) total frame counts (sum of w_ceil), fp32
     g: Optional[torch.Tensor]  # (B, gin, 1) speaker embedding; None (single speaker)
 
 
@@ -61,7 +72,7 @@ def speaker_embedding(params: Params, hp: VitsHParams,
     emb = params["emb_g.weight"]
     if sid.ndim == 2:
         with tier_scope("highest", emb.device):
-            g = torch.matmul(sid.to(torch.float32), emb)
+            g = torch.matmul(sid.to(torch.float32), emb.float()).to(emb.dtype)
         return g[..., None]
     return emb[sid.long()][..., None]
 
@@ -82,7 +93,7 @@ def encode(
     g = speaker_embedding(params, hp, sid)
     logw = stochastic_duration_predictor_reverse(
         x, x_mask, dp_noise.to(x.dtype), params, hp, g=g, noise_scale=noise_w)
-    w = (torch.exp(logw) * x_mask * length_scale)[:, 0]  # (B, P)
+    w = _durations(logw, x_mask, length_scale)
     w_ceil = torch.ceil(w)
     return EncodeResult(m_p=m_p, logs_p=logs_p, x_mask=x_mask, w=w, w_ceil=w_ceil,
                         y_total=w_ceil.sum(dim=-1), g=g)
@@ -102,9 +113,15 @@ def encode_forced(
     length, is the plan the decoder expands, as a predicted w_ceil is."""
     x, m_p, logs_p, x_mask = text_encoder(phoneme_ids, lengths, params, hp)
     g = speaker_embedding(params, hp, sid)
-    w_ceil = durations.to(m_p.dtype) * x_mask[:, 0]
+    w_ceil = durations.to(torch.float32) * x_mask[:, 0].float()
     return EncodeResult(m_p=m_p, logs_p=logs_p, x_mask=x_mask, w=w_ceil, w_ceil=w_ceil,
                         y_total=w_ceil.sum(dim=-1), g=g)
+
+
+def _durations(logw, x_mask, length_scale) -> torch.Tensor:
+    """(B, P) fp32 frame durations before their ceil: exp(logw) * x_mask *
+    length_scale (`length_scale` a float or a (B, 1, 1) tensor)."""
+    return (torch.exp(logw.float()) * x_mask.float() * length_scale)[:, 0]
 
 
 def _prior(path, enc_m_p, enc_logs_p, noise, noise_scale):
@@ -116,7 +133,7 @@ def _prior(path, enc_m_p, enc_logs_p, noise, noise_scale):
 
 
 def _expand_prior(enc_m_p, enc_logs_p, w_ceil, x_mask, max_frames, main_noise, noise_scale):
-    y_lengths = torch.clamp(w_ceil.sum(dim=-1), 1, max_frames)
+    y_lengths = torch.clamp(w_ceil.float().sum(dim=-1), 1, max_frames)
     y_mask = sequence_mask(y_lengths.to(torch.int32), max_frames).to(enc_m_p.dtype)
     path = generate_path(w_ceil, x_mask, y_mask)  # (B, T, P)
     return (y_lengths, y_mask, path) + _prior(path, enc_m_p, enc_logs_p, main_noise,
@@ -296,22 +313,30 @@ def debug_infer(
     length_scale: float = 1.0,
     noise_w: float = 0.8,
     sid: Optional[torch.Tensor] = None,
+    per_layer: bool = False,
 ) -> dict:
-    """Full inference returning every module-boundary tensor (the keys of
-    piper_tpu.models.vits.model.debug_infer, without its per-layer trace).
-    Like the reference, the vocoder gets the mask and no bounds here, so it
-    runs the unfused path."""
-    x, m_p, logs_p, x_mask = text_encoder(phoneme_ids, lengths, params, hp)
-    g = speaker_embedding(params, hp, sid)
-    logw = stochastic_duration_predictor_reverse(x, x_mask, dp_noise, params, hp, g=g,
-                                                 noise_scale=noise_w)
-    w = torch.exp(logw) * x_mask * length_scale
-    w_ceil = torch.ceil(w)[:, 0]
-    y_lengths, y_mask, path, m_p_exp, logs_p_exp, z_p = _expand_prior(
-        m_p, logs_p, w_ceil, x_mask, max_frames, main_noise, noise_scale)
-    z = flow_reverse(z_p, y_mask, params, hp, g=g)
-    audio = hifigan_generator(z * y_mask, params, hp, g=g, t_mask=y_mask)
+    """Full inference returning every module-boundary tensor, with the keys
+    of piper_tpu.models.vits.model.debug_infer. Like the reference, the
+    vocoder gets the mask and no bounds here, so it runs the unfused path.
+
+    With per_layer=True the dict first carries one entry per conv, flow
+    step and attention layer, keyed by the checkpoint parameter path that
+    produced it (e.g. "flow.flows.2.enc.in_layers.1"), in the order they
+    ran: the JAX package's keys in its order, for bisecting a divergence to
+    one layer. The collector is detached when the body raises."""
+    layer_trace: dict = {}
+    with collecting(layer_trace) if per_layer else contextlib.nullcontext():
+        x, m_p, logs_p, x_mask = text_encoder(phoneme_ids, lengths, params, hp)
+        g = speaker_embedding(params, hp, sid)
+        logw = stochastic_duration_predictor_reverse(x, x_mask, dp_noise.to(x.dtype), params,
+                                                     hp, g=g, noise_scale=noise_w)
+        w_ceil = torch.ceil(_durations(logw, x_mask, length_scale))
+        y_lengths, y_mask, path, m_p_exp, logs_p_exp, z_p = _expand_prior(
+            m_p, logs_p, w_ceil, x_mask, max_frames, main_noise, noise_scale)
+        z = flow_reverse(z_p, y_mask, params, hp, g=g)
+        audio = hifigan_generator(z * y_mask, params, hp, g=g, t_mask=y_mask)
     return {
+        **layer_trace,
         "enc_hidden": x,
         "m_p": m_p,
         "logs_p": logs_p,

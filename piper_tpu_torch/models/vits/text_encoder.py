@@ -1,6 +1,7 @@
 """VITS text encoder: phoneme embedding + relative-position transformer.
 
-Counterpart of piper_tpu.models.vits.text_encoder, over the flat param dict.
+Counterpart of piper_tpu.models.vits.text_encoder, over the flat param dict,
+with its per-layer trace points (`utils/debug_trace.py`).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from piper_tpu_torch.ops.attention import multi_head_attention
 from piper_tpu_torch.ops.conv import conv1d, conv1d_same
 from piper_tpu_torch.ops.masking import sequence_mask
 from piper_tpu_torch.ops.nn import layer_norm_channels
+from piper_tpu_torch.utils.debug_trace import trace_put
 
 
 def _ffn(x: torch.Tensor, x_mask: torch.Tensor, p: Prefix) -> torch.Tensor:
@@ -52,11 +54,15 @@ def encoder(
     x = x * x_mask
     for i in range(hp.n_layers):
         y = _attn_layer(x, attn_mask, p.sub(f"attn_layers.{i}"), hp)
+        trace_put(f"{prefix}.attn_layers.{i}", y)
         n1 = p.sub(f"norm_layers_1.{i}")
         x = layer_norm_channels(x + y, n1["gamma"], n1["beta"])
+        trace_put(f"{prefix}.norm_layers_1.{i}", x)
         y = _ffn(x, x_mask, p.sub(f"ffn_layers.{i}"))
+        trace_put(f"{prefix}.ffn_layers.{i}", y)
         n2 = p.sub(f"norm_layers_2.{i}")
         x = layer_norm_channels(x + y, n2["gamma"], n2["beta"])
+        trace_put(f"{prefix}.norm_layers_2.{i}", x)
     return x * x_mask
 
 

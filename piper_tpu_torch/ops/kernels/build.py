@@ -89,14 +89,14 @@ def load() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.piper_cuda_error_string.argtypes = [i]
     lib.piper_cuda_error_string.restype = ctypes.c_char_p
-    # Each entry ends in (..., tier, device, stream).
+    # Each entry ends in (..., tier, [bf16_io,] device, stream).
     lib.piper_resblock1_branch.argtypes = [
-        p, p, p, p, p, i, i, p, p, p, i, i, i, i, f, i, i, p]
+        p, p, p, p, p, i, i, p, p, p, i, i, i, i, f, i, i, i, p]
     lib.piper_resblock1_mrf.argtypes = [
-        p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, i, i, p]
+        p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, i, i, i, p]
     lib.piper_resblock1_mrf_folded.argtypes = [
         p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, i, i, p]
-    lib.piper_conv1d_same.argtypes = [p, p, p, p, i, p, i, i, i, i, i, i, f, i, i, i, i, p]
+    lib.piper_conv1d_same.argtypes = [p, p, p, p, i, p, i, i, i, i, i, i, f, i, i, i, i, i, p]
     # (y, out, B, r, c, q, device, stream): no tier, a permutation.
     lib.piper_interleave.argtypes = [p, p, i, i, i, i, i, p]
     for fn in (lib.piper_resblock1_branch, lib.piper_resblock1_mrf,

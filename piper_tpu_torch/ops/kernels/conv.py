@@ -20,6 +20,13 @@ from its plain version only in the order of its fp32 sums; at "highest" it
 forms each product as 3xTF32 (`precision.split_tf32`), about 2^-21 from
 the plain version's fp32 product.
 
+bf16 activations (the runtime's "bfloat16" mode): x, weight and bias may
+all be bfloat16 at "default", the tier that mode maps to, and nowhere else
+(`resblock.check_io_dtype`). The kernel reads them straight into the bf16
+planes it stages at "default" (no fp32 -> bf16 split), sums in fp32 and
+stores the output rounded to bf16; the plain version is the fp32 plain
+version at "default" on their fp32 values, rounded to bf16.
+
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernel or raises. `conv1d_same.launches` counts the kernel launches.
 """
@@ -33,7 +40,8 @@ import torch
 
 from piper_tpu_torch.ops.kernels.precision import tier_code, tiered_conv1d
 from piper_tpu_torch.ops.kernels.resblock import (_MMA_PAD, _SMEM_LIMIT, _TF32_PAD,
-                                                  _THREADS, _bounds_array, _mask, _stream)
+                                                  _THREADS, _bounds_array, _mask, _stream,
+                                                  check_io_dtype)
 from piper_tpu_torch.ops.nn import leaky_relu
 
 _MMA_TILES = (256, 128, 64, 32, 16)  # multiples of a warp's n-tiles of 8 lanes
@@ -51,8 +59,14 @@ _props = functools.lru_cache(maxsize=None)(torch.cuda.get_device_properties)
 def conv1d_same_plain(x, weight, bias=None, *, dilation: int = 1, act_slope: float = 0.0,
                       bounds=None, tile: int = 4096,
                       precision: str = "highest") -> torch.Tensor:
-    """Plain PyTorch K1. `tile` is accepted for signature parity and has no
-    effect."""
+    """Plain PyTorch K1 (bf16 activations: on their fp32 values at
+    "default", rounded after). `tile` is accepted for signature parity and
+    has no effect."""
+    if check_io_dtype("conv1d_same", x, tier_code(precision), (weight, bias)):
+        return conv1d_same_plain(
+            x.float(), weight.float(), None if bias is None else bias.float(),
+            dilation=dilation, act_slope=act_slope, bounds=bounds,
+            precision=precision).to(torch.bfloat16)
     k = weight.shape[-1]
     xin = leaky_relu(x, act_slope) if act_slope else x
     if bounds is not None:
@@ -158,34 +172,36 @@ def conv1d_same(x, weight, bias=None, *, dilation: int = 1, act_slope: float = 0
     """conv1d_same(leaky_relu(x, act_slope) [zero outside bounds], weight,
     bias, dilation=dilation).
 
-    x (B, C, N) float32; weight (C, C, k), k odd; bias (C,) or None; bounds
-    (B,) or (B, 2) or None. `tile` caps the kernel's time tile (the result
-    does not depend on it)."""
+    x (B, C, N) float32, or bfloat16 at "default"; weight (C, C, k), k odd,
+    and bias (C,) or None, of x's dtype; bounds (B,) or (B, 2) or None.
+    `tile` caps the kernel's time tile (the result does not depend on it)."""
     tier = tier_code(precision)
     _check_args(x, weight, bias)
+    bf16 = check_io_dtype("conv1d_same", x, tier, (weight, bias))
     if x.device.type == "cpu":
         return conv1d_same_plain(x, weight, bias, dilation=dilation, act_slope=act_slope,
                                  bounds=bounds, tile=tile, precision=precision)
     if x.device.type != "cuda":
         raise ValueError(f"conv1d_same runs on cpu or cuda, not {x.device}")
     for name, t in (("x", x), ("weight", weight), ("bias", bias)):
-        if t is not None and (t.device != x.device or t.dtype != torch.float32):
-            raise ValueError(f"{name} must be float32 on {x.device}, got {t.dtype} on {t.device}")
+        if t is not None and t.device != x.device:
+            raise ValueError(f"{name} must be on {x.device}, got {t.device}")
     if not x.is_contiguous() or x.shape[1] % 8:
         raise ValueError(f"x must be contiguous with C a multiple of 8, got C={x.shape[1]} "
                          f"contiguous={x.is_contiguous()}")
     k = weight.shape[-1]
     t, m_tiles, n_tiles = _mma_config(x, k, (k - 1) // 2 * dilation, tile, tier)
     out = _launch(x, weight.contiguous(), k, bias, bounds, dilation, act_slope, tier, t,
-                  m_tiles, n_tiles)
+                  m_tiles, n_tiles, bf16)
     conv1d_same.launches += 1
     return out
 
 
 def _launch(x, w, k: int, bias, bounds, dilation: int, act_slope: float, tier: int,
-            tile: int, m_tiles: int, n_tiles: int) -> torch.Tensor:
+            tile: int, m_tiles: int, n_tiles: int, bf16: bool = False) -> torch.Tensor:
     """One launch of the kernel on checked arguments, contiguous (C, C, k)
-    weights `w` and the (tile, m_tiles, n_tiles) given."""
+    weights `w` and the (tile, m_tiles, n_tiles) given; `bf16` for bf16
+    x, w, bias and output."""
     from piper_tpu_torch.ops.kernels import build
 
     lib = build.load()
@@ -197,8 +213,8 @@ def _launch(x, w, k: int, bias, bounds, dilation: int, act_slope: float, tier: i
     code = lib.piper_conv1d_same(
         x.data_ptr(), w.data_ptr(), None if bc is None else bc.data_ptr(),
         None if bnd is None else bnd.data_ptr(), cols, out.data_ptr(), b, c, n, k, dilation,
-        tile, act_slope if act_slope else 1.0, tier, m_tiles, n_tiles, x.device.index or 0,
-        _stream(x))
+        tile, act_slope if act_slope else 1.0, tier, m_tiles, n_tiles, int(bf16),
+        x.device.index or 0, _stream(x))
     build.check(lib, code, "piper_conv1d_same")
     return out
 

@@ -13,6 +13,10 @@ zero-padded folded weight GEMM, which buys MXU rows with S/k redundant
 FLOPs, is not carried over. The kernel reads and writes only the folded
 layout; the mask is applied on the sample g = F*q + r.
 
+K4 runs only in `tools/folded_probe.py`, never on synthesis's path, so it
+keeps fp32 activations at every tier: bf16 activations (the runtime's
+"bfloat16" mode) go through K3, and this wrapper refuses them.
+
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernel or raises. `resblock1_mrf_folded.launches` counts the launches.
 """
@@ -49,9 +53,12 @@ def unfold_time_axis(xf: torch.Tensor, fold: int, n: int) -> torch.Tensor:
     return xf.reshape(b, fold, ch, nq).permute(0, 2, 3, 1).reshape(b, ch, nq * fold)[:, :, :n]
 
 
-def _check_fold(fold: int) -> None:
+def _check_fold(fold: int, x: torch.Tensor) -> None:
     if not isinstance(fold, int) or fold < 1:
         raise ValueError(f"fold must be a positive int, got {fold!r}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"resblock1_mrf_folded takes float32 activations only, got {x.dtype} "
+                         f"(bf16 activations go through resblock1_mrf)")
 
 
 def resblock1_mrf_folded_plain(x, branches: Sequence[tuple], *, fold: int = 4, bounds=None,
@@ -59,7 +66,7 @@ def resblock1_mrf_folded_plain(x, branches: Sequence[tuple], *, fold: int = 4, b
                                precision: str = "highest") -> torch.Tensor:
     """Plain PyTorch K4: fold, unfold, then K3's plain version at the tier.
     `tile` is accepted for signature parity and has no effect."""
-    _check_fold(fold)
+    _check_fold(fold, x)
     n = x.shape[2]
     xu = unfold_time_axis(fold_time_axis(x, fold), fold, n)
     return resblock1_mrf_plain(xu, branches, bounds=bounds, slope=slope, precision=precision)
@@ -74,7 +81,7 @@ def resblock1_mrf_folded(x, branches: Sequence[tuple], *, fold: int = 4, bounds=
     `bounds` (B,) [0, hi) or (B, 2) [lo, hi), clamped to [0, N]. `tile` caps
     the kernel's time tile at fold*tile samples, as the TPU kernel's tile
     counts folded lanes (the result does not depend on it)."""
-    _check_fold(fold)
+    _check_fold(fold, x)
     if x.device.type == "cpu":
         return resblock1_mrf_folded_plain(x, branches, fold=fold, bounds=bounds, slope=slope,
                                           tile=tile, precision=precision)

@@ -69,6 +69,20 @@ def split_bf16(x: torch.Tensor):
     return hi, lo
 
 
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 values at |x| (fp32): 2^(floor(log2|x|) - 7) for
+    normal values, the smallest normal's spacing at and below it."""
+    m = x.float().abs().clamp_min(torch.finfo(torch.bfloat16).tiny)
+    return torch.exp2(torch.floor(torch.log2(m)) - 7)
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The largest |a - b| over the bf16 ulp at max(|a|, |b|): 0 for equal
+    tensors, at most 1 where each element is equal or one bf16 step apart."""
+    a, b = a.float(), b.float()
+    return float(((a - b).abs() / bf16_ulp(torch.maximum(a.abs(), b.abs()))).max())
+
+
 def split_tf32(x: torch.Tensor):
     """(big, small) as fp32 tensors holding tf32 values (the low 13 mantissa
     bits zero), x ~ big + small within 2^-22 of |x| (2^-137 where a part is

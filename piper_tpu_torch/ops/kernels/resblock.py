@@ -21,6 +21,15 @@ fp32 and the kernel in three TF32 passes (`precision.split_tf32`), which
 drop about 2^-21 of each product: well inside the 1e-4 bar over the six
 chained convs of a branch.
 
+bf16 activations (the runtime's "bfloat16" mode): x, the weights and the
+biases may all be bfloat16 at "default", the tier that mode maps to, and
+nowhere else (`check_io_dtype`). The kernel reads them as they are, keeps
+the residual in fp32 and act(y), act(conv1) in the same bf16 planes as on
+fp32 input, and stores its output rounded to bf16; so it equals the
+fp32-input kernel on the same bf16 values with the output rounded to bf16.
+The plain version computes the same: the fp32 plain version at "default" on
+x.float(), its output rounded to bf16.
+
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
 kernel or raises. Each wrapper's `launches` counts its kernel launches.
 """
@@ -32,7 +41,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from piper_tpu_torch.ops.kernels.precision import split_tf32, tier_code, tiered_conv1d
+from piper_tpu_torch.ops.kernels.precision import TIERS, split_tf32, tier_code, tiered_conv1d
 from piper_tpu_torch.ops.nn import leaky_relu
 
 _SMEM_LIMIT = 232448  # dynamic shared memory one block may opt into on the H100
@@ -42,6 +51,26 @@ _MAX_DILS = 4
 _MMA_NT = 2    # 8-lane n-tiles per warp work item
 _MMA_PAD = 8   # "high"/"default": a bf16 plane's row is C + 8 channels
 _TF32_PAD = 4  # "highest": an fp32 plane's row is C + 4 channels
+
+
+def check_io_dtype(what: str, x: torch.Tensor, tier: int, others=()) -> bool:
+    """True for bf16 activations, False for fp32; raises on any other dtype,
+    on bf16 at a tier other than "default" (tier code 2: the products of
+    bf16 activations are one bf16 pass, so a tier asking for more would
+    silently get less) and on weights or biases (`others`, None skipped)
+    of another dtype than x."""
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{what} takes float32 or bfloat16 activations, got {x.dtype}")
+    bf16 = x.dtype == torch.bfloat16
+    if bf16 and tier != 2:
+        raise ValueError(f"{what}: bfloat16 activations run at the 'default' tier only (the "
+                         f"tier the 'bfloat16' mode maps to); tier {TIERS[tier]!r} would need "
+                         f"more than one bf16 product of each pair")
+    for t in others:
+        if t is not None and t.dtype != x.dtype:
+            raise ValueError(f"{what}: weights and biases must have the activations' dtype "
+                             f"{x.dtype}, got {t.dtype}")
+    return bf16
 
 
 def branch_halo(kernel: int, dilations: Sequence[int]) -> int:
@@ -95,8 +124,14 @@ def resblock1_branch_plain(x, w1s, b1s, w2s, b2s, *, kernel: int,
                            dilations: Sequence[int], bounds=None,
                            slope: float = 0.1, tile: int = 256,
                            precision: str = "highest") -> torch.Tensor:
-    """Plain PyTorch K2: unfused F.conv1d with the kernel's mask semantics.
-    `tile` is accepted for signature parity and has no effect."""
+    """Plain PyTorch K2: unfused F.conv1d with the kernel's mask semantics
+    (bf16 activations: on their fp32 values, rounded after). `tile` is
+    accepted for signature parity and has no effect."""
+    tensors = (w1s, b1s, w2s, b2s)
+    if check_io_dtype("resblock1_branch", x, tier_code(precision), tensors):
+        return resblock1_branch_plain(x.float(), *[t.float() for t in tensors], kernel=kernel,
+                                      dilations=dilations, bounds=bounds, slope=slope,
+                                      precision=precision).to(torch.bfloat16)
     b, _, n = x.shape
     mask = _mask(_bounds_array(bounds, b, n, x.device), n)
     return resblock1_chain_plain(x, w1s, b1s, w2s, b2s, kernel, dilations, mask, slope,
@@ -106,8 +141,14 @@ def resblock1_branch_plain(x, w1s, b1s, w2s, b2s, *, kernel: int,
 def resblock1_mrf_plain(x, branches: Sequence[tuple], *, bounds=None,
                         slope: float = 0.1, tile: int = 256,
                         precision: str = "highest") -> torch.Tensor:
-    """Plain PyTorch K3: the mean of the branches, masked.
-    `branches` holds (w1s, b1s, w2s, b2s, kernel, dilations) per branch."""
+    """Plain PyTorch K3: the mean of the branches, masked (bf16 activations:
+    on their fp32 values, rounded after). `branches` holds (w1s, b1s, w2s,
+    b2s, kernel, dilations) per branch."""
+    if check_io_dtype("resblock1_mrf", x, tier_code(precision),
+                      [t for br in branches for t in br[:4]]):
+        fp32 = [(*[t.float() for t in br[:4]], *br[4:]) for br in branches]
+        return resblock1_mrf_plain(x.float(), fp32, bounds=bounds, slope=slope,
+                                   precision=precision).to(torch.bfloat16)
     b, _, n = x.shape
     mask = _mask(_bounds_array(bounds, b, n, x.device), n)
     acc = None
@@ -159,9 +200,9 @@ def _pick_tile(x: torch.Tensor, halo: int, mean: bool, tile_max: int, tier: int)
 
 def _check_cuda_args(x: torch.Tensor, tensors: Sequence[torch.Tensor],
                      k: int, dilations: Sequence[int]) -> None:
-    if x.dtype != torch.float32 or not x.is_contiguous() or x.ndim != 3:
-        raise ValueError("x must be a contiguous float32 (B, C, N) tensor, got "
-                         f"{x.dtype} {tuple(x.shape)} contiguous={x.is_contiguous()}")
+    if not x.is_contiguous() or x.ndim != 3:
+        raise ValueError("x must be a contiguous (B, C, N) tensor, got "
+                         f"{tuple(x.shape)} contiguous={x.is_contiguous()}")
     c = x.shape[1]
     if c < 16 or c % 16:
         raise ValueError(f"C={c}: the kernels run every tier on the tensor cores and take "
@@ -172,8 +213,8 @@ def _check_cuda_args(x: torch.Tensor, tensors: Sequence[torch.Tensor],
     w1s, b1s, w2s, b2s = tensors
     for name, t, shape in (("w1s", w1s, (m, c, c, k)), ("b1s", b1s, (m, c)),
                            ("w2s", w2s, (m, c, c, k)), ("b2s", b2s, (m, c))):
-        if t.device != x.device or t.dtype != torch.float32 or tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be float32 {shape} on {x.device}, "
+        if t.device != x.device or t.dtype != x.dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be {x.dtype} {shape} on {x.device}, "
                              f"got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
@@ -229,8 +270,8 @@ def tf32_weights(w: torch.Tensor) -> torch.Tensor:
 def _kernel_weights(w1s, b1s, w2s, b2s, tier: int):
     """The weights in the kernel's layout for the tier: the conv weights as
     A fragments, one 16-byte load per lane, m-tile and plane (tf32_weights
-    at "highest", fragment_weights at "high" and "default"); the biases as
-    they are."""
+    at "highest", fragment_weights at "high" and "default", from fp32 or,
+    at "default", bf16 weights); the biases as they are."""
     lay = tf32_weights if tier == 0 else lambda w: fragment_weights(w, tier)
     out = (lay(w1s), b1s.contiguous(), lay(w2s), b2s.contiguous())
     if out[0].data_ptr() % 16 or out[2].data_ptr() % 16:
@@ -247,15 +288,17 @@ def resblock1_branch(x, w1s, b1s, w2s, b2s, *, kernel: int,
                      tile: int = 256, precision: str = "highest") -> torch.Tensor:
     """One ResBlock1 branch: returns y after all (conv1, conv2, +) stages.
 
-    x (B, C, N); w1s/w2s (M, C, C, K); b1s/b2s (M, C). `tile` caps the
-    kernel's time tile (the result does not depend on it)."""
+    x (B, C, N); w1s/w2s (M, C, C, K); b1s/b2s (M, C), all float32, or all
+    bfloat16 at "default". `tile` caps the kernel's time tile (the result
+    does not depend on it)."""
+    tier = tier_code(precision)
+    bf16 = check_io_dtype("resblock1_branch", x, tier, (w1s, b1s, w2s, b2s))
     if x.device.type == "cpu":
         return resblock1_branch_plain(x, w1s, b1s, w2s, b2s, kernel=kernel,
                                       dilations=dilations, bounds=bounds,
                                       slope=slope, tile=tile, precision=precision)
     if x.device.type != "cuda":
         raise ValueError(f"resblock1_branch runs on cpu or cuda, not {x.device}")
-    tier = tier_code(precision)
     _check_cuda_args(x, (w1s, b1s, w2s, b2s), kernel, dilations)
     from piper_tpu_torch.ops.kernels import build
 
@@ -269,7 +312,7 @@ def resblock1_branch(x, w1s, b1s, w2s, b2s, *, kernel: int,
     code = lib.piper_resblock1_branch(
         x.data_ptr(), w1t.data_ptr(), b1c.data_ptr(), w2t.data_ptr(), b2c.data_ptr(),
         kernel, len(dilations), ctypes.cast(dils, ctypes.c_void_p), bnd.data_ptr(),
-        out.data_ptr(), b, c, n, t, slope, tier, x.device.index or 0, _stream(x))
+        out.data_ptr(), b, c, n, t, slope, tier, int(bf16), x.device.index or 0, _stream(x))
     build.check(lib, code, "piper_resblock1_branch")
     resblock1_branch.launches += 1
     return out
@@ -305,13 +348,15 @@ def mrf_launch_args(x, branches: Sequence[tuple], tile: int, tier: int) -> tuple
 def resblock1_mrf(x, branches: Sequence[tuple], *, bounds=None, slope: float = 0.1,
                   tile: int = 256, precision: str = "highest") -> torch.Tensor:
     """The whole multi-receptive-field stage: every ResBlock1 branch and
-    their mean. `branches` holds (w1s, b1s, w2s, b2s, kernel, dilations)."""
+    their mean. `branches` holds (w1s, b1s, w2s, b2s, kernel, dilations),
+    float32 with x, or bfloat16 with x at "default"."""
+    tier = tier_code(precision)
+    bf16 = check_io_dtype("resblock1_mrf", x, tier, [t for br in branches for t in br[:4]])
     if x.device.type == "cpu":
         return resblock1_mrf_plain(x, branches, bounds=bounds, slope=slope,
                                    tile=tile, precision=precision)
     if x.device.type != "cuda":
         raise ValueError(f"resblock1_mrf runs on cpu or cuda, not {x.device}")
-    tier = tier_code(precision)
     t, args, _keep = mrf_launch_args(x, branches, tile, tier)
     from piper_tpu_torch.ops.kernels import build
 
@@ -320,7 +365,8 @@ def resblock1_mrf(x, branches: Sequence[tuple], *, bounds=None, slope: float = 0
     bnd = _bounds_array(bounds, b, n, x.device)
     out = torch.empty_like(x)
     code = lib.piper_resblock1_mrf(x.data_ptr(), *args, bnd.data_ptr(), out.data_ptr(),
-                                   b, c, n, t, slope, tier, x.device.index or 0, _stream(x))
+                                   b, c, n, t, slope, tier, int(bf16), x.device.index or 0,
+                                   _stream(x))
     build.check(lib, code, "piper_resblock1_mrf")
     resblock1_mrf.launches += 1
     return out

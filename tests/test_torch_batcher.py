@@ -799,9 +799,15 @@ def test_options_from_env_equal_the_reference(monkeypatch, env):
 
 
 def test_options_from_env_refuses_bfloat16(monkeypatch):
-    """The JAX package's bf16 mode is not ported: from_env validates."""
+    """The bf16 capacity tier is read from the environment as the JAX
+    package reads it; from_env validates, so a vocoder tier it cannot
+    carry (bf16 activations run "default" only) is refused there."""
+    from piper_tpu.engine.runtime import RuntimeOptions as JaxOptions
+
     monkeypatch.setenv("PIPER_TPU_PRECISION", "bfloat16")
-    with pytest.raises(ValueError, match="bfloat16"):
+    assert RuntimeOptions.from_env().precision == JaxOptions.from_env().precision == "bfloat16"
+    monkeypatch.setenv("PIPER_TPU_VOCODER_PRECISION", "high")
+    with pytest.raises(ValueError, match="under precision 'bfloat16'"):
         RuntimeOptions.from_env()
 
 

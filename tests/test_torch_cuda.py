@@ -14,7 +14,10 @@ and the chain carries the flip on (measured up to 2.2e-3 for K2 at C=64,
 k=11 on the H100; chip_smoke.py says more). K2/K3/K4 run every tier on the
 tensor cores (mma.sync), whose fp32 sums run in yet another order: the same
 bars. K1 runs "high" and "default" there too; one conv carries no flip, so
-its x_low tests hold every tier to 1e-4 (K1_ATOL).
+its x_low tests hold every tier to 1e-4 (K1_ATOL). K1-K3 on bf16
+activations (the "bfloat16" mode, "default" only) are held within one bf16
+ulp of the fp32-input "default" kernel on the same values, and within the
+bar plus one ulp of their plain versions.
 """
 
 import pytest
@@ -795,3 +798,75 @@ def test_stream_server_shutdown_leaves_no_worker(card_voices):
         assert not srv._worker.is_alive()
     assert not [t for t in threading.enumerate()
                 if t.name == "piper-stream-server" and t.is_alive()]
+
+
+def _bf16_case(kernel, gen, dev):
+    """(bf16 inputs, kernel call, plain call, fp32-input kernel call) of one
+    of K1-K3 at shapes of the main path (x_low's level-2 conv, medium's
+    level 2 and 3), bounds on a short second row."""
+    if kernel == "conv1d":
+        c, k, d, n = 32, 7, 3, 8192
+        args = ((torch.randn(2, c, n, generator=gen) * 0.5),
+                torch.randn(c, c, k, generator=gen) * (c * k) ** -0.5,
+                torch.randn(c, generator=gen) * 0.02)
+        kw = dict(dilation=d, act_slope=0.1, bounds=torch.tensor([n, 5000], dtype=torch.int32,
+                                                                   device=dev))
+        return ([a.to(dev).bfloat16() for a in args], K1.conv1d_same, K1.conv1d_same_plain, kw)
+    if kernel == "branch":
+        c, k, n = 64, 11, 4096
+        x = torch.randn(2, c, n, generator=gen) * 0.3
+        args = [x, *_weights(gen, c, k, 3, "cpu")]
+        kw = dict(kernel=k, dilations=(1, 3, 5),
+                  bounds=torch.tensor([n, 3000], dtype=torch.int32, device=dev))
+        return ([a.to(dev).bfloat16() for a in args], R.resblock1_branch,
+                R.resblock1_branch_plain, kw)
+    c, n = 32, 8192
+    x = (torch.randn(2, c, n, generator=gen) * 0.3).to(dev).bfloat16()
+    branches = [(*[w.to(dev).bfloat16() for w in _weights(gen, c, k, 3, "cpu")], k, (1, 3, 5))
+                for k in (3, 7, 11)]
+    kw = dict(bounds=torch.tensor([n, 6000], dtype=torch.int32, device=dev))
+    return [x, branches], R.resblock1_mrf, R.resblock1_mrf_plain, kw
+
+
+def _fp32(args):
+    """The bf16 arguments as fp32 tensors holding the same values."""
+    return [[(*[t.float() for t in br[:4]], *br[4:]) for br in a] if isinstance(a, list)
+            else a.float() for a in args]
+
+
+@pytest.mark.parametrize("kernel", ["conv1d", "branch", "mrf"])
+def test_bf16_kernels_match_plain_and_the_fp32_input_kernel(cuda, kernel):
+    """K1-K3 on bf16 activations at "default": the bf16 variant launches
+    (counted), returns bf16, is bit-equal or within one bf16 ulp of the
+    fp32-input "default" kernel on the same bf16 values with its output
+    rounded to bf16 (the same products summed in the same order), and
+    within the fp32 bar plus one ulp of its plain version (K1 1e-4, K2/K3
+    5e-3: the plain version sums in another order, and the rounding to
+    bf16 may then land one step apart)."""
+    from piper_tpu_torch.ops.kernels.precision import bf16_ulp, bf16_ulps
+
+    gen = torch.Generator().manual_seed(17)
+    args, fn, plain, kw = _bf16_case(kernel, gen, cuda)
+    before = fn.launches
+    got = fn(*args, precision="default", **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and got.dtype == torch.bfloat16
+    ref = fn(*_fp32(args), precision="default", **kw).to(torch.bfloat16)
+    assert bf16_ulps(got, ref) <= 1.0
+    want = plain(*args, precision="default", **kw)
+    assert want.dtype == torch.bfloat16
+    atol = K1_ATOL if kernel == "conv1d" else TIER_ATOL["default"]
+    excess = (got.float() - want.float()).abs() - bf16_ulp(torch.maximum(got.float().abs(),
+                                                                         want.float().abs()))
+    assert float(excess.max()) <= atol
+
+
+@pytest.mark.parametrize("kernel", ["conv1d", "branch", "mrf"])
+@pytest.mark.parametrize("tier", ["highest", "high"])
+def test_bf16_kernels_refuse_other_tiers_on_the_card(cuda, kernel, tier):
+    gen = torch.Generator().manual_seed(3)
+    args, fn, _, kw = _bf16_case(kernel, gen, cuda)
+    before = fn.launches
+    with pytest.raises(ValueError, match="'default' tier only"):
+        fn(*args, precision=tier, **kw)
+    assert fn.launches == before

@@ -1265,6 +1265,9 @@ def test_cli_options_match_the_reference(monkeypatch):
                       "output_dtype", "fused_frames_per_phoneme", "phoneme_buckets",
                       "frame_buckets"):
             assert getattr(got, field) == getattr(want, field), (argv, field)
-    with pytest.raises(ValueError, match="bfloat16"):
-        cli._cli_options(cli.build_parser().parse_args(["--serve", "--precision", "bfloat16"]))
+    bf16 = ["--serve", "--precision", "bfloat16"]
+    assert (cli._cli_options(cli.build_parser().parse_args(bf16)).precision
+            == j_cli._cli_options(j_cli.build_parser().parse_args(bf16)).precision)
+    with pytest.raises(ValueError, match="under precision 'bfloat16'"):
+        cli._cli_options(cli.build_parser().parse_args(bf16 + ["--flow-precision", "high"]))
     assert SimpleNamespace  # the namespace import documents the args' shape

@@ -3,8 +3,8 @@ testing.py, the CLI's --record-vectors/--verify-summary/--list-voices), on
 the CPU.
 
 - The Profiler and record/replay cases of tests/test_observability.py under
-  their own names (test_debug_intermediates waits for the per-layer trace,
-  ROADMAP §1 item 9).
+  their own names (test_debug_intermediates is held with the per-layer
+  trace, tests/test_torch_debug_trace.py).
 - The runtime's profiler rows where the JAX runtime records them: "fused",
   "encode"/"decode", "durations", "forced", and a split batch dispatch's
   "encode" and its fetch's "decode"; PIPER_TPU_PROFILE=1 dumps the table at

@@ -321,7 +321,7 @@ def test_audio_module_is_a_copy():
 
 
 @pytest.mark.parametrize("rel", ["core/test_vector.py", "utils/profiling.py",
-                                 "utils/playback.py", "version.py"])
+                                 "utils/playback.py", "version.py", "utils/debug_trace.py"])
 def test_jax_free_module_is_a_byte_copy(rel):
     """The JAX package's jax-free modules the CLI and the package surface
     need, copied byte for byte."""
