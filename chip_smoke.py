@@ -109,6 +109,29 @@ paths give it, and drives the main paths, counting each kernel's launches:
   bench's streaming row (time to first audio, p50) with the head's device
   busy time.
 
+- the multi-slot layer (`mesh`, paths `mesh_dp`, `mesh_sp`, `mesh_tp`,
+  `mesh_pp`; piper_tpu_torch.parallel) on two virtual slots of the card,
+  medium fp32 at full width, each slot on its own stream: ShardedVits dp=2
+  (4 rows of f=8) against the one-slot call with the same numpy noise, at
+  fp32 (1e-4) and at the mixed tiers (1e-3); sp=2 synthesize_long against
+  the one-device decode_window windows; tp=2 against the one-slot
+  (replicated) call; dp=1 x pp=2 synthesize_pipelined against
+  synthesize_batch at the same seed; each against the same call on CPU
+  slots (sp at zero noise). dp and sp slots launch K2 and K3 their count
+  per call, counted per slot; tp and pp launch none. Each path's wall and
+  device busy are printed (dp=1 beside dp=2);
+- PiperRuntime(mesh=dp2) behind a BatchingServer (`mesh_serve`): the
+  serving mix from two threads beside zero-noise requests, each held to
+  the one-device runtime (1e-4), both slots launching K2 and K3;
+- the native ONNX parser (`onnx_native`): load_model of the medium voice
+  through piper_tpu_torch/native/onnx_parser.cpp (built with g++ at first
+  use) and through the Python decoder, equal initializers and nodes, both
+  load times;
+- a 15 s run of the unified soak (`soak`,
+  tests/test_torch_unified_soak.py::run_soak) on the medium voice and a
+  3-speaker medium voice at the mixed tiers: submits, streams, cancels,
+  add_voice/remove_voice churn and sheds, no hang, no leaked thread.
+
 Beside the paths, a profile phase puts one utterance of each voice (fp32
 and mixed, factors 1 and 8) under torch.profiler: its device kernels, their
 summed device time, the vocoder kernels' share (K2 + K3 for medium, K1 for
@@ -151,7 +174,8 @@ RESBLOCK1_PATHS = ("medium", "medium_mixed", "medium_golden", "medium_mixed_gold
                    "medium_batch", "medium_mixed_batch", "pipeline", "high", "high_mixed",
                    "bench", "medium_stream", "medium_mixed_stream", "serve",
                    "medium_stream_serve", "medium_mixed_stream_serve", "unified",
-                   "http", "medium_bf16", "tools") + MS_PATHS
+                   "http", "medium_bf16", "tools", "mesh_dp", "mesh_sp", "mesh_serve",
+                   "soak") + MS_PATHS
 CONV1D_PATHS = ("x_low", "x_low_mixed", "x_low_golden", "x_low_mixed_golden", "x_low_batch",
                 "x_low_mixed_batch", "x_low_stream", "x_low_mixed_stream", "serve",
                 "x_low_mixed_stream_serve", "unified", "http", "x_low_bf16", "debug_trace")
@@ -283,6 +307,18 @@ REPLAY_ATOL = 1e-4
 # another order leave ~3e-6 on m_p and logs_p, and z_p = m_p + noise *
 # exp(logs_p) * noise_scale carries logs_p's error times |z_p - m_p| (up to
 # ~10), 3.4e-5 on the H100.
+# The multi-slot phases (parallel/): medium at full width on virtual slots
+# of the one card. dp: MESH_B rows of the fixture x MESH_F at MESH_FRAMES
+# frames (the f=8 utterance's durations fit); sp, tp and pp: MESH_SMALL_B
+# rows of the fixture x 2 at MESH_SMALL_FRAMES (sp: two spans of MESH_SPAN).
+# Seeds as the JAX tests'. mesh_serve: MESH_SERVE_S seconds of the serving
+# mix at MESH_SERVE_RATE requests/s from two threads, beside zero-noise
+# requests of f = 1/2/4/8. The soak: SOAK_S seconds of the 60 s test's churn.
+MESH_B, MESH_F, MESH_FRAMES = 4, 8, 256
+MESH_SMALL_B, MESH_SMALL_FRAMES, MESH_SPAN = 2, 64, 64
+MESH_SEED, SP_SEED = 3, 77
+MESH_SERVE_S, MESH_SERVE_RATE = 2.0, 20.0
+SOAK_S = 15.0
 DEBUG_MODULE_KEYS = ["enc_hidden", "m_p", "logs_p", "x_mask", "logw", "w_ceil", "y_lengths",
                      "y_mask", "path", "m_p_expanded", "logs_p_expanded", "z_p", "z", "audio"]
 
@@ -2443,6 +2479,332 @@ def phase_mixed_margin() -> None:
         raise AssertionError(f"{len(above)} mixed comparisons above {MIXED_TARGET}: {above}")
 
 
+def _mesh_timing(torch, fn) -> dict:
+    """One call's wall (host clock, to numpy) and device busy (its
+    kernels' summed device time under torch.profiler, every stream)."""
+    from piper_tpu_torch.tools.timing import device_kernels, profiled
+
+    t0 = time.perf_counter()
+    fn()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    for _ in range(3):
+        events = profiled(fn)
+        if events is not None:
+            n, us = device_kernels(events)
+            return {"wall_ms": wall_ms, "device_busy_ms": us / 1e3, "device_kernels": n}
+    raise AssertionError("mesh: torch.profiler lost every window of the call")
+
+
+def _medium_weights(torch, model: str):
+    """(hparams, the weights as CPU tensors) of a voice's checkpoint."""
+    from piper_tpu_torch.core.config import VoiceConfig
+    from piper_tpu_torch.models.vits.hparams import derive_hparams
+    from piper_tpu_torch.models.vits.params import host_arrays_from_graph
+    from piper_tpu_torch.onnx import load_model
+
+    cfg = VoiceConfig.load(f"{model}.json")
+    graph = load_model(model).graph
+    hp = derive_hparams(graph, sample_rate=cfg.audio.sample_rate, n_speakers=cfg.num_speakers)
+    return hp, {k: torch.from_numpy(np.array(v, np.float32))
+                for k, v in host_arrays_from_graph(graph).items()}
+
+
+def _slot_kernels(path: str, mesh, want: dict) -> list:
+    """Every slot's launches; each must be `want` ({name: n}) exactly."""
+    per_slot = [dict(c) for c in mesh.slot_launches]
+    for slot, got in enumerate(per_slot):
+        if got != want:
+            raise AssertionError(f"{path}: slot {slot} launched {got}, expected {want}")
+    return per_slot
+
+
+def phase_mesh(torch, voices: dict) -> dict:
+    """The multi-slot layer (parallel/) on virtual slots of cuda:0, medium
+    at full width. Every count is set to 0 just before each path's call and
+    read just after. dp=2 (ShardedVits.synthesize_batch, MESH_B rows of f=8)
+    against the one-slot call with the same numpy noise (1e-4), the mixed
+    tiers against their one-slot call and the fp32 one (1e-3); sp=2
+    (synthesize_long) against the one-device decode_window windows with the
+    same noise (1e-4); tp=2 against the one-slot (replicated) call; dp=1 x
+    pp=2 (synthesize_pipelined) against synthesize_batch at the same seed.
+    Each path against the same call on the port's CPU slots (sp at zero
+    noise: the card's and the CPU's torch generators draw different
+    duration noise). dp and sp slots must launch K2 and K3 their count
+    per call each (counted per slot); tp and pp launch no kernel."""
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.models.vits import model as vits
+    from piper_tpu_torch.models.vits.hparams import receptive_field_frames
+    from piper_tpu_torch.ops.kernels.precision import tier_scope
+    from piper_tpu_torch.parallel.mesh import make_mesh
+    from piper_tpu_torch.engine.runtime import seeded_noise
+    from piper_tpu_torch.parallel.serving import ShardedVits
+
+    hp, params = _medium_weights(torch, voices["medium"][0])
+    per_call = LAUNCHES_PER_CALL["medium"]
+
+    def mesh(n, dev="cuda", **kw):
+        return make_mesh(n, devices=[torch.device(dev)] * n, **kw)
+
+    def batch(b, f):
+        ids = np.asarray([FIXTURE_PHONEME_IDS * f] * b, np.int64)
+        return ids, np.full((b,), ids.shape[1], np.int64)
+
+    def check(path, got, want, atol, what):
+        if got.shape != want.shape:
+            raise AssertionError(f"{path}: {what}: shape {got.shape} != {want.shape}")
+        err = float(np.abs(got - want).max())
+        if not err <= atol:
+            raise AssertionError(f"{path}: {what}: max-abs {err} > {atol}")
+        return err
+
+    totals = {}
+
+    def counted(path, sv, call, want_slot):
+        counters = _zero_counts()
+        sv.mesh.reset_launches()
+        out = call()
+        launches = {name: fn.launches for name, fn in counters.items()}
+        if want_slot:
+            launches = _require_launches(path, counters)
+        elif any(launches.values()):
+            raise AssertionError(f"{path}: launched {launches}; tp and pp run no kernel")
+        per_slot = _slot_kernels(path, sv.mesh, want_slot)
+        for name, n in launches.items():
+            totals[name] = totals.get(name, 0) + n
+        return out, launches, per_slot
+
+    rows = []
+    t_path = time.perf_counter()
+    # dp=2
+    ids, lengths = batch(MESH_B, MESH_F)
+    kw = dict(max_frames=MESH_FRAMES, seed=MESH_SEED)
+    one = ShardedVits.create(mesh(1), params, hp)
+    dp2 = ShardedVits.create(mesh(2), params, hp)
+    ref, ref_len = one.synthesize_batch(ids, lengths, **kw)
+    dp2.synthesize_batch(ids, lengths, **kw)  # first call per shape
+    (got, y_len), launches, per_slot = counted(
+        "mesh_dp", dp2, lambda: dp2.synthesize_batch(ids, lengths, **kw), per_call)
+    if not np.array_equal(y_len, ref_len):
+        raise AssertionError(f"mesh_dp: y_len {y_len} != one slot's {ref_len}")
+    err = check("mesh_dp", got, ref, WAVE_ATOL, "dp=2 vs one slot")
+    t_cpu = time.perf_counter()
+    cpu_got, cpu_len = ShardedVits.create(mesh(2, "cpu"), params, hp).synthesize_batch(
+        ids, lengths, **kw)
+    cpu_s = time.perf_counter() - t_cpu
+    cpu_err = check("mesh_dp", got, cpu_got, WAVE_ATOL, "card vs CPU")
+    mix_one = ShardedVits.create(mesh(1), params, hp, **{k: v for k, v in BENCH_MIX.items()})
+    mix_dp2 = ShardedVits.create(mesh(2), params, hp, **{k: v for k, v in BENCH_MIX.items()})
+    mix_got, _ = mix_dp2.synthesize_batch(ids, lengths, **kw)
+    mix_err = check("mesh_dp", mix_got, mix_one.synthesize_batch(ids, lengths, **kw)[0],
+                    MIXED_ATOL, "mixed dp=2 vs mixed one slot")
+    mix_fp32 = check("mesh_dp", mix_got, ref, MIXED_ATOL, "mixed dp=2 vs fp32")
+    _note_mixed("mesh_dp_mixed", "dp=2 mixed vs fp32 one slot", mix_fp32, MIXED_ATOL)
+    timing = {"dp1": _mesh_timing(torch, lambda: one.synthesize_batch(ids, lengths, **kw)),
+              "dp2": _mesh_timing(torch, lambda: dp2.synthesize_batch(ids, lengths, **kw))}
+    rows.append({"path": "mesh_dp", "mesh": dp2.mesh.shape, "b": MESH_B, "factor": MESH_F,
+                 "frames": MESH_FRAMES, "max_abs_err": err, "cpu_max_abs_err": cpu_err,
+                 "mixed_vs_mixed_one_slot": mix_err, "mixed_vs_fp32": mix_fp32,
+                 "launches": launches, "slot_launches": per_slot, **timing,
+                 "cpu_s": cpu_s, "wall_s": time.perf_counter() - t_path})
+
+    # sp=2: synthesize_long against the one-device windows
+    t_path = time.perf_counter()
+    ids, lengths = batch(MESH_SMALL_B, 2)
+    sp2 = ShardedVits.create(mesh(2, seq_parallel=2), params, hp)
+    sp2.synthesize_long(ids, lengths, span=MESH_SPAN, seed=SP_SEED)
+    (got, y_len), launches, per_slot = counted(
+        "mesh_sp", sp2, lambda: sp2.synthesize_long(ids, lengths, span=MESH_SPAN, seed=SP_SEED),
+        per_call)
+    halo = receptive_field_frames(hp)
+    window, total, hop = MESH_SPAN + 2 * halo, 2 * MESH_SPAN, hp.hop_length
+    dev, p0 = torch.device("cuda"), {k: v.cuda() for k, v in params.items()}
+    with torch.inference_mode(), tier_scope(sp2.precision, dev):
+        enc = vits.encode(p0, hp, torch.as_tensor(ids, device=dev),
+                          torch.as_tensor(lengths, device=dev),
+                          seeded_noise(SP_SEED, 0, (2, ids.shape[1]), len(ids), dev))
+        pieces = []
+        for k in range(2):
+            t_off = k * MESH_SPAN - halo
+            noise = vits.per_frame_noise(SP_SEED, t_off + torch.arange(window, device=dev),
+                                         len(ids), hp.inter_channels)
+            aw = vits.decode_window(p0, hp, enc, noise, t_off, window=window,
+                                    total_frames=total)
+            pieces.append(aw.cpu().numpy()[:, halo * hop:(halo + MESH_SPAN) * hop])
+    err = check("mesh_sp", got, np.concatenate(pieces, axis=1), WAVE_ATOL,
+                "sp=2 vs one-device windows")
+    zero = (0.0, 1.0, 0.0)
+    z_card, _ = sp2.synthesize_long(ids, lengths, span=MESH_SPAN, seed=SP_SEED, scales=zero)
+    t_cpu = time.perf_counter()
+    z_cpu, _ = ShardedVits.create(mesh(2, "cpu", seq_parallel=2), params, hp).synthesize_long(
+        ids, lengths, span=MESH_SPAN, seed=SP_SEED, scales=zero)
+    cpu_s = time.perf_counter() - t_cpu
+    cpu_err = check("mesh_sp", z_card, z_cpu, WAVE_ATOL, "card vs CPU at zero noise")
+    timing = _mesh_timing(torch, lambda: sp2.synthesize_long(ids, lengths, span=MESH_SPAN,
+                                                             seed=SP_SEED))
+    rows.append({"path": "mesh_sp", "mesh": sp2.mesh.shape, "b": MESH_SMALL_B, "factor": 2,
+                 "span": MESH_SPAN, "halo": halo, "max_abs_err": err,
+                 "cpu_zero_noise_max_abs_err": cpu_err, "launches": launches,
+                 "slot_launches": per_slot, **timing, "cpu_s": cpu_s,
+                 "wall_s": time.perf_counter() - t_path})
+
+    # tp=2 and dp=1 x pp=2 against the one-slot call
+    kw = dict(max_frames=MESH_SMALL_FRAMES, seed=MESH_SEED)
+    ref, ref_len = one.synthesize_batch(ids, lengths, **kw)
+    for path, shape, call_name in (("mesh_tp", dict(tensor_parallel=2), "synthesize_batch"),
+                                   ("mesh_pp", dict(pipeline_parallel=2),
+                                    "synthesize_pipelined")):
+        t_path = time.perf_counter()
+        sv = ShardedVits.create(mesh(2, **shape), params, hp)
+        call = getattr(sv, call_name)
+        call(ids, lengths, **kw)
+        (got, y_len), launches, per_slot = counted(path, sv, lambda: call(ids, lengths, **kw),
+                                                   {})
+        if not np.array_equal(np.asarray(y_len).astype(np.int64), ref_len.astype(np.int64)):
+            raise AssertionError(f"{path}: y_len {y_len} != one slot's {ref_len}")
+        err = check(path, got, ref, WAVE_ATOL, "vs one slot (replicated)")
+        t_cpu = time.perf_counter()
+        cpu_sv = ShardedVits.create(mesh(2, "cpu", **shape), params, hp)
+        cpu_got = getattr(cpu_sv, call_name)(ids, lengths, **kw)[0]
+        cpu_s = time.perf_counter() - t_cpu
+        cpu_err = check(path, got, cpu_got, WAVE_ATOL, "card vs CPU")
+        rows.append({"path": path, "mesh": sv.mesh.shape, "b": MESH_SMALL_B, "factor": 2,
+                     "frames": MESH_SMALL_FRAMES, "max_abs_err": err,
+                     "cpu_max_abs_err": cpu_err, "launches": launches,
+                     "slot_launches": per_slot, **_mesh_timing(torch, lambda: call(
+                         ids, lengths, **kw)), "cpu_s": cpu_s,
+                     "wall_s": time.perf_counter() - t_path})
+    for row in rows:
+        emit(phase="mesh", **row)
+    return totals
+
+
+def phase_mesh_serve(torch, voices: dict) -> dict:
+    """PiperRuntime(mesh=dp2) on two virtual slots of cuda:0 behind a
+    BatchingServer (fused, fp32): the serving mix from two threads for
+    MESH_SERVE_S seconds beside zero-noise requests of f = 1/2/4/8, each
+    held to the one-device runtime's synthesize at zero noise (1e-4).
+    Nothing fails or is shed; both slots launch K2 and K3."""
+    import threading
+
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.engine.batcher import BatchingServer
+    from piper_tpu_torch.engine.runtime import PiperRuntime, RuntimeOptions
+    from piper_tpu_torch.parallel.mesh import make_mesh
+    from piper_tpu_torch.tools.serving_sim import run_traffic
+
+    t_phase = time.perf_counter()
+    mesh = make_mesh(2, devices=[torch.device("cuda")] * 2)
+    rt = PiperRuntime(*voices["medium"], RuntimeOptions(mode="fused"), mesh=mesh)
+    single = PiperRuntime(*voices["medium"], device="cuda")
+    served: list = []
+    with BatchingServer(rt, max_batch=8, max_wait_ms=10.0) as server:
+        server.prewarm(p_buckets=[16, 32, 64, 128])
+        counters = _zero_counts()
+        mesh.reset_launches()
+        threads = [threading.Thread(target=lambda i=i: served.append(run_traffic(
+            lambda rng, ids: server.submit(ids), MESH_SERVE_S, np.random.default_rng(200 + i),
+            MESH_SERVE_RATE / 2, rt.sample_rate)), name=f"mesh-client-{i}") for i in range(2)]
+        for t in threads:
+            t.start()
+        zero = [(f, server.submit(FIXTURE_PHONEME_IDS * f, noise_scale=0.0, noise_w=0.0))
+                for f in FACTORS]
+        for t in threads:
+            t.join()
+        zero_audio = [(f, fut.result(timeout=300)) for f, fut in zero]
+        launches = _require_launches("mesh_serve", counters)
+        metrics = server.metrics()
+    per_slot = [dict(c) for c in mesh.slot_launches]
+    if not all(c.get("resblock1_branch", 0) > 0 and c.get("resblock1_mrf", 0) > 0
+               for c in per_slot):
+        raise AssertionError(f"mesh_serve: a slot launched no K2/K3: {per_slot}")
+    if metrics["failed"] or metrics["shed_overload"] or metrics["shed_deadline"]:
+        raise AssertionError(f"mesh_serve: failed or shed: {metrics}")
+    if len(served) != 2 or any(sum(shed.values()) for _, _, _, shed in served):
+        raise AssertionError(f"mesh_serve: a submitter failed or was shed")
+    errs = []
+    for f, got in zero_audio:
+        want = single.synthesize(FIXTURE_PHONEME_IDS * f, noise_scale=0.0, noise_w=0.0)
+        if got.shape != want.shape:
+            raise AssertionError(f"mesh_serve f={f}: {got.shape} vs one device {want.shape}")
+        err = float(np.abs(got - want).max())
+        if not err <= WAVE_ATOL:
+            raise AssertionError(f"mesh_serve f={f}: max-abs {err} > {WAVE_ATOL}")
+        errs.append({"factor": f, "max_abs_err": err})
+    lat = sorted(x * 1e3 for results, _, _, _ in served for x, _, _ in results)
+    emit(phase="mesh_serve", mesh=mesh.shape, batch_ladder=list(rt.batch_ladder),
+         rate_req_s=MESH_SERVE_RATE, seconds=MESH_SERVE_S, requests=len(lat),
+         latency_ms={"p50": _pct(lat, 50), "p95": _pct(lat, 95), "max": lat[-1]},
+         rows_per_group=metrics["rows_per_group"], groups=metrics["groups"],
+         zero_noise_vs_one_device=errs, launches=launches, slot_launches=per_slot,
+         hbm_bytes=rt.hbm_bytes(), wall_s=time.perf_counter() - t_phase)
+    rt.close()
+    return launches
+
+
+def phase_onnx_native(voices: dict) -> None:
+    """load_model of the medium voice through the native parser (built at
+    first use from piper_tpu_torch/native/onnx_parser.cpp) and through the
+    Python decoder: equal initializers and nodes; the best of three load
+    times of each."""
+    from piper_tpu_torch.native.build import library_path
+    from piper_tpu_torch.onnx.loader import _load_model_python, load_model
+
+    model = voices["medium"][0]
+    times = {}
+    for name, fn in (("native", load_model), ("python", _load_model_python)):
+        best = float("inf")
+        for _ in range(3):
+            t0 = time.perf_counter()
+            m = fn(model)
+            best = min(best, time.perf_counter() - t0)
+        times[name] = (best, m)
+    nat, py = times["native"][1], times["python"][1]
+    if set(nat.graph.initializers) != set(py.graph.initializers):
+        raise AssertionError("onnx_native: the initializer names differ")
+    for k, t in py.graph.initializers.items():
+        u = nat.graph.initializers[k]
+        if u.dims != t.dims or u.data_type != t.data_type or not np.array_equal(
+                np.asarray(u.array), np.asarray(t.array)):
+            raise AssertionError(f"onnx_native: initializer {k} differs")
+    if [(n.op_type, n.inputs, n.outputs, sorted(n.attributes)) for n in nat.graph.nodes] != \
+            [(n.op_type, n.inputs, n.outputs, sorted(n.attributes)) for n in py.graph.nodes]:
+        raise AssertionError("onnx_native: the nodes differ")
+    if next(iter(nat.graph.initializers.values())).array.flags.writeable:
+        raise AssertionError("onnx_native: load_model did not take the native parser")
+    emit(phase="onnx_native", voice="synthetic medium, seed 0",
+         bytes=Path(model).stat().st_size, initializers=len(py.graph.initializers),
+         nodes=len(py.graph.nodes), native_s=times["native"][0], python_s=times["python"][0],
+         library=library_path(["onnx_parser.cpp"], "libpiper_onnx").name)
+
+
+def phase_soak(torch, voices: dict) -> dict:
+    """SOAK_S seconds of tests/test_torch_unified_soak.py's churn on the
+    card: one UnifiedServer over the medium voice and a 3-speaker medium
+    voice at the mixed tiers, mixed submits, streams, cancels,
+    add_voice/remove_voice and sheds; no hang, no unexpected error, no
+    leaked thread; K2 and K3 launched."""
+    import importlib.util
+
+    from piper_tpu_torch.engine.runtime import RuntimeOptions
+    from piper_tpu_torch.models.vits.synthetic import make_synthetic_voice
+
+    t_phase = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "torch_unified_soak", ROOT / "tests" / "test_torch_unified_soak.py")
+    soak = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(soak)
+    multi = make_synthetic_voice(ROOT / "build" / "chip_smoke_voice_medium_soak",
+                                 quality="medium", seed=2, n_speakers=3)
+    counters = _zero_counts()
+    stats = soak.run_soak(voices["medium"], multi, SOAK_S, device="cuda",
+                          options=RuntimeOptions(**BENCH_MIX))
+    launches = _require_launches("soak", counters)
+    if stats["submits"] < 20 or stats["streams"] < 5:
+        raise AssertionError(f"soak: too little traffic: {stats}")
+    emit(phase="soak", **stats, launches=launches, wall_s=time.perf_counter() - t_phase)
+    return launches
+
+
 def _kernel_entry(name: str, tiers: dict, launches: int) -> dict:
     """A kernel's entry in the kernels line, at the "highest" tier: `ms`
     and `plain_ms` are device times (torch.profiler), beside `bound_ms`;
@@ -2525,6 +2887,10 @@ def main() -> None:
     count(phase_bf16(torch, voices, card))
     count(phase_debug_trace(torch, voices, card))
     del card
+    count(phase_mesh(torch, voices))
+    count(phase_mesh_serve(torch, voices))
+    phase_onnx_native(voices)
+    count(phase_soak(torch, voices))
     count(phase_tools(torch, voices))
     count(phase_high(torch))
     count(phase_multispeaker(torch))

@@ -48,6 +48,14 @@ voices on one device: the CUDA card unless the caller asks for the CPU
   `dispatch_stream_head_batch` and `dispatch_window_batch` are the same
   pieces without the generator, for a server that batches streams.
 
+Meshes: `mesh=` (parallel/mesh.py, a grid of slots, virtual slots of one
+device allowed) places the weights on every slot (channel shards under
+`tp`, parallel/tp.py) and splits every batched call's rows over the `dp`
+groups, each on its slot's CUDA stream (`_on_groups`); the batch ladder
+keeps dp-divisible rungs, and streams and injected-noise calls run whole
+on the first group. `use_pallas=False` runs PyTorch's convs in place of
+the kernels (the tp forward over one slot), as JAX's option does.
+
 Encode and decode run at the `precision` tier (by default "highest", fp32
 with TF32 off for matmuls and cuDNN convs: a duration error can flip a
 ceil() and shift the whole waveform); the reverse flows and the vocoder may
@@ -113,6 +121,7 @@ from piper_tpu_torch.models.vits.hparams import (VitsHParams, derive_hparams,
 from piper_tpu_torch.models.vits.params import host_arrays_from_graph, params_to_torch
 from piper_tpu_torch.onnx.loader import load_model
 from piper_tpu_torch.ops.kernels.precision import TIERS, kernel_tier, tier_scope
+from piper_tpu_torch.parallel.mesh import cat_rows, slice_rows
 from piper_tpu_torch.utils.env import profile_enabled
 from piper_tpu_torch.utils.profiling import Profiler
 
@@ -162,6 +171,9 @@ class RuntimeOptions:
     frame_buckets: Tuple[int, ...] = tuple(DEFAULT_FRAME_BUCKETS)
     batch_buckets: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 48, 64, 96, 128)
     output_dtype: str = "float32"  # or "int16": clip * 32767, cast on the device
+    # None/True: the vocoder's kernels; False: PyTorch's convs throughout
+    # (the tp forward's plain path). A tp mesh refuses True.
+    use_pallas: Optional[bool] = None
 
     @staticmethod
     def from_env() -> "RuntimeOptions":
@@ -384,10 +396,21 @@ def validate_speaker_mix(mix: dict, n_speakers: int, speaker_id=None) -> None:
         raise ValueError("speaker_mix needs at least one non-zero weight")
 
 
+class _Group:
+    """One dp group of a runtime: the slot it runs on (None off a mesh),
+    its device, the weights the encoder reads and the decode's stages."""
+
+    __slots__ = ("slot", "device", "params", "stages")
+
+    def __init__(self, slot, device, params, stages):
+        self.slot, self.device, self.params, self.stages = slot, device, params, stages
+
+
 class PiperRuntime:
     """Loads a Piper voice checkpoint and synthesizes speech on one device:
     the CUDA card by default (raises where there is none), or the CPU when
-    the caller passes device="cpu"."""
+    the caller passes device="cpu"; or on a mesh of slots
+    (parallel/mesh.py) when the caller passes mesh=."""
 
     def __init__(
         self,
@@ -396,9 +419,33 @@ class PiperRuntime:
         options: Optional[RuntimeOptions] = None,
         *,
         device: Union[str, torch.device] = "cuda",
+        mesh=None,
     ):
+        """`mesh` (parallel.mesh.Mesh, optional) turns this runtime into a
+        multi-slot one, as the JAX runtime's mesh does: the weights go to
+        every slot (channel-sharded instead under a `tp` axis,
+        parallel/tp.py), every batched call splits its rows over the `dp`
+        axis, each dp group running on its slot's stream, and the batch
+        ladder keeps dp-divisible rungs only, so the same serving stack
+        (BatchingServer, ServingPipeline, bucketing, prewarm) drives the
+        slots as it drives one device. Streams and injected-noise calls run
+        whole on the first dp group (JAX runs them replicated). The device
+        is the mesh's first slot's; a pp axis raises (ShardedVits.
+        synthesize_pipelined serves it)."""
         self.options = options or RuntimeOptions()
         self.options.validate()
+        self.mesh = mesh
+        if mesh is not None:
+            from piper_tpu_torch.parallel.mesh import DATA_AXIS, PIPE_AXIS
+
+            if DATA_AXIS not in mesh.axis_names:
+                raise ValueError(f"mesh must have a '{DATA_AXIS}' axis (got {mesh.axis_names})")
+            if int(mesh.shape.get(PIPE_AXIS, 1)) > 1:
+                raise NotImplementedError(
+                    "PiperRuntime serves dp/tp meshes; for pipeline "
+                    "parallelism use parallel.serving.ShardedVits."
+                    "synthesize_pipelined on a pipeline_parallel mesh")
+            device = mesh.device(0)
         self.device = _resolve_device(device)
         self.model_path = Path(model_path)
         if not self.model_path.exists():
@@ -417,7 +464,14 @@ class PiperRuntime:
                 f"(or a single tier name for all levels)")
         self._hbm_bytes: Optional[int] = None
         dtype = torch.bfloat16 if self.options.precision == "bfloat16" else torch.float32
-        self.params = params_to_torch(host_arrays_from_graph(graph), self.device, dtype)
+        self._dp_size = self._tp_size = 1
+        self._groups: List[_Group] = []
+        if mesh is None:
+            self.params = params_to_torch(host_arrays_from_graph(graph), self.device, dtype)
+            if self.options.use_pallas is False:
+                self._place_groups([self.params])
+        else:
+            self._place_on_mesh(params_to_torch(host_arrays_from_graph(graph), "cpu", dtype))
         self._compiled_keys: set = set()
         # Serializes device work (the tier flags are process-wide) and the
         # bookkeeping (_compiled_keys, last_run_timings) for threaded callers.
@@ -430,6 +484,69 @@ class PiperRuntime:
             import atexit
 
             atexit.register(self._dump_profile)
+
+    def _place_on_mesh(self, host: dict) -> None:
+        """The weights on every slot (shards under tp) and the dp groups."""
+        from piper_tpu_torch.parallel import tp
+        from piper_tpu_torch.parallel.mesh import DATA_AXIS, TENSOR_AXIS
+
+        mesh = self.mesh
+        self._tp_size = int(mesh.shape.get(TENSOR_AXIS, 1))
+        self._dp_size = int(mesh.shape[DATA_AXIS])
+        # False under tp; raises on an explicit use_pallas=True there.
+        tp.resolve_pallas_under_tp(self._tp_size, self.options.use_pallas)
+        self._logical_bytes = sum(t.numel() * t.element_size() for t in host.values())
+        slot_params = tp.place_params(host, mesh)
+        self._specs = tp.param_specs(host, mesh)
+        self.params = slot_params[0]
+        self._place_groups(slot_params)
+
+    def _place_groups(self, slot_params: list) -> None:
+        """One _Group per dp group: the kernels' decode on a slot's weights,
+        or the tp forward (under tp, or with use_pallas=False)."""
+        from piper_tpu_torch.parallel import tp
+
+        if self.mesh is None:  # use_pallas=False on one device
+            from piper_tpu_torch.parallel.mesh import make_mesh
+
+            mesh, specs = make_mesh(1, devices=[self.device]), {k: () for k in slot_params[0]}
+        else:
+            mesh, specs = self.mesh, self._specs
+        plain = self._tp_size > 1 or self.options.use_pallas is False
+        self._groups = []
+        for d in range(self._dp_size):
+            slot = mesh.index(dp=d)
+            if plain:
+                group = tp.TPGroup.of(mesh, slot_params, specs, dp=d)
+                stages = vits.DecodeStages(group, tp.flow_reverse, tp.hifigan_generator)
+            else:
+                stages = vits.DecodeStages(slot_params[slot])
+            self._groups.append(_Group(slot if self.mesh is not None else None,
+                                       mesh.device(slot), slot_params[slot], stages))
+
+    def _group(self, d: int = 0) -> _Group:
+        """dp group d (off a mesh, the one device with the runtime's weights)."""
+        if not self._groups:
+            return _Group(None, self.device, self.params, vits.DecodeStages(self.params))
+        self.params  # raises once closed  # noqa: B018
+        return self._groups[d]
+
+    def _on_groups(self, fn, rows: int, shard: bool = True):
+        """fn(group, lo, hi) for rows [lo, hi) of each dp group, each on its
+        slot's stream (mesh.run_slots), the results concatenated on the
+        runtime's device. Off a mesh, or unsharded (`shard` False, or rows
+        not divisible by dp), it is one call of the first group on the
+        current stream."""
+        dp = self._dp_size
+        if self.mesh is None or dp == 1 or not shard or rows % dp:
+            return fn(self._group(0), 0, rows)
+        from piper_tpu_torch.parallel.mesh import run_slots
+
+        per = rows // dp
+        groups = [self._group(d) for d in range(dp)]
+        outs = run_slots(self.mesh, [g.slot for g in groups],
+                         lambda d: fn(groups[d], d * per, (d + 1) * per))
+        return cat_rows(outs, self.device)
 
     def _dump_profile(self) -> None:
         if self.profiler.stats:
@@ -479,7 +596,14 @@ class PiperRuntime:
         metrics report it per voice, so resident voices can be budgeted
         against the card's memory."""
         if self._hbm_bytes is None:
-            self._hbm_bytes = sum(t.numel() * t.element_size() for t in self.params.values())
+            if self.mesh is not None:
+                # The logical size, as JAX reports a mesh's: a slot holds
+                # it (or its tp shards), each device one copy per tp shard.
+                self.params  # raises once closed  # noqa: B018
+                self._hbm_bytes = self._logical_bytes
+            else:
+                self._hbm_bytes = sum(t.numel() * t.element_size()
+                                      for t in self.params.values())
         return self._hbm_bytes
 
     @property
@@ -496,6 +620,7 @@ class PiperRuntime:
             # turns True, so no reader sees a closed runtime's old bytes.
             self._hbm_bytes = 0
             self._params = None
+            self._groups = []
 
     @property
     def sample_rate(self) -> int:
@@ -503,8 +628,12 @@ class PiperRuntime:
 
     @property
     def batch_ladder(self) -> Tuple[int, ...]:
-        """The batch-bucket ladder (one device: every rung)."""
-        return self.options.batch_buckets
+        """The batch-bucket ladder: on a mesh, only dp-divisible rungs
+        (each dp group gets whole rows)."""
+        ladder = self.options.batch_buckets
+        if self._dp_size <= 1:
+            return ladder
+        return tuple(x for x in ladder if x % self._dp_size == 0) or (self._dp_size,)
 
     @property
     def np_output_dtype(self):
@@ -655,8 +784,12 @@ class PiperRuntime:
         if pad_rows_to is not None:
             if pad_rows_to < b:
                 raise ValueError(f"pad_rows_to {pad_rows_to} < batch size {b}")
+            # A mesh splits rows over dp: a pinned count snaps up to a dp
+            # multiple here, not in every caller.
+            pad_rows_to = -(-int(pad_rows_to) // self._dp_size) * self._dp_size
             ids_batch = ids_batch + [ids_batch[0]] * (int(pad_rows_to) - b)
-        elif pad_batch and b > 1 and b <= ladder[-1]:
+        elif pad_batch and (b > 1 or self._dp_size > 1) and b <= ladder[-1]:
+            # On a mesh every batch (even one row) pads to a dp-divisible rung.
             b_bucket = next(x for x in ladder if x >= b)
             ids_batch = ids_batch + [ids_batch[0]] * (b_bucket - b)
         lengths = np.asarray([len(x) for x in ids_batch], np.int64)
@@ -686,52 +819,70 @@ class PiperRuntime:
 
     # -- device work (callers hold _device_work) -------------------------------
 
-    def _to_device(self, a: Optional[np.ndarray]) -> Optional[torch.Tensor]:
-        """A host array on the runtime's device. On the card the copy is
-        queued from pinned memory: the host does not wait for it, so no
-        dispatch synchronizes with the device."""
+    def _to_device(self, a: Optional[np.ndarray], device=None) -> Optional[torch.Tensor]:
+        """A host array on the runtime's device (or `device`). On the card
+        the copy is queued from pinned memory: the host does not wait for
+        it, so no dispatch synchronizes with the device."""
         if a is None:
             return None
+        dev = self.device if device is None else device
         t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type != "cuda":
+        if dev.type != "cuda":
             return t
-        return t.pin_memory().to(self.device, non_blocking=True)
+        return t.pin_memory().to(dev, non_blocking=True)
 
     def _encode(self, ids: np.ndarray, lengths: np.ndarray, ls, nw, seed,
                 dp_noise: Optional[np.ndarray] = None,
-                sid: Optional[np.ndarray] = None) -> vits.EncodeResult:
+                sid: Optional[np.ndarray] = None, shard: bool = True) -> vits.EncodeResult:
         """ids (B, P) through the text encoder and duration predictor, with
         the injected dp_noise (zero-padded to P) or the seeded draw, for the
         speakers of `sid` (_sid_array's). `seed` is one seed, whose draw
         every row shares, or a list of one seed per row, each row drawing
         its own (a streaming head's rows, each equal to its solo draw);
-        `ls` and `nw` are floats or (B, 1, 1) tensors."""
+        `ls` and `nw` are floats or (B, 1, 1) tensors. On a mesh the rows
+        split over dp unless `shard` is False or the noise is injected."""
         b, p = ids.shape
-        dev = self.device
+        src = None
         if dp_noise is not None:
-            src = np.asarray(dp_noise, np.float32).reshape(b, 2, -1)
-            dpn = self._to_device(_padded(src, (b, 2, p)))
-        elif isinstance(seed, (list, tuple)):
-            dpn = torch.cat([seeded_noise(s, 0, (2, p), 1, dev) for s in seed])
-        else:
-            dpn = seeded_noise(seed, 0, (2, p), b, dev)
-        return vits.encode(self.params, self.hparams, self._to_device(ids),
-                           self._to_device(lengths), dpn, length_scale=ls, noise_w=nw,
-                           sid=self._to_device(sid))
+            src = _padded(np.asarray(dp_noise, np.float32).reshape(b, 2, -1), (b, 2, p))
+
+        def run(grp, lo, hi):
+            dev = grp.device
+            if src is not None:
+                dpn = self._to_device(src[lo:hi], dev)
+            elif isinstance(seed, (list, tuple)):
+                dpn = torch.cat([seeded_noise(s, 0, (2, p), 1, dev) for s in seed[lo:hi]])
+            else:
+                dpn = seeded_noise(seed, 0, (2, p), hi - lo, dev)
+            return vits.encode(grp.params, self.hparams, self._to_device(ids[lo:hi], dev),
+                               self._to_device(lengths[lo:hi], dev), dpn,
+                               length_scale=slice_rows(ls, lo, hi, dev),
+                               noise_w=slice_rows(nw, lo, hi, dev),
+                               sid=self._to_device(None if sid is None else sid[lo:hi], dev))
+
+        return self._on_groups(run, b, shard and src is None)
 
     def _decode(self, enc: vits.EncodeResult, f_bucket: int, ns: float, seed: int,
                 main_noise: Optional[np.ndarray] = None):
-        """(audio in the output dtype, y_len), both on the device."""
+        """(audio in the output dtype, y_len), both on the device; on a
+        mesh the rows split over dp unless the noise is injected."""
         b, c = enc.m_p.shape[:2]
-        if main_noise is not None:
-            mn = self._to_device(_padded(main_noise, (b, c, f_bucket)))
-        else:
-            mn = seeded_noise(seed, 1, (c, f_bucket), b, self.device)
+        src = None if main_noise is None else _padded(main_noise, (b, c, f_bucket))
         o = self.options
-        audio, y_len = vits.decode(self.params, self.hparams, enc, mn, max_frames=f_bucket,
-                                   noise_scale=ns, vocoder_precision=o.vocoder_precision,
-                                   flow_precision=o.flow_precision)
-        return self._as_output(audio), y_len
+
+        def run(grp, lo, hi):
+            dev = grp.device
+            if src is not None:
+                mn = self._to_device(src[lo:hi], dev)
+            else:
+                mn = seeded_noise(seed, 1, (c, f_bucket), hi - lo, dev)
+            audio, y_len = vits.decode(
+                grp.params, self.hparams, slice_rows(enc, lo, hi, dev), mn,
+                max_frames=f_bucket, noise_scale=ns, vocoder_precision=o.vocoder_precision,
+                flow_precision=o.flow_precision, stages=grp.stages)
+            return self._as_output(audio), y_len
+
+        return self._on_groups(run, b, src is None)
 
     def _run_fused(self, ids, lengths, scales, seed, sid, f_bucket: Optional[int] = None):
         """Encode and decode at `f_bucket` (by default the budget bucket of
@@ -971,11 +1122,11 @@ class PiperRuntime:
             [scales["speaker_id"]] if scales.get("speaker_id") is not None else None, 1)
         with self._device_work():
             out = vits.debug_infer(
-                self.params, self.hparams, self._to_device(ids),
+                self._group(0).params, self.hparams, self._to_device(ids),
                 self._to_device(np.asarray([len(phoneme_ids)], np.int64)),
                 self._to_device(dp_noise), self._to_device(main_noise),
                 max_frames=max_frames, noise_scale=ns, length_scale=ls, noise_w=nw,
-                sid=self._to_device(sid), per_layer=per_layer)
+                sid=self._to_device(sid), per_layer=per_layer, stages=self._group(0).stages)
             return {k: v.float().cpu().numpy() for k, v in out.items()}
 
     def prewarm(
@@ -1157,9 +1308,11 @@ class PiperRuntime:
         with self._device_work():
             f_bucket = self._frame_bucket_or_clamp(max(totals))
             compiled = self._mark("forced", (bp, p_bucket, f_bucket, self._sid_kind(sid)))
-            enc = vits.encode_forced(self.params, self.hparams, self._to_device(ids),
-                                     self._to_device(lengths), self._to_device(durs),
-                                     sid=self._to_device(sid))
+            enc = self._on_groups(lambda grp, lo, hi: vits.encode_forced(
+                grp.params, self.hparams, self._to_device(ids[lo:hi], grp.device),
+                self._to_device(lengths[lo:hi], grp.device),
+                self._to_device(durs[lo:hi], grp.device),
+                sid=self._to_device(None if sid is None else sid[lo:hi], grp.device)), bp)
             audio_d, _ = self._decode(enc, f_bucket, ns, base_seed)
             (audio,) = _HostCopy((audio_d,)).wait()
         t_end = time.perf_counter()
@@ -1184,7 +1337,14 @@ class PiperRuntime:
     ):
         """Queue one fused synthesis and its copy to the host without a
         host read; returns ((audio, y_len, y_total) on the device, meta) for
-        `fetch_fused`. The building block of the serving pipeline."""
+        `fetch_fused`. The building block of the serving pipeline. On a mesh
+        the utterance rides the batched fused path (its rows pad to a
+        dp-divisible rung), which fetch_fused completes too."""
+        if self.mesh is not None:
+            return self._dispatch_batch_fused(
+                [list(phoneme_ids)], noise_scale=noise_scale, length_scale=length_scale,
+                noise_w=noise_w, speaker_ids=[speaker_id] if speaker_id is not None else None,
+                seed=seed, speaker_mixes=[speaker_mix] if speaker_mix is not None else None)
         ids = list(phoneme_ids)
         lengths, _, ids_np = self._validate_and_pad([ids])
         scales = self._scales(noise_scale, length_scale, noise_w)
@@ -1206,6 +1366,8 @@ class PiperRuntime:
         y_total) (meta's copy holds `outs` until then); when the durations
         overflowed the frame budget, redo the utterance, in the same voice,
         with a blocking split-mode synthesis."""
+        if meta.get("fused_batch"):  # a mesh runtime's batched fused path
+            return self._fetch_batch_fused(meta)[0]
         audio, y_len, y_total = meta["copy"].wait()
         if int(y_total.max()) > meta["f_bucket"]:
             ns, ls, nw = meta["scales"]
@@ -1377,10 +1539,11 @@ class PiperRuntime:
         """decode_window at the runtime's tiers, in its output dtype: (B,
         window * hop) on the device."""
         o = self.options
+        grp = self._group(0)
         return self._as_output(vits.decode_window(
-            self.params, self.hparams, enc, noise, t_off, window=window, total_frames=total,
+            grp.params, self.hparams, enc, noise, t_off, window=window, total_frames=total,
             noise_scale=ns, vocoder_precision=o.vocoder_precision,
-            flow_precision=o.flow_precision))
+            flow_precision=o.flow_precision, stages=grp.stages))
 
     def _window_keyed(self, enc, seeds: torch.Tensor, t_off: torch.Tensor, total, ns,
                       window: int) -> torch.Tensor:
@@ -1399,7 +1562,7 @@ class PiperRuntime:
         output dtype, each row's frame count clamped to >= 1, the seeds),
         all on the device."""
         ns, ls, nw = scales
-        enc = self._encode(ids, lengths, ls, nw, list(seeds), sid=sid)
+        enc = self._encode(ids, lengths, ls, nw, list(seeds), sid=sid, shard=False)
         seeds_d = self._to_device(np.asarray([_seed_u32(s) for s in seeds], np.int64))
         totals = torch.clamp(enc.y_total, min=1).to(torch.int64)
         t_off = torch.full((ids.shape[0],), -halo, dtype=torch.int64, device=self.device)

@@ -47,13 +47,15 @@ from piper_tpu_torch.utils.debug_trace import trace_put, tracing
 LRELU_SLOPE = 0.1
 
 
-def _lrelu_conv(x, w, b, *, dilation=1, t_mask=None, bounds=None, precision=None):
+def _lrelu_conv(x, w, b, *, dilation=1, t_mask=None, bounds=None, precision=None,
+                kernels=True):
     """leaky_relu -> (mask ->) same-conv; through the K1 kernel at
     `precision` for a square conv narrower than 128 channels. For a 0/1 mask
     lrelu(x * m) equals lrelu(x) * m, so the kernel masks its input: by
     `bounds` (B, 2), the rows' [lo, hi) of the same mask, inside the kernel,
-    or else by a multiply by `t_mask` before it."""
-    if w.shape[0] == w.shape[1] and w.shape[0] < 128:
+    or else by a multiply by `t_mask` before it. kernels=False keeps every
+    conv a PyTorch conv (JAX's use_pallas=False: its pipeline stages)."""
+    if kernels and w.shape[0] == w.shape[1] and w.shape[0] < 128:
         xin = x if t_mask is None or bounds is not None else x * t_mask
         return K1.conv1d_same(xin, w, b, dilation=dilation, act_slope=LRELU_SLOPE,
                               bounds=bounds, precision=precision)
@@ -63,24 +65,26 @@ def _lrelu_conv(x, w, b, *, dilation=1, t_mask=None, bounds=None, precision=None
     return conv1d_same(xt, w, b, dilation=dilation)
 
 
-def _resblock1(x, p: Prefix, dilations, t_mask=None, precision=None):
+def _resblock1(x, p: Prefix, dilations, t_mask=None, precision=None, kernels=True):
     """Multi-receptive-field residual block (HiFi-GAN ResBlock1), unfused."""
     for m, d in enumerate(dilations):
         xt = _lrelu_conv(x, p[f"convs1.{m}.weight"], p[f"convs1.{m}.bias"],
-                         dilation=d, t_mask=t_mask, precision=precision)
+                         dilation=d, t_mask=t_mask, precision=precision, kernels=kernels)
         trace_put(f"{p.prefix}.convs1.{m}", xt)
         xt = _lrelu_conv(xt, p[f"convs2.{m}.weight"], p[f"convs2.{m}.bias"], t_mask=t_mask,
-                         precision=precision)
+                         precision=precision, kernels=kernels)
         trace_put(f"{p.prefix}.convs2.{m}", xt)
         x = x + xt
     return x
 
 
-def _resblock2(x, p: Prefix, dilations, t_mask=None, bounds=None, precision=None):
+def _resblock2(x, p: Prefix, dilations, t_mask=None, bounds=None, precision=None,
+               kernels=True):
     """Single-conv residual block (HiFi-GAN ResBlock2, Piper's x_low voices)."""
     for m, d in enumerate(dilations):
         xt = _lrelu_conv(x, p[f"convs.{m}.weight"], p[f"convs.{m}.bias"],
-                         dilation=d, t_mask=t_mask, bounds=bounds, precision=precision)
+                         dilation=d, t_mask=t_mask, bounds=bounds, precision=precision,
+                         kernels=kernels)
         trace_put(f"{p.prefix}.convs.{m}", xt)
         x = x + xt
     return x

@@ -21,6 +21,11 @@ Streaming decodes frame windows: `decode_window` decodes frames
 [t_offset, t_offset + window) of each row, whose prior noise comes from
 `per_frame_noise` / `per_row_frame_noise`, a function of (seed, absolute
 frame) so that overlapping windows agree.
+
+`decode`, `decode_window` and `debug_infer` take `stages`: the reverse
+flows and the vocoder they run and the weights those read. By default they
+are this package's own over `params`; a tensor-parallel group's
+(`parallel/tp.py`) reads its slots' channel shards instead.
 """
 
 from __future__ import annotations
@@ -28,7 +33,7 @@ from __future__ import annotations
 import contextlib
 import math
 from dataclasses import dataclass
-from typing import Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -54,6 +59,17 @@ class EncodeResult:
     w_ceil: torch.Tensor     # (B, P) integer-valued frame durations, fp32
     y_total: torch.Tensor    # (B,) total frame counts (sum of w_ceil), fp32
     g: Optional[torch.Tensor]  # (B, gin, 1) speaker embedding; None (single speaker)
+
+
+@dataclass(frozen=True)
+class DecodeStages:
+    """The flows and the vocoder of a decode, and the weights they read:
+    `flow_reverse(z_p, y_mask, params, hp, g=)` and `generator(z, params,
+    hp, g=, level_precisions=, t_mask=, t_bounds=)` called with `params`."""
+
+    params: Any
+    flow_reverse: Callable = flow_reverse
+    generator: Callable = hifigan_generator
 
 
 def speaker_embedding(params: Params, hp: VitsHParams,
@@ -150,6 +166,7 @@ def decode(
     noise_scale: float = 0.667,
     vocoder_precision: Union[str, Sequence[Optional[str]], None] = None,
     flow_precision: Optional[str] = None,
+    stages: Optional[DecodeStages] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Durations + prior -> waveform.
 
@@ -158,16 +175,17 @@ def decode(
     of HiFi-GAN and of the reverse flows; None inherits the caller's.
     Returns (audio (B, max_frames * hop), y_lengths (B,) in frames).
     """
+    st = stages or DecodeStages(params)
     y_lengths, y_mask, _, _, _, z_p = _expand_prior(
         enc.m_p, enc.logs_p, enc.w_ceil, enc.x_mask, max_frames, main_noise, noise_scale)
     with tier_scope(flow_precision, z_p.device):
-        z = flow_reverse(z_p, y_mask, params, hp, g=enc.g)
+        z = st.flow_reverse(z_p, y_mask, st.params, hp, g=enc.g)
     # t_mask makes every vocoder conv see zeros beyond y_len, like a decode
     # whose array ends at y_len; the bounds route the narrow levels through
     # the fused kernels with the same per-row masking.
-    audio = hifigan_generator(z * y_mask, params, hp, g=enc.g,
-                              level_precisions=vocoder_precision, t_mask=y_mask,
-                              t_bounds=y_lengths.to(torch.int32))
+    audio = st.generator(z * y_mask, st.params, hp, g=enc.g,
+                         level_precisions=vocoder_precision, t_mask=y_mask,
+                         t_bounds=y_lengths.to(torch.int32))
     return audio[:, 0, :], y_lengths
 
 
@@ -254,6 +272,7 @@ def decode_window(
     noise_scale=0.667,
     vocoder_precision: Union[str, Sequence[Optional[str]], None] = None,
     flow_precision: Optional[str] = None,
+    stages: Optional[DecodeStages] = None,
 ) -> torch.Tensor:
     """Decode only frames [t_offset, t_offset + window): streaming.
 
@@ -272,6 +291,7 @@ def decode_window(
     main_noise_win: (B, C, window), the prior noise of these absolute
     frames (the same across overlapping windows). Returns (B, window * hop).
     """
+    st = stages or DecodeStages(params)
     b = enc.m_p.shape[0]
     dev = enc.m_p.device
     t_off = _rows(t_offset, b, dev, torch.int64)
@@ -287,16 +307,16 @@ def decode_window(
     path = generate_path(enc.w_ceil, enc.x_mask, y_mask, t_idx=t_idx)  # (B, W, P)
     _, _, z_p = _prior(path, enc.m_p, enc.logs_p, main_noise_win, noise_scale)
     with tier_scope(flow_precision, dev):
-        z = flow_reverse(z_p * arr_mask, y_mask * arr_mask, params, hp, g=enc.g)
+        z = st.flow_reverse(z_p * arr_mask, y_mask * arr_mask, st.params, hp, g=enc.g)
     # The valid region in window coordinates is the interval [lo, hi): lo is
     # the left halo clipped at the sequence start, hi min(y_len, total)
     # relative to the window. As per-row bounds the vocoder's kernels apply
     # it themselves; the mask is the same interval for the other convs.
     lo = torch.clamp(-t_off, 0, window)
     hi = torch.clamp(y_lengths.to(torch.int64) - t_off, 0, window)
-    audio = hifigan_generator(z * y_mask, params, hp, g=enc.g,
-                              level_precisions=vocoder_precision, t_mask=y_mask * arr_mask,
-                              t_bounds=torch.stack([lo, hi], dim=1).to(torch.int32))
+    audio = st.generator(z * y_mask, st.params, hp, g=enc.g,
+                         level_precisions=vocoder_precision, t_mask=y_mask * arr_mask,
+                         t_bounds=torch.stack([lo, hi], dim=1).to(torch.int32))
     return audio[:, 0, :]
 
 
@@ -314,6 +334,7 @@ def debug_infer(
     noise_w: float = 0.8,
     sid: Optional[torch.Tensor] = None,
     per_layer: bool = False,
+    stages: Optional[DecodeStages] = None,
 ) -> dict:
     """Full inference returning every module-boundary tensor, with the keys
     of piper_tpu.models.vits.model.debug_infer. Like the reference, the
@@ -333,8 +354,9 @@ def debug_infer(
         w_ceil = torch.ceil(_durations(logw, x_mask, length_scale))
         y_lengths, y_mask, path, m_p_exp, logs_p_exp, z_p = _expand_prior(
             m_p, logs_p, w_ceil, x_mask, max_frames, main_noise, noise_scale)
-        z = flow_reverse(z_p, y_mask, params, hp, g=g)
-        audio = hifigan_generator(z * y_mask, params, hp, g=g, t_mask=y_mask)
+        st = stages or DecodeStages(params)
+        z = st.flow_reverse(z_p, y_mask, st.params, hp, g=g)
+        audio = st.generator(z * y_mask, st.params, hp, g=g, t_mask=y_mask)
     return {
         **layer_trace,
         "enc_hidden": x,
@@ -369,10 +391,11 @@ def infer(
     sid: Optional[torch.Tensor] = None,
     vocoder_precision: Union[str, Sequence[Optional[str]], None] = None,
     flow_precision: Optional[str] = None,
+    stages: Optional[DecodeStages] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Synthesis in one call: ids -> (audio, y_lengths)."""
     enc = encode(params, hp, phoneme_ids, lengths, dp_noise,
                  length_scale=length_scale, noise_w=noise_w, sid=sid)
     return decode(params, hp, enc, main_noise, max_frames=max_frames,
                   noise_scale=noise_scale, vocoder_precision=vocoder_precision,
-                  flow_precision=flow_precision)
+                  flow_precision=flow_precision, stages=stages)

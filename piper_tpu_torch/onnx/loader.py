@@ -2,7 +2,8 @@
 
 The port's copy of piper_tpu.onnx.loader's pure-Python decoder
 (`_load_model_python`, `_decode_model` and its field decoders), held equal
-to it by tests/test_torch_standalone.py.
+to it by tests/test_torch_standalone.py. `load_model` takes the native C++
+parser first (onnx/native.py), as the JAX package's does.
 
 Mirrors the field coverage of the reference's hand-written loader
 (ONNXLoader.swift:23-385): ModelProto{ir_version, graph, opset_import},
@@ -99,9 +100,23 @@ class OnnxLoadError(ValueError):
         super().__init__(detail)
 
 
-def load_model(path: str | Path | bytes) -> OnnxModel:
-    """Parse an ONNX checkpoint with the pure-Python decoder (the JAX
-    package's native C++ parser is not ported)."""
+def load_model(path: str | Path | bytes, prefer_native: bool = True) -> OnnxModel:
+    """Parse an ONNX checkpoint.
+
+    Tries the native C++ parser (piper_tpu_torch/native/onnx_parser.cpp,
+    zero-copy weight mapping, built at first use) first; a file whose
+    payloads it does not carry goes to the pure-Python decoder. A failure of
+    the native parser or of its build raises: nothing falls back silently.
+    PIPER_TPU_NO_NATIVE=1 (or prefer_native=False) takes the Python decoder
+    alone."""
+    import os
+
+    if prefer_native and os.environ.get("PIPER_TPU_NO_NATIVE") != "1":
+        from piper_tpu_torch.onnx.native import load_model_native
+
+        m = load_model_native(path)
+        if m is not None:
+            return m
     return _load_model_python(path)
 
 

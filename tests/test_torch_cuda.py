@@ -870,3 +870,87 @@ def test_bf16_kernels_refuse_other_tiers_on_the_card(cuda, kernel, tier):
     with pytest.raises(ValueError, match="'default' tier only"):
         fn(*args, precision=tier, **kw)
     assert fn.launches == before
+
+
+# -- the multi-slot layer (parallel/) on virtual slots of the card --------
+
+
+def _mesh_case(card_voices, b=2, f=2):
+    import numpy as np
+
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.models.vits.params import host_arrays_from_graph
+    from piper_tpu_torch.onnx import load_model
+    from piper_tpu_torch.engine.runtime import PiperRuntime
+
+    model, config = card_voices["medium"]
+    hp = PiperRuntime(model, config, device="cpu").hparams
+    params = {k: torch.from_numpy(np.array(v, np.float32))
+              for k, v in host_arrays_from_graph(load_model(model).graph).items()}
+    ids = np.asarray([FIXTURE_PHONEME_IDS * f] * b, np.int64)
+    return hp, params, ids, np.full((b,), ids.shape[1], np.int64)
+
+
+def _slots(n, **kw):
+    from piper_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(n, devices=["cuda:0"] * n, **kw)
+
+
+def test_mesh_dp_and_sp_slots_launch_the_kernels(card_voices):
+    """dp=2 and sp=2 on two virtual slots of the card: each slot launches
+    K2 three times and K3 once per call (medium), and the dp audio is the
+    one-slot call's within 1e-4."""
+    import numpy as np
+
+    from piper_tpu_torch.parallel.serving import ShardedVits
+
+    hp, params, ids, lengths = _mesh_case(card_voices)
+    ref, _ = ShardedVits.create(_slots(1), params, hp).synthesize_batch(
+        ids, lengths, max_frames=64, seed=3)
+    want = {"resblock1_branch": 3, "resblock1_mrf": 1}
+    for shape, call in ((dict(), "synthesize_batch"), (dict(seq_parallel=2), "synthesize_long")):
+        sv = ShardedVits.create(_slots(2, **shape), params, hp)
+        kw = dict(max_frames=64, seed=3) if call == "synthesize_batch" else dict(span=32, seed=3)
+        audio, _ = getattr(sv, call)(ids, lengths, **kw)
+        assert [dict(c) for c in sv.mesh.slot_launches] == [want, want]
+        assert np.isfinite(audio).all()
+        if call == "synthesize_batch":
+            assert np.abs(audio - ref).max() <= ATOL
+
+
+def test_mesh_tp_and_pp_launch_no_kernel(card_voices):
+    """tp=2 and pp=2 run PyTorch's convs only (the JAX rule) and match the
+    one-slot call within 1e-4."""
+    import numpy as np
+
+    from piper_tpu_torch.parallel.serving import ShardedVits
+
+    hp, params, ids, lengths = _mesh_case(card_voices)
+    ref, _ = ShardedVits.create(_slots(1), params, hp).synthesize_batch(
+        ids, lengths, max_frames=64, seed=3)
+    for shape, call in ((dict(tensor_parallel=2), "synthesize_batch"),
+                        (dict(pipeline_parallel=2), "synthesize_pipelined")):
+        sv = ShardedVits.create(_slots(2, **shape), params, hp)
+        before = (R.resblock1_branch.launches, R.resblock1_mrf.launches, K1.conv1d_same.launches)
+        audio, _ = getattr(sv, call)(ids, lengths, max_frames=64, seed=3)
+        assert (R.resblock1_branch.launches, R.resblock1_mrf.launches,
+                K1.conv1d_same.launches) == before
+        assert all(not c for c in sv.mesh.slot_launches)
+        assert np.abs(audio - ref).max() <= ATOL
+
+
+def test_mesh_runtime_on_the_card_matches_one_device(card_voices):
+    """PiperRuntime(mesh=dp2) on two virtual slots: a 3-row batch (padded
+    to 4, two rows a slot) against the one-device runtime within 1e-4."""
+    import numpy as np
+
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS as FIX
+    from piper_tpu_torch.engine.runtime import PiperRuntime
+
+    rt = PiperRuntime(*card_voices["medium"], mesh=_slots(2))
+    one = PiperRuntime(*card_voices["medium"], device="cuda")
+    batch = [FIX, FIX * 2, FIX * 4]
+    for got, want in zip(rt.synthesize_batch(batch, seed=1), one.synthesize_batch(batch, seed=1)):
+        assert got.shape == want.shape and np.abs(got - want).max() <= ATOL
+    assert all(c["resblock1_mrf"] == 1 for c in rt.mesh.slot_launches)
