@@ -183,10 +183,12 @@ CONV1D_PATHS = ("x_low", "x_low_mixed", "x_low_golden", "x_low_mixed_golden", "x
 KERNELS = {
     "resblock1_branch": ("piper_tpu_torch/csrc/resblock1.cu",
                          "piper_tpu/ops/pallas/resblock.py:157",
-                         RESBLOCK1_PATHS + ("probe", "roofline_medium", "cli")),
+                         RESBLOCK1_PATHS + ("probe", "resblock_probe", "roofline_medium",
+                                            "cli")),
     "resblock1_mrf": ("piper_tpu_torch/csrc/resblock1.cu",
                       "piper_tpu/ops/pallas/resblock.py:328",
-                      RESBLOCK1_PATHS + ("probe", "roofline_medium", "level_probe", "cli")),
+                      RESBLOCK1_PATHS + ("probe", "resblock_probe", "roofline_medium",
+                                         "level_probe", "cli")),
     "conv1d_same": ("piper_tpu_torch/csrc/conv1d.cu",
                     "piper_tpu/ops/pallas/conv.py:107", CONV1D_PATHS + ("roofline_x_low",)),
     "resblock1_mrf_folded": ("piper_tpu_torch/csrc/resblock1.cu",
@@ -217,9 +219,12 @@ KERNEL_ATOL = {"highest": 1e-4, "high": 1e-4, "default": 5e-3}
 # fp32 input as its plain version, so every tier differs only in the order
 # of its fp32 sums.
 K1_ATOL = 1e-4
-# How K2/K3/K4 form each tier's conv products (csrc/resblock1.cu).
-RESBLOCK_DESIGN = {"highest": "mma.sync tf32 x3", "high": "mma.sync bf16 x3",
-                   "default": "mma.sync bf16 x1"}
+# How K2/K3/K4 form each tier's conv products (csrc/resblock1.cu): the
+# bf16 tiers on warpgroup products with each tap's weights bulk-copied into
+# a ring in shared memory, "highest" on mma.sync.
+RESBLOCK_DESIGN = {"highest": "mma.sync tf32 x3",
+                   "high": "wgmma bf16 x3, bulk-copied weights",
+                   "default": "wgmma bf16 x1, bulk-copied weights"}
 # How K1 forms them (csrc/conv1d.cu): at every tier the kernel stages the
 # caller's fp32 weights once per persistent block (split into bf16 planes,
 # or one fp32 plane split into tf32 parts on read), so no launch lays them
@@ -231,7 +236,8 @@ RESBLOCK_SYMBOL = "resblock1_kernel"  # the device symbol of K2, K3 and K4
 # K1-K3 on bf16 activations ("bfloat16" mode, the "default" tier): the
 # "default" stage with bf16 loads and stores; "__nv_bfloat16" is in the
 # symbols of those variants only.
-BF16_DESIGN = "mma.sync bf16 x1, bf16 loads and stores"
+BF16_DESIGN = {"conv1d_same": "mma.sync bf16 x1, bf16 loads and stores",
+               "resblock": "wgmma bf16 x1, bulk-copied weights, bf16 loads and stores"}
 K1_SYMBOL = "conv1d_same"  # held by both K1 kernels' symbols (fp32 and mma)
 K5_SYMBOL = "interleave_kernel"
 # A voice's vocoder kernels: their device symbol and their launch counters.
@@ -353,6 +359,8 @@ def phase_build() -> None:
              if "registers" in line or "spill" in line]
     emit(phase="build", seconds=time.perf_counter() - t0, cached=not log,
          library=str(lib_path.relative_to(ROOT)), ptxas=ptxas)
+    # K2-K4's instantiations: registers, spills, shared bytes, ptxas notes
+    emit(phase="resblock_ptxas", kernels=build.ptxas_report(log, RESBLOCK_SYMBOL))
 
 
 def _rand(torch, gen, *shape, scale):
@@ -551,7 +559,8 @@ def _bf16_row(torch, name, call, cases, n, x1, bnd1, work, per_call, atol, defau
            "ulps_vs_fp32_input": max(ulps.values()), "ms": event_ms(kernel),
            "plain_ms": event_ms(plain), **_whole_call_ms(kernel, symbol, _counters()[name]),
            "kernel_device_ms": device_ms(kernel, name="__nv_bfloat16", expected=per_call),
-           **_whole_call_ms(plain, prefix="plain_"), "design": BF16_DESIGN,
+           **_whole_call_ms(plain, prefix="plain_"),
+           "design": BF16_DESIGN["conv1d_same" if name == "conv1d_same" else "resblock"],
            "default_fp32_device_ms": default_row["device_ms"],
            "default_fp32_kernel_device_ms": default_row["kernel_device_ms"], **fields}
     row["bound_ms"], row["bound_by"] = bound_ms(*work, TIER_FLOPS["default"])
@@ -2155,6 +2164,28 @@ def phase_level_probe() -> dict:
     return launches
 
 
+def phase_resblock_probe() -> dict:
+    """K2 and K3's probe reduced to its B=1 shape (128 frames) at the bf16
+    tiers ("high", "default" and bf16 activations), windows of 3 calls; the
+    counts are set to 0 just before it and read just after. Both kernels
+    must launch, and each row's kernel time lie above its bound."""
+    from piper_tpu_torch.tools import resblock_probe
+
+    counters = _zero_counts()
+    t0 = time.perf_counter()
+    rows = resblock_probe.main(["--shapes", "b1", "--reps", "3"])
+    seconds = time.perf_counter() - t0
+    launches = _require_launches("resblock_probe", counters)
+    timed = [r for r in rows if "kernel" in r]
+    if len(timed) != 6 or not all(0 < r["kernel_bound_frac"] <= 1.0 for r in timed):
+        raise AssertionError(f"resblock_probe: {timed}")
+    emit(phase="resblock_probe", rows=[{k: r[k] for k in (
+        "kernel", "precision", "wrapper_ms", "kernel_ms", "bound_ms", "kernel_bound_frac",
+        "wrapper_kernels")} for r in timed], sums=rows[-1]["k2_plus_k3"],
+        nvidia_smi=rows[-1]["nvidia_smi"], seconds=seconds, launches=launches)
+    return launches
+
+
 def phase_roofline(torch, runtimes: dict) -> dict:
     """piper_tpu_torch.utils.roofline on the card: the ceilings measured once
     and printed beside the published peaks with the card's name and power
@@ -2850,6 +2881,7 @@ def main() -> None:
     count(phase_probe())
     count(phase_ct_probe())
     count(phase_level_probe())
+    count(phase_resblock_probe())
     phase_calibrate()
     voices, card = {}, {}
     for quality in ("medium", "x_low"):

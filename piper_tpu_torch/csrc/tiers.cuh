@@ -11,11 +11,13 @@
 // sums.
 //
 // Where each tier is formed: "high" and "default" on the tensor cores in
-// every kernel (conv1d.cu's conv1d_same_mma_kernel, resblock1.cu's
-// conv_stage_mma): mma.sync on bf16 operands with fp32 sums forms exactly
-// these products, and the operands are split once, where they are written
-// (store_split), into planes that ldmatrix_x4 reads. "highest" on the
-// tensor cores as 3xTF32 in the same kernels: v = big + small
+// every kernel (conv1d.cu's conv1d_same_mma_kernel on mma.sync,
+// resblock1.cu's conv_stage_wgmma on wgmma): bf16 operands with fp32 sums
+// form exactly these products, and the activations are split once, where
+// they are written (store_split2), into planes that wgmma or ldmatrix
+// reads.
+// "highest" on the tensor cores as 3xTF32 (mma.sync) in both kernels:
+// v = big + small
 // with big = tf32_rna(v), small = tf32_rna(v - big), and the same for w
 // (precision.py::split_tf32); big*big + big*small + small*big, each product
 // of two tf32 values exact in fp32. small*small and the rounding of small
@@ -33,18 +35,10 @@ namespace piper {
 
 using bf16 = __nv_bfloat16;
 
-// v into bf16 planes at element `off`: bf16_rn(v) into the hi plane and,
-// with two planes, bf16_rn(v - hi) into the lo plane `plane` elements on
+// v0 and v1 into bf16 planes at elements `off` and `off` + 1 (`off` even),
+// one 4-byte store per plane: bf16_rn(v) into the hi plane and, with two
+// planes, bf16_rn(v - hi) into the lo plane `plane` elements on
 // (precision.py::split_bf16).
-template <int kPlanes>
-__device__ __forceinline__ void store_split(bf16* planes, int plane, int off, float v) {
-  const bf16 h = __float2bfloat16_rn(v);
-  planes[off] = h;
-  if (kPlanes == 2) planes[plane + off] = __float2bfloat16_rn(v - __bfloat162float(h));
-}
-
-// store_split of two neighbouring values (v0 at `off`, v1 at `off` + 1,
-// `off` even) as one 4-byte store per plane.
 template <int kPlanes>
 __device__ __forceinline__ void store_split2(bf16* planes, int plane, int off, float v0,
                                              float v1) {
@@ -111,7 +105,7 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint4& a, uint32_t
 // the row stride past C (C + kPad elements), and the planes per buffer.
 // "highest" keeps one fp32 plane, split into tf32 parts on read
 // (split_tf32); "high" two bf16 planes (hi, lo) and "default" one, split
-// where they are written (store_split).
+// where they are written (store_split2).
 template <int kTier>
 struct Planes {
   using T = std::conditional_t<kTier == 0, float, bf16>;
@@ -119,19 +113,8 @@ struct Planes {
   static constexpr int kCount = kTier == 1 ? 2 : 1;
 };
 
-// v into the tier's planes at element `off`.
-template <int kTier>
-__device__ __forceinline__ void store_act(typename Planes<kTier>::T* planes, int plane,
-                                          int off, float v) {
-  if constexpr (kTier == 0) {
-    planes[off] = v;
-  } else {
-    store_split<Planes<kTier>::kCount>(planes, plane, off, v);
-  }
-}
-
-// store_act of two neighbouring values (v0 at `off`, v1 at `off` + 1, `off`
-// even) as one store per plane.
+// Two neighbouring values (v0 at `off`, v1 at `off` + 1, `off` even) into
+// the tier's planes, one store per plane.
 template <int kTier>
 __device__ __forceinline__ void store_act2(typename Planes<kTier>::T* planes, int plane,
                                            int off, float v0, float v1) {

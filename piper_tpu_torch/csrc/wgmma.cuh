@@ -1,0 +1,229 @@
+// Hopper's asynchronous units for the ResBlock1 kernels (sm_90a only):
+// warpgroup products (wgmma.mma_async), bulk copies from global to shared
+// memory (cp.async.bulk) and the shared-memory barriers (mbarrier) that
+// report their completion.
+//
+// wgmma here takes A (64 rows x 16 of K, bf16) and B (16 of K x N, bf16)
+// from shared memory through descriptors; D (64 x N, fp32) stays in
+// registers: element 4j + 2r + e of a thread's D is row 16w + gid + 8r,
+// column 8j + 2tig + e (warp w of the warpgroup, gid = lane / 4, tig =
+// lane % 4).
+//
+// A is K-major without swizzle: the activations' planes of 8 channels,
+// [C/8][W][8] bf16, hold each lane's 8 channels in 16 bytes, lanes one
+// after the other, so 8 consecutive lanes are one 128-byte core matrix
+// (SBO = 128), the next 8 channels are the next plane (LBO = 16W), and a
+// tap's shift of s lanes moves the start address by 16s bytes.
+//
+// B is K-major: the N rows of one tap's (C_out x C_in) weight tile, each
+// C_in bf16 long, in the canonical layout of the swizzle the row width
+// allows (128 bytes at C = 64, 64 at 32, 32 at 16): 8-row groups of
+// 8 * 2C bytes, one after the other (SBO = 16C bytes), and within a group
+// the 16-byte chunk q of row r stored at chunk q ^ ((r * 2C / 128) % (C / 8)).
+// ops/kernels/resblock.py::wgmma_weights writes this image on the host; the
+// swizzle is a function of the shared address bits, so each tile starts on
+// a 1024-byte boundary. A step of 16 input channels moves the descriptor's
+// start address 32 bytes along the rows, as CUTLASS's descriptor iterator
+// does for K-major swizzled tiles.
+#pragma once
+
+#include <cuda_bf16.h>
+
+#include <cstdint>
+
+namespace piper {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// --- mbarriers ---------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Makes the barriers' initialisation visible to the async proxy (the bulk
+// copies) and to the other threads, with the __syncthreads that follows.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// The control flow around the products stays uniform: ptxas serialises
+// every wgmma of a function in which a warpgroup instruction sits on a
+// divergent path. So the waits below spin inside PTX, and the one-thread
+// operations are predicated instructions, not branches.
+
+// Arrive once on `bar` where `pred` holds.
+__device__ __forceinline__ void mbar_arrive_if(bool pred, uint32_t bar) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.u32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+      "}\n" ::"r"(bar),
+      "r"((uint32_t)pred)
+      : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed. A phase still open
+// after 2^28 tries is a fault in the protocol: the kernel traps, so the
+// launch fails instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .u32 n;\n"
+      "mov.u32 n, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 n, n, 1;\n"
+      "setp.gt.u32 p, n, 268435456;\n"
+      "@p trap;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// --- bulk copies ------------------------------------------------------
+
+// Where `pred` holds: arrive on the mbarrier `bar` expecting `bytes` (a
+// multiple of 16) of transactions, and copy them from 16-byte aligned
+// global `src` to shared `dst`, completing on `bar`.
+__device__ __forceinline__ void bulk_copy_if(bool pred, uint32_t dst, const void* src,
+                                             uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.u32 p, %4, 0;\n"
+      "@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%3], %2;\n"
+      "@p cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n"
+      "}\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "r"((uint32_t)pred)
+      : "memory");
+}
+
+// --- warpgroup products ----------------------------------------------
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Makes this thread's generic stores to shared memory visible to the async
+// proxy (wgmma's operand reads), before the barrier that publishes them.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the registers across
+// the asynchronous products' issue and wait (CUTLASS's
+// warpgroup_fence_operand).
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The descriptor of a K-major swizzled B tile at shared address `addr`
+// (1024-byte aligned tile base plus the k-step's 32-byte offsets): start
+// address and SBO in 16-byte units, LBO 1 (unused by swizzled K-major
+// tiles), layout type in bits 62-63 (1 = 128-byte, 2 = 64-byte, 3 = 32-byte
+// swizzle).
+template <int C>
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  static_assert(C == 16 || C == 32 || C == 64, "wgmma stage widths");
+  constexpr uint64_t kLayout = C == 64 ? 1 : C == 32 ? 2 : 3;
+  constexpr uint64_t kSbo = 16 * C;  // bytes between 8-row groups
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((kSbo >> 4) << 32) |
+         (kLayout << 62);
+}
+
+// The descriptor of a K-major A tile without swizzle at shared address
+// `addr` (16-byte aligned): 8 x 16-byte core matrices, rows 16 bytes apart;
+// SBO 128 bytes between the core matrices of 8 consecutive rows (M), LBO
+// `lbo` bytes between the two 8-channel halves of the k16 step (K); layout
+// type 0.
+__device__ __forceinline__ uint64_t a_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
+}
+
+// D (64 x N fp32) += A (64 x 16 bf16) x B (16 x N bf16), both read from
+// shared memory through their descriptors; with `accumulate` 0, D = A x B
+// (D's registers are not read).
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  static __device__ __forceinline__ void mma(float (&d)[8], uint64_t a, uint64_t b,
+                                             uint32_t accumulate = 1) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t a, uint64_t b,
+                                             uint32_t accumulate = 1) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b,
+                                             uint32_t accumulate = 1) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+          "+f"(d[31])
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
+};
+
+}  // namespace piper

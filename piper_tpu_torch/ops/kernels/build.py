@@ -15,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -89,13 +90,14 @@ def load() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.piper_cuda_error_string.argtypes = [i]
     lib.piper_cuda_error_string.restype = ctypes.c_char_p
-    # Each entry ends in (..., tier, [bf16_io,] device, stream).
+    # Each entry ends in (..., tier, [bf16_io,] device, stream); the
+    # ResBlock1 entries take (tile, ring, group) before the slope.
     lib.piper_resblock1_branch.argtypes = [
-        p, p, p, p, p, i, i, p, p, p, i, i, i, i, f, i, i, i, p]
+        p, p, p, p, p, i, i, p, p, p, i, i, i, i, i, i, f, i, i, i, p]
     lib.piper_resblock1_mrf.argtypes = [
-        p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, f, i, i, i, p]
+        p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, i, p]
     lib.piper_resblock1_mrf_folded.argtypes = [
-        p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, f, i, i, p]
+        p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, i, p]
     lib.piper_conv1d_same.argtypes = [p, p, p, p, i, p, i, i, i, i, i, i, f, i, i, i, i, i, p]
     # (y, out, B, r, c, q, device, stream): no tier, a permutation.
     lib.piper_interleave.argtypes = [p, p, i, i, i, i, i, p]
@@ -104,6 +106,59 @@ def load() -> ctypes.CDLL:
         fn.restype = i
     _lib = lib
     return lib
+
+
+def _demangle(names):
+    """The names demangled by cu++filt or c++filt where one is found, else
+    as they are."""
+    for tool in ("cu++filt", "c++filt"):
+        path = shutil.which(tool) or (str(Path("/usr/local/cuda/bin") / tool)
+                                      if (Path("/usr/local/cuda/bin") / tool).exists() else None)
+        if path:
+            done = subprocess.run([path], input="\n".join(names), capture_output=True, text=True)
+            out = done.stdout.splitlines()
+            if done.returncode == 0 and len(out) == len(names):
+                return out
+    return list(names)
+
+
+def ptxas_report(log: str, symbol: str = "") -> list:
+    """Per kernel whose (mangled or demangled) name holds `symbol`, what
+    nvcc's -Xptxas -v said of it: registers, spill stores and loads, stack
+    frame and static shared bytes, and any ptxas warning or performance
+    note that names it (wgmma serialised, for one). One dict per entry
+    function, in the log's order."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"kernel": m.group(1), "registers": None, "spill_stores": None,
+                   "spill_loads": None, "stack": None, "smem": 0, "warnings": []}
+            rows.append(cur)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = next((r for r in rows if r["kernel"] == m.group(1)), None)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m:
+            cur["stack"], cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(m.group(1)) if m else 0
+    for line in log.splitlines():  # e.g. ptxas's "wgmma ... serialized" notes
+        if "warning" in line.lower() or "Performance Loss" in line:
+            for row in rows:
+                if row["kernel"] in line:
+                    row["warnings"].append(line.strip())
+    for row, name in zip(rows, _demangle([r["kernel"] for r in rows])):
+        row["kernel"] = name
+    return [r for r in rows if symbol in r["kernel"]]
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

@@ -88,7 +88,7 @@ def resblock1_mrf_folded(x, branches: Sequence[tuple], *, fold: int = 4, bounds=
     if x.device.type != "cuda":
         raise ValueError(f"resblock1_mrf_folded runs on cpu or cuda, not {x.device}")
     tier = tier_code(precision)
-    t, args, _keep = mrf_launch_args(x, branches, fold * tile, tier)
+    config, args, _keep = mrf_launch_args(x, branches, fold * tile, tier)
     from piper_tpu_torch.ops.kernels import build
 
     lib = build.load()
@@ -97,8 +97,8 @@ def resblock1_mrf_folded(x, branches: Sequence[tuple], *, fold: int = 4, bounds=
     xf = fold_time_axis(x, fold).contiguous()
     out = torch.empty_like(xf)
     code = lib.piper_resblock1_mrf_folded(
-        xf.data_ptr(), *args, bnd.data_ptr(), out.data_ptr(), b, c, xf.shape[2], fold, t,
-        slope, tier, x.device.index or 0, _stream(x))
+        xf.data_ptr(), *args, bnd.data_ptr(), out.data_ptr(), b, c, xf.shape[2], fold,
+        *config, slope, tier, x.device.index or 0, _stream(x))
     build.check(lib, code, "piper_resblock1_mrf_folded")
     resblock1_mrf_folded.launches += 1
     return unfold_time_axis(out, fold, n).contiguous()

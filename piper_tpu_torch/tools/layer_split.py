@@ -14,6 +14,10 @@ do (K2, K3 and K1 skip the dead tiles, cuDNN does not). The card only.
     python -m piper_tpu_torch.tools.layer_split [--configs medium_mixed,medium_fp32,x_low_fp32]
         [--batch 32] [--iters 8] [--out DIR]
 
+`medium_bf16` (the bench's `--precision bfloat16`: bf16 weights and
+activations, the kernels at "default") is a configuration to name in
+`--configs`, profiled as a batch only.
+
 Prints one JSON line per batch profile and per report, and writes each
 configuration's whole record to DIR/<config>.json.
 """
@@ -32,6 +36,10 @@ CONFIGS = {"medium_mixed": ["--quality", "medium"],
                            "--flow-precision", "none"],
            "x_low_fp32": ["--quality", "x_low", "--vocoder-precision", "none",
                           "--flow-precision", "none"]}
+# Named in --configs only, and profiled as a batch only (utils/roofline's
+# stage drivers feed fp32 activations): the bench's bfloat16 capacity tier
+# on medium.
+OPT_IN_CONFIGS = {"medium_bf16": ["--quality", "medium", "--precision", "bfloat16"]}
 JAX_DEFAULTS = (128, 768)  # the (P, T) of the root bench's --roofline
 
 
@@ -93,12 +101,14 @@ def main(argv: Optional[List[str]] = None) -> dict:
     batch = [(FIXTURE_PHONEME_IDS * 8)[:4096]] * args.batch
     records = {}
     for name in args.configs.split(","):
-        rt = bench.get_runtime(bench._parser().parse_args(CONFIGS[name]))
+        rt = bench.get_runtime(bench._parser().parse_args({**CONFIGS, **OPT_IN_CONFIGS}[name]))
         prof = profile_batch(rt, batch)
         print(json.dumps({"config": name, "batch_profile": {
             k: v for k, v in prof.items() if k != "top_kernels"}}), flush=True)
         reports = {}
-        for p, t in ((prof["p_bucket"], prof["f_bucket"]), JAX_DEFAULTS):
+        shapes = [] if name in OPT_IN_CONFIGS else [(prof["p_bucket"], prof["f_bucket"]),
+                                                     JAX_DEFAULTS]
+        for p, t in shapes:
             rep = rl.roofline_report(rt, args.batch, p, t, iters=args.iters, ceilings=ceilings)
             st = {s["stage"]: s["ms"] for s in rep["stages"]}
             rep["stage_sum_ms"] = st["encode(enc+dp)"] + st["flow"] + st["vocoder"]

@@ -401,6 +401,134 @@ def test_mma_tiers_refuse_c_not_a_multiple_of_16(cuda):
             K4.resblock1_mrf_folded.launches) == before
 
 
+# The wgmma stage ("high" and "default"): C 16/32/64, k 3, 5 (the run-time
+# tap loop), 7 and 11 at dilations 1/3/5, ragged N, B 1 and 3.
+WGMMA_TIERS = ["high", "default"]
+
+
+def _wgmma_bounds(case, b, n, dev):
+    rows = {"none": None,
+            "one_sided": [n, n - 300, 0],           # row 1 ends early, row 2 dead
+            "two_sided": [[37, n - 101], [0, n], [0, 0]],
+            "empty": [[0, 0], [0, n], [n // 3, n]]}[case]
+    if rows is None:
+        return None
+    return torch.tensor(rows[:b], dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("tier", WGMMA_TIERS)
+@pytest.mark.parametrize("c,k,b,n", [
+    (64, 11, 3, 5000), (64, 5, 1, 3001), (64, 3, 3, 777), (64, 7, 1, 4096),
+    (32, 11, 1, 2049), (32, 5, 3, 1000), (32, 7, 3, 300), (32, 3, 1, 6000),
+    (16, 11, 3, 999), (16, 5, 1, 100), (16, 7, 3, 4097), (16, 3, 3, 257),
+])
+def test_wgmma_stage_branch_matches_plain(cuda, tier, c, k, b, n):
+    """K2 on the wgmma stage against its plain version at every bounds case
+    (dead rows and tiles included), exact zeros outside [lo, hi)."""
+    gen = torch.Generator().manual_seed(c * k + n)
+    dils = (1, 3, 5)
+    x = (torch.randn(3, c, n, generator=gen) * 0.3).to(cuda)[:b].contiguous()
+    ws = _weights(gen, c, k, len(dils), cuda)
+    for case in ("none", "one_sided", "two_sided", "empty"):
+        bnd = _wgmma_bounds(case, b, n, cuda)
+        before = R.resblock1_branch.launches
+        got = R.resblock1_branch(x, *ws, kernel=k, dilations=dils, bounds=bnd, precision=tier)
+        torch.cuda.synchronize()
+        assert R.resblock1_branch.launches == before + 1
+        want = R.resblock1_branch_plain(x, *ws, kernel=k, dilations=dils, bounds=bnd,
+                                        precision=tier)
+        assert _max_err(got, want) <= TIER_ATOL[tier], case
+        if bnd is not None:
+            assert bool((got[want == 0] == 0).all()), case
+
+
+@pytest.mark.parametrize("tier", WGMMA_TIERS)
+@pytest.mark.parametrize("c,b,n", [(64, 3, 4100), (32, 1, 9000), (32, 3, 200), (16, 3, 1001),
+                                   (16, 1, 33000)])
+def test_wgmma_stage_mrf_matches_plain(cuda, tier, c, b, n):
+    """K3 on the wgmma stage, branches of k 3, 5 and 11 (the narrower ones
+    start with margin consumed; k=5 on the run-time tap loop), at every
+    bounds case; K4 on the same input bit-equal to it."""
+    gen = torch.Generator().manual_seed(c + n)
+    x = (torch.randn(3, c, n, generator=gen) * 0.3).to(cuda)[:b].contiguous()
+    branches = [(*_weights(gen, c, k, 3, cuda), k, (1, 3, 5)) for k in (3, 5, 11)]
+    for case in ("none", "one_sided", "two_sided", "empty"):
+        bnd = _wgmma_bounds(case, b, n, cuda)
+        got = R.resblock1_mrf(x, branches, bounds=bnd, precision=tier)
+        torch.cuda.synchronize()
+        want = R.resblock1_mrf_plain(x, branches, bounds=bnd, precision=tier)
+        assert _max_err(got, want) <= TIER_ATOL[tier], case
+        if bnd is not None:
+            assert bool((got[want == 0] == 0).all())
+        assert torch.equal(got, K4.resblock1_mrf_folded(x, branches, fold=4, bounds=bnd,
+                                                        precision=tier)), case
+
+
+@pytest.mark.parametrize("tier", WGMMA_TIERS)
+@pytest.mark.parametrize("c", [16, 32, 64])
+def test_wgmma_stage_output_does_not_depend_on_tile_or_ring(cuda, tier, c):
+    """Every (tile, slots, chunk) the stage offers (R.wgmma_configs) gives the
+    wrapper's output bit for bit, for K2 (k=7) and K3."""
+    gen = torch.Generator().manual_seed(c)
+    n = 3000
+    x = (torch.randn(2, c, n, generator=gen) * 0.3).to(cuda)
+    bnd = torch.tensor([[37, n - 101], [0, n]], dtype=torch.int32, device=cuda)
+    ws = _weights(gen, c, 7, 3, cuda)
+    want = R.resblock1_branch(x, *ws, kernel=7, dilations=(1, 3, 5), bounds=bnd, precision=tier)
+    configs = R.wgmma_configs(x, R.branch_halo(7, (1, 3, 5)), 256, R.tier_code(tier), 7)
+    assert len(configs) > 3
+    for config in configs:
+        got = R._launch_branch(x, ws, 7, (1, 3, 5), bnd, 0.1, R.tier_code(tier), False, config)
+        assert torch.equal(got, want), config
+    branches = _mrf_branches(gen, c, cuda)
+    want = R.resblock1_mrf(x, branches, bounds=bnd, precision=tier)
+    for config in R.wgmma_configs(x, 60, 256, R.tier_code(tier)):
+        got = R._launch_mrf(x, branches, bnd, 0.1, R.tier_code(tier), False, 256, config)
+        assert torch.equal(got, want), config
+
+
+@pytest.mark.parametrize("c", [16, 32, 64])
+def test_wgmma_stage_bf16_io_matches_the_fp32_input_kernel(cuda, c):
+    """bf16 activations at "default" on the wgmma stage, K2 and K3: within
+    one bf16 ulp of the fp32-input kernel on the same values."""
+    from piper_tpu_torch.ops.kernels.precision import bf16_ulps
+
+    gen = torch.Generator().manual_seed(19 + c)
+    n = 2500
+    x = (torch.randn(2, c, n, generator=gen) * 0.3).to(cuda).bfloat16()
+    bnd = torch.tensor([n, 1200], dtype=torch.int32, device=cuda)
+    ws = [w.bfloat16() for w in _weights(gen, c, 11, 3, cuda)]
+    got = R.resblock1_branch(x, *ws, kernel=11, dilations=(1, 3, 5), bounds=bnd,
+                             precision="default")
+    ref = R.resblock1_branch(x.float(), *[w.float() for w in ws], kernel=11, dilations=(1, 3, 5),
+                             bounds=bnd, precision="default").bfloat16()
+    assert got.dtype == torch.bfloat16 and bf16_ulps(got, ref) <= 1.0
+    branches = [tuple(w.bfloat16() for w in br[:4]) + br[4:] for br in _mrf_branches(gen, c, cuda)]
+    got = R.resblock1_mrf(x, branches, bounds=bnd, precision="default")
+    ref = R.resblock1_mrf(x.float(), [tuple(w.float() for w in br[:4]) + br[4:]
+                                      for br in branches], bounds=bnd,
+                          precision="default").bfloat16()
+    assert got.dtype == torch.bfloat16 and bf16_ulps(got, ref) <= 1.0
+
+
+def test_wgmma_stage_refuses_other_widths(cuda):
+    """C=48 (a multiple of 16, but no wgmma stage width) is refused at the
+    bf16 tiers with no launch; "highest" still runs it."""
+    gen = torch.Generator().manual_seed(48)
+    x = (torch.randn(1, 48, 500, generator=gen) * 0.3).to(cuda)
+    ws = _weights(gen, 48, 3, 1, cuda)
+    before = (R.resblock1_branch.launches, R.resblock1_mrf.launches)
+    for tier in WGMMA_TIERS:
+        with pytest.raises(ValueError, match="16, 32 or 64"):
+            R.resblock1_branch(x, *ws, kernel=3, dilations=(1,), precision=tier)
+        with pytest.raises(ValueError, match="16, 32 or 64"):
+            R.resblock1_mrf(x, [(*ws, 3, (1,))], precision=tier)
+    assert (R.resblock1_branch.launches, R.resblock1_mrf.launches) == before
+    got = R.resblock1_branch(x, *ws, kernel=3, dilations=(1,), precision="highest")
+    want = R.resblock1_branch_plain(x, *ws, kernel=3, dilations=(1,), precision="highest")
+    assert _max_err(got, want) <= ATOL
+
+
 @pytest.mark.parametrize("tier", ["highest", "high"])
 def test_device_ms_counts_the_kernel_launches(cuda, tier):
     """device_ms by kernel name: three branch launches per call; a wrong

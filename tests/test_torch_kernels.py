@@ -541,55 +541,61 @@ def test_interleave_refuses_what_the_kernel_does_not_take():
         K5.interleave(y.to("meta"))
 
 
-def _unpack_fragments(f):
-    """(M, K, C/16, C/16, 32, 8) -> (M, C_out, C_in, K) by PTX's A-fragment
-    layout of mma.m16n8k16: lane 4g + t, register i, half h holds row
-    g + 8*(i % 2), column 2t + h + 8*(i // 2)."""
-    m, k, kc_n, mt_n = f.shape[:4]
-    lane, e = np.meshgrid(np.arange(32), np.arange(8), indexing="ij")
-    row = torch.from_numpy(lane // 4 + 8 * ((e // 2) % 2))
-    col = torch.from_numpy(2 * (lane % 4) + e % 2 + 8 * (e // 4))
-    out = torch.empty((m, 16 * mt_n, 16 * kc_n, k), dtype=f.dtype)
-    for mt in range(mt_n):
-        for kc in range(kc_n):
-            out[:, 16 * mt + row, 16 * kc + col, :] = f[:, :, kc, mt].permute(0, 2, 3, 1)
-    return out
+def _unswizzle(img):
+    """(M, K, C, C) wgmma B images -> (M, C_out, C_in, K), read as the card
+    reads them: element (row r, column p) of a tile sits at byte a = r*2C +
+    2p of a 1024-byte aligned tile, and the card finds there the byte a'
+    of the K-major row-major tile, with a' = a XOR (((a >> 7) & (2^b - 1))
+    << 4), b = 3, 2, 1 for 128-, 64- and 32-byte rows (CUTLASS's
+    Swizzle<b, 4, 3>)."""
+    m, k, c, _ = img.shape
+    bits = {64: 3, 32: 2, 16: 1}[c]
+    a = torch.arange(c * c) * 2
+    src = (a ^ (((a >> 7) & ((1 << bits) - 1)) << 4)) // 2  # the unswizzled element
+    out = torch.empty((m, k, c * c), dtype=img.dtype)
+    out[:, :, src] = img.reshape(m, k, c * c)
+    return out.reshape(m, k, c, c).permute(0, 2, 3, 1)
 
 
 @pytest.mark.parametrize("k", [3, 7, 11])
 @pytest.mark.parametrize("c", [16, 32, 64])
-def test_a_fragment_weights_are_the_bf16_split(c, k):
-    """The tensor-core tiers' weights: every (co, ci, tap) once; hi and lo
-    unpacked equal precision.py's bf16 split bit for bit ("high"), one plane
-    of bf16(w) at "default"; hi + lo is the "high" operand."""
+def test_wgmma_weights_are_the_bf16_split_in_the_swizzled_image(c, k):
+    """The wgmma stage's weights: every (co, ci, tap) once; the swizzled
+    image inverts to w by the card's own address rule; each (conv, tap) is
+    one contiguous tile of P planes; hi and lo equal precision.py's bf16
+    split bit for bit ("high"), one plane of bf16(w) at "default"."""
     m = 3
-    idx = torch.arange(m * c * c * k).reshape(m, c, c, k)
-    frag = R.a_fragments(idx)
-    assert frag.shape == (m, k, c // 16, c // 16, 32, 8)
-    assert torch.equal(frag.flatten().sort().values, idx.flatten())
-    assert torch.equal(_unpack_fragments(frag), idx)
+    idx = torch.arange(m * c * c * k).reshape(1, m, c, c, k)
+    img = R.wgmma_image(idx)
+    assert img.shape == (m, k, 1, c, c) and img.is_contiguous()
+    assert torch.equal(img.flatten().sort().values, idx.flatten())
+    assert torch.equal(_unswizzle(img[:, :, 0]), idx[0])
 
     rng = np.random.default_rng(c * k)
     w = torch.from_numpy((rng.standard_normal((m, c, c, k)) / np.sqrt(c * k)).astype(np.float32))
     hi, lo = split_bf16(w)
-    high = R.fragment_weights(w, tier_code("high"))
-    assert high.dtype == torch.bfloat16 and high.shape == (2, *frag.shape)
+    high = R.wgmma_weights(w, tier_code("high"))
+    assert high.dtype == torch.bfloat16 and high.shape == (m, k, 2, c, c)
     assert high.is_contiguous()
-    got_hi, got_lo = _unpack_fragments(high[0]), _unpack_fragments(high[1])
+    got_hi, got_lo = _unswizzle(high[:, :, 0]), _unswizzle(high[:, :, 1])
     assert torch.equal(got_hi.view(torch.int16), hi.to(torch.bfloat16).view(torch.int16))
     assert torch.equal(got_lo.view(torch.int16), lo.to(torch.bfloat16).view(torch.int16))
     assert torch.equal(got_hi.float() + got_lo.float(), hi + lo)
-    assert float((got_hi.float() + got_lo.float() - w).abs().max()) <= \
-        2.0 ** -16 * float(w.abs().max())
-    default = R.fragment_weights(w, tier_code("default"))
-    assert default.shape == (1, *frag.shape)
-    assert torch.equal(_unpack_fragments(default[0]).view(torch.int16),
+    default = R.wgmma_weights(w, tier_code("default"))
+    assert default.shape == (m, k, 1, c, c) and default.is_contiguous()
+    assert torch.equal(_unswizzle(default[:, :, 0]).view(torch.int16),
                        w.to(torch.bfloat16).view(torch.int16))
+    assert torch.equal(R.wgmma_weights(w.to(torch.bfloat16), tier_code("default")), default)
 
 
-def test_a_fragments_refuse_channels_not_a_multiple_of_16():
-    with pytest.raises(ValueError, match="multiples of 16"):
-        R.a_fragments(torch.zeros(1, 8, 8, 3))
+@pytest.mark.parametrize("shape,match", [
+    ((1, 8, 8, 3), "multiple of 16"),
+    ((1, 48, 48, 3), "16, 32 or 64"),
+    ((1, 32, 16, 3), "square"),
+])
+def test_wgmma_weights_refuse_other_widths(shape, match):
+    with pytest.raises(ValueError, match=match):
+        R.wgmma_weights(torch.zeros(shape), tier_code("high"))
 
 
 def _event(key, count, us, device="CUDA"):
@@ -802,28 +808,86 @@ def test_tf32_fragment_weights_are_the_tf32_split(c, k):
         R.tf32_fragments(torch.zeros(1, 8, 8, 3))
 
 
+class _H100Props:
+    shared_memory_per_block_optin = 232448
+    multi_processor_count = 132
+
+
 def test_highest_shared_memory_and_tiles(monkeypatch):
     """At "highest" the window's act(y) and act(conv1) are one fp32 plane
     each, rows of C + 4 words: 198,400 bytes at K2's widest branch (C=64,
-    halo 60, tile 128). Every tier takes the tensor-core tile rule: at the
+    halo 60, tile 128). "highest" keeps the tensor-core tile rule: at the
     medium voice's shapes K2 and K3 both run tiles of 128 (the CUDA-core
-    rule took 256 for K3), and the high voice's C=16 level the same."""
+    rule took 256 for K3), and the high voice's C=16 level the same, with
+    no weight ring (0, 0). The bf16 tiers' wgmma stage has its own rule
+    (test_wgmma_shared_memory_and_tiles)."""
     assert R._smem_bytes(64, 128, 60, False, 0) == 4 * 64 * 248 + 2 * 4 * 248 * 68 == 198400
     assert R._smem_bytes(32, 128, 60, True, 0) == 4 * 32 * 248 + 2 * 4 * 248 * 36 + 4 * 32 * 128
-    assert R._smem_bytes(64, 128, 60, False, 1) == 4 * 64 * 248 + 2 * 2 * 2 * 248 * 72
-    assert R._smem_bytes(64, 128, 60, False, 2) == 4 * 64 * 248 + 2 * 2 * 248 * 72
+    # the wgmma stage at the same shape: no fp32 residual, a ring of 2 slots
+    # of one tap (hi + lo at "high", 16 KB at C=64) and its barriers, planes
+    # of W + 1 lanes and a guard of 256 - W + halo lanes
+    assert R._smem_bytes(64, 128, 60, False, 1, 2, 1) == (
+        1024 + 2 * 16384 + 128 + 2 * 2 * 2 * 249 * 64 + 16 * (256 - 248 + 60))
+    assert R._smem_bytes(64, 128, 60, False, 2, 2, 1) == (
+        1024 + 2 * 8192 + 128 + 2 * 2 * 249 * 64 + 16 * (256 - 248 + 60))
 
-    class Props:
-        shared_memory_per_block_optin = 232448
-
-    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: Props())
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: _H100Props())
     halo = R.branch_halo(11, (1, 3, 5))
-    for tier in (0, 1, 2):
-        assert R._pick_tile(torch.zeros(1, 64, 8), halo, False, 256, tier) == 128  # K2
-        assert R._pick_tile(torch.zeros(1, 32, 8), halo, True, 256, tier) == 128   # K3
-        assert R._pick_tile(torch.zeros(1, 16, 8), halo, True, 256, tier) == 128
+    assert R._pick_tile(torch.zeros(1, 64, 8), halo, False, 256, 0) == (128, 0, 0)  # K2
+    assert R._pick_tile(torch.zeros(1, 32, 8), halo, True, 256, 0) == (128, 0, 0)   # K3
+    assert R._pick_tile(torch.zeros(1, 16, 8), halo, True, 256, 0) == (128, 0, 0)
     # tile 256 at C=64 would need 300,800 bytes at "highest": not offered
-    assert R._smem_bytes(64, 256, 60, False, 0) > Props.shared_memory_per_block_optin
+    assert R._smem_bytes(64, 256, 60, False, 0) > _H100Props.shared_memory_per_block_optin
+
+
+@pytest.mark.parametrize("tier", ["high", "default"])
+def test_wgmma_shared_memory_and_tiles(monkeypatch, tier):
+    """The wgmma stage at K2's and K3's widest branch (k=11, dilations
+    1/3/5: halo 60): a window of at most 256 lanes (4 warpgroups x 64), so
+    tile 136 fills it; a ring slot holds `chunk` taps' images (rounded to
+    1024 bytes). At B=1 (128 frames) and at the serving batch (B=32,
+    T=192) the wave rule picks tile 136 for K2 (C=64, N = 128 or 192
+    frames x 128) and K3 (C=32, x 256) alike, with 2 slots of as many taps
+    as fit: a whole conv at C=32 and 16, 6 at C=64 "default", 3 at C=64
+    "high" (232,000 of 232,448 bytes). K2's k=3 branch (halo 12) takes 3
+    warpgroups' window at B=1 (tile 168, one wave of 98 blocks) and the full
+    256 lanes at B=32 (tile 232)."""
+    code = tier_code(tier)
+    planes = 2 if tier == "high" else 1
+    lanes = 136 + 120 + 1  # the window and the lane that takes the stores outside a stage
+
+    def slot(c, chunk):
+        return -(-chunk * planes * 2 * c * c // 1024) * 1024
+
+    for c, chunk in ((64, 3), (32, 11), (16, 11), (64, 1)):
+        assert R._smem_bytes(c, 136, 60, c != 64, code, 2, chunk) == (
+            1024 + 2 * slot(c, chunk) + 128 + 2 * planes * 2 * lanes * c + 16 * 60)
+    assert R._smem_bytes(64, 136, 60, False, 1, 2, 3) == 232000
+    assert R._smem_bytes(64, 136, 60, False, 1, 2, 4) > _H100Props.shared_memory_per_block_optin
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: _H100Props())
+    halo = R.branch_halo(11, (1, 3, 5))
+
+    def pick(b, c, n, halo=halo, mean=False, tile_max=256, taps=11):
+        return R._pick_tile(torch.empty((b, c, n), device="meta"), halo, mean, tile_max, code,
+                            taps)
+
+    k2_chunk = 3 if tier == "high" else 6
+    for frames in (128, 192):
+        for b in (1, 32):
+            assert pick(b, 64, frames * 128) == (136, 2, k2_chunk)      # K2
+            assert pick(b, 32, frames * 256, mean=True) == (136, 2, 11)  # K3
+    assert pick(1, 16, 128 * 512, mean=True) == (136, 2, 11)
+    assert pick(1, 64, 128 * 128, halo=12, taps=3) == (168, 2, 3)
+    assert pick(32, 64, 192 * 128, halo=12, taps=3) == (232, 2, 3)
+    assert pick(2, 16, 1000, tile_max=32) == (32, 2, 11)  # a cap below the fill tile
+    configs = R.wgmma_configs(torch.empty((1, 64, 99), device="meta"), halo, 256, code, 7)
+    assert {r for _, r, _ in configs} == set(R._RINGS)
+    assert {ch for _, _, ch in configs} <= {1, 2, 3, 4, 6, 7}
+    assert all(t + 2 * halo <= 256 and R._smem_bytes(64, t, halo, False, code, r, ch) <= 232448
+               for t, r, ch in configs)
+    with pytest.raises(ValueError, match="256 lanes"):
+        pick(1, 64, 4096, halo=130)
 
 
 def _tf32x3_conv(x, w, b, padding, dilation):
