@@ -142,6 +142,11 @@ and in TF32, its kernels; the serving batch against its rows), and a
 margin line lists every comparison held to the mixed gate (1e-3) against
 half of it, 5e-4: the run fails if any lands above that target.
 
+The build's resblock_ptxas line gives each K2-K4 instantiation's
+registers, spills, ptxas notes and its products in the machine code
+(cuobjdump -sass: HGMMA is wgmma, HMMA mma.sync); the run fails unless
+every tier's instantiations hold wgmma and none holds mma.sync.
+
 Each voice's result on the card is checked against the same port on the
 CPU. Each phase prints one JSON line; any failure raises and the exit code
 is non-zero. The line before the last lists every kernel: its launches on
@@ -157,6 +162,7 @@ card has no JAX, and the port runs without that package.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -208,8 +214,9 @@ TIERS = ("highest", "high", "default")
 # another order than cuDNN's. "highest": the same sums, K2-K4 forming each
 # product as 3xTF32 (big*big + big*small + small*big), which drops about
 # 2^-21 of it against the plain version's fp32 product, the order of the
-# sums' own rounding: measured 1.6e-5 at K2's main-path shape on the H100,
-# against 1.1e-5 at "high". "default": where the
+# sums' own rounding: measured 1.7e-5 at K2's main-path shape on the H100
+# (the wgmma stage, whose "highest" conv2 sums from 0 and adds the residual
+# after), against 2.8e-5 at "high". "default": where the
 # two sums differ by an fp32 ulp, the next conv's bf16 rounding of its
 # input can flip by one bf16 ulp (2^-6 for values in [2, 4)), times a
 # weight of up to ~0.1, and the chain carries it on; measured up to 2.2e-3
@@ -219,10 +226,11 @@ KERNEL_ATOL = {"highest": 1e-4, "high": 1e-4, "default": 5e-3}
 # fp32 input as its plain version, so every tier differs only in the order
 # of its fp32 sums.
 K1_ATOL = 1e-4
-# How K2/K3/K4 form each tier's conv products (csrc/resblock1.cu): the
-# bf16 tiers on warpgroup products with each tap's weights bulk-copied into
-# a ring in shared memory, "highest" on mma.sync.
-RESBLOCK_DESIGN = {"highest": "mma.sync tf32 x3",
+# How K2/K3/K4 form each tier's conv products (csrc/resblock1.cu): every
+# tier on warpgroup products with each tap's weights bulk-copied into a
+# ring in shared memory; "highest" as 3xTF32 on tf32 big and small planes
+# split where they are written.
+RESBLOCK_DESIGN = {"highest": "wgmma tf32 x3, bulk-copied weights",
                    "high": "wgmma bf16 x3, bulk-copied weights",
                    "default": "wgmma bf16 x1, bulk-copied weights"}
 # How K1 forms them (csrc/conv1d.cu): at every tier the kernel stages the
@@ -359,8 +367,30 @@ def phase_build() -> None:
              if "registers" in line or "spill" in line]
     emit(phase="build", seconds=time.perf_counter() - t0, cached=not log,
          library=str(lib_path.relative_to(ROOT)), ptxas=ptxas)
-    # K2-K4's instantiations: registers, spills, shared bytes, ptxas notes
-    emit(phase="resblock_ptxas", kernels=build.ptxas_report(log, RESBLOCK_SYMBOL))
+    # K2-K4's instantiations: registers, spills, shared bytes, ptxas notes,
+    # and their products in the machine code: every tier on wgmma (HGMMA),
+    # none on mma.sync (HMMA).
+    sass = build.sass_ops(lib_path, RESBLOCK_SYMBOL)
+    rows = build.ptxas_report(log, RESBLOCK_SYMBOL)
+    for row in rows:
+        row["sass"] = sass.get(row["kernel"])
+    emit(phase="resblock_ptxas", kernels=rows)
+    tiers, wrong = resblock_sass_check(sass)
+    if tiers != {0, 1, 2} or wrong or (log and len(rows) != len(sass)):
+        raise AssertionError(f"resblock_ptxas: tiers {sorted(tiers)} in the library; not on "
+                             f"wgmma alone: {wrong}")
+
+
+def resblock_sass_check(sass: dict) -> tuple:
+    """(the tiers of the ResBlock1 instantiations in `sass`, {instantiation:
+    counts} of those not on wgmma alone: any HMMA, or no HGMMA). The tier is
+    the kernel's third template argument, demangled as `2` or `(int)2`."""
+    tiers = set()
+    for name in sass:
+        m = re.search(r"resblock1_kernel<[^,<>]+, [^,<>]+, (?:\(int\))?(\d+),", name)
+        if m:
+            tiers.add(int(m.group(1)))
+    return tiers, {k: c for k, c in sass.items() if c["HMMA"] or not c["HGMMA"]}
 
 
 def _rand(torch, gen, *shape, scale):
@@ -2165,10 +2195,10 @@ def phase_level_probe() -> dict:
 
 
 def phase_resblock_probe() -> dict:
-    """K2 and K3's probe reduced to its B=1 shape (128 frames) at the bf16
-    tiers ("high", "default" and bf16 activations), windows of 3 calls; the
-    counts are set to 0 just before it and read just after. Both kernels
-    must launch, and each row's kernel time lie above its bound."""
+    """K2 and K3's probe reduced to its B=1 shape (128 frames) at every
+    tier ("highest", "high", "default" and bf16 activations), windows of 3
+    calls; the counts are set to 0 just before it and read just after. Both
+    kernels must launch, and each row's kernel time lie above its bound."""
     from piper_tpu_torch.tools import resblock_probe
 
     counters = _zero_counts()
@@ -2177,7 +2207,7 @@ def phase_resblock_probe() -> dict:
     seconds = time.perf_counter() - t0
     launches = _require_launches("resblock_probe", counters)
     timed = [r for r in rows if "kernel" in r]
-    if len(timed) != 6 or not all(0 < r["kernel_bound_frac"] <= 1.0 for r in timed):
+    if len(timed) != 8 or not all(0 < r["kernel_bound_frac"] <= 1.0 for r in timed):
         raise AssertionError(f"resblock_probe: {timed}")
     emit(phase="resblock_probe", rows=[{k: r[k] for k in (
         "kernel", "precision", "wrapper_ms", "kernel_ms", "bound_ms", "kernel_bound_frac",

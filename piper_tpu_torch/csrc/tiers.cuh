@@ -12,12 +12,14 @@
 //
 // Where each tier is formed: "high" and "default" on the tensor cores in
 // every kernel (conv1d.cu's conv1d_same_mma_kernel on mma.sync,
-// resblock1.cu's conv_stage_wgmma on wgmma): bf16 operands with fp32 sums
+// resblock1.cuh's conv_stage_wgmma on wgmma): bf16 operands with fp32 sums
 // form exactly these products, and the activations are split once, where
 // they are written (store_split2), into planes that wgmma or ldmatrix
 // reads.
-// "highest" on the tensor cores as 3xTF32 (mma.sync) in both kernels:
-// v = big + small
+// "highest" on the tensor cores as 3xTF32 in both kernels (conv1d.cu's on
+// mma.sync, splitting its activations on read; resblock1.cu's on wgmma,
+// which reads tf32 big and small planes split where they are written,
+// store_tf32_split2): v = big + small
 // with big = tf32_rna(v), small = tf32_rna(v - big), and the same for w
 // (precision.py::split_tf32); big*big + big*small + small*big, each product
 // of two tf32 values exact in fp32. small*small and the rounding of small
@@ -99,6 +101,19 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint4& a, uint32_t
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// v0 and v1 into fp32 planes at elements `off` and `off` + 1 (`off` even),
+// one 8-byte store per plane: split_tf32's big part into the first plane
+// and its small part into the plane `plane` elements on, each tf32-exact
+// (the low 13 bits zero, so wgmma drops nothing of them).
+__device__ __forceinline__ void store_tf32_split2(float* planes, int plane, int off, float v0,
+                                                  float v1) {
+  uint32_t b0, s0, b1, s1;
+  split_tf32(v0, b0, s0);
+  split_tf32(v1, b1, s1);
+  *reinterpret_cast<uint2*>(planes + off) = make_uint2(b0, b1);
+  *reinterpret_cast<uint2*>(planes + plane + off) = make_uint2(s0, s1);
 }
 
 // How a tier keeps a plane of operands in shared memory: the element type,

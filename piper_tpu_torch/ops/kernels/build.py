@@ -161,6 +161,28 @@ def ptxas_report(log: str, symbol: str = "") -> list:
     return [r for r in rows if symbol in r["kernel"]]
 
 
+def sass_ops(library: Path, symbol: str = "", ops=("HGMMA", "HMMA")) -> dict:
+    """{kernel: {op: count}}: per kernel of the built library whose
+    demangled name holds `symbol`, how many instructions of each SASS
+    opcode in `ops` its machine code holds (cuobjdump -sass; HGMMA is
+    wgmma, HMMA mma.sync). Raises where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or str(Path(_nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          check=True).stdout
+    names, counts, cur = [], [], None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            names.append(m.group(1))
+            cur = dict.fromkeys(ops, 0)
+            counts.append(cur)
+        elif cur is not None:
+            for op in ops:
+                if re.search(rf"\b{op}\b", line):
+                    cur[op] += 1
+    return {name: c for name, c in zip(_demangle(names), counts) if symbol in name}
+
+
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise if a C entry returned a CUDA error code."""
     if code != 0:

@@ -3,12 +3,17 @@
 Counterparts of piper_tpu.ops.pallas.resblock.pallas_resblock1_branch and
 pallas_resblock1_mrf. The kernels are CUDA C++ for Hopper
 (`csrc/resblock1.cu`, whose header says what bounds them on the H100 and
-how the design answers it), on the tensor cores at every tier: warpgroup
-products (wgmma) on bf16 operands at "high" and "default", whose weights
-this module lays out as the shared-memory image the kernel bulk-copies
-(`wgmma_weights`), and 3xTF32 on mma.sync at "highest", whose weights it
-lays out in mma's fragment order (`tf32_weights`). Each sits beside its
-plain PyTorch version.
+how the design answers it), on warpgroup products (wgmma) at every tier:
+bf16 operands at "high" and "default", whose weights this module lays out
+as the shared-memory image the kernel bulk-copies (`wgmma_weights`), and
+3xTF32 at "highest" (three TF32 passes, 495/3 TFLOP/s of fp32-class
+products), whose weights' big and small tf32 planes it lays out the same
+way in fp32 (`wgmma_tf32_weights`); the kernel splits the activations
+where it writes them, so its products read both operands from shared
+memory. C is 16, 32 or 64 at every tier, and at "highest" any multiple of
+16 below 128, as the Pallas kernels take it (48, 80, 96 and 112, which no
+preset voice has, in place and, past 64, with the weights streamed an
+atom of a tap at a time). Each sits beside its plain PyTorch version.
 
 Contract, as on the TPU: a branch is y = x; for d in dilations:
 y += conv2(act(conv1_d(act(y)))), with conv1 dilated, conv2 dense, both
@@ -51,10 +56,10 @@ _SMS = 132            # the H100's SMs, where the device does not say
 _THREADS = 512
 _MAX_BRANCHES = 4
 _MAX_DILS = 4
-_MMA_NT = 2    # "highest": 8-lane n-tiles per warp work item
 _MMA_PAD = 8   # K1's bf16 planes: a row is C + 8 channels (ops/kernels/conv.py)
-_TF32_PAD = 4  # "highest": an fp32 plane's row is C + 4 channels
-_WGMMA_WIDTHS = (16, 32, 64)  # the wgmma stage's C (one wgmma's N)
+_TF32_PAD = 4  # K1's "highest" fp32 plane: a row is C + 4 channels (ops/kernels/conv.py)
+_WGMMA_WIDTHS = (16, 32, 64)  # the wgmma stage's C at the bf16 tiers (one wgmma's N)
+_HIGHEST_WIDTHS = (16, 32, 48, 64, 80, 96, 112)  # and at "highest"
 _WINDOW = 256  # the wgmma stage's window: 64 lanes per warpgroup
 _RINGS = (2, 3)  # the wgmma stage's weight slots
 _CHUNKS = (1, 2, 3, 4, 6, 11)  # taps a slot may hold (at most a conv's)
@@ -165,32 +170,47 @@ def resblock1_mrf_plain(x, branches: Sequence[tuple], *, bounds=None,
     return acc / len(branches) * mask
 
 
+def _widths(tier: int) -> tuple:
+    """The C the wgmma stage takes at tier code `tier`."""
+    return _HIGHEST_WIDTHS if tier == 0 else _WGMMA_WIDTHS
+
+
+def _atom_row(c: int, elem: int) -> int:
+    """Bytes of a weight row in one swizzle atom: the widest of 128, 64 and
+    32 that divides the row of C values of `elem` bytes
+    (csrc/resblock1.cuh::atom_row_bytes)."""
+    row = c * elem
+    return 128 if row % 128 == 0 else 64 if row % 64 == 0 else 32
+
+
+def _tap_units(c: int, tier: int) -> int:
+    """The ring's units a tap (csrc/resblock1.cuh::tap_units): one, or at
+    "highest" past C = 64 each swizzle atom of the tap's two tf32 planes."""
+    return 4 * c // _atom_row(c, 4) if tier == 0 and c > 64 else 1
+
+
 def _smem_bytes(c: int, tile: int, halo: int, mean: bool, tier: int, ring: int = 2,
                 chunk: int = 1) -> int:
-    """The kernel's shared memory. "highest": the fp32 residual over the
-    window, act(y) and act(conv1) as one fp32 lane-major plane each, and the
-    MRF's fp32 branch sum. "high"/"default" (the wgmma stage, which keeps
-    the residual and the branch sum in registers): up to 1024 bytes to
-    align the ring, `ring` slots of `chunk` taps' weight images (rounded up
-    to 1024 bytes), their mbarriers (16 bytes a slot, rounded up to 128),
-    act(y) and act(conv1) as bf16 planes of 8-channel chunks of W + 1 lanes
-    (lane W takes the stores of lanes outside a stage), two each at
-    "high", one at "default", and a guard of 16 bytes a lane for the
-    256 - W + halo lanes a warpgroup may read past the window
-    (csrc/resblock1.cu::launch)."""
+    """The kernel's shared memory (csrc/resblock1.cu::launch; the residual
+    and the MRF's branch sum stay in registers, so `mean` changes nothing):
+    up to 1024 bytes to align the ring, `ring` slots of `chunk` units of
+    weight images (a tap, or past C = 64 at "highest" an atom of one:
+    `_tap_units`; rounded up to 1024 bytes), their mbarriers (16 bytes a
+    slot, rounded up to 128), act(y) and act(conv1) as planes of 16-byte
+    chunks of W + 1 lanes (lane W takes the stores of lanes outside a
+    stage), and a guard of 16 bytes a lane for the 256 - W + halo lanes a
+    warpgroup may read past the window. A tap's image and a buffer are two
+    planes, bf16 hi and lo at "high" and fp32 tf32 big and small at
+    "highest", one bf16 plane at "default"; at "highest" from C = 48 act(y)
+    and act(conv1) share one buffer, overwritten in place (two do not fit
+    beside the ring)."""
     w = tile + 2 * halo
-    if tier == 0:
-        return 4 * c * w + 2 * 4 * w * (c + _TF32_PAD) + (4 * c * tile if mean else 0)
-    planes = 2 if tier == 1 else 1
-    slot = -(-chunk * planes * 2 * c * c // 1024) * 1024
-    return (1024 + ring * slot + -(-16 * ring // 128) * 128 + 2 * planes * 2 * (w + 1) * c
-            + 16 * (_WINDOW - w + halo))
-
-
-def _mma_m_tiles(c: int) -> int:
-    """m-tiles of 16 output channels per warp work item ("highest")."""
-    n16 = c // 16
-    return 4 if n16 % 4 == 0 else 2 if n16 % 2 == 0 else 1
+    elem = 4 if tier == 0 else 2
+    planes = 1 if tier == 2 else 2
+    buffers = 1 if tier == 0 and c >= 48 else 2
+    slot = -(-chunk * planes * elem * c * c // _tap_units(c, tier) // 1024) * 1024
+    return (1024 + ring * slot + -(-16 * ring // 128) * 128
+            + buffers * planes * elem * (w + 1) * c + 16 * (_WINDOW - w + halo))
 
 
 def _smem_limit(x: torch.Tensor) -> int:
@@ -198,35 +218,19 @@ def _smem_limit(x: torch.Tensor) -> int:
     return getattr(props, "shared_memory_per_block_optin", _SMEM_LIMIT)
 
 
-def _tf32_tile(x: torch.Tensor, halo: int, mean: bool, tile_max: int) -> int:
-    """"highest": the largest time tile (256/128/64/32, at most `tile_max`)
-    whose buffers fit in shared memory and whose window (tile + 2*halo
-    samples) fits in one pass of the block's warps (2 n-tiles of 8 lanes by
-    up to 64 output channels per warp); else the smallest that fits.
-    Measured on the H100 at the medium voice's shapes on CUDA cores: a
-    smaller tile to fill more SMs loses to the halo it recomputes."""
-    c = x.shape[1]
-    limit = _smem_limit(x)
-    fits = [t for t in (256, 128, 64, 32)
-            if t <= tile_max and _smem_bytes(c, t, halo, mean, 0) <= limit]
-    if not fits:
-        raise ValueError(f"no time tile <= {tile_max} fits C={c}, halo={halo} "
-                         f"in {limit} bytes of shared memory")
-    one_pass = _THREADS // 32 * _MMA_NT * 8 * _mma_m_tiles(c) // (c // 16)
-    return next((t for t in fits if t + 2 * halo <= one_pass), fits[-1])
-
-
 def wgmma_configs(x: torch.Tensor, halo: int, tile_max: int, tier: int, taps: int = 11):
     """Every (tile, ring, chunk) the wgmma stage can launch for x (B, C, N)
     at this halo, with convs of at most `taps` taps: a window of at most
     256 lanes, a tile of at most `tile_max`, `ring` weight slots (_RINGS) of
-    `chunk` taps each (_CHUNKS, at most `taps`) that fit in shared memory
-    with it. Tiles: those whose window fills 1-4 warpgroups' 64 lanes
-    exactly (64*g - 2*halo), and `tile_max` itself. Largest tile first."""
+    `chunk` units each (_CHUNKS, at most a conv's: taps, or past C = 64 at
+    "highest" atoms of taps, `_tap_units`) that fit in shared memory with
+    it. Tiles: those whose window fills 1-4 warpgroups' 64 lanes exactly
+    (64*g - 2*halo), and `tile_max` itself. Largest tile first."""
     c = x.shape[1]
     limit = _smem_limit(x)
     tiles = sorted({64 * g - 2 * halo for g in (1, 2, 3, 4)} | {tile_max}, reverse=True)
-    chunks = sorted({min(ch, taps) for ch in _CHUNKS}, reverse=True)
+    units = taps * _tap_units(c, tier)
+    chunks = sorted({min(ch, units) for ch in _CHUNKS}, reverse=True)
     return [(t, r, ch) for t in tiles if 0 < t <= tile_max and t + 2 * halo <= _WINDOW
             for r in _RINGS for ch in chunks
             if _smem_bytes(c, t, halo, False, tier, r, ch) <= limit]
@@ -235,18 +239,19 @@ def wgmma_configs(x: torch.Tensor, halo: int, tile_max: int, tier: int, taps: in
 def _pick_tile(x: torch.Tensor, halo: int, mean: bool, tile_max: int, tier: int,
                taps: int = 11):
     """(time tile, weight slots, taps a slot holds) for the kernel; the
-    output depends on none of them. "highest": `_tf32_tile`, and no ring
-    (0, 0). "high"/"default" (the wgmma stage): of `wgmma_configs`, the
-    tile with the fewest waves of blocks (one block per SM) times
-    warpgroups with lanes in the window (the four share the SM's tensor
-    cores), the larger tile on a tie; then the fewest chunks a conv of
-    `taps` taps takes (each chunk is a wait of every warp, which costs
-    more than the products at these widths: `tools/resblock_probe.py
-    --sweep`), with 2 slots and the smallest chunk that does it. At K2's
-    and K3's widest branch (halo 60) that is tile 136, a window of 256
-    lanes, at B=1 (128 frames) and at the serving batch (B=32, T=192)."""
-    if tier == 0:
-        return _tf32_tile(x, halo, mean, tile_max), 0, 0
+    output depends on none of them. Of `wgmma_configs`, the tile with the
+    fewest waves of blocks (one block per SM) times warpgroups with lanes in
+    the window (the four share the SM's tensor cores), the larger tile on a
+    tie; then the fewest chunks a conv of `taps` taps takes (each chunk is a
+    wait of every warp, which costs more than the products at these widths:
+    `tools/resblock_probe.py --sweep`), with 2 slots and the smallest chunk
+    that does it; where a chunk is one tap (the most that fits at "highest"
+    and C=64, whose 32 KB tap images share the SM with 128 KB of tf32
+    planes), as many slots as fit, 3, so each copy lands further ahead of
+    its products (the sweep on the H100: K2 "highest" k=11 at B=1, 0.173
+    against 0.187 ms with 2). At K2's and K3's widest branch (halo 60) that
+    is tile 136, a window of 256 lanes, at every tier, at B=1 (128 frames)
+    and at the serving batch (B=32, T=192)."""
     b, c, n = x.shape
     configs = wgmma_configs(x, halo, tile_max, tier, taps)
     if not configs:
@@ -254,11 +259,12 @@ def _pick_tile(x: torch.Tensor, halo: int, mean: bool, tile_max: int, tier: int,
                          f"planes and weight slots in shared memory: no time tile <= "
                          f"{tile_max} fits C={c}, halo={halo}")
     sms = getattr(torch.cuda.get_device_properties(x.device), "multi_processor_count", _SMS)
+    units = taps * _tap_units(c, tier)
 
     def cost(config):
         t, ring, chunk = config
-        return (-(-(b * -(-n // t)) // sms) * -(-(t + 2 * halo) // 64), -t, -(-taps // chunk),
-                ring, chunk)
+        return (-(-(b * -(-n // t)) // sms) * -(-(t + 2 * halo) // 64), -t, -(-units // chunk),
+                -ring if chunk == 1 else ring, chunk)
 
     return min(configs, key=cost)
 
@@ -272,9 +278,9 @@ def _check_cuda_args(x: torch.Tensor, tensors: Sequence[torch.Tensor],
     if c < 16 or c % 16:
         raise ValueError(f"C={c}: the kernels run every tier on the tensor cores and take "
                          f"C a multiple of 16")
-    if tier and c not in _WGMMA_WIDTHS:
+    if c not in _widths(tier):
         raise ValueError(f"C={c}: the wgmma stage of the {TIERS[tier]!r} tier takes C of "
-                         f"16, 32 or 64")
+                         + ("16, 32 or 64" if tier else "a multiple of 16 below 128"))
     if k % 2 == 0 or not 1 <= len(dilations) <= _MAX_DILS:
         raise ValueError(f"kernel {k} must be odd with 1..{_MAX_DILS} dilations")
     m = len(dilations)
@@ -289,85 +295,94 @@ def _check_cuda_args(x: torch.Tensor, tensors: Sequence[torch.Tensor],
 _SWIZZLE_CACHE: dict = {}
 
 
-def _swizzle_on(c: int, device: torch.device) -> torch.Tensor:
-    """`_swizzle_columns(c)` on `device`, made once per (c, device)."""
-    key = (c, str(device))
+def _swizzle_on(c: int, elem: int, device: torch.device) -> torch.Tensor:
+    """`_swizzle_columns(c, elem)` on `device`, made once per (c, elem, device)."""
+    key = (c, elem, str(device))
     if key not in _SWIZZLE_CACHE:
-        _SWIZZLE_CACHE[key] = _swizzle_columns(c).to(device)
+        _SWIZZLE_CACHE[key] = _swizzle_columns(c, elem).to(device)
     return _SWIZZLE_CACHE[key]
 
 
-def _swizzle_columns(c: int) -> torch.Tensor:
-    """(C, C) int64: at (row co, column pos) of a tap's B image, the input
-    channel stored there. The row's 16-byte chunk q (8 channels) sits at
-    chunk q ^ ((co * 2C / 128) % (C / 8)): wgmma's 128-, 64- or 32-byte
-    swizzle for rows of 2C bytes (C = 64, 32, 16), an involution."""
+def _swizzle_columns(c: int, elem: int) -> torch.Tensor:
+    """(C, R / elem) int64 for B images of `elem`-byte values (2 bf16, 4
+    fp32) whose rows of C values are cut into atoms of R = `_atom_row(C,
+    elem)` bytes along C_in (one for bf16; for fp32 two at C=64, three at 48
+    and 96, five at 80, seven at 112), each atom all C rows: at (row co,
+    position pos) of an atom, the column of that atom stored there. The
+    row's 16-byte chunk q sits at chunk q ^ ((co * R / 128) % (R / 16)):
+    wgmma's 128-, 64- or 32-byte swizzle for rows of R bytes, an
+    involution."""
+    per = _atom_row(c, elem) // elem  # values a row of one atom
+    chunk = 16 // elem                # values a 16-byte chunk
     co = torch.arange(c)[:, None]
-    pos = torch.arange(c)[None, :]
-    return ((pos // 8) ^ ((co * c // 64) % (c // 8))) * 8 + pos % 8
+    pos = torch.arange(per)[None, :]
+    return ((pos // chunk) ^ ((co * per * elem // 128) % (per * elem // 16))) * chunk + pos % chunk
 
 
-def wgmma_weights(w: torch.Tensor, tier: int) -> torch.Tensor:
-    """The wgmma stage's weights: (M, C_out, C_in, K) -> (M, K, P, C, C)
-    bf16, per (conv, tap) the shared-memory image of wgmma's B operand,
-    K-major (row co holds its C_in weights) with the swizzle of
-    `_swizzle_columns`; each (conv, tap) is one bulk copy of P planes:
-    precision.split_bf16's hi and lo parts (P = 2, tier 1 "high") or
-    bf16(w) (P = 1, tier 2 "default"), from fp32 or, at "default", bf16
-    weights. Square C of 16, 32 or 64, whose rows are one swizzle wide."""
+def _check_square(w: torch.Tensor, tier: int) -> None:
     m, co, ci, k = w.shape
     if co != ci or co % 16:
         raise ValueError(f"the wgmma stage takes square weights with C a multiple of 16, got "
                          f"C_out={co}, C_in={ci}")
-    if co not in _WGMMA_WIDTHS:
-        raise ValueError(f"the wgmma stage takes C of 16, 32 or 64, got {co}")
+    if co not in _widths(tier):
+        raise ValueError(f"the wgmma stage takes C of "
+                         + ("16, 32 or 64" if tier else "a multiple of 16 below 128")
+                         + f" at {TIERS[tier]!r}, got {co}")
+
+
+def wgmma_weights(w: torch.Tensor, tier: int) -> torch.Tensor:
+    """The wgmma stage's weights at the bf16 tiers: (M, C_out, C_in, K) ->
+    (M, K, P, C, C) bf16, per (conv, tap) the shared-memory image of wgmma's
+    B operand, K-major (row co holds its C_in weights) with the swizzle of
+    `_swizzle_columns`; each (conv, tap) is one bulk copy of P planes:
+    precision.split_bf16's hi and lo parts (P = 2, tier 1 "high") or
+    bf16(w) (P = 1, tier 2 "default"), from fp32 or, at "default", bf16
+    weights. Square C of 16, 32 or 64, whose rows are one swizzle wide."""
+    _check_square(w, tier)
     hi = w.to(torch.bfloat16)  # split_bf16's hi; lo is what it leaves, rounded
     parts = torch.stack((hi, (w - hi.float()).to(torch.bfloat16))) if tier == 1 else hi[None]
     return wgmma_image(parts)
 
 
-def wgmma_image(parts: torch.Tensor) -> torch.Tensor:
+def wgmma_tf32_weights(w: torch.Tensor) -> torch.Tensor:
+    """The "highest" tier's weights: (M, C_out, C_in, K) fp32 -> (M, K, 2,
+    C, C) fp32, per (conv, tap) the shared-memory image of wgmma's tf32 B
+    operand, K-major, its 4C-byte rows cut into swizzle atoms as
+    `_swizzle_columns` says (two along C_in at C = 64); each (conv, tap) is
+    one bulk copy of two planes, precision.split_tf32's big and small parts
+    (tf32 values: the low 13 bits zero). Square C, a multiple of 16 below
+    128. Past C = 64 the ring's unit is one atom of a tap with both its
+    planes (`_tap_units`), so there the image is (M, K, A, 2, C, R / 4),
+    atom by atom, each its two planes."""
+    _check_square(w, 0)
+    img = wgmma_image(torch.stack(split_tf32(w)), elem=4)
+    m, k, p, c, _ = img.shape
+    if _tap_units(c, 0) == 1:
+        return img
+    per = _atom_row(c, 4) // 4
+    return img.reshape(m, k, p, c // per, c, per).transpose(2, 3).contiguous()
+
+
+def wgmma_image(parts: torch.Tensor, elem: int = 2) -> torch.Tensor:
     """(P, M, C, C, K) -> (M, K, P, C, C), any dtype: each (conv, tap,
-    plane) tile's rows permuted by `_swizzle_columns`. A permutation of the
-    values."""
+    plane) tile's rows cut into atoms and permuted by `_swizzle_columns(C,
+    elem)`, for values of `elem` bytes on the card. A permutation of the
+    values, one gather."""
     p, m, co, ci, k = parts.shape
-    cols = _swizzle_on(co, parts.device).expand(m, k, p, co, ci)
-    return torch.gather(parts.permute(1, 4, 0, 2, 3), 4, cols)
-
-
-def tf32_fragments(w: torch.Tensor) -> torch.Tensor:
-    """(M, C_out, C_in, K) -> (M, K, C_in/8, C_out/16, 32, 4): per (conv,
-    tap, 8 input channels, 16 output channels) the A operand of
-    mma.m16n8k8.tf32 in its fragment order, lane-major, 4 values per lane.
-    Lane 4*g + t holds rows (output channels) g and g + 8, columns (input
-    channels) t and t + 4, as the registers a0..a3 take them: (g, t),
-    (g+8, t), (g, t+4), (g+8, t+4). Any dtype; a permutation of w's values."""
-    m, co, ci, k = w.shape
-    if co % 16 or ci % 8:
-        raise ValueError(f"tf32 A fragments take C_out a multiple of 16 and C_in of 8, "
-                         f"got {co}, {ci}")
-    # co = 16*mt + 8*rh + g, ci = 8*kc + 4*ch + t; register rh + 2*ch
-    t = w.reshape(m, co // 16, 2, 8, ci // 8, 2, 4, k)
-    return t.permute(0, 7, 4, 1, 3, 6, 5, 2).reshape(m, k, ci // 8, co // 16, 32, 4)
-
-
-def tf32_weights(w: torch.Tensor) -> torch.Tensor:
-    """The "highest" tier's weights: (2, M, K, C_in/8, C_out/16, 32, 4) fp32,
-    the A fragments of precision.split_tf32's big and small parts."""
-    frags = tf32_fragments(torch.stack(split_tf32(w)).flatten(0, 1))
-    return frags.reshape(2, *w.shape[:1], *frags.shape[1:])
+    per = _atom_row(co, elem) // elem
+    atoms = parts.reshape(p, m, co, ci // per, per, k).permute(1, 5, 0, 3, 2, 4)
+    cols = _swizzle_on(co, elem, parts.device).expand(m, k, p, ci // per, co, per)
+    return torch.gather(atoms, 5, cols).reshape(m, k, p, co, ci)
 
 
 def _kernel_weights(w1s, b1s, w2s, b2s, tier: int):
     """The weights in the kernel's layout for the tier: the conv weights as
-    tf32 A fragments at "highest" (tf32_weights), as the wgmma stage's
-    bulk-copied image at "high" and "default" (wgmma_weights, from fp32
-    or, at "default", bf16 weights); the biases as they are."""
-    if tier == 0:
-        w1t, w2t = tf32_weights(w1s), tf32_weights(w2s)
-    else:  # both convs' images in one pass
-        both = wgmma_weights(torch.cat((w1s, w2s)), tier)
-        w1t, w2t = both[:len(w1s)], both[len(w1s):]
+    the wgmma stage's bulk-copied image (wgmma_tf32_weights at "highest";
+    wgmma_weights at "high" and "default", from fp32 or, at "default", bf16
+    weights), both convs' in one pass; the biases as they are."""
+    both = torch.cat((w1s, w2s))
+    both = wgmma_tf32_weights(both) if tier == 0 else wgmma_weights(both, tier)
+    w1t, w2t = both[:len(w1s)], both[len(w1s):]
     out = (w1t, b1s.contiguous(), w2t, b2s.contiguous())
     if out[0].data_ptr() % 16 or out[2].data_ptr() % 16:
         raise ValueError("the kernel's conv weights must be 16-byte aligned")

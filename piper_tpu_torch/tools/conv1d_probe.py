@@ -30,9 +30,9 @@ against the launch counter). It needs the card and has no other path.
 Beside K1 at "highest" it prints two yardsticks per level: `library_ms`,
 the same function by the library route (leaky_relu, then F.conv1d: two
 PyTorch calls per conv, TF32 off), and `host_tf32_layout_ms`, the device
-time that laying the six weights out on the host in the tensor cores'
-fragment order would add (`resblock.tf32_weights`, as K2-K4 take their
-weights; K1 splits them in the kernel instead); and the same level at a
+time that laying the six weights out on the host as the tensor cores'
+tf32 image would add (`resblock.wgmma_tf32_weights`, as K2-K4 take their
+weights at "highest"; K1 splits them in the kernel instead); and the same level at a
 batch of 32 (`b32`: the kernel alone and the library route). Beside K1 at
 "default" it prints `library_bf16_ms`: the library route on bf16 operands
 (x, weights and bias cast once, outside the timed calls; bf16 products
@@ -150,7 +150,7 @@ def _yardsticks(torch, K1, x, convs, reps: int) -> dict:
     batch of 32 (the rows copies of x)."""
     import torch.nn.functional as F
 
-    from piper_tpu_torch.ops.kernels.resblock import tf32_weights
+    from piper_tpu_torch.ops.kernels.resblock import wgmma_tf32_weights
     from piper_tpu_torch.tools.timing import call_kernels, device_ms
 
     def library(xx):
@@ -162,7 +162,7 @@ def _yardsticks(torch, K1, x, convs, reps: int) -> dict:
                 for w, b, k, d in convs]
 
     def layout():
-        return [tf32_weights(w[None]) for w, _, _, _ in convs]
+        return [wgmma_tf32_weights(w[None]) for w, _, _, _ in convs]
 
     x32 = x.expand(32, -1, -1).contiguous()
     return {"library_ms": device_ms(lambda: library(x), reps=reps),

@@ -16,8 +16,9 @@ ResBlock1 kernels alone (`kernel_ms`, by the symbol "resblock1_kernel", 3
 or 1 of them per call required), beside `bound_ms`, the least time the
 card could take (x read and the outputs written once, the weights read
 once; 2*C*C*k FLOPs per conv and live sample at the tier's peak), and the
-card's name and power limit. Tiers: "high", "default" and "bfloat16" (bf16
-x, weights and biases at "default"). One JSON line per row, then a summary.
+card's name and power limit. Tiers: "highest", "high", "default" and
+"bfloat16" (bf16 x, weights and biases at "default"). One JSON line per
+row, then a summary.
 
 It uses only the public wrappers, so it times any tree whose package is
 first on the path: run it as a file with PYTHONPATH at another checkout's
@@ -32,9 +33,10 @@ none of them), and names the wrapper's choice.
 plain versions there, and checks the outputs (shape, dtype, finite, zero
 past the rows' ends): a test of the shapes and arguments, with no time.
 
-    python -m piper_tpu_torch.tools.resblock_probe [--precision high,default,bfloat16]
-        [--shapes b1,b32] [--frames 128] [--batch 32] [--bucket 192] [--live 162]
-        [--reps 10] [--sweep] [--device cuda]
+    python -m piper_tpu_torch.tools.resblock_probe
+        [--precision highest,high,default,bfloat16] [--shapes b1,b32] [--frames 128]
+        [--batch 32] [--bucket 192] [--live 162] [--reps 10]
+        [--sweep] [--device cuda]
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ EARLY_END = 100  # b1: the row ends this many samples early (chip_smoke's timed 
 
 def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--precision", default="high,default,bfloat16")
+    ap.add_argument("--precision", default="highest,high,default,bfloat16")
     ap.add_argument("--shapes", default="b1,b32")
     ap.add_argument("--frames", type=int, default=128)
     ap.add_argument("--batch", type=int, default=32)
@@ -201,7 +203,7 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
                                kernel_ms=device_ms(call, reps=args.reps, name=SYMBOL,
                                                    expected=launches))
                     row["kernel_bound_frac"] = bound / row["kernel_ms"]
-                    if args.sweep and precision != "highest" and hasattr(R, "wgmma_configs"):
+                    if args.sweep and hasattr(R, "wgmma_configs"):
                         row["sweep"] = _sweep(torch, R, name, x, branches, bounds, precision,
                                               outs, args.reps)
                     key = f"{tier} {shape}"

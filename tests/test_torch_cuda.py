@@ -12,7 +12,7 @@ product as 3xTF32, about 2^-21 from the fp32 product. 5e-3 at "default",
 where one bf16 rounding of a conv's input may flip between the two versions
 and the chain carries the flip on (measured up to 2.2e-3 for K2 at C=64,
 k=11 on the H100; chip_smoke.py says more). K2/K3/K4 run every tier on the
-tensor cores (mma.sync), whose fp32 sums run in yet another order: the same
+tensor cores (wgmma), whose fp32 sums run in yet another order: the same
 bars. K1 runs "high" and "default" there too; one conv carries no flip, so
 its x_low tests hold every tier to 1e-4 (K1_ATOL). K1-K3 on bf16
 activations (the "bfloat16" mode, "default" only) are held within one bf16
@@ -401,9 +401,10 @@ def test_mma_tiers_refuse_c_not_a_multiple_of_16(cuda):
             K4.resblock1_mrf_folded.launches) == before
 
 
-# The wgmma stage ("high" and "default"): C 16/32/64, k 3, 5 (the run-time
-# tap loop), 7 and 11 at dilations 1/3/5, ragged N, B 1 and 3.
-WGMMA_TIERS = ["high", "default"]
+# The wgmma stage (every tier: 3xTF32 at "highest", bf16 at "high" and
+# "default"): C 16/32/64, k 3, 5 (the run-time tap loop), 7 and 11 at
+# dilations 1/3/5, ragged N, B 1 and 3.
+WGMMA_TIERS = ["highest", "high", "default"]
 
 
 def _wgmma_bounds(case, b, n, dev):
@@ -512,13 +513,13 @@ def test_wgmma_stage_bf16_io_matches_the_fp32_input_kernel(cuda, c):
 
 
 def test_wgmma_stage_refuses_other_widths(cuda):
-    """C=48 (a multiple of 16, but no wgmma stage width) is refused at the
-    bf16 tiers with no launch; "highest" still runs it."""
+    """C=48 (a multiple of 16, but no wgmma stage width of the bf16 tiers)
+    is refused at the bf16 tiers with no launch; "highest" still runs it."""
     gen = torch.Generator().manual_seed(48)
     x = (torch.randn(1, 48, 500, generator=gen) * 0.3).to(cuda)
     ws = _weights(gen, 48, 3, 1, cuda)
     before = (R.resblock1_branch.launches, R.resblock1_mrf.launches)
-    for tier in WGMMA_TIERS:
+    for tier in ("high", "default"):
         with pytest.raises(ValueError, match="16, 32 or 64"):
             R.resblock1_branch(x, *ws, kernel=3, dilations=(1,), precision=tier)
         with pytest.raises(ValueError, match="16, 32 or 64"):
@@ -527,6 +528,47 @@ def test_wgmma_stage_refuses_other_widths(cuda):
     got = R.resblock1_branch(x, *ws, kernel=3, dilations=(1,), precision="highest")
     want = R.resblock1_branch_plain(x, *ws, kernel=3, dilations=(1,), precision="highest")
     assert _max_err(got, want) <= ATOL
+
+
+@pytest.mark.parametrize("c", [48, 80, 96, 112])
+def test_highest_takes_the_other_widths_below_128(cuda, c):
+    """At "highest" the stage takes every multiple of 16 below 128, as the
+    Pallas kernels do: at C = 48, 80, 96 and 112 (no preset voice's), K2 at
+    k 11 and 5 (the run-time tap loop) and K3 against their plain versions
+    at every bounds case, K4 bit-equal to K3, and every (tile, slots,
+    chunk) of K2 bit-equal to the wrapper's; C = 128 is refused."""
+    gen = torch.Generator().manual_seed(c)
+    n = 2000
+    x = (torch.randn(3, c, n, generator=gen) * 0.3).to(cuda)
+    branches = [(*_weights(gen, c, k, 3, cuda), k, (1, 3, 5)) for k in (11, 5, 3)]
+    for case in ("none", "one_sided", "two_sided", "empty"):
+        bnd = _wgmma_bounds(case, 3, n, cuda)
+        for w1s, b1s, w2s, b2s, k, dils in branches[:2]:
+            got = R.resblock1_branch(x, w1s, b1s, w2s, b2s, kernel=k, dilations=dils,
+                                     bounds=bnd, precision="highest")
+            want = R.resblock1_branch_plain(x, w1s, b1s, w2s, b2s, kernel=k, dilations=dils,
+                                            bounds=bnd, precision="highest")
+            assert _max_err(got, want) <= ATOL, (case, k)
+        got = R.resblock1_mrf(x, branches, bounds=bnd, precision="highest")
+        want = R.resblock1_mrf_plain(x, branches, bounds=bnd, precision="highest")
+        assert _max_err(got, want) <= ATOL, case
+        if bnd is not None:
+            assert bool((got[want == 0] == 0).all()), case
+        assert torch.equal(got, K4.resblock1_mrf_folded(x, branches, fold=4, bounds=bnd,
+                                                        precision="highest")), case
+    w1s, b1s, w2s, b2s, k, dils = branches[0]
+    bnd = _wgmma_bounds("two_sided", 3, n, cuda)
+    want = R.resblock1_branch(x, w1s, b1s, w2s, b2s, kernel=k, dilations=dils, bounds=bnd,
+                              precision="highest")
+    configs = R.wgmma_configs(x, R.branch_halo(k, dils), 256, 0, k)
+    assert len(configs) > 3
+    for config in configs:
+        got = R._launch_branch(x, (w1s, b1s, w2s, b2s), k, dils, bnd, 0.1, 0, False, config)
+        assert torch.equal(got, want), config
+    x128 = torch.zeros(1, 128, 64, device=cuda)
+    with pytest.raises(ValueError, match="a multiple of 16 below 128"):
+        R.resblock1_branch(x128, *_weights(gen, 128, 3, 1, cuda), kernel=3, dilations=(1,),
+                           precision="highest")
 
 
 @pytest.mark.parametrize("tier", ["highest", "high"])

@@ -541,20 +541,24 @@ def test_interleave_refuses_what_the_kernel_does_not_take():
         K5.interleave(y.to("meta"))
 
 
-def _unswizzle(img):
-    """(M, K, C, C) wgmma B images -> (M, C_out, C_in, K), read as the card
-    reads them: element (row r, column p) of a tile sits at byte a = r*2C +
-    2p of a 1024-byte aligned tile, and the card finds there the byte a'
-    of the K-major row-major tile, with a' = a XOR (((a >> 7) & (2^b - 1))
-    << 4), b = 3, 2, 1 for 128-, 64- and 32-byte rows (CUTLASS's
-    Swizzle<b, 4, 3>)."""
+def _unswizzle(img, elem=2):
+    """(M, K, C, C) wgmma B images of `elem`-byte values -> (M, C_out,
+    C_in, K), read as the card reads them: a row of C values is cut into
+    atoms of R bytes along C_in, R the widest of 128, 64 and 32 that
+    divides C * elem, each atom all C rows (C * R bytes) after the one
+    before, so element (row r, column p) is at
+    byte a = (p // (R / elem)) * C * R + r * R + (p % (R / elem)) * elem of
+    a 1024-byte aligned tile, and the card finds it at byte a XOR (((a >> 7)
+    & (2^b - 1)) << 4) of the image, b = 3, 2, 1 for R = 128, 64, 32
+    (CUTLASS's Swizzle<b, 4, 3>)."""
     m, k, c, _ = img.shape
-    bits = {64: 3, 32: 2, 16: 1}[c]
-    a = torch.arange(c * c) * 2
-    src = (a ^ (((a >> 7) & ((1 << bits) - 1)) << 4)) // 2  # the unswizzled element
-    out = torch.empty((m, k, c * c), dtype=img.dtype)
-    out[:, :, src] = img.reshape(m, k, c * c)
-    return out.reshape(m, k, c, c).permute(0, 2, 3, 1)
+    row = next(r for r in (128, 64, 32) if c * elem % r == 0)
+    per = row // elem  # values a row of one atom
+    bits = {128: 3, 64: 2, 32: 1}[row]
+    r, p = torch.meshgrid(torch.arange(c), torch.arange(c), indexing="ij")
+    a = (p // per) * c * row + r * row + (p % per) * elem
+    phys = (a ^ (((a >> 7) & ((1 << bits) - 1)) << 4)) // elem
+    return img.reshape(m, k, c * c)[:, :, phys.flatten()].reshape(m, k, c, c).permute(0, 2, 3, 1)
 
 
 @pytest.mark.parametrize("k", [3, 7, 11])
@@ -766,46 +770,64 @@ def test_split_tf32_is_rna_rounding_bit_for_bit():
     assert big.dtype == np.float32 and small.dtype == np.float32
 
 
-def _unpack_tf32_fragments(f):
-    """(M, K, C/8, C/16, 32, 4) -> (M, C_out, C_in, K) by PTX's A-fragment
-    layout of mma.m16n8k8.tf32: lane 4g + t, register i holds row
-    g + 8*(i % 2), column t + 4*(i // 2)."""
-    m, k, kc_n, mt_n = f.shape[:4]
-    lane, i = np.meshgrid(np.arange(32), np.arange(4), indexing="ij")
-    row = torch.from_numpy(lane // 4 + 8 * (i % 2))
-    col = torch.from_numpy(lane % 4 + 4 * (i // 2))
-    out = torch.empty((m, 16 * mt_n, 8 * kc_n, k), dtype=f.dtype)
-    for mt in range(mt_n):
-        for kc in range(kc_n):
-            out[:, 16 * mt + row, 8 * kc + col, :] = f[:, :, kc, mt].permute(0, 2, 3, 1)
-    return out
+def _tf32_planes(img, c):
+    """wgmma_tf32_weights' image as (M, K, 2, C, C), plane by plane: past
+    C = 64 it is atom by atom, each atom's two planes, (M, K, A, 2, C, R/4)."""
+    if img.ndim == 5:
+        return img
+    m, k = img.shape[:2]
+    return img.transpose(2, 3).reshape(m, k, 2, c, c)
 
 
 @pytest.mark.parametrize("k", [3, 7, 11])
-@pytest.mark.parametrize("c", [16, 32, 64])
-def test_tf32_fragment_weights_are_the_tf32_split(c, k):
-    """The "highest" tier's weights: every (co, ci, tap) once in the A
-    fragments; the two planes unpacked are split_tf32's big and small bit
-    for bit."""
+@pytest.mark.parametrize("c", [16, 32, 48, 64, 80, 96, 112])
+def test_wgmma_tf32_weights_are_the_tf32_split_in_the_swizzled_image(c, k):
+    """The "highest" tier's weights: every (co, ci, tap) once; the image
+    (rows of 4C bytes: 128-byte atoms along C_in, two at C=64, one at 32,
+    three at 96; else 64-byte atoms, one at 16, three at 48, five at 80,
+    seven at 112) inverts to w by the card's own address rule; each (conv,
+    tap) is one contiguous tile of two planes, and past C=64 each of its
+    atoms one contiguous unit of both planes; big and small equal
+    precision.py's split_tf32 bit for bit, their low 13 bits zero."""
     m = 3
-    idx = torch.arange(m * c * c * k).reshape(m, c, c, k)
-    frag = R.tf32_fragments(idx)
-    assert frag.shape == (m, k, c // 8, c // 16, 32, 4)
-    assert torch.equal(frag.flatten().sort().values, idx.flatten())
-    assert torch.equal(_unpack_tf32_fragments(frag), idx)
+    idx = torch.arange(2 * m * c * c * k).reshape(2, m, c, c, k)
+    img = R.wgmma_image(idx, elem=4)
+    assert img.shape == (m, k, 2, c, c) and img.is_contiguous()
+    assert torch.equal(img.flatten().sort().values, idx.flatten())
+    for plane in (0, 1):
+        assert torch.equal(_unswizzle(img[:, :, plane], elem=4), idx[plane])
+        # each (conv, tap, plane) tile holds that conv's tap and no other
+        assert torch.equal(img[:, :, plane].reshape(m, k, -1).sort(dim=2).values,
+                           idx[plane].permute(0, 3, 1, 2).reshape(m, k, -1).sort(dim=2).values)
 
     rng = np.random.default_rng(c * k + 1)
     w = torch.from_numpy((rng.standard_normal((m, c, c, k)) / np.sqrt(c * k)).astype(np.float32))
     big, small = split_tf32(w)
-    planes = R.tf32_weights(w)
-    assert planes.dtype == torch.float32 and planes.shape == (2, *frag.shape)
-    assert planes.is_contiguous()
-    assert torch.equal(_unpack_tf32_fragments(planes[0]).view(torch.int32),
-                       big.view(torch.int32))
-    assert torch.equal(_unpack_tf32_fragments(planes[1]).view(torch.int32),
-                       small.view(torch.int32))
-    with pytest.raises(ValueError, match="multiple of 16"):
-        R.tf32_fragments(torch.zeros(1, 8, 8, 3))
+    image = R.wgmma_tf32_weights(w)
+    assert image.dtype == torch.float32 and image.is_contiguous()
+    units = R._tap_units(c, 0)
+    if units == 1:
+        assert image.shape == (m, k, 2, c, c)
+    else:
+        per = 32 if c % 32 == 0 else 16  # fp32 values a row of one atom
+        assert units == c // per and image.shape == (m, k, units, 2, c, per)
+    planes = _tf32_planes(image, c)
+    got_big = _unswizzle(planes[:, :, 0], elem=4).view(torch.int32)
+    got_small = _unswizzle(planes[:, :, 1], elem=4).view(torch.int32)
+    assert torch.equal(got_big, big.view(torch.int32))
+    assert torch.equal(got_small, small.view(torch.int32))
+    assert not bool((image.view(torch.int32) & 0x1FFF).any())
+    assert bool((small != 0).any())
+
+
+@pytest.mark.parametrize("shape,match", [
+    ((1, 8, 8, 3), "multiple of 16"),
+    ((1, 128, 128, 3), "a multiple of 16 below 128"),
+    ((1, 32, 16, 3), "square"),
+])
+def test_wgmma_tf32_weights_refuse_other_widths(shape, match):
+    with pytest.raises(ValueError, match=match):
+        R.wgmma_tf32_weights(torch.zeros(shape))
 
 
 class _H100Props:
@@ -814,30 +836,57 @@ class _H100Props:
 
 
 def test_highest_shared_memory_and_tiles(monkeypatch):
-    """At "highest" the window's act(y) and act(conv1) are one fp32 plane
-    each, rows of C + 4 words: 198,400 bytes at K2's widest branch (C=64,
-    halo 60, tile 128). "highest" keeps the tensor-core tile rule: at the
-    medium voice's shapes K2 and K3 both run tiles of 128 (the CUDA-core
-    rule took 256 for K3), and the high voice's C=16 level the same, with
-    no weight ring (0, 0). The bf16 tiers' wgmma stage has its own rule
-    (test_wgmma_shared_memory_and_tiles)."""
-    assert R._smem_bytes(64, 128, 60, False, 0) == 4 * 64 * 248 + 2 * 4 * 248 * 68 == 198400
-    assert R._smem_bytes(32, 128, 60, True, 0) == 4 * 32 * 248 + 2 * 4 * 248 * 36 + 4 * 32 * 128
-    # the wgmma stage at the same shape: no fp32 residual, a ring of 2 slots
-    # of one tap (hi + lo at "high", 16 KB at C=64) and its barriers, planes
-    # of W + 1 lanes and a guard of 256 - W + halo lanes
-    assert R._smem_bytes(64, 128, 60, False, 1, 2, 1) == (
-        1024 + 2 * 16384 + 128 + 2 * 2 * 2 * 249 * 64 + 16 * (256 - 248 + 60))
-    assert R._smem_bytes(64, 128, 60, False, 2, 2, 1) == (
-        1024 + 2 * 8192 + 128 + 2 * 2 * 249 * 64 + 16 * (256 - 248 + 60))
+    """"highest" on the wgmma stage: a tap's image and a buffer are two fp32
+    planes (tf32 big and small), 32 KB a tap at C=64. At C=64 act(y) and
+    act(conv1) share one buffer, overwritten in place (two do not fit beside
+    a ring of taps); at C=32 and 16 each has its own. Every configuration
+    wgmma_configs offers at tier 0, and so every one _pick_tile can return,
+    fits 232,448 bytes and a window of 256 lanes. The bf16 tiers' tile rule
+    holds (tile 136 at halo 60, at B=1 and at the serving batch), and a
+    chunk of one tap takes 3 slots, the most that fit: K2 (C=64) runs
+    (136, 3, 1) at k=11, (184, 3, 1) at k=7 and at k=3 (168, 2, 2) at B=1,
+    (232, 3, 1) at B=32; K3 (C=32) (136, 2, 6); the high voice's C=16
+    level (136, 2, 11). The widths no preset voice has: C=48 in place with
+    whole taps a unit; past C=64 one atom of a tap (both planes) a unit of
+    the ring, with a window of 192 lanes at C=96 and 112."""
+    lanes = 136 + 120 + 1  # the window and the lane that takes the stores outside a stage
+    assert R._smem_bytes(64, 136, 60, False, 0, 3, 1) == (
+        1024 + 3 * 32768 + 128 + 2 * 4 * lanes * 64 + 16 * 60) == 232000
+    assert R._smem_bytes(32, 136, 60, True, 0, 2, 6) == (
+        1024 + 2 * 6 * 8192 + 128 + 2 * 2 * 4 * lanes * 32 + 16 * 60) == 232000
+    assert R._smem_bytes(16, 136, 60, True, 0, 2, 11) == (
+        1024 + 2 * 11 * 2048 + 128 + 2 * 2 * 4 * lanes * 16 + 16 * 60)
+    limit = _H100Props.shared_memory_per_block_optin
+    assert R._smem_bytes(64, 136, 60, False, 0, 2, 2) > limit  # two taps a slot at C=64
+    assert R._smem_bytes(32, 136, 60, True, 0, 2, 11) > limit  # a whole conv at C=32
+    assert [R._tap_units(c, 0) for c in R._HIGHEST_WIDTHS] == [1, 1, 1, 1, 5, 3, 7]
+    assert R._smem_bytes(48, 136, 60, False, 0, 2, 3) == (
+        1024 + 2 * 3 * 18432 + 128 + 2 * 4 * lanes * 48 + 16 * 60)
+    assert R._smem_bytes(112, 72, 60, False, 0, 3, 1) == (
+        1024 + 3 * 14336 + 128 + 2 * 4 * 193 * 112 + 16 * (256 - 192 + 60))
 
     monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: _H100Props())
-    halo = R.branch_halo(11, (1, 3, 5))
-    assert R._pick_tile(torch.zeros(1, 64, 8), halo, False, 256, 0) == (128, 0, 0)  # K2
-    assert R._pick_tile(torch.zeros(1, 32, 8), halo, True, 256, 0) == (128, 0, 0)   # K3
-    assert R._pick_tile(torch.zeros(1, 16, 8), halo, True, 256, 0) == (128, 0, 0)
-    # tile 256 at C=64 would need 300,800 bytes at "highest": not offered
-    assert R._smem_bytes(64, 256, 60, False, 0) > _H100Props.shared_memory_per_block_optin
+
+    def pick(b, c, n, halo=60, mean=False, taps=11):
+        return R._pick_tile(torch.empty((b, c, n), device="meta"), halo, mean, 256, 0, taps)
+
+    for frames in (128, 192):
+        for b in (1, 32):
+            assert pick(b, 64, frames * 128) == (136, 3, 1)              # K2, k=11
+            assert pick(b, 32, frames * 256, mean=True) == (136, 2, 6)   # K3
+    assert pick(1, 64, 128 * 128, halo=36, taps=7) == (184, 3, 1)
+    assert pick(1, 64, 128 * 128, halo=12, taps=3) == (168, 2, 2)
+    assert pick(32, 64, 192 * 128, halo=12, taps=3) == (232, 3, 1)
+    assert pick(1, 16, 128 * 512, mean=True) == (136, 2, 11)
+    assert pick(1, 48, 128 * 128) == (136, 2, 3)
+    assert pick(1, 80, 128 * 128) == (136, 2, 3)
+    assert pick(1, 96, 128 * 128) == pick(1, 112, 128 * 128) == (72, 3, 1)
+    for c in R._HIGHEST_WIDTHS:
+        for halo, taps in ((60, 11), (36, 7), (12, 3)):
+            configs = R.wgmma_configs(torch.empty((1, c, 99), device="meta"), halo, 256, 0, taps)
+            assert configs and all(
+                t + 2 * halo <= 256 and R._smem_bytes(c, t, halo, False, 0, r, ch) <= limit
+                for t, r, ch in configs), (c, halo)
 
 
 @pytest.mark.parametrize("tier", ["high", "default"])
@@ -942,6 +991,55 @@ def test_tf32x3_chain_meets_the_module_bar_against_pallas(ch):
                                 precision="highest")
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, rtol=0)
     assert np.all(got.numpy()[0, :, :37] == 0.0) and np.all(got.numpy()[1, :, 200:] == 0.0)
+
+
+def test_sass_ops_count_each_kernels_products(monkeypatch):
+    """build.sass_ops reads cuobjdump -sass of the library: per kernel whose
+    demangled name holds the symbol, its HGMMA (wgmma) and HMMA (mma.sync)
+    instructions, each opcode counted as a word (HGMMA is not HMMA)."""
+    from piper_tpu_torch.ops.kernels import build
+
+    listing = "\n".join([
+        "\tFunction : _Z16resblock1_kernelILi0EEvv",
+        "        /*0100*/  HGMMA.64x64x8.F32.TF32 R24, gdesc[UR4], R24, gsb0 ;",
+        "        /*0110*/  HGMMA.64x64x8.F32.TF32 R24, gdesc[UR8], R24 ;",
+        "\tFunction : _Z16resblock1_kernelILi1EEvv",
+        "        /*0100*/  HMMA.1688.F32.TF32 R4, R8, R12, R4 ;",
+        "\tFunction : _Z11conv1d_samev",
+        "        /*0100*/  HMMA.16816.F32.BF16 R4, R8, R12, R4 ;",
+    ])
+
+    class Done:
+        stdout = listing
+
+    monkeypatch.setattr(build, "_nvcc", lambda: "/usr/local/cuda/bin/nvcc")
+    monkeypatch.setattr(build.subprocess, "run", lambda *a, **k: Done())
+    monkeypatch.setattr(build, "_demangle", lambda names: [
+        {"_Z16resblock1_kernelILi0EEvv": "void resblock1_kernel<0>()",
+         "_Z16resblock1_kernelILi1EEvv": "void resblock1_kernel<1>()"}.get(n, n) for n in names])
+    assert build.sass_ops(Path("lib.so"), "resblock1_kernel") == {
+        "void resblock1_kernel<0>()": {"HGMMA": 2, "HMMA": 0},
+        "void resblock1_kernel<1>()": {"HGMMA": 0, "HMMA": 1}}
+
+
+def test_chip_smoke_resblock_sass_check_reads_each_tier():
+    """chip_smoke's resblock_ptxas check: the tier of each instantiation,
+    demangled either way, and every instantiation with an HMMA or without
+    an HGMMA."""
+    import chip_smoke
+
+    wg, mma = {"HGMMA": 72, "HMMA": 0}, {"HGMMA": 0, "HMMA": 96}
+    sass = {
+        "void piper_rb::resblock1_kernel<(bool)1, (bool)0, (int)0, float, (int)64>(piper_rb::Args)":
+            wg,
+        "void piper_rb::resblock1_kernel<true, false, 1, float, 32>(piper_rb::Args)": wg,
+        "void piper_rb::resblock1_kernel<(bool)0, (bool)0, (int)2, __nv_bfloat16, (int)16>"
+        "(piper_rb::Args)": mma,
+    }
+    tiers, wrong = chip_smoke.resblock_sass_check(sass)
+    assert tiers == {0, 1, 2}
+    assert list(wrong) == [next(k for k in sass if "__nv_bfloat16" in k)]
+    assert chip_smoke.resblock_sass_check({}) == (set(), {})
 
 
 class _Counter:

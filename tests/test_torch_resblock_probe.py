@@ -20,7 +20,7 @@ def test_probe_shapes_follow_the_main_path():
     assert got["b1"][:2] == (1, 128) and got["b1"][2](128) == 128 * 128 - 100
     assert got["b32"][:2] == (32, 192) and got["b32"][2](256) == 162 * 256
     assert P.KERNELS == (("resblock1_branch", 64, 128), ("resblock1_mrf", 32, 256))
-    assert args.precision.split(",") == ["high", "default", "bfloat16"]
+    assert args.precision.split(",") == ["highest", "high", "default", "bfloat16"]
     with pytest.raises(SystemExit, match="unknown shape"):
         P.shapes(P._parser().parse_args(["--shapes", "b7"]))
 
@@ -40,9 +40,9 @@ def test_probe_runs_the_plain_versions_on_the_cpu(capsys):
     summary with no sums (nothing was timed)."""
     rows = P.main(TINY)
     out = [r for r in rows if "kernel" in r]
-    assert len(out) == 3 * 2 * 2
+    assert len(out) == 4 * 2 * 2
     assert {(r["precision"], r["shape"], r["kernel"]) for r in out} == {
-        (t, s, k) for t in ("high", "default", "bfloat16") for s in ("b1", "b32")
+        (t, s, k) for t in ("highest", "high", "default", "bfloat16") for s in ("b1", "b32")
         for k in ("resblock1_branch", "resblock1_mrf")}
     for r in out:
         assert r["device"] == "cpu" and r["bound_ms"] > 0 and "kernel_ms" not in r
