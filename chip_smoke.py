@@ -142,10 +142,14 @@ and in TF32, its kernels; the serving batch against its rows), and a
 margin line lists every comparison held to the mixed gate (1e-3) against
 half of it, 5e-4: the run fails if any lands above that target.
 
-The build's resblock_ptxas line gives each K2-K4 instantiation's
-registers, spills, ptxas notes and its products in the machine code
-(cuobjdump -sass: HGMMA is wgmma, HMMA mma.sync); the run fails unless
-every tier's instantiations hold wgmma and none holds mma.sync.
+The build's resblock_ptxas and conv1d_ptxas lines give each K2-K4 and
+each K1 instantiation's registers, spills, ptxas notes and its products in
+the machine code (cuobjdump -sass: HGMMA is wgmma, HMMA mma.sync); the run
+fails unless every tier's instantiations of both (K1's at every padded
+width and with bf16 I/O) hold wgmma and none holds mma.sync. The kernel
+phase also drives the route of the ResBlock1 widths the K2/K3 stage
+refuses (a voice with C=48 and C=24 levels, at "highest", "high" and in
+the "bfloat16" mode): K1 launched its count, against its plain version.
 
 Each voice's result on the card is checked against the same port on the
 CPU. Each phase prints one JSON line; any failure raises and the exit code
@@ -233,20 +237,19 @@ K1_ATOL = 1e-4
 RESBLOCK_DESIGN = {"highest": "wgmma tf32 x3, bulk-copied weights",
                    "high": "wgmma bf16 x3, bulk-copied weights",
                    "default": "wgmma bf16 x1, bulk-copied weights"}
-# How K1 forms them (csrc/conv1d.cu): at every tier the kernel stages the
-# caller's fp32 weights once per persistent block (split into bf16 planes,
-# or one fp32 plane split into tf32 parts on read), so no launch lays them
-# out.
-K1_DESIGN = {"highest": "mma.sync tf32 x3, weights split in the kernel",
-             "high": "mma.sync bf16 x3, weights split in the kernel",
-             "default": "mma.sync bf16 x1, weights split in the kernel"}
+# How K1 forms them (csrc/conv1d.cu): K2-K4's wgmma stage for one conv,
+# the tile's output lanes on M, the weights' swizzled image (laid out once
+# per weight tensor and tier) bulk-copied into a ring.
+K1_DESIGN = {"highest": "wgmma tf32 x3, bulk-copied weight image",
+             "high": "wgmma bf16 x3, bulk-copied weight image",
+             "default": "wgmma bf16 x1, bulk-copied weight image"}
 RESBLOCK_SYMBOL = "resblock1_kernel"  # the device symbol of K2, K3 and K4
 # K1-K3 on bf16 activations ("bfloat16" mode, the "default" tier): the
 # "default" stage with bf16 loads and stores; "__nv_bfloat16" is in the
 # symbols of those variants only.
-BF16_DESIGN = {"conv1d_same": "mma.sync bf16 x1, bf16 loads and stores",
+BF16_DESIGN = {"conv1d_same": "wgmma bf16 x1, bulk-copied weight image, bf16 loads and stores",
                "resblock": "wgmma bf16 x1, bulk-copied weights, bf16 loads and stores"}
-K1_SYMBOL = "conv1d_same"  # held by both K1 kernels' symbols (fp32 and mma)
+K1_SYMBOL = "conv1d_same"  # held by every K1 instantiation's symbol
 K5_SYMBOL = "interleave_kernel"
 # A voice's vocoder kernels: their device symbol and their launch counters.
 VOCODER_KERNELS = {"medium": (RESBLOCK_SYMBOL, ("resblock1_branch", "resblock1_mrf")),
@@ -365,8 +368,12 @@ def phase_build() -> None:
     build.load()
     ptxas = [line.strip() for line in log.splitlines()
              if "registers" in line or "spill" in line]
+    k1_rows = build.ptxas_report(log, K1_SYMBOL)
     emit(phase="build", seconds=time.perf_counter() - t0, cached=not log,
-         library=str(lib_path.relative_to(ROOT)), ptxas=ptxas)
+         library=str(lib_path.relative_to(ROOT)), ptxas=ptxas,
+         k1_registers={r["kernel"]: r["registers"] for r in k1_rows},
+         k1_spill_bytes=sum((r["spill_stores"] or 0) + (r["spill_loads"] or 0)
+                            for r in k1_rows))
     # K2-K4's instantiations: registers, spills, shared bytes, ptxas notes,
     # and their products in the machine code: every tier on wgmma (HGMMA),
     # none on mma.sync (HMMA).
@@ -379,6 +386,16 @@ def phase_build() -> None:
     if tiers != {0, 1, 2} or wrong or (log and len(rows) != len(sass)):
         raise AssertionError(f"resblock_ptxas: tiers {sorted(tiers)} in the library; not on "
                              f"wgmma alone: {wrong}")
+    # K1's instantiations (every tier, every padded width, bf16 I/O at
+    # "default"): registers, spills, notes, and their products: wgmma only.
+    sass = build.sass_ops(lib_path, K1_SYMBOL)
+    for row in k1_rows:
+        row["sass"] = sass.get(row["kernel"])
+    emit(phase="conv1d_ptxas", kernels=k1_rows)
+    variants, wrong = conv1d_sass_check(sass)
+    if variants != K1_VARIANTS or wrong or (log and len(k1_rows) != len(sass)):
+        raise AssertionError(f"conv1d_ptxas: {sorted(K1_VARIANTS - variants)} missing from "
+                             f"the library; not on wgmma alone: {wrong}")
 
 
 def resblock_sass_check(sass: dict) -> tuple:
@@ -391,6 +408,27 @@ def resblock_sass_check(sass: dict) -> tuple:
         if m:
             tiers.add(int(m.group(1)))
     return tiers, {k: c for k, c in sass.items() if c["HMMA"] or not c["HGMMA"]}
+
+
+# K1's instantiations: (padded C, tier, I/O type), every multiple of 16 up
+# to 128 at every tier, and bf16 I/O at "default".
+K1_VARIANTS = {(c, t, "float") for c in range(16, 129, 16) for t in (0, 1, 2)} | {
+    (c, 2, "bf16") for c in range(16, 129, 16)}
+
+
+def conv1d_sass_check(sass: dict) -> tuple:
+    """({(padded C, tier, "float" or "bf16")} of the conv1d_same
+    instantiations in `sass`, {instantiation: counts} of those not on wgmma
+    alone: any HMMA, or no HGMMA). C and the tier are the kernel's first two
+    template arguments, demangled as `2` or `(int)2`."""
+    variants = set()
+    for name in sass:
+        m = re.search(r"conv1d_same_kernel<(?:\(int\))?(\d+), (?:\(int\))?(\d+), ([^>]+)>",
+                      name)
+        if m:
+            io = "bf16" if "bfloat16" in m.group(3) else "float"
+            variants.add((int(m.group(1)), int(m.group(2)), io))
+    return variants, {k: c for k, c in sass.items() if c["HMMA"] or not c["HGMMA"]}
 
 
 def _rand(torch, gen, *shape, scale):
@@ -535,6 +573,7 @@ def phase_kernels(torch) -> dict:
                 note="ms covers the 3 branch launches of one level" if c == 64 else
                 "ms covers one launch (3 branches + mean)") for tier in TIERS}
         results["conv1d_same"] = _conv1d_same_check(torch, gen)
+        _refused_widths_check(torch)
         _bf16_kernel_rows(torch, gen, results)
         results["resblock1_mrf_folded"] = _folded_check(torch, gen, K4, R)
         results["interleave"] = _interleave_check(torch, gen)
@@ -783,6 +822,80 @@ def _conv1d_same_check(torch, gen) -> dict:
                         "bound_ms"):
                 t[key] += row[key]
     return total
+
+
+# The vocoder of a voice whose ResBlock1 levels are C=48 and C=24 (the
+# `test` voice's shape at upsample_initial_channel 96), against itself with
+# every kernel wrapper's plain version: the fp32 waveform bar at "highest",
+# the lowered tiers' gate at "high", and in bf16 a few bf16 ulps of the
+# level activations (~4, an ulp of 2^-6), as tests/test_torch_cuda.py says.
+REFUSED_ATOL = {"highest": WAVE_ATOL, "high": MIXED_ATOL, "bfloat16": 5e-2}
+# K1's launches per call: two convs at two dilations a level on K1 (C=24
+# at every tier, C=48 at "high" and "default"); at "highest" K2 takes C=48.
+REFUSED_LAUNCHES = {"highest": (4, 1), "high": (8, 0), "bfloat16": (8, 0)}
+
+
+def _refused_widths_check(torch) -> None:
+    """Fault 1's route: widths the K2/K3 stage refuses (C=24 at every tier,
+    C=48 at "high" and "default") run conv by conv through K1
+    (models/vits/hifigan.py::_level), never cuDNN. The 48/24 voice's
+    vocoder at "highest", "high" and in the "bfloat16" mode (bf16 weights
+    and activations, the kernels at "default"), masked with bounds as a
+    decode runs it: K1's and K2's launches per call, K3 none, finite, and
+    within REFUSED_ATOL of its plain version."""
+    from dataclasses import replace
+
+    from piper_tpu_torch.models.vits import hifigan
+    from piper_tpu_torch.models.vits.hparams import PRESETS
+    from piper_tpu_torch.models.vits.params import params_to_torch
+    from piper_tpu_torch.models.vits.synthetic import synthetic_params
+    from piper_tpu_torch.ops.kernels import conv as K1
+    from piper_tpu_torch.ops.kernels import resblock as R
+
+    hp = replace(PRESETS["test"], upsample_initial_channel=96)
+    weights = synthetic_params(hp, seed=21)
+    frames = 64
+    z32 = torch.randn(2, hp.inter_channels, frames,
+                      generator=torch.Generator().manual_seed(21)).to("cuda")
+    lengths = torch.tensor([frames, 41], dtype=torch.int32, device="cuda")
+    wrappers = ((K1, "conv1d_same", K1.conv1d_same_plain),
+                (hifigan, "resblock1_branch", R.resblock1_branch_plain),
+                (hifigan, "resblock1_mrf", R.resblock1_mrf_plain))
+    for mode in REFUSED_ATOL:
+        dtype = torch.bfloat16 if mode == "bfloat16" else torch.float32
+        params = params_to_torch(weights, "cuda", dtype)
+        z = z32.to(dtype)
+        mask = (torch.arange(frames, device="cuda")[None] < lengths[:, None]).to(dtype)[:, None]
+
+        def run(params=params, z=z, mask=mask, mode=mode):
+            return hifigan.hifigan_generator(
+                z * mask, params, hp, t_mask=mask, t_bounds=lengths,
+                level_precisions=None if mode == "bfloat16" else mode)
+
+        before = [K1.conv1d_same.launches, R.resblock1_branch.launches,
+                  R.resblock1_mrf.launches]
+        got = run()
+        torch.cuda.synchronize()
+        launched = (K1.conv1d_same.launches - before[0],
+                    R.resblock1_branch.launches - before[1])
+        if launched != REFUSED_LAUNCHES[mode] or R.resblock1_mrf.launches != before[2]:
+            raise AssertionError(f"refused widths {mode}: K1, K2 launched {launched}, "
+                                 f"expected {REFUSED_LAUNCHES[mode]} and no K3")
+        kept = [(mod, name, getattr(mod, name)) for mod, name, _ in wrappers]
+        try:
+            for mod, name, plain in wrappers:
+                setattr(mod, name, plain)
+            want = run()
+        finally:
+            for mod, name, fn in kept:
+                setattr(mod, name, fn)
+        err = float((got.float() - want.float()).abs().max())
+        if not (bool(torch.isfinite(got).all()) and err <= REFUSED_ATOL[mode]):
+            raise AssertionError(f"refused widths {mode}: max-abs {err} against the plain "
+                                 f"version > {REFUSED_ATOL[mode]}")
+        emit(phase="kernel", name="conv1d_same", case="refused_widths_48_24", mode=mode,
+             k1_launches=launched[0], k2_launches=launched[1], max_abs_err=err,
+             atol=REFUSED_ATOL[mode], samples=int(got.shape[-1]))
 
 
 def _check_k1_empty(torch, K1, x, w, b, d, bnd, got, tier) -> None:

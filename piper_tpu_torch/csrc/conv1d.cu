@@ -1,9 +1,9 @@
 // Same-padded dilated conv1d with a fused leaky-ReLU input, for Hopper
-// (sm_90a), on the tensor cores at every tier: 3xTF32 mma.sync at
-// "highest", bf16 mma.sync at "high" and "default". At "default" it also
-// takes bf16 activations, weights and bias (the runtime's "bfloat16" mode):
-// the same stage, its loads and stores of that type (conv1d.cuh's TIO), fp32
-// sums, the output rounded to bf16 once.
+// (sm_90a), on warpgroup products (wgmma) at every tier: 3xTF32 at
+// "highest", bf16 at "high" (three products) and "default" (one). At
+// "default" it also takes bf16 activations, weights and bias (the runtime's
+// "bfloat16" mode): the same stage, its loads and stores of that type
+// (TIO), fp32 sums, the output rounded to bf16 once.
 //
 // Replaces the Pallas TPU kernel piper_tpu/ops/pallas/conv.py:
 //   piper_conv1d_same  <- pallas_conv1d_same (_kernel):
@@ -15,93 +15,88 @@
 // x * mask). The output is not masked.
 //
 // What bounds it on the H100: the ResBlock2 convs of Piper's x_low voices
-// are narrow (C = 32 or 64), short in taps (k = 3/5/7) and long in time.
-// Per output sample a conv does C*k multiply-adds for each of C channels
-// against 8 bytes of traffic, so device memory is no limit; the products
-// are (2*C*C*k flops per sample: 495/3 TFLOP/s as 3xTF32, 989/3 as bf16x3,
-// 989 as one bf16 pass). At batch 1 a level is only N/tile blocks (64 of
-// 128 samples at C=64), so each block's own time, not the card's rate,
-// sets the conv's time; at a serving batch the products do.
+// (and the narrow ResBlock1 convs the ResBlock1 kernels do not take) are
+// narrow (C = 32 or 64), short in taps and long in time. Per output sample
+// a conv does C*k multiply-adds for each of C channels against 8 bytes of
+// traffic, so device memory is no limit; the products are (2*C*C*k flops
+// per sample: 495/3 TFLOP/s as 3xTF32, 989/3 as bf16x3, 989 as one bf16
+// pass). At batch 1 a level is only N/tile blocks (128 of 64 samples at
+// x_low's level 1), so each block's own latency, its window's loads and
+// its chain of products, sets the conv's time; at a serving batch the
+// tensor cores do.
 //
-// Design (conv1d_same_mma_kernel): the conv is one GEMM per time tile,
-// M = C_out, N = the tile's lanes, K = C_in x taps. Both operands are
-// staged into shared memory where they are read from device memory:
-//   - the weights, read as the caller's fp32 (C_out, C_in, K), into planes
-//     [tap][C_out][C_in + pad], once per block (blocks are persistent: a
-//     grid of at most the SMs' resident blocks walks the tiles, so the
-//     staging is paid once per SM, not once per tile, and no launch lays
-//     the weights out);
-//   - the window, act(x) over [t0 - pad, t0 + tile + pad), into lane-major
-//     planes [lane][C_in + pad], coalesced from device memory; the tap shift
-//     is a row offset of j*d.
-// A warp owns kMT m-tiles by kNT n-tiles of 8 lanes of the block's one
-// GEMM; its accumulators start at the bias, and they leave through shared memory
-// (over the window's planes), so that the stores to device memory are
-// coalesced rows. C not a multiple of 16 is padded with zero channels in
-// the planes: exact, and never stored. Tiles wholly outside [lo, hi)
-// (their window is all zeros) skip the products: the output there is the
-// bias.
-//   "high"/"default": one mma.sync.m16n8k16 (bf16 in, fp32 sums) per (16
-//   output channels, 8 lanes, tap, 16 input channels): "high" is three mma
-//   per step into one accumulator, (w_hi, v_hi) + (w_hi, v_lo) +
-//   (w_lo, v_hi), "default" one, (bf16(w), bf16(v)). The operands are split
-//   into bf16 planes where they are written (hi, and lo at "high"), with a
-//   row stride of C + 8 bf16, so that ldmatrix.x4 reads the A and B
-//   fragments and its eight 16-byte rows fall on distinct banks.
-//   "highest": 3xTF32, two mma.sync.m16n8k8 steps (tf32 in, fp32 sums) per
-//   16 input channels, each three mma into one accumulator, (w_big, v_big)
-//   + (w_big, v_small) + (w_small, v_big), as the ResBlock1 kernels form it
-//   (resblock1.cu). Planes of fp32 words, row stride C + 4 (tf32 operands
-//   are fp32 registers, so ldmatrix does not apply: a fragment is 32-bit
-//   loads, (row gid, channel tig) and (gid, tig + 4), which the stride puts
-//   on 32 distinct banks). The window is split once, where it is written,
-//   into a big and a small plane. The weights stay one plane, split on
-//   read: two tf32 planes would need 243,712 bytes at x_low's widest conv
-//   (C=64, k=7), past the 232,448 a block may have, and split on the host
-//   into fragment order (as K2-K4 take them) they would cost seven
-//   launches per call before the kernel. One weight plane and the window's
-//   two need 230,656 bytes there at a 128-sample tile and d=12. A warp
-//   owns 2 or 4 n-tiles (the wrapper picks): at 4, each A fragment split on
-//   read feeds 12 mma.
+// Design (conv1d.cuh's conv1d_same_kernel, the stage of resblock1.cuh for
+// one conv): a block per (tile of output samples, row); each conv is one
+// GEMM per tap, M = the tile's output lanes (64 a warpgroup, the first
+// ceil(tile / 64) warpgroups of the block), N = C_out, K = C_in, summed
+// over the taps, so no product is spent on the halo; the block may hold
+// more warpgroups than that, which only load the window and store the
+// output (where a level has fewer blocks than SMs). A (act(x), the tier's planes) is read from
+// shared memory by descriptor: the block writes act(x) over the window
+// [t0 - pad, t0 + tile + pad) once, masked by the row's bounds and split
+// where it is written (tf32 big and small at "highest", bf16 hi and lo at
+// "high", bf16 at "default"), into planes of 16-byte chunks of channels, so
+// a tap's shift of j*d lanes is a 16*j*d-byte step of A's start address. B
+// (a tap's weights) arrives as the host's swizzled image
+// (ops/kernels/resblock.py::wgmma_tier_image of the weights zero-padded to
+// C rounded up to 16; laid out once per weight tensor and tier,
+// ops/kernels/conv.py) by cp.async.bulk, `chunk` units (taps, or past 32
+// KB a tap one swizzle atom of it) a copy, into a ring of up to `ring`
+// slots completed on mbarriers, so the next chunk's copy runs under the
+// current chunk's products. C not a multiple of 16 runs as the next
+// multiple: zero channels in the planes and the image, never stored, so
+// any square C from 1 to 128 runs. The epilogue adds the bias and stores
+// the raw sums (no act(), the output unmasked) through an fp32 stage over
+// the planes as coalesced rows, rounded to bf16 once for bf16 I/O. Tiles
+// whose window lies wholly outside [lo, hi) (all zeros) store the bias and
+// run no product.
+//
+// bf16 activations at "default": x, the image (bf16(w) = w) and the bias
+// are read as they are, into the same bf16 plane as the fp32-input kernel
+// writes from the same values, with the same fp32 sums in the same order;
+// so the kernel on bf16 x equals the fp32-input "default" kernel on x's
+// values with its output rounded to bf16, bit for bit.
 
 #include "conv1d.cuh"
 
+using namespace piper_k1;
+
 extern "C" {
 
-// x, out (B, C, N); w the caller's (C_out, C_in, K) at every tier; bias
-// (C,) or null; bounds a device (B, bounds_cols) int32 array (bounds_cols
-// 2: [lo, hi); 1: [0, hi)) or null with bounds_cols 0. C is a multiple of
-// 8. tier 0 "highest", 1 "high", 2 "default"; m_tiles (1, 2 or 4) and
-// n_tiles (2, or 4 at tier 0) are a warp's 16-channel m-tiles and 8-lane
-// n-tiles. x, w, bias and out are float, or bf16 when bf16_io is 1 (tier 2
-// only: bf16 activations are the "bfloat16" mode's, which runs at
-// "default"). Returns a cudaError_t code (0 on success).
+// x, out (B, C, N); w the tier's image of the (C_out, C_in, K) weights
+// zero-padded to Cp = C rounded up to 16 (16-byte aligned); bias (C,) or
+// null; bounds a device (B, bounds_cols) int32 array (bounds_cols 2: [lo,
+// hi); 1: [0, hi)) or null with bounds_cols 0. 1 <= C <= 128. tier 0
+// "highest", 1 "high", 2 "default"; tile (1-256) the output samples a
+// block, warpgroups (ceil(tile / 64) to 4) the block's, ring (1-3) the
+// weight slots (1 only for a conv of one chunk) and chunk the units a slot
+// holds. x,
+// bias and out are float, or bf16 when bf16_io is 1 (tier 2 only: bf16
+// activations are the "bfloat16" mode's, which runs at "default"). Returns
+// a cudaError_t code (0 on success).
 int piper_conv1d_same(const void* x, const void* w, const void* bias, const int* bounds,
                       int bounds_cols, void* out, int B, int C, int N, int k, int dil,
-                      int tile, float slope, int tier, int m_tiles, int n_tiles, int bf16_io,
-                      int device, void* stream) {
-  if (C < 8 || C % 8 != 0 || k < 1 || k % 2 == 0 || dil < 1 || tile < 1 ||
-      N < 1 || B < 1 || bounds_cols < 0 || bounds_cols > 2 || (bounds_cols > 0) != (bounds != nullptr))
+                      int tile, float slope, int tier, int warpgroups, int ring, int chunk,
+                      int bf16_io, int device, void* stream) {
+  if (C < 1 || C > 128 || k < 1 || k % 2 == 0 || dil < 1 || tile < 1 || tile > 256 ||
+      warpgroups < (tile + 63) / 64 || warpgroups > kMaxThreads / 128 ||
+      N < 1 || B < 1 || bounds_cols < 0 || bounds_cols > 2 ||
+      (bounds_cols > 0) != (bounds != nullptr) || tier < 0 || tier > 2 || ring < 1 ||
+      ring > kMaxRing || chunk < 1 || (bf16_io && tier != 2))
     return (int)cudaErrorInvalidValue;
-  if (bf16_io) {
-    if (tier != 2 || n_tiles != 2) return (int)cudaErrorInvalidValue;
-    return launch_tier<2, 2>(static_cast<const bf16*>(x), static_cast<const bf16*>(w),
-                             static_cast<const bf16*>(bias), bounds, bounds_cols,
-                             static_cast<bf16*>(out), B, C, N, k, dil, tile, slope, m_tiles,
-                             device, stream);
-  }
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(w);
-  const float* bf = static_cast<const float*>(bias);
-  float* of = static_cast<float*>(out);
-  if (tier == 0)
-    return conv1d_highest(xf, wf, bf, bounds, bounds_cols, of, B, C, N, k, dil, tile, slope,
-                          m_tiles, n_tiles, device, stream);
-  if (n_tiles != 2) return (int)cudaErrorInvalidValue;
+  const int cp = (C + 15) / 16 * 16;
+  const int units = k * piper_rb::tap_units(cp, tier);
+  const int total = (units + chunk - 1) / chunk;
+  if (ring == 1 && total > 1) return (int)cudaErrorInvalidValue;  // the slot would wait on itself
+  const size_t smem = smem_bytes(cp, C, tier, tile, (k - 1) / 2 * dil,
+                                 ring < total ? ring : total, chunk);
+  const Args a{x,    w,   bias, bounds, out,  bounds_cols, B,          C,
+               N,    k,   dil,  tile,   ring, chunk,       warpgroups, slope};
+  if (bf16_io) return start_tier<2, bf16>(a, cp, smem, device, stream);
   switch (tier) {
-    case 1: return launch_tier<1, 2>(xf, wf, bf, bounds, bounds_cols, of, B, C, N, k, dil, tile, slope, m_tiles, device, stream);
-    case 2: return launch_tier<2, 2>(xf, wf, bf, bounds, bounds_cols, of, B, C, N, k, dil, tile, slope, m_tiles, device, stream);
-    default: return (int)cudaErrorInvalidValue;
+    case 0: return start_highest(a, cp, smem, device, stream);
+    case 1: return start_tier<1, float>(a, cp, smem, device, stream);
+    default: return start_tier<2, float>(a, cp, smem, device, stream);
   }
 }
 

@@ -1,332 +1,278 @@
 // The K1 kernel and its launchers, shared by conv1d.cu ("high" and
 // "default", and the C entry) and conv1d_highest.cu ("highest"), which nvcc
 // compiles in parallel. conv1d.cu's header says what the kernel computes
-// and how it is laid out.
+// and how it is laid out; the stage's sizes, its weight images and its
+// products are resblock1.cuh's (Wg) and wgmma.cuh's.
 #pragma once
 
 #include <cuda_runtime.h>
 
-#include "tiers.cuh"
+#include <cstdint>
+#include <type_traits>
 
-namespace {
+#include "resblock1.cuh"
+
+namespace piper_k1 {
 
 using piper::bf16;
 using piper::load_f;
-using piper::Planes;
-using piper::store_act2;
+using piper_rb::Wg;
 
-constexpr int kMaxThreads = 512;
-constexpr int kStagePad = 8;  // the output stage's row is tile + kStagePad floats
+constexpr int kMaxThreads = 512;  // four warpgroups of 64 output lanes
+constexpr int kMaxRing = 3;
 
-// Window planes beyond Planes: "highest" keeps act(x) split into its tf32
-// big and small parts, one fp32 plane each, split once where they are
-// written; the bf16 tiers keep their Planes.
-template <int kTier>
-constexpr int kXPlanes = kTier == 0 ? 2 : Planes<kTier>::kCount;
-
-// v0, v1 (neighbours, `off` even) into the "highest" window's planes:
-// split_tf32's big part into the first, its small part `plane` floats on.
-__device__ __forceinline__ void store_tf32_split2(float* planes, int plane, int off, float v0,
-                                                  float v1) {
-  uint32_t b0, s0, b1, s1;
-  piper::split_tf32(v0, b0, s0);
-  piper::split_tf32(v1, b1, s1);
-  *reinterpret_cast<float2*>(planes + off) = make_float2(__uint_as_float(b0), __uint_as_float(b1));
-  *reinterpret_cast<float2*>(planes + plane + off) =
-      make_float2(__uint_as_float(s0), __uint_as_float(s1));
-}
+struct Args {
+  const void* x;       // (B, C, N), the kernel's TIO
+  const void* w;       // the tier's B image of the (Cp, Cp, k) zero-padded weights
+  const void* bias;    // (C,) TIO, or null
+  const int* bounds;   // (B, bounds_cols) int32, or null with bounds_cols 0
+  void* out;           // (B, C, N), TIO
+  int bounds_cols, B, C, N, k, dil, tile, ring, chunk;
+  int warpgroups;      // the block's: ceil(tile / 64) of them run the products
+  float slope;
+};
 
 // Row b's [lo, hi), clamped to [0, N]: bounds is (B, cols) int32, cols 2
 // meaning [lo, hi), 1 meaning [0, hi), 0 (no bounds) meaning [0, N).
-__device__ __forceinline__ void row_bounds(const int* bounds, int cols, int b, int N, int& lo,
-                                           int& hi) {
-  lo = cols == 2 ? bounds[2 * b] : 0;
-  hi = cols > 0 ? bounds[b * cols + cols - 1] : N;
-  lo = min(max(lo, 0), N);
-  hi = min(max(hi, 0), N);
+__device__ __forceinline__ void row_bounds(const Args& p, int b, int& lo, int& hi) {
+  lo = p.bounds_cols == 2 ? p.bounds[2 * b] : 0;
+  hi = p.bounds_cols > 0 ? p.bounds[b * p.bounds_cols + p.bounds_cols - 1] : p.N;
+  lo = min(max(lo, 0), p.N);
+  hi = min(max(hi, 0), p.N);
 }
 
-// act(v) at global sample g: leaky ReLU, then zero outside [lo, hi).
-__device__ __forceinline__ float act(float v, int g, int lo, int hi, float slope) {
-  return (g >= lo && g < hi) ? (v >= 0.f ? v : v * slope) : 0.f;
+// The output stage's row stride in floats: at least the tile, and 4 past
+// a multiple of 16, so that the D layout's stores (8 lanes by 4 channel
+// pairs a warp) fall on 32 distinct banks.
+__host__ __device__ constexpr int stage_stride(int tile) { return (tile + 11) / 16 * 16 + 4; }
+
+// Shared bytes of the block (csrc/conv1d.cu's launch, ops/kernels/conv.py's
+// smem_bytes): up to 1024 to align the ring, `depth` slots of `chunk` units
+// (taps, or swizzle atoms of a tap: tap_units), their mbarriers, then the
+// window's act(x) planes, W + 1 lanes a chunk plane, and a guard of 16
+// bytes a lane for the rows of the last warpgroup past the tile, whose A
+// reads run past the window; the fp32 output stage (C rows of
+// stage_stride(tile)) goes over the planes once the products are done.
+__host__ __device__ constexpr int smem_bytes(int cp, int c, int tier, int tile, int pad,
+                                             int depth, int chunk) {
+  const int elem = tier == 0 ? 4 : 2;
+  const int planes = tier == 2 ? 1 : 2;
+  const int rows = (tile + 63) / 64 * 64;
+  const int act = planes * elem * cp * (tile + 2 * pad + 1) + 16 * (rows - tile);
+  const int stage = 4 * c * stage_stride(tile);
+  return 1024 +
+         depth * piper_rb::ring_slot_bytes(chunk,
+                                           piper_rb::tap_bytes(cp, tier) /
+                                               piper_rb::tap_units(cp, tier)) +
+         piper_rb::ring_barrier_bytes(depth) + (act > stage ? act : stage);
 }
 
-// Every tier on the tensor cores. One warp per work item of kMT m-tiles x
-// kNT n-tiles of 8 lanes: the block is exactly (Cp/16/kMT) * (tile/(8*kNT))
-// warps, Cp = C rounded up to 16, tile a multiple of 8*kNT. kNT is 2 at
-// "high"/"default" (one ldmatrix.x4 of B); "highest" also takes 4, where
-// each A fragment split on read feeds 12 mma. The grid is persistent:
-// block i takes tiles i, i + gridDim.x, ... of the B * ceil(N/tile)
-// (row, time tile) pairs. TIO is the element type of x, w, bias and out:
-// float at every tier, or bf16 at "default" only, where the window and the
-// weights are read straight into the bf16 planes they are staged in (a bf16
-// value rounds to itself) and the fp32 sums are stored rounded to bf16.
-template <int K, int kTier, int kMT, int kNT, typename TIO>
-__global__ void __launch_bounds__(kMaxThreads) conv1d_same_mma_kernel(
-    const TIO* __restrict__ x, const TIO* __restrict__ w,
-    const TIO* __restrict__ bias, const int* __restrict__ bounds, int bounds_cols,
-    TIO* __restrict__ out, int B, int C, int N, int k_rt, int dil, int tile, float slope) {
+// One block per (tile of output samples, row) of `warpgroups` warpgroups:
+// the first ceil(tile / 64) run the products, warpgroup w owning output
+// lanes [64w, 64w + 64) on wgmma's M; every warp loads the window and
+// stores the output (more warps than products keep more loads in flight
+// where a level has few blocks). kC is C padded to a multiple of 16
+// (wgmma's N and K), TIO the element type of x, the bias and the output
+// (float, or bf16 at "default" only).
+template <int kC, int kTier, typename TIO>
+__global__ void __launch_bounds__(kMaxThreads) conv1d_same_kernel(const Args p) {
   static_assert(std::is_same_v<TIO, float> || kTier == 2,
                 "bf16 activations run at \"default\" only");
-  static_assert(kTier == 0 || kNT == 2, "the bf16 tiers' B fragment covers 2 n-tiles");
-  using P = Planes<kTier>;
-  using T = typename P::T;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int taps = K > 0 ? K : k_rt;
-  const int pad = (taps - 1) / 2 * dil;
-  const int W = tile + 2 * pad;
-  const int Cp = (C + 15) / 16 * 16;
-  const int S = Cp + P::kPad;
-  const int wplane = taps * Cp * S;  // elements of one weight plane
-  const int xplane = W * S;          // elements of one window plane
-  const int TS = tile + kStagePad;
-  T* wbuf = reinterpret_cast<T*>(smem_raw);       // [plane][tap][C_out][S]
-  T* xbuf = wbuf + P::kCount * wplane;            // [kXPlanes][lane][S]
-  float* stage = reinterpret_cast<float*>(xbuf);  // (C, TS), over the window's planes
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int lane = threadIdx.x & 31;
-
-  // The weights, once per block: w[co][ci][j] -> plane[j][co][ci], zero for
-  // the padded channels. A warp walks output channels, each lane a pair of
-  // input channels (C is even), so the stores to shared memory are
-  // consecutive words.
-  for (int co = warp; co < Cp; co += nwarps) {
-    for (int ci = 2 * lane; ci < Cp; ci += 64) {
-      const bool real = co < C && ci < C;
-      const TIO* wp = w + ((size_t)co * C + ci) * taps;
-#pragma unroll
-      for (int j = 0; j < taps; ++j)
-        store_act2<kTier>(wbuf, wplane, (j * Cp + co) * S + ci, real ? load_f(wp + j) : 0.f,
-                          real ? load_f(wp + taps + j) : 0.f);
+  using G = Wg<kC, kTier>;
+  using TA = typename G::TA;
+  extern __shared__ __align__(16) unsigned char k1_smem[];
+  const int b = blockIdx.y;
+  const int t0 = blockIdx.x * p.tile;
+  const int n_out = min(p.tile, p.N - t0);
+  const int pad = (p.k - 1) / 2 * p.dil;
+  const int W = p.tile + 2 * pad;  // window lane l is input sample t0 - pad + l
+  const TIO* bias = static_cast<const TIO*>(p.bias);
+  TIO* out = static_cast<TIO*>(p.out) + (size_t)b * p.C * p.N + t0;
+  int lo, hi;
+  row_bounds(p, b, lo, hi);
+  if (max(t0 - pad, lo) >= min(t0 + p.tile + pad, hi)) {
+    // An all-zero window: the output is the bias, and no product runs.
+    for (int i = threadIdx.x; i < p.C * n_out; i += blockDim.x) {
+      const int c = i / n_out;
+      piper::store_f(out + (size_t)c * p.N + (i - c * n_out), bias ? load_f(bias + c) : 0.f);
     }
+    return;
   }
 
+  // Shared memory: the ring's slots from a 1024-byte boundary (the
+  // swizzle is a function of the address bits), its barriers, the planes.
+  const uint32_t raw = piper::smem_addr(k1_smem);
+  const uint32_t align = (1024u - (raw & 1023u)) & 1023u;
+  const int units = p.k * G::kUnits;
+  const int total = (units + p.chunk - 1) / p.chunk;
+  const int depth = min(p.ring, total);
+  const int slot_bytes = piper_rb::ring_slot_bytes(p.chunk, G::kUnitBytes);
+  const uint32_t slots = raw + align;
+  const uint32_t full = slots + depth * slot_bytes;
+  const uint32_t empty = full + 8 * depth;
+  unsigned char* act_bytes =
+      k1_smem + align + depth * slot_bytes + piper_rb::ring_barrier_bytes(depth);
+  TA* planes = reinterpret_cast<TA*>(act_bytes);
+  const int warps = blockDim.x >> 5;
+  const int mma_warps = 4 * ((p.tile + 63) / 64);  // the warps that run products
+  const char* w = static_cast<const char*>(p.w);
+  // Chunk i of the conv's units into slot i % depth (thread 0 copies).
+  auto issue = [&](int i) {
+    const int u = i * p.chunk;
+    const int n = min(p.chunk, units - u);
+    piper::bulk_copy_if(threadIdx.x == 0, slots + (i % depth) * slot_bytes,
+                        w + (size_t)u * G::kUnitBytes, n * G::kUnitBytes,
+                        full + 8 * (i % depth));
+  };
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < depth; ++i) {
+      piper::mbar_init(full + 8 * i, 1);
+      piper::mbar_init(empty + 8 * i, mma_warps);
+    }
+    piper::mbar_init_fence();
+  }
+  __syncthreads();
+  for (int i = 0; i < depth; ++i) issue(i);  // under the window's loads
+
+  // act(x) over the window into the planes, split where it is written: a
+  // warp walks 16 lanes at a time in the D layout (lane gid and gid + 8,
+  // channels 2tig and 2tig + 1 of every 8), so each load instruction reads
+  // 8 consecutive samples of 4 channels and each store fills 128 contiguous
+  // bytes of a chunk plane. Channels from C to kC are zero; lanes past the
+  // window store to lane W.
+  const TIO* x = static_cast<const TIO*>(p.x) + (size_t)b * p.C * p.N;
+  const int lane = threadIdx.x & 31;
   const int gid = lane >> 2;
   const int tig = lane & 3;
-  const int groups_n = tile / (8 * kNT);
-  const int mt0 = warp / groups_n * kMT;
-  const int n0 = (warp % groups_n) * kNT * 8;
-  const int tiles_per_row = (N + tile - 1) / tile;
+  const int g0 = t0 - pad;
+  for (int l0 = 16 * (threadIdx.x >> 5); l0 < W; l0 += 16 * warps) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int l = l0 + gid + 8 * rr;
+      const int g = g0 + l;
+      const bool in = l < W && g >= 0 && g < p.N;
+      const int at = l < W ? l : W;
+#pragma unroll
+      for (int jj = 0; jj < kC / 8; ++jj) {
+        const int c = 8 * jj + 2 * tig;
+        const float v0 = in && c < p.C ? load_f(x + (size_t)c * p.N + g) : 0.f;
+        const float v1 = in && c + 1 < p.C ? load_f(x + (size_t)(c + 1) * p.N + g) : 0.f;
+        G::store2(planes, W + 1, at, c, piper_rb::act(v0, g, lo, hi, p.slope),
+                  piper_rb::act(v1, g, lo, hi, p.slope));
+      }
+    }
+  }
+  piper::fence_async_shared();
+  __syncthreads();
 
-  for (int tix = blockIdx.x; tix < B * tiles_per_row; tix += gridDim.x) {
-    const int b = tix / tiles_per_row;
-    const int t0 = (tix - b * tiles_per_row) * tile;
-    const int n_out = min(tile, N - t0);
-    int lo, hi;
-    row_bounds(bounds, bounds_cols, b, N, lo, hi);
-    const bool dead = t0 - pad >= hi || t0 + tile + pad <= lo;  // an all-zero window
-    if (!dead) {
-      // act(x) over the window into the planes: a warp walks pairs of
-      // channels, its lanes consecutive samples, so the loads are coalesced
-      // rows and each lane stores one pair per plane.
-      const TIO* xb = x + (size_t)b * C * N;
-      for (int c = 2 * warp; c < Cp; c += 2 * nwarps) {
-        const TIO* row = xb + (size_t)c * N;
-        for (int l = lane; l < W; l += 32) {
-          const int g = t0 - pad + l;
-          const bool in = c < C && g >= 0 && g < N;
-          const float v0 = act(in ? load_f(row + g) : 0.f, g, lo, hi, slope);
-          const float v1 = act(in ? load_f(row + N + g) : 0.f, g, lo, hi, slope);
-          if constexpr (kTier == 0) {
-            store_tf32_split2(xbuf, xplane, l * S + c, v0, v1);
-          } else {
-            store_act2<kTier>(xbuf, xplane, l * S + c, v0, v1);
-          }
+  // The products: per chunk of units, this warpgroup's over its taps and
+  // their k-steps go out as one group; once the chunk before has
+  // completed, its slot is released and, when all product warps have
+  // released it, refilled. A of tap j: the 64 window lanes from this
+  // warpgroup's first output lane + j*dil. D starts at the first product
+  // (accumulate 0). Warpgroups past the tile's lanes skip to the epilogue.
+  const int row0 = __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7), 0) * 64;
+  const bool mma = row0 < p.tile;
+  const uint32_t lbo = 16u * (W + 1);
+  const uint32_t plane_bytes = (uint32_t)kC * (W + 1) * G::kElem;
+  const uint32_t a0 = piper::smem_addr(planes) + (uint32_t)(row0 * 16);
+  float d[G::kAcc];
+  piper::fence_regs(d);
+  for (int c = 0; mma && c < total; ++c) {
+    const int u0 = c * p.chunk;
+    const int u1 = min(u0 + p.chunk, units);
+    const uint32_t slot = slots + (c % depth) * slot_bytes;
+    piper::mbar_wait(full + 8 * (c % depth), (c / depth) & 1);
+    piper::wgmma_fence();
+    for (int u = u0; u < u1; ++u) {
+      const int j = u / G::kUnits;  // the unit's tap, and its first k-step
+      const int s0 = (u - j * G::kUnits) * G::kUnitSteps;
+      const uint32_t tile = slot + (u - u0) * G::kUnitBytes;
+      const uint32_t at = a0 + (uint32_t)(j * p.dil * 16);
+#pragma unroll
+      for (int s = 0; s < G::kUnitSteps; ++s) {
+        const uint32_t ak = at + 2 * (s0 + s) * lbo;
+        const uint64_t ahi = piper::a_desc(ak, lbo);
+        const uint32_t wt = tile + G::b_offset(s);
+        const uint64_t whi = piper::b_desc<G::kRowBytes>(wt);
+        G::Mma::mma(d, ahi, whi, u > 0 || s > 0);  // v_hi w_hi (v_big w_big)
+        if constexpr (G::kPlanes == 2) {
+          G::Mma::mma(d, piper::a_desc(ak + plane_bytes, lbo), whi);  // v_lo w_hi
+          G::Mma::mma(d, ahi, piper::b_desc<G::kRowBytes>(wt + G::kPlaneStride));  // v_hi w_lo
         }
       }
     }
-    __syncthreads();  // the weights (first tile) and the window are in place
+    piper::wgmma_commit();
+    piper::wgmma_wait<1>();
+    if (c > 0) {
+      const int i = c - 1;  // this warp no longer reads chunk i
+      piper::mbar_arrive_if(lane == 0, empty + 8 * (i % depth));
+      if (i + depth < total) {
+        piper::mbar_wait(empty + 8 * (i % depth), (i / depth) & 1);
+        issue(i + depth);
+      }
+    }
+  }
+  if (mma) piper::wgmma_wait<0>();
+  piper::fence_regs(d);
+  __syncthreads();  // every warpgroup's products have read the planes
 
-    float acc[kMT][kNT][4];
+  // The epilogue: the bias added, the raw sums through an fp32 stage over
+  // the planes (C rows of stage_stride(tile)), then coalesced rows out,
+  // rounded to TIO once. D's element 4jj + 2rr + e is output lane row0 +
+  // 16 * warp + gid + 8rr, channel 8jj + 2tig + e.
+  float* stage = reinterpret_cast<float*>(act_bytes);
+  const int ts = stage_stride(p.tile);
+  const int row = row0 + 16 * ((threadIdx.x >> 5) & 3) + gid;
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-      const int co = (mt0 + mt) * 16 + gid;
-      const float b_top = bias && co < C ? load_f(bias + co) : 0.f;
-      const float b_bot = bias && co + 8 < C ? load_f(bias + co + 8) : 0.f;
+  for (int rr = 0; rr < 2; ++rr) {
+    const int o = row + 8 * rr;
+    if (!mma || o >= n_out) continue;
 #pragma unroll
-      for (int nt = 0; nt < kNT; ++nt) {
-        acc[mt][nt][0] = acc[mt][nt][1] = b_top;
-        acc[mt][nt][2] = acc[mt][nt][3] = b_bot;
+    for (int jj = 0; jj < kC / 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * jj + 2 * tig + e;
+        if (c < p.C) stage[c * ts + o] = d[4 * jj + 2 * rr + e] + (bias ? load_f(bias + c) : 0.f);
       }
     }
-    // Output lane p reads window lane p + j*dil.
-    if (!dead) {
-      if constexpr (kTier == 0) {
-        // 3xTF32, two m16n8k8 steps per 16 input channels. This thread's
-        // operands: B, window lane gid of each n-tile at channels tig and
-        // tig + 4 of the k-chunk of 8, from the big and small planes; A,
-        // output channels gid and gid + 8 of each m-tile at the same two
-        // channels, in the order of the A fragment's a0..a3, split on read.
-        const float* bsrc = xbuf + (n0 + gid) * S + tig;
-        const float* asrc = wbuf + (mt0 * 16 + gid) * S + tig;
-        for (int kc = 0; kc < Cp / 8; ++kc) {
-#pragma unroll
-          for (int j = 0; j < taps; ++j) {
-            uint32_t vb[kNT][2], vs[kNT][2];
-#pragma unroll
-            for (int nt = 0; nt < kNT; ++nt) {
-              const float* bp = bsrc + (nt * 8 + j * dil) * S + kc * 8;
-              vb[nt][0] = __float_as_uint(bp[0]);
-              vb[nt][1] = __float_as_uint(bp[4]);
-              vs[nt][0] = __float_as_uint(bp[xplane]);
-              vs[nt][1] = __float_as_uint(bp[xplane + 4]);
-            }
-            const float* ap = asrc + j * Cp * S + kc * 8;
-#pragma unroll
-            for (int mt = 0; mt < kMT; ++mt) {
-              const float* am = ap + mt * 16 * S;
-              uint4 ab, as;
-              piper::split_tf32(am[0], ab.x, as.x);
-              piper::split_tf32(am[8 * S], ab.y, as.y);
-              piper::split_tf32(am[4], ab.z, as.z);
-              piper::split_tf32(am[8 * S + 4], ab.w, as.w);
-#pragma unroll
-              for (int nt = 0; nt < kNT; ++nt) {
-                piper::mma_tf32(acc[mt][nt], ab, vb[nt][0], vb[nt][1]);
-                piper::mma_tf32(acc[mt][nt], ab, vs[nt][0], vs[nt][1]);
-                piper::mma_tf32(acc[mt][nt], as, vb[nt][0], vb[nt][1]);
-              }
-            }
-          }
-        }
-      } else {
-        // bf16, one m16n8k16 step per 16 input channels. This thread's
-        // ldmatrix rows. B (window, [lane][channel]): lane `lane & 7` of
-        // n-tile `lane >> 4`, channels +0 (matrices 0 and 2) or +8 (1 and 3)
-        // of the k-chunk. A (weights, [C_out][C_in]): row (lane & 7) +
-        // 8 * ((lane >> 3) & 1), columns +0 (matrices 0 and 1) or +8 (2 and
-        // 3), in the order of the A fragment's a0..a3.
-        const int brow = (lane & 7) + (lane >> 4) * 8;
-        const int bcol = ((lane >> 3) & 1) * 8;
-        const int arow = (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int acol = (lane >> 4) * 8;
-        for (int kc = 0; kc < Cp / 16; ++kc) {
-#pragma unroll
-          for (int j = 0; j < taps; ++j) {
-            const bf16* bp = xbuf + (n0 + brow + j * dil) * S + kc * 16 + bcol;
-            uint32_t bh[4], bl[4];
-            piper::ldmatrix_x4(bh, bp);
-            if (kTier == 1) piper::ldmatrix_x4(bl, bp + xplane);
-            const bf16* ap = wbuf + (j * Cp + mt0 * 16 + arow) * S + kc * 16 + acol;
-#pragma unroll
-            for (int mt = 0; mt < kMT; ++mt) {
-              uint32_t a[4];
-              piper::ldmatrix_x4(a, ap + mt * 16 * S);
-              const uint4 ah = make_uint4(a[0], a[1], a[2], a[3]);
-#pragma unroll
-              for (int nt = 0; nt < kNT; ++nt)
-                piper::mma_bf16(acc[mt][nt], ah, bh[2 * nt], bh[2 * nt + 1]);
-              if (kTier == 1) {
-                piper::ldmatrix_x4(a, ap + mt * 16 * S + wplane);
-                const uint4 al = make_uint4(a[0], a[1], a[2], a[3]);
-#pragma unroll
-                for (int nt = 0; nt < kNT; ++nt) {
-                  piper::mma_bf16(acc[mt][nt], ah, bl[2 * nt], bl[2 * nt + 1]);
-                  piper::mma_bf16(acc[mt][nt], al, bh[2 * nt], bh[2 * nt + 1]);
-                }
-              }
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();  // every warp is done with the planes: the stage goes over them
-
-    // The accumulator fragment (m16n8k16 and m16n8k8 alike): element 2r + e
-    // of acc[mt][nt] is output channel (mt0 + mt) * 16 + gid + 8r at lane
-    // n0 + nt*8 + 2*tig + e.
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int co = (mt0 + mt) * 16 + gid + 8 * r;
-        if (co >= C) continue;
-#pragma unroll
-        for (int nt = 0; nt < kNT; ++nt)
-          *reinterpret_cast<float2*>(stage + co * TS + n0 + nt * 8 + 2 * tig) =
-              make_float2(acc[mt][nt][2 * r], acc[mt][nt][2 * r + 1]);
-      }
-    }
-    __syncthreads();
-    TIO* ob = out + (size_t)b * C * N + t0;
-    for (int c = warp; c < C; c += nwarps) {
-      for (int l = lane; l < n_out; l += 32) piper::store_f(ob + (size_t)c * N + l, stage[c * TS + l]);
-    }
-    __syncthreads();  // the next tile's window goes over the stage
+  }
+  __syncthreads();
+  for (int c = threadIdx.x >> 5; c < p.C; c += warps) {
+    for (int l = lane; l < n_out; l += 32)
+      piper::store_f(out + (size_t)c * p.N + l, stage[c * ts + l]);
   }
 }
 
-cudaError_t prepare(const void* kernel, size_t smem, int device) {
+template <int kC, int kTier, typename TIO>
+int start(const Args& a, size_t smem, int device, void* stream) {
   cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
-template <int K, int kTier, int kMT, int kNT, typename TIO>
-int launch_mma(const TIO* x, const TIO* w, const TIO* bias, const int* bounds,
-               int bounds_cols, TIO* out, int B, int C, int N, int k, int dil, int tile,
-               float slope, int device, void* stream) {
-  using P = Planes<kTier>;
-  const int Cp = (C + 15) / 16 * 16;
-  const int threads = 32 * (Cp / 16 / kMT) * (tile / (8 * kNT));  // one warp per work item
-  if (tile % (8 * kNT) || (Cp / 16) % kMT || threads > kMaxThreads)
-    return (int)cudaErrorInvalidValue;
-  const size_t S = Cp + P::kPad;
-  const size_t el = sizeof(typename P::T);
-  const size_t window = el * kXPlanes<kTier> * (tile + (size_t)(k - 1) * dil) * S;
-  const size_t stage = sizeof(float) * (size_t)C * (tile + kStagePad);
-  const size_t smem = el * P::kCount * (size_t)k * Cp * S + (window > stage ? window : stage);
-  const void* kernel = (const void*)conv1d_same_mma_kernel<K, kTier, kMT, kNT, TIO>;
-  cudaError_t e = prepare(kernel, smem, device);
   if (e != cudaSuccess) return (int)e;
-  int per_sm = 0, sms = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  e = cudaFuncSetAttribute(conv1d_same_kernel<kC, kTier, TIO>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e != cudaSuccess) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long tiles = (long long)B * ((N + tile - 1) / tile);
-  const int grid = (int)(tiles < (long long)per_sm * sms ? tiles : (long long)per_sm * sms);
-  conv1d_same_mma_kernel<K, kTier, kMT, kNT, TIO>
-      <<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-          x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope);
+  const dim3 grid((a.N + a.tile - 1) / a.tile, a.B);
+  conv1d_same_kernel<kC, kTier, TIO>
+      <<<grid, 128 * a.warpgroups, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int K, int kTier, int kNT, typename TIO>
-int launch_mt(const TIO* x, const TIO* w, const TIO* bias, const int* bounds,
-              int bounds_cols, TIO* out, int B, int C, int N, int k, int dil, int tile,
-              float slope, int m_tiles, int device, void* stream) {
-  switch (m_tiles) {
-    case 1: return launch_mma<K, kTier, 1, kNT, TIO>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, device, stream);
-    case 2: return launch_mma<K, kTier, 2, kNT, TIO>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, device, stream);
-    case 4:  // "highest" takes 1 or 2: 4 m-tiles by its n-tiles would spill
-      if constexpr (kTier == 0) return (int)cudaErrorInvalidValue;
-      else return launch_mma<K, kTier, 4, kNT, TIO>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, device, stream);
-    default: return (int)cudaErrorInvalidValue;
+// The launch of a checked `a` at C padded to cp, a multiple of 16 up to 128.
+template <int kTier, typename TIO>
+int start_tier(const Args& a, int cp, size_t smem, int device, void* stream) {
+  switch (cp) {
+    case 16: return start<16, kTier, TIO>(a, smem, device, stream);
+    case 32: return start<32, kTier, TIO>(a, smem, device, stream);
+    case 48: return start<48, kTier, TIO>(a, smem, device, stream);
+    case 64: return start<64, kTier, TIO>(a, smem, device, stream);
+    case 80: return start<80, kTier, TIO>(a, smem, device, stream);
+    case 96: return start<96, kTier, TIO>(a, smem, device, stream);
+    case 112: return start<112, kTier, TIO>(a, smem, device, stream);
+    default: return start<128, kTier, TIO>(a, smem, device, stream);
   }
 }
 
-// One tier and n-tile count over HiFi-GAN's kernel sizes (an unrolled tap
-// loop each; other odd k take the runtime loop).
-template <int kTier, int kNT, typename TIO>
-int launch_tier(const TIO* x, const TIO* w, const TIO* bias, const int* bounds,
-                int bounds_cols, TIO* out, int B, int C, int N, int k, int dil, int tile,
-                float slope, int m_tiles, int device, void* stream) {
-  switch (k) {
-    case 3: return launch_mt<3, kTier, kNT, TIO>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, m_tiles, device, stream);
-    case 5: return launch_mt<5, kTier, kNT, TIO>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, m_tiles, device, stream);
-    case 7: return launch_mt<7, kTier, kNT, TIO>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, m_tiles, device, stream);
-    case 11: return launch_mt<11, kTier, kNT, TIO>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, m_tiles, device, stream);
-    default: return launch_mt<0, kTier, kNT, TIO>(x, w, bias, bounds, bounds_cols, out, B, C, N, k, dil, tile, slope, m_tiles, device, stream);
-  }
-}
+// "highest" (conv1d_highest.cu).
+int start_highest(const Args& a, int cp, size_t smem, int device, void* stream);
 
-}  // namespace
-
-
-// "highest" at n_tiles 2 or 4 (conv1d_highest.cu).
-int conv1d_highest(const float* x, const float* w, const float* bias, const int* bounds,
-                   int bounds_cols, float* out, int B, int C, int N, int k, int dil, int tile,
-                   float slope, int m_tiles, int n_tiles, int device, void* stream);
+}  // namespace piper_k1

@@ -85,11 +85,19 @@ __host__ __device__ constexpr int atom_row_bytes(int row) {
   return row % 128 == 0 ? 128 : row % 64 == 0 ? 64 : 32;
 }
 
-// The ring's units a tap: one, or at "highest" past C = 64 (a tap's two
-// tf32 planes 8C^2 bytes, 51-100 KB) each swizzle atom of the tap with
-// both its planes, so that two slots fit beside the window.
+// Bytes of one tap's weight image at C channels: bf16 hi and lo at "high",
+// bf16 at "default", tf32 big and small (fp32 words) at "highest".
+__host__ __device__ constexpr int tap_bytes(int c, int tier) {
+  return (tier == 2 ? 1 : 2) * (tier == 0 ? 4 : 2) * c * c;
+}
+
+// The ring's units a tap: one, or where a tap's image passes 32 KB (at
+// "highest" past C = 64: 51-128 KB; K1's "high" past C = 80) each swizzle
+// atom of the tap with both its planes, so that two slots fit beside the
+// window.
 __host__ __device__ constexpr int tap_units(int c, int tier) {
-  return tier == 0 && c > 64 ? 4 * c / atom_row_bytes(4 * c) : 1;
+  const int row = (tier == 0 ? 4 : 2) * c;  // bytes of one weight row
+  return tap_bytes(c, tier) > 32768 ? row / atom_row_bytes(row) : 1;
 }
 
 // act(y) and act(conv1) share one buffer, overwritten in place: at
@@ -105,8 +113,10 @@ __host__ __device__ constexpr bool in_place(int c, int tier) { return tier == 0 
 // Lane W takes the stores of lanes outside a stage, so no store is a
 // branch. One product covers kKStep input channels (32 bytes of K); a tap's
 // weights are kPlanes planes too (hi and lo, big and small), plane by
-// plane, each all its swizzle atoms; past C = 64 at "highest", where the
-// ring's unit is one atom (tap_units), atom by atom, each both its planes.
+// plane, each all its swizzle atoms; where the ring's unit is one atom
+// (tap_units: a tap's image past 32 KB), atom by atom, each both its planes.
+// K1 (conv1d.cuh) runs one conv of this stage's sizes at every multiple of
+// 16 up to 128.
 template <int kC, int kTier>
 struct Wg {
   using TA = std::conditional_t<kTier == 0, float, bf16>;

@@ -1,4 +1,5 @@
-// Hopper's asynchronous units for the ResBlock1 kernels (sm_90a only):
+// Hopper's asynchronous units for the vocoder kernels, K1's conv and K2-K4's
+// ResBlock1 chain (sm_90a only):
 // warpgroup products (wgmma.mma_async), bulk copies from global to shared
 // memory (cp.async.bulk) and the shared-memory barriers (mbarrier) that
 // report their completion.
@@ -24,12 +25,13 @@
 // chunk q of row r stored at chunk q ^ ((r * R / 128) % (R / 16)). A row
 // of more than R bytes (C_in = 64 fp32 values: 256 bytes, two atoms; C_in =
 // 48: 192 bytes, three of 64) is cut into atoms along K, each all C_out
-// rows (C_out * R bytes). ops/kernels/resblock.py::wgmma_weights and
-// wgmma_tf32_weights write this image on the host; the swizzle is a
-// function of the shared address bits, so each tile starts on a 1024-byte
-// boundary. A step of 32 bytes of K moves the descriptor's start address
-// 32 bytes along the rows, as CUTLASS's descriptor iterator does for
-// K-major swizzled tiles, and into the next atom after R / 32 steps.
+// rows (C_out * R bytes). ops/kernels/resblock.py::wgmma_tier_image writes
+// this image on the host; the swizzle is a function of the shared address
+// bits, so each ring slot starts on a 1024-byte boundary and each atom
+// within it on a multiple of its 8R-byte repeat. A step of 32 bytes of K
+// moves the descriptor's start address 32 bytes along the rows, as
+// CUTLASS's descriptor iterator does for K-major swizzled tiles, and into
+// the next atom after R / 32 steps.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -166,76 +168,16 @@ __device__ __forceinline__ uint64_t a_desc(uint32_t addr, uint32_t lbo) {
          ((uint64_t)(128 >> 4) << 32);
 }
 
-// D (64 x N fp32) += A (64 x 16 bf16) x B (16 x N bf16), both read from
-// shared memory through their descriptors; with `accumulate` 0, D = A x B
-// (D's registers are not read).
+// The products, D (64 x N fp32) += A x B with both read from shared memory
+// through their descriptors; with `accumulate` 0, D = A x B (D's registers
+// are not read). Wgmma<N>: A 64 x 16 bf16, B 16 x N bf16 (m64nNk16).
+// WgmmaTf32<N>: A 64 x 8 tf32, B 8 x N tf32 (m64nNk8), fp32 sums; tf32
+// takes both operands K-major (no transpose), and the hardware reads the
+// top 19 bits of each operand: the values given are tf32-exact. N is a
+// multiple of 16 up to 128: the stage's C_out (K2-K4's C; K1's C padded to
+// a multiple of 16).
 template <int N>
 struct Wgmma;
-
-template <>
-struct Wgmma<16> {
-  static __device__ __forceinline__ void mma(float (&d)[8], uint64_t a, uint64_t b,
-                                             uint32_t accumulate = 1) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %10, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7])
-        : "l"(a), "l"(b), "r"(accumulate));
-  }
-};
-
-template <>
-struct Wgmma<32> {
-  static __device__ __forceinline__ void mma(float (&d)[16], uint64_t a, uint64_t b,
-                                             uint32_t accumulate = 1) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %18, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-        "%16, %17, p, 1, 1, 0, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-          "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(accumulate));
-  }
-};
-
-template <>
-struct Wgmma<64> {
-  static __device__ __forceinline__ void mma(float (&d)[32], uint64_t a, uint64_t b,
-                                             uint32_t accumulate = 1) {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "setp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n"
-        "}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-          "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-          "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-          "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-          "+f"(d[31])
-        : "l"(a), "l"(b), "r"(accumulate));
-  }
-};
-
-// D (64 x N fp32) += A (64 x 8 tf32) x B (8 x N tf32), fp32 sums, both
-// read from shared memory through their descriptors; with `accumulate` 0,
-// D = A x B. tf32 takes both operands K-major (no transpose). The hardware
-// reads the top 19 bits of each operand: the values given are tf32-exact.
-// N is a multiple of 16 up to 112 (the ResBlock1 stage's C at "highest").
 template <int N>
 struct WgmmaTf32;
 
@@ -248,6 +190,7 @@ struct WgmmaTf32;
 #define PIPER_R40 PIPER_R32 ", %32, %33, %34, %35, %36, %37, %38, %39"
 #define PIPER_R48 PIPER_R40 ", %40, %41, %42, %43, %44, %45, %46, %47"
 #define PIPER_R56 PIPER_R48 ", %48, %49, %50, %51, %52, %53, %54, %55"
+#define PIPER_R64 PIPER_R56 ", %56, %57, %58, %59, %60, %61, %62, %63"
 #define PIPER_OUT8(d) "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),         \
   "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
 #define PIPER_OUT16(d) PIPER_OUT8(d), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),   \
@@ -262,32 +205,39 @@ struct WgmmaTf32;
   "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
 #define PIPER_OUT56(d) PIPER_OUT48(d), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),             \
   "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55])
+#define PIPER_OUT64(d) PIPER_OUT56(d), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]),             \
+  "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
 
-// The specialisation for N, with R = N / 2 registers of D: a, b and
-// accumulate are operands R, R + 1 and R + 2.
-#define PIPER_WGMMA_TF32(N, R, IA, IB, IP)                                              \
+// The specialisation of NAME for N, with R = N / 2 registers of D: a, b and
+// accumulate are operands R, R + 1 and R + 2. SHAPE is the instruction's
+// k and types, TAIL what follows the scales (bf16's transpose flags).
+#define PIPER_WGMMA(NAME, SHAPE, TAIL, N, R, IA, IB, IP)                                 \
   template <>                                                                           \
-  struct WgmmaTf32<N> {                                                                 \
+  struct NAME<N> {                                                                      \
     static __device__ __forceinline__ void mma(float (&d)[R], uint64_t a, uint64_t b,   \
                                               uint32_t accumulate = 1) {                \
       asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" #IP ", 0;\n"                     \
-                   "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {" PIPER_R##R \
-                   "}, %" #IA ", %" #IB ", p, 1, 1;\n}\n"                                 \
+                   "wgmma.mma_async.sync.aligned.m64n" #N SHAPE " {" PIPER_R##R          \
+                   "}, %" #IA ", %" #IB ", p, 1, 1" TAIL ";\n}\n"                         \
                    : PIPER_OUT##R(d)                                                    \
                    : "l"(a), "l"(b), "r"(accumulate));                                  \
     }                                                                                   \
   };
+#define PIPER_WGMMA_BOTH(N, R, IA, IB, IP)                                             \
+  PIPER_WGMMA(Wgmma, "k16.f32.bf16.bf16", ", 0, 0", N, R, IA, IB, IP)                   \
+  PIPER_WGMMA(WgmmaTf32, "k8.f32.tf32.tf32", "", N, R, IA, IB, IP)
 
-PIPER_WGMMA_TF32(16, 8, 8, 9, 10)
-PIPER_WGMMA_TF32(32, 16, 16, 17, 18)
-PIPER_WGMMA_TF32(48, 24, 24, 25, 26)
-PIPER_WGMMA_TF32(64, 32, 32, 33, 34)
-PIPER_WGMMA_TF32(80, 40, 40, 41, 42)
-PIPER_WGMMA_TF32(96, 48, 48, 49, 50)
-PIPER_WGMMA_TF32(112, 56, 56, 57, 58)
+PIPER_WGMMA_BOTH(16, 8, 8, 9, 10)
+PIPER_WGMMA_BOTH(32, 16, 16, 17, 18)
+PIPER_WGMMA_BOTH(48, 24, 24, 25, 26)
+PIPER_WGMMA_BOTH(64, 32, 32, 33, 34)
+PIPER_WGMMA_BOTH(80, 40, 40, 41, 42)
+PIPER_WGMMA_BOTH(96, 48, 48, 49, 50)
+PIPER_WGMMA_BOTH(112, 56, 56, 57, 58)
+PIPER_WGMMA_BOTH(128, 64, 64, 65, 66)
 
-#undef PIPER_WGMMA_TF32
-
+#undef PIPER_WGMMA_BOTH
+#undef PIPER_WGMMA
 #undef PIPER_R8
 #undef PIPER_R16
 #undef PIPER_R24
@@ -295,6 +245,7 @@ PIPER_WGMMA_TF32(112, 56, 56, 57, 58)
 #undef PIPER_R40
 #undef PIPER_R48
 #undef PIPER_R56
+#undef PIPER_R64
 #undef PIPER_OUT8
 #undef PIPER_OUT16
 #undef PIPER_OUT24
@@ -302,5 +253,6 @@ PIPER_WGMMA_TF32(112, 56, 56, 57, 58)
 #undef PIPER_OUT40
 #undef PIPER_OUT48
 #undef PIPER_OUT56
+#undef PIPER_OUT64
 
 }  // namespace piper

@@ -54,7 +54,8 @@ device allowed) places the weights on every slot (channel shards under
 groups, each on its slot's CUDA stream (`_on_groups`); the batch ladder
 keeps dp-divisible rungs, and streams and injected-noise calls run whole
 on the first group. `use_pallas=False` runs PyTorch's convs in place of
-the kernels (the tp forward over one slot), as JAX's option does.
+the kernels (the tp forward over one slot), as JAX's option does, and so
+does PIPER_TPU_NO_PALLAS=1 (read when the runtime is made).
 
 Encode and decode run at the `precision` tier (by default "highest", fp32
 with TF32 off for matmuls and cuDNN convs: a duration error can flip a
@@ -122,7 +123,7 @@ from piper_tpu_torch.models.vits.params import host_arrays_from_graph, params_to
 from piper_tpu_torch.onnx.loader import load_model
 from piper_tpu_torch.ops.kernels.precision import TIERS, kernel_tier, tier_scope
 from piper_tpu_torch.parallel.mesh import cat_rows, slice_rows
-from piper_tpu_torch.utils.env import profile_enabled
+from piper_tpu_torch.utils.env import flag_bool, profile_enabled
 from piper_tpu_torch.utils.profiling import Profiler
 
 MODES = ("split", "fused")
@@ -434,6 +435,9 @@ class PiperRuntime:
         synthesize_pipelined serves it)."""
         self.options = options or RuntimeOptions()
         self.options.validate()
+        # PIPER_TPU_NO_PALLAS=1 is use_pallas=False, ahead of the tp rule,
+        # as the JAX runtime's _resolve_pallas reads it.
+        self._no_kernels = self.options.use_pallas is False or flag_bool("PIPER_TPU_NO_PALLAS")
         self.mesh = mesh
         if mesh is not None:
             from piper_tpu_torch.parallel.mesh import DATA_AXIS, PIPE_AXIS
@@ -468,7 +472,7 @@ class PiperRuntime:
         self._groups: List[_Group] = []
         if mesh is None:
             self.params = params_to_torch(host_arrays_from_graph(graph), self.device, dtype)
-            if self.options.use_pallas is False:
+            if self._no_kernels:
                 self._place_groups([self.params])
         else:
             self._place_on_mesh(params_to_torch(host_arrays_from_graph(graph), "cpu", dtype))
@@ -494,7 +498,8 @@ class PiperRuntime:
         self._tp_size = int(mesh.shape.get(TENSOR_AXIS, 1))
         self._dp_size = int(mesh.shape[DATA_AXIS])
         # False under tp; raises on an explicit use_pallas=True there.
-        tp.resolve_pallas_under_tp(self._tp_size, self.options.use_pallas)
+        if not self._no_kernels:
+            tp.resolve_pallas_under_tp(self._tp_size, self.options.use_pallas)
         self._logical_bytes = sum(t.numel() * t.element_size() for t in host.values())
         slot_params = tp.place_params(host, mesh)
         self._specs = tp.param_specs(host, mesh)
@@ -512,7 +517,7 @@ class PiperRuntime:
             mesh, specs = make_mesh(1, devices=[self.device]), {k: () for k in slot_params[0]}
         else:
             mesh, specs = self.mesh, self._specs
-        plain = self._tp_size > 1 or self.options.use_pallas is False
+        plain = self._tp_size > 1 or self._no_kernels
         self._groups = []
         for d in range(self._dp_size):
             slot = mesh.index(dp=d)

@@ -5,8 +5,15 @@ taking JAX's use_pallas=True throughout:
 
 - a ResBlock1 level narrower than 128 channels, given per-row bounds (or no
   mask at all), goes through the fused resblock kernels: the whole-MRF
-  kernel when it has at most 32 channels, one branch kernel per branch
-  otherwise;
+  kernel when it has at most 32 channels (PIPER_TPU_FUSE_MRF=1 at every
+  such level, =0 at none), one branch kernel per branch otherwise;
+- a branch (or the whole MRF) whose width or halo those kernels do not take
+  (`resblock.stage_takes`: C not one of their tier's widths, or no time
+  tile whose window fits) goes conv by conv through the conv1d_same
+  kernel, which takes any square C below 128, each conv's input masked by
+  the level's bounds and the branch's output by them, as the fused
+  kernels mask it: where JAX runs its Pallas kernels, the port runs a
+  kernel of its own, never cuDNN;
 - every other resblock conv that is square and narrower than 128 channels
   (all convs of a ResBlock2 voice's narrow levels, and the unfused narrow
   ResBlock1 convs of a masked run without bounds) goes through the
@@ -39,10 +46,12 @@ from piper_tpu_torch.models.vits.hparams import VitsHParams
 from piper_tpu_torch.models.vits.params import Params, Prefix
 from piper_tpu_torch.ops.conv import conv1d, conv1d_same, conv_transpose1d
 from piper_tpu_torch.ops.kernels import conv as K1
-from piper_tpu_torch.ops.kernels.precision import tier_scope
-from piper_tpu_torch.ops.kernels.resblock import resblock1_branch, resblock1_mrf
+from piper_tpu_torch.ops.kernels.precision import tier_code, tier_scope
+from piper_tpu_torch.ops.kernels.resblock import (_bounds_array, _mask, branch_halo,
+                                                  resblock1_branch, resblock1_mrf, stage_takes)
 from piper_tpu_torch.ops.nn import leaky_relu
 from piper_tpu_torch.utils.debug_trace import trace_put, tracing
+from piper_tpu_torch.utils.env import flag
 
 LRELU_SLOPE = 0.1
 
@@ -65,15 +74,21 @@ def _lrelu_conv(x, w, b, *, dilation=1, t_mask=None, bounds=None, precision=None
     return conv1d_same(xt, w, b, dilation=dilation)
 
 
-def _resblock1(x, p: Prefix, dilations, t_mask=None, precision=None, kernels=True):
-    """Multi-receptive-field residual block (HiFi-GAN ResBlock1), unfused."""
+def _resblock1(x, p: Prefix, dilations, t_mask=None, precision=None, kernels=True,
+               bounds=None, record=True):
+    """Multi-receptive-field residual block (HiFi-GAN ResBlock1), unfused;
+    with `bounds` the K1 convs mask their inputs by them. `record` False
+    keeps its convs out of a per-layer trace, as a fused branch's are."""
     for m, d in enumerate(dilations):
         xt = _lrelu_conv(x, p[f"convs1.{m}.weight"], p[f"convs1.{m}.bias"],
-                         dilation=d, t_mask=t_mask, precision=precision, kernels=kernels)
-        trace_put(f"{p.prefix}.convs1.{m}", xt)
+                         dilation=d, t_mask=t_mask, bounds=bounds, precision=precision,
+                         kernels=kernels)
+        if record:
+            trace_put(f"{p.prefix}.convs1.{m}", xt)
         xt = _lrelu_conv(xt, p[f"convs2.{m}.weight"], p[f"convs2.{m}.bias"], t_mask=t_mask,
-                         precision=precision, kernels=kernels)
-        trace_put(f"{p.prefix}.convs2.{m}", xt)
+                         bounds=bounds, precision=precision, kernels=kernels)
+        if record:
+            trace_put(f"{p.prefix}.convs2.{m}", xt)
         x = x + xt
     return x
 
@@ -180,26 +195,38 @@ def _level(x, m, bounds, i: int, p: Prefix, hp: VitsHParams, use_resblock2: bool
         bounds = bounds * u
     ch_here = x.shape[1]
     num_kernels = hp.num_resblock_kernels
+    ks, dilations = hp.resblock_kernel_sizes, hp.resblock_dilation_sizes
     fused = not use_resblock2 and ch_here < 128 and (m is None or bounds is not None)
+    tier = tier_code(precision)
     rbs = [p.sub(f"resblocks.{i * num_kernels + j}") for j in range(num_kernels)]
-    if fused and ch_here <= 32 and not tracing():
-        branches = [
-            (*_stacked(rb, len(hp.resblock_dilation_sizes[j])),
-             hp.resblock_kernel_sizes[j], hp.resblock_dilation_sizes[j])
-            for j, rb in enumerate(rbs)
-        ]
+    mrf_flag = flag("PIPER_TPU_FUSE_MRF")
+    fuse_mrf = ch_here <= 32 if mrf_flag == "" else mrf_flag == "1"
+    if fused and fuse_mrf and not tracing() and stage_takes(
+            ch_here, max(branch_halo(k, d) for k, d in zip(ks, dilations)), tier, mean=True,
+            taps=max(ks), device=x.device):
+        branches = [(*_stacked(rb, len(dilations[j])), ks[j], dilations[j])
+                    for j, rb in enumerate(rbs)]
         return resblock1_mrf(x, branches, bounds=bounds, slope=LRELU_SLOPE,
                              precision=precision), m, bounds
     acc = None
     for j, rb in enumerate(rbs):
-        kernel = hp.resblock_kernel_sizes[j]
-        dils = hp.resblock_dilation_sizes[j]
-        if fused:
+        kernel, dils = ks[j], dilations[j]
+        if fused and stage_takes(ch_here, branch_halo(kernel, dils), tier, taps=kernel,
+                                 device=x.device):
             y = resblock1_branch(x, *_stacked(rb, len(dils)), kernel=kernel, dilations=dils,
                                  bounds=bounds, slope=LRELU_SLOPE, precision=precision)
         elif use_resblock2:
             y = _resblock2(x, rb, dils, t_mask=m, bounds=None if m is None else bounds,
                            precision=precision)
+        elif fused:
+            # A width or halo the ResBlock1 kernels refuse: conv by conv
+            # through K1, masked by the bounds as the branch kernel masks,
+            # traced as the branch kernel is (JAX's Pallas branch).
+            y = _resblock1(x, rb, dils, t_mask=m, precision=precision, bounds=bounds,
+                           record=False)
+            if bounds is not None:
+                b, _, n = x.shape
+                y = y * _mask(_bounds_array(bounds, b, n, x.device), n).to(y.dtype)
         else:
             y = _resblock1(x, rb, dils, t_mask=m, precision=precision)
         trace_put(rb.prefix, y)

@@ -91,14 +91,16 @@ def load() -> ctypes.CDLL:
     lib.piper_cuda_error_string.argtypes = [i]
     lib.piper_cuda_error_string.restype = ctypes.c_char_p
     # Each entry ends in (..., tier, [bf16_io,] device, stream); the
-    # ResBlock1 entries take (tile, ring, group) before the slope.
+    # ResBlock1 entries take (tile, ring, group) before the slope, K1's
+    # (warpgroups, ring, chunk) after the tier.
     lib.piper_resblock1_branch.argtypes = [
         p, p, p, p, p, i, i, p, p, p, i, i, i, i, i, i, f, i, i, i, p]
     lib.piper_resblock1_mrf.argtypes = [
         p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, i, p]
     lib.piper_resblock1_mrf_folded.argtypes = [
         p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, i, p]
-    lib.piper_conv1d_same.argtypes = [p, p, p, p, i, p, i, i, i, i, i, i, f, i, i, i, i, i, p]
+    lib.piper_conv1d_same.argtypes = [p, p, p, p, i, p, i, i, i, i, i, i, f, i, i, i, i, i, i,
+                                      p]
     # (y, out, B, r, c, q, device, stream): no tier, a permutation.
     lib.piper_interleave.argtypes = [p, p, i, i, i, i, i, p]
     for fn in (lib.piper_resblock1_branch, lib.piper_resblock1_mrf,

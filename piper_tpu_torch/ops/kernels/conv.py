@@ -1,12 +1,16 @@
 """Same-padded dilated conv1d with a fused leaky-ReLU input (K1).
 
 Counterpart of piper_tpu.ops.pallas.conv.pallas_conv1d_same: the ResBlock2
-convs and the unfused narrow ResBlock1 convs. The kernel is CUDA C++ for
+convs, the unfused narrow ResBlock1 convs, and the ResBlock1 levels whose
+width or halo the ResBlock1 kernels do not take. The kernel is CUDA C++ for
 Hopper (`csrc/conv1d.cu`, whose header says what bounds it on the H100 and
-how the design answers it): mma.sync on the tensor cores at every tier,
-3xTF32 at "highest" and bf16 at "high" and "default", from the caller's
-fp32 weights as they are (the kernel stages and splits them itself, so no
-launch lays them out). It sits beside its plain PyTorch version.
+how the design answers it): warpgroup products (wgmma) at every tier,
+3xTF32 at "highest" and bf16 at "high" and "default", on K2-K4's stage
+(`csrc/resblock1.cuh`) for one conv. Its weights are the stage's
+bulk-copied, swizzled image (`resblock.wgmma_tier_image` of the weights
+zero-padded to C rounded up to 16), laid out once per weight tensor and
+tier (`weight_image`), so a call is one launch. Any square C from 1 to 128
+runs. It sits beside its plain PyTorch version.
 
 Contract, as on the TPU: out = conv1d_same(leaky_relu(x, act_slope), w, b,
 dilation=d), zero padding on both sides, odd k, square weights (C, C, k);
@@ -23,7 +27,7 @@ the plain version's fp32 product.
 bf16 activations (the runtime's "bfloat16" mode): x, weight and bias may
 all be bfloat16 at "default", the tier that mode maps to, and nowhere else
 (`resblock.check_io_dtype`). The kernel reads them straight into the bf16
-planes it stages at "default" (no fp32 -> bf16 split), sums in fp32 and
+plane it stages at "default" (no fp32 -> bf16 split), sums in fp32 and
 stores the output rounded to bf16; the plain version is the fp32 plain
 version at "default" on their fp32 values, rounded to bf16.
 
@@ -34,25 +38,22 @@ kernel or raises. `conv1d_same.launches` counts the kernel launches.
 from __future__ import annotations
 
 import functools
+import weakref
 from typing import Optional, Tuple
 
 import torch
 
 from piper_tpu_torch.ops.kernels.precision import tier_code, tiered_conv1d
-from piper_tpu_torch.ops.kernels.resblock import (_MMA_PAD, _SMEM_LIMIT, _TF32_PAD,
-                                                  _THREADS, _bounds_array, _mask, _stream,
-                                                  check_io_dtype)
+from piper_tpu_torch.ops.kernels.resblock import (_SMEM_LIMIT, _SMS, _bounds_array, _mask,
+                                                  _stream, _tap_units, check_io_dtype,
+                                                  wgmma_tier_image)
 from piper_tpu_torch.ops.nn import leaky_relu
 
-_MMA_TILES = (256, 128, 64, 32, 16)  # multiples of a warp's n-tiles of 8 lanes
-# A warp's 8-lane n-tiles by tier code: "highest" takes 4 (each A fragment
-# split on read then feeds 12 mma) or 2; the bf16 tiers 2 (one ldmatrix.x4
-# of B).
-_N_TILES = ((4, 2), (2,), (2,))
-# A warp's 16-channel m-tiles by tier code: "highest" takes at most 2 (4 by
-# its n-tiles would spill registers).
-_M_TILES = ((1, 2), (1, 2, 4), (1, 2, 4))
-_MMA_STAGE_PAD = 8  # the output stage's row is tile + 8 floats (conv1d.cu)
+_MAX_C = 128
+_TILES = (256, 192, 128, 64, 32, 16)  # output samples a block: 64 a warpgroup
+_RINGS = (1, 2, 3)  # the weight slots (at most the conv's chunks)
+_CHUNKS = (1, 2, 3, 4, 5, 6, 7, 11)  # units a slot may hold (and a whole conv's)
+_SMEM_SM = 233472  # shared memory of an H100 SM, where the device does not say
 _props = functools.lru_cache(maxsize=None)(torch.cuda.get_device_properties)
 
 
@@ -106,65 +107,171 @@ def _kernel_bounds(bounds, b: int, device: torch.device) -> Tuple[Optional[torch
     return t.contiguous(), 1 if t.ndim == 1 else 2
 
 
-def mma_smem_bytes(c: int, k: int, tile: int, pad: int, tier: int) -> int:
-    """The kernel's shared memory at tier code `tier`: the weights as planes
-    [tap][C_out][C_in + row pad] (C padded to a multiple of 16), then the
-    window's planes [lane][C_in + row pad] or the fp32 output stage
-    (C, tile + 8) over them, whichever is larger. "highest" keeps the
-    weights in one fp32 plane and the window in two, its tf32 big and small
-    parts (row pad 4 words); "high" two bf16 planes of each (row pad 8),
-    "default" one."""
-    cp = -(-c // 16) * 16
-    if tier == 0:
-        row = 4 * (cp + _TF32_PAD)
-        return k * cp * row + max(2 * (tile + 2 * pad) * row, 4 * c * (tile + _MMA_STAGE_PAD))
-    row = (2 if tier == 1 else 1) * 2 * (cp + _MMA_PAD)
-    return k * cp * row + max((tile + 2 * pad) * row, 4 * c * (tile + _MMA_STAGE_PAD))
+def _padded(c: int) -> int:
+    """C rounded up to a multiple of 16: wgmma's N and K steps."""
+    return -(-c // 16) * 16
 
 
-def _mma_warps(c: int, tile: int, m_tiles: int, n_tiles: int) -> int:
-    """Warps of the kernel's block: one per work item of m_tiles m-tiles by
-    n_tiles n-tiles of 8 lanes."""
-    return -(-c // 16) // m_tiles * (tile // (8 * n_tiles))
+def _stage_stride(tile: int) -> int:
+    """The output stage's row in floats (csrc/conv1d.cuh::stage_stride): at
+    least the tile, 4 past a multiple of 16."""
+    return (tile + 11) // 16 * 16 + 4
 
 
-def _mma_config(x: torch.Tensor, k: int, pad: int, tile_max: int,
-                tier: int) -> Tuple[int, int, int]:
-    """(tile, m-tiles, n-tiles per warp) of the kernel, each warp owning the
-    fewest m-tiles a block of at most 16 warps allows. At "high"/"default"
-    (2 n-tiles): the most warps a block takes, then the fewest lanes per SM
-    (ceil(tiles / SMs) tiles, blocks on one SM sharing it). At "highest"
-    (2 or 4 n-tiles): the fewest window lanes per SM (the same count of
-    tiles, each tile + 2*pad lanes, staged and split once), then the most
-    warps, then 4 n-tiles. The larger tile on a tie. Only tiles (256 ... 16,
-    at most `tile_max`, a multiple of a warp's lanes) that fit in shared
-    memory count. On the H100 at x_low's two levels at B=1 this took the
-    fastest (tile, m-tiles, n-tiles) of `tools/conv1d_probe.py --sweep` at
-    every tier. The output depends on none of them."""
-    b, c, n = x.shape
+def smem_bytes(c: int, k: int, pad: int, tile: int, tier: int, ring: int, chunk: int) -> int:
+    """The kernel's shared memory (csrc/conv1d.cuh::smem_bytes) at tier code
+    `tier`: up to 1024 bytes to align the ring; min(ring, chunks) slots of
+    `chunk` units of the weight image (a tap, or where a tap's image passes
+    32 KB one swizzle atom of it, `_tap_units`; rounded up to 1024 bytes)
+    and their mbarriers (16 bytes a slot, rounded up to 128); then the
+    window's act(x) planes, Cp channels (C rounded up to 16) by tile + 2*pad
+    + 1 lanes (the last takes the stores past the window), with a guard of
+    16 bytes for each of the last warpgroup's rows past the tile, or the
+    fp32 output stage over them (C rows of `_stage_stride(tile)`), whichever
+    is larger. The planes are tf32 big and small (fp32 words) at "highest",
+    bf16 hi and lo at "high", bf16 at "default"; the image has as many."""
+    cp = _padded(c)
+    elem = 4 if tier == 0 else 2
+    planes = 1 if tier == 2 else 2
+    units = _tap_units(cp, tier)
+    depth = min(ring, -(-k * units // chunk))
+    slot = -(-chunk * (planes * elem * cp * cp // units) // 1024) * 1024
+    rows = -(-tile // 64) * 64
+    act = planes * elem * cp * (tile + 2 * pad + 1) + 16 * (rows - tile)
+    return (1024 + depth * slot + -(-16 * depth // 128) * 128
+            + max(act, 4 * c * _stage_stride(tile)))
+
+
+def configs(x: torch.Tensor, k: int, pad: int, tile_max: int, tier: int) -> list:
+    """Every (tile, warpgroups, ring, chunk) the kernel can launch for x (B,
+    C, N) and a conv of k taps reaching `pad` samples a side: a tile of at
+    most `tile_max` output samples from _TILES (and `tile_max` itself below
+    256); a block of the tile's ceil(tile / 64) warpgroups or of four (the
+    rest only load and store); `ring` weight slots of `chunk` units (of the
+    conv's k * `_tap_units` units) each, one slot for a conv of one chunk,
+    else 2 or 3 but at most the conv's chunks (a chunk's slot is refilled
+    once the products on the chunk before it are done, so one slot for two
+    chunks would wait on itself); those that fit in shared memory. Largest
+    tile first."""
+    limit = getattr(_props(x.device), "shared_memory_per_block_optin", _SMEM_LIMIT)
+    return list(_configs(x.shape[1], k, pad, tile_max, tier, limit))
+
+
+@functools.lru_cache(maxsize=None)
+def _configs(c: int, k: int, pad: int, tile_max: int, tier: int, limit: int) -> tuple:
+    units = k * _tap_units(_padded(c), tier)
+    tiles = sorted({t for t in _TILES if t <= tile_max} | {min(tile_max, 256)}, reverse=True)
+    chunks = sorted({min(ch, units) for ch in _CHUNKS} | {units}, reverse=True)
+    return tuple((t, g, r, ch) for t in tiles for g in sorted({-(-t // 64), 4})
+                 for ch in chunks for r in _RINGS
+                 if (r == 1) == (ch == units) and r <= -(-units // ch)
+                 and smem_bytes(c, k, pad, t, tier, r, ch) <= limit)
+
+
+def _resident(c: int, smem: int, warpgroups: int, smem_sm: int) -> int:
+    """Blocks of the kernel an SM holds at once: by shared memory (1 KB of
+    it reserved a block), by threads (2048 an SM) and by registers (65,536
+    an SM; ptxas gives the kernel 36-59 a thread at C <= 32, 66-128 past
+    it: counted as 64 and 128)."""
+    threads = 128 * warpgroups
+    regs = 64 if _padded(c) <= 32 else 128
+    return max(1, min(smem_sm // (smem + 1024), 2048 // threads, 65536 // (threads * regs)))
+
+
+def pick_config(x: torch.Tensor, k: int, pad: int, tile_max: int,
+                tier: int) -> Tuple[int, int, int, int]:
+    """(tile, warpgroups, weight slots, units a slot holds) of the kernel;
+    the output depends on none of them. Measured on the H100 at x_low's
+    levels (`tools/conv1d_probe.py --sweep`, B=1 and B=32, every tier):
+    - where the level's samples fill at most two 128-sample tiles an SM (a
+      batch of 1), blocks of four warpgroups (their loads in flight at
+      once; only the tile's own run products), tiles of 128 where that
+      still gives every SM a block, else 64; then the fewest chunks;
+    - at a serving batch, blocks of the tile's own warpgroups: tiles of 128
+      holding the most blocks an SM (`_resident`: a block's window loads
+      and epilogue run under another's products), then the fewest chunks;
+      where no 128-sample block shares its SM ("highest" at C=64), the
+      fewest window lanes an SM instead (ceil(blocks / SMs) blocks of
+      their product rows and 2*pad lanes of halo), so the halo is staged
+      the fewest times;
+    - then, where a chunk is one unit, 3 slots (each copy further ahead of
+      its products), else 2; the larger tile last. A tile cap below a
+      preferred tile takes the nearest tile under it."""
     props = _props(x.device)
-    limit = getattr(props, "shared_memory_per_block_optin", _SMEM_LIMIT)
-    n16 = -(-c // 16)
-    best = None
-    for t in _MMA_TILES:
-        if t > tile_max or mma_smem_bytes(c, k, t, pad, tier) > limit:
-            continue
-        per_sm = -(-(b * -(-n // t)) // props.multi_processor_count)
-        for nt in _N_TILES[tier]:
-            ms = [m for m in _M_TILES[tier]
-                  if n16 % m == 0 and 0 < _mma_warps(c, t, m, nt) <= _THREADS // 32]
-            if t % (8 * nt) or not ms:
-                continue
-            warps = _mma_warps(c, t, ms[0], nt)
-            key = ((per_sm * (t + 2 * pad), -warps, -nt) if tier == 0
-                   else (-warps, per_sm * t))
-            if best is None or key < best[0]:
-                best = (key, t, ms[0], nt)
-    if best is None:
+    return _pick(*x.shape, k, pad, tile_max, tier,
+                 getattr(props, "shared_memory_per_block_optin", _SMEM_LIMIT),
+                 getattr(props, "multi_processor_count", _SMS),
+                 getattr(props, "shared_memory_per_multiprocessor", _SMEM_SM))
+
+
+@functools.lru_cache(maxsize=4096)
+def _pick(b: int, c: int, n: int, k: int, pad: int, tile_max: int, tier: int, limit: int,
+          sms: int, smem_sm: int) -> Tuple[int, int, int, int]:
+    """pick_config's choice, once per shape and card (the wrapper's host
+    time stays a lookup)."""
+    found = _configs(c, k, pad, tile_max, tier, limit)
+    if not found:
         raise ValueError(f"no time tile <= {tile_max} fits C={c}, k={k}, pad={pad}: the "
-                         f"weights' planes and the window exceed {limit} bytes of "
-                         f"shared memory")
-    return best[1:]
+                         f"window's planes and a weight slot exceed the shared memory")
+    units = k * _tap_units(_padded(c), tier)
+    few = b * n <= 2 * 128 * sms
+    tile = 128 if not few or b * -(-n // 128) >= sms else 64
+    if not few:
+        found = tuple(f for f in found if f[1] == -(-f[0] // 64))
+
+    def resident(config):
+        t, g, ring, chunk = config
+        return _resident(c, smem_bytes(c, k, pad, t, tier, ring, chunk), g, smem_sm)
+
+    at_tile = [resident(f) for f in found if f[0] == tile]
+    shared = few or not at_tile or max(at_tile) > 1
+
+    def cost(config):
+        t, g, ring, chunk = config
+        chunks = -(-units // chunk)
+        if few:
+            first = (abs(t - tile), g != 4, 0)
+        elif shared:
+            first = (abs(t - tile), 0, -resident(config))
+        else:
+            first = (-(-(b * -(-n // t)) // sms) * (-(-t // 64) * 64 + 2 * pad), 0, 0)
+        return (*first, chunks, abs(ring - (3 if chunk == 1 else 2)) if chunks > 1 else 0, -t)
+
+    return min(found, key=cost)
+
+
+_IMAGES: dict = {}  # (id(weight), tier) -> (weakref to weight, version, image, made)
+
+
+def weight_image(w: torch.Tensor, tier: int) -> torch.Tensor:
+    """The kernel's weights at tier code `tier`: `resblock.wgmma_tier_image`
+    of w (C, C, k) zero-padded to C rounded up to 16, laid out once per
+    weight tensor and tier and cached against the tensor's identity and its
+    version counter (so an in-place update lays it out again; an inference
+    tensor keeps no counter, and is cached against its identity alone),
+    dropped when the tensor is freed. On the card the layout runs on the
+    caller's stream; a caller on another stream (a mesh's virtual slots
+    share their device's weights) waits for it first, with no host sync."""
+    version = None if w.is_inference() else w._version
+    key = (id(w), tier)
+    hit = _IMAGES.get(key)
+    if hit is not None and hit[0]() is w and hit[1] == version:
+        _, _, img, made = hit
+        if made is not None:
+            stream = torch.cuda.current_stream(img.device)
+            if stream != made[0]:
+                stream.wait_event(made[1])
+                img.record_stream(stream)
+        return img
+    c = w.shape[0]
+    p = _padded(c) - c
+    img = wgmma_tier_image(torch.nn.functional.pad(w, (0, 0, 0, p, 0, p))[None], tier)
+    made = None
+    if img.is_cuda:
+        stream = torch.cuda.current_stream(img.device)
+        made = (stream, stream.record_event())
+    _IMAGES[key] = (weakref.ref(w, lambda _, key=key: _IMAGES.pop(key, None)), version, img, made)
+    return img
 
 
 def conv1d_same(x, weight, bias=None, *, dilation: int = 1, act_slope: float = 0.0,
@@ -186,34 +293,37 @@ def conv1d_same(x, weight, bias=None, *, dilation: int = 1, act_slope: float = 0
     for name, t in (("x", x), ("weight", weight), ("bias", bias)):
         if t is not None and t.device != x.device:
             raise ValueError(f"{name} must be on {x.device}, got {t.device}")
-    if not x.is_contiguous() or x.shape[1] % 8:
-        raise ValueError(f"x must be contiguous with C a multiple of 8, got C={x.shape[1]} "
+    if not x.is_contiguous() or x.shape[1] > _MAX_C:
+        raise ValueError(f"x must be contiguous with C <= {_MAX_C}, got C={x.shape[1]} "
                          f"contiguous={x.is_contiguous()}")
     k = weight.shape[-1]
-    t, m_tiles, n_tiles = _mma_config(x, k, (k - 1) // 2 * dilation, tile, tier)
-    out = _launch(x, weight.contiguous(), k, bias, bounds, dilation, act_slope, tier, t,
-                  m_tiles, n_tiles, bf16)
+    config = pick_config(x, k, (k - 1) // 2 * dilation, tile, tier)
+    out = _launch(x, weight, k, bias, bounds, dilation, act_slope, tier, config, bf16)
     conv1d_same.launches += 1
     return out
 
 
 def _launch(x, w, k: int, bias, bounds, dilation: int, act_slope: float, tier: int,
-            tile: int, m_tiles: int, n_tiles: int, bf16: bool = False) -> torch.Tensor:
-    """One launch of the kernel on checked arguments, contiguous (C, C, k)
-    weights `w` and the (tile, m_tiles, n_tiles) given; `bf16` for bf16
+            config: Tuple[int, int, int, int], bf16: bool = False) -> torch.Tensor:
+    """One launch of the kernel on checked arguments, (C, C, k) weights `w`
+    (laid out by `weight_image`) and `config` = (tile, warpgroups, weight
+    slots, units a slot holds) as `pick_config` gives it; `bf16` for bf16
     x, w, bias and output."""
     from piper_tpu_torch.ops.kernels import build
 
     lib = build.load()
     b, c, n = x.shape
+    img = weight_image(w, tier)
+    if img.data_ptr() % 16:
+        raise ValueError("the kernel's weight image must be 16-byte aligned")
     bnd, cols = _kernel_bounds(bounds, b, x.device)
     bc = None if bias is None else bias.contiguous()
     out = torch.empty_like(x)
     # slope 1 is the identity: act_slope 0 means no activation, as on the TPU.
     code = lib.piper_conv1d_same(
-        x.data_ptr(), w.data_ptr(), None if bc is None else bc.data_ptr(),
+        x.data_ptr(), img.data_ptr(), None if bc is None else bc.data_ptr(),
         None if bnd is None else bnd.data_ptr(), cols, out.data_ptr(), b, c, n, k, dilation,
-        tile, act_slope if act_slope else 1.0, tier, m_tiles, n_tiles, int(bf16),
+        config[0], act_slope if act_slope else 1.0, tier, *config[1:], int(bf16),
         x.device.index or 0, _stream(x))
     build.check(lib, code, "piper_conv1d_same")
     return out

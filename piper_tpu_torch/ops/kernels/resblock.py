@@ -56,8 +56,6 @@ _SMS = 132            # the H100's SMs, where the device does not say
 _THREADS = 512
 _MAX_BRANCHES = 4
 _MAX_DILS = 4
-_MMA_PAD = 8   # K1's bf16 planes: a row is C + 8 channels (ops/kernels/conv.py)
-_TF32_PAD = 4  # K1's "highest" fp32 plane: a row is C + 4 channels (ops/kernels/conv.py)
 _WGMMA_WIDTHS = (16, 32, 64)  # the wgmma stage's C at the bf16 tiers (one wgmma's N)
 _HIGHEST_WIDTHS = (16, 32, 48, 64, 80, 96, 112)  # and at "highest"
 _WINDOW = 256  # the wgmma stage's window: 64 lanes per warpgroup
@@ -184,9 +182,12 @@ def _atom_row(c: int, elem: int) -> int:
 
 
 def _tap_units(c: int, tier: int) -> int:
-    """The ring's units a tap (csrc/resblock1.cuh::tap_units): one, or at
-    "highest" past C = 64 each swizzle atom of the tap's two tf32 planes."""
-    return 4 * c // _atom_row(c, 4) if tier == 0 and c > 64 else 1
+    """The ring's units a tap (csrc/resblock1.cuh::tap_units): one, or where
+    a tap's image passes 32 KB (at "highest" past C = 64) each swizzle atom
+    of the tap with both its planes."""
+    elem = 4 if tier == 0 else 2
+    tap = (1 if tier == 2 else 2) * elem * c * c
+    return c * elem // _atom_row(c, elem) if tap > 32768 else 1
 
 
 def _smem_bytes(c: int, tile: int, halo: int, mean: bool, tier: int, ring: int = 2,
@@ -213,8 +214,12 @@ def _smem_bytes(c: int, tile: int, halo: int, mean: bool, tier: int, ring: int =
             + buffers * planes * elem * (w + 1) * c + 16 * (_WINDOW - w + halo))
 
 
-def _smem_limit(x: torch.Tensor) -> int:
-    props = torch.cuda.get_device_properties(x.device)
+def _smem_limit(device: torch.device) -> int:
+    """The shared memory a block may opt into on `device`; on the CPU, which
+    routes a level as the card would, the H100's."""
+    if torch.device(device).type == "cpu":
+        return _SMEM_LIMIT
+    props = torch.cuda.get_device_properties(device)
     return getattr(props, "shared_memory_per_block_optin", _SMEM_LIMIT)
 
 
@@ -226,14 +231,33 @@ def wgmma_configs(x: torch.Tensor, halo: int, tile_max: int, tier: int, taps: in
     "highest" atoms of taps, `_tap_units`) that fit in shared memory with
     it. Tiles: those whose window fills 1-4 warpgroups' 64 lanes exactly
     (64*g - 2*halo), and `tile_max` itself. Largest tile first."""
-    c = x.shape[1]
-    limit = _smem_limit(x)
+    return _configs(x.shape[1], _smem_limit(x.device), halo, tile_max, tier, taps)
+
+
+def _configs(c: int, limit: int, halo: int, tile_max: int, tier: int, taps: int):
     tiles = sorted({64 * g - 2 * halo for g in (1, 2, 3, 4)} | {tile_max}, reverse=True)
     units = taps * _tap_units(c, tier)
     chunks = sorted({min(ch, units) for ch in _CHUNKS}, reverse=True)
     return [(t, r, ch) for t in tiles if 0 < t <= tile_max and t + 2 * halo <= _WINDOW
             for r in _RINGS for ch in chunks
             if _smem_bytes(c, t, halo, False, tier, r, ch) <= limit]
+
+
+def stage_takes(c: int, halo: int, tier: int, mean: bool = False, taps: int = 11,
+                device="cpu") -> bool:
+    """Whether the K2/K3 stage takes a ResBlock1 level of C channels whose
+    widest branch reaches `halo` samples a side (convs of at most `taps`
+    taps) at tier code `tier`: C one of the tier's widths (`_widths`, each
+    a multiple of 16) and some (tile, ring, chunk) of its window and shared
+    memory (`wgmma_configs` at the wrappers' default tile cap of 256) on
+    `device`. These are the checks the wrappers make before they launch,
+    and raise on (`_check_cuda_args`, `_pick_tile`); the model layer sends
+    a level they refuse through K1 instead
+    (models/vits/hifigan.py::_level). `mean` (the MRF kernel) changes
+    nothing: its branch sum stays in registers."""
+    del mean
+    return (c % 16 == 0 and c in _widths(tier)
+            and bool(_configs(c, _smem_limit(device), halo, 256, tier, taps)))
 
 
 def _pick_tile(x: torch.Tensor, halo: int, mean: bool, tile_max: int, tier: int,
@@ -332,34 +356,46 @@ def _check_square(w: torch.Tensor, tier: int) -> None:
 
 def wgmma_weights(w: torch.Tensor, tier: int) -> torch.Tensor:
     """The wgmma stage's weights at the bf16 tiers: (M, C_out, C_in, K) ->
-    (M, K, P, C, C) bf16, per (conv, tap) the shared-memory image of wgmma's
-    B operand, K-major (row co holds its C_in weights) with the swizzle of
-    `_swizzle_columns`; each (conv, tap) is one bulk copy of P planes:
-    precision.split_bf16's hi and lo parts (P = 2, tier 1 "high") or
-    bf16(w) (P = 1, tier 2 "default"), from fp32 or, at "default", bf16
-    weights. Square C of 16, 32 or 64, whose rows are one swizzle wide."""
+    (M, K, P, C, C) bf16 (`wgmma_tier_image`): precision.split_bf16's hi and
+    lo parts (P = 2, tier 1 "high") or bf16(w) (P = 1, tier 2 "default"),
+    from fp32 or, at "default", bf16 weights. Square C of 16, 32 or 64,
+    whose rows are one swizzle wide."""
     _check_square(w, tier)
-    hi = w.to(torch.bfloat16)  # split_bf16's hi; lo is what it leaves, rounded
-    parts = torch.stack((hi, (w - hi.float()).to(torch.bfloat16))) if tier == 1 else hi[None]
-    return wgmma_image(parts)
+    return wgmma_tier_image(w, tier)
 
 
 def wgmma_tf32_weights(w: torch.Tensor) -> torch.Tensor:
     """The "highest" tier's weights: (M, C_out, C_in, K) fp32 -> (M, K, 2,
-    C, C) fp32, per (conv, tap) the shared-memory image of wgmma's tf32 B
-    operand, K-major, its 4C-byte rows cut into swizzle atoms as
-    `_swizzle_columns` says (two along C_in at C = 64); each (conv, tap) is
-    one bulk copy of two planes, precision.split_tf32's big and small parts
-    (tf32 values: the low 13 bits zero). Square C, a multiple of 16 below
-    128. Past C = 64 the ring's unit is one atom of a tap with both its
-    planes (`_tap_units`), so there the image is (M, K, A, 2, C, R / 4),
-    atom by atom, each its two planes."""
+    C, C) fp32 (`wgmma_tier_image`): precision.split_tf32's big and small
+    parts (tf32 values: the low 13 bits zero), 4C-byte rows cut into swizzle
+    atoms (two along C_in at C = 64). Square C, a multiple of 16 below 128;
+    past C = 64 (M, K, A, 2, C, R / 4), atom by atom."""
     _check_square(w, 0)
-    img = wgmma_image(torch.stack(split_tf32(w)), elem=4)
+    return wgmma_tier_image(w, 0)
+
+
+def wgmma_tier_image(w: torch.Tensor, tier: int) -> torch.Tensor:
+    """The shared-memory image of wgmma's B operand at tier code `tier`, the
+    one layout K1-K4 bulk-copy: (M, C_out, C_in, K) -> (M, K, P, C, C), per
+    (conv, tap) K-major (row co holds its C_in weights) with the swizzle of
+    `_swizzle_columns`, each (conv, tap) one bulk copy of P planes:
+    precision.split_tf32's big and small parts in fp32 at "highest" (P = 2),
+    split_bf16's hi and lo at "high" (P = 2), bf16(w) at "default" (P = 1,
+    from fp32 or bf16 weights). Where the ring's unit is one swizzle atom of
+    a tap (`_tap_units`: a tap's image past 32 KB) the image is (M, K, A, P,
+    C, R / elem), atom by atom, each its P planes. Square C, any multiple
+    of 16 up to 128 (the widths checks are the callers')."""
+    if tier == 0:
+        parts, elem = torch.stack(split_tf32(w)), 4
+    else:
+        hi = w.to(torch.bfloat16)  # split_bf16's hi; lo is what it leaves, rounded
+        parts = torch.stack((hi, (w - hi.float()).to(torch.bfloat16))) if tier == 1 else hi[None]
+        elem = 2
+    img = wgmma_image(parts, elem=elem)
     m, k, p, c, _ = img.shape
-    if _tap_units(c, 0) == 1:
+    if _tap_units(c, tier) == 1:
         return img
-    per = _atom_row(c, 4) // 4
+    per = _atom_row(c, elem) // elem
     return img.reshape(m, k, p, c // per, c, per).transpose(2, 3).contiguous()
 
 

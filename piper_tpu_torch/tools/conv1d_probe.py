@@ -15,9 +15,12 @@ It uses only the public `conv1d_same` wrapper, so it times any tree whose
 package is first on the path: run it as a file with PYTHONPATH at another
 checkout's root to time that checkout's kernel on the same card.
 
-`--sweep` also times the kernel at every (time tile, m-tiles, n-tiles per
-warp) that fits, at every tier, each held bit-equal to the wrapper's own choice (the
-output does not depend on either), and lists the wrapper's choice per conv.
+`--sweep` also times the kernel at every (time tile, warpgroups, weight
+slots, units a slot holds) that fits every conv of the level
+(`conv.configs`, with a slot of one or two units or the whole conv; a
+slot's units cut to each conv's), at B=1 and at B=32, at every tier, each
+held bit-equal to the wrapper's own choice (the output depends on none of
+them), and lists the wrapper's choice per conv (`conv.pick_config`).
 
 `--utterances` also profiles whole x_low utterances (the synthetic x_low
 voice, seed 0, written under build/conv1d_probe_voice/ beside the package)
@@ -27,20 +30,22 @@ after the median wall of `--reps` unprofiled ones (`profile_utterance`):
 device kernels, device-busy ms, and K1's kernels, ms and count (checked
 against the launch counter). It needs the card and has no other path.
 
-Beside K1 at "highest" it prints two yardsticks per level: `library_ms`,
-the same function by the library route (leaky_relu, then F.conv1d: two
-PyTorch calls per conv, TF32 off), and `host_tf32_layout_ms`, the device
-time that laying the six weights out on the host as the tensor cores'
-tf32 image would add (`resblock.wgmma_tf32_weights`, as K2-K4 take their
-weights at "highest"; K1 splits them in the kernel instead); and the same level at a
-batch of 32 (`b32`: the kernel alone and the library route). Beside K1 at
-"default" it prints `library_bf16_ms`: the library route on bf16 operands
-(x, weights and bias cast once, outside the timed calls; bf16 products
-summed in fp32 as K1's "default" forms them), the one PyTorch route with
-that tier's arithmetic. "high" (bf16x3) has no single-call counterpart.
+At every tier each level's row also gives K1 alone at a batch of 32
+(`b32_kernel_ms`: 32 rows of `--b32-frames` frames, 384 by default, the
+x_low serving batch's frame bucket). Beside K1 at "highest" it prints the
+yardsticks: `library_ms` and `b32_library_ms`, the same function by the
+library route (leaky_relu, then F.conv1d: two PyTorch calls per conv, TF32
+off), and `host_tf32_layout_ms`, the device time of laying the six weights
+out as the tensor cores' tf32 image on every call
+(`resblock.wgmma_tf32_weights`, as K2-K4 take theirs; K1 lays its image out
+once per weight tensor and tier). Beside K1 at "default" it prints
+`library_bf16_ms`: the library route on bf16 operands (x, weights and bias
+cast once, outside the timed calls; bf16 products summed in fp32 as K1's
+"default" forms them), the one PyTorch route with that tier's arithmetic.
+"high" (bf16x3) has no single-call counterpart.
 
     python -m piper_tpu_torch.tools.conv1d_probe [--precision highest,high,default]
-        [--frames 128] [--reps 10] [--sweep] [--utterances]
+        [--frames 128] [--b32-frames 384] [--reps 10] [--sweep] [--utterances]
 """
 
 from __future__ import annotations
@@ -59,6 +64,7 @@ def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--precision", default="highest,high,default")
     ap.add_argument("--frames", type=int, default=128)
+    ap.add_argument("--b32-frames", type=int, default=384)
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--utterances", action="store_true")
@@ -109,68 +115,68 @@ def _utterances(torch, reps: int) -> List[dict]:
 
 
 def _sweep(torch, K1, x, convs, tier: str, reps: int) -> dict:
-    """The kernel's (tile, m_tiles, n_tiles) choices at one level, one for
-    all six convs, and the wrapper's choice per conv."""
+    """The kernel's (tile, warpgroups, ring, chunk) choices at one level,
+    one for all six convs (a chunk cut to each conv's units), and the
+    wrapper's choice per conv."""
     from piper_tpu_torch.ops.kernels.precision import tier_code
     from piper_tpu_torch.tools.timing import device_ms
 
     code = tier_code(tier)
-    b, c, n = x.shape
-    limit = torch.cuda.get_device_properties(x.device).shared_memory_per_block_optin
     pads = [(k - 1) // 2 * d for _, _, k, d in convs]
     want = [K1.conv1d_same(x, w, bias, dilation=d, act_slope=0.1, precision=tier)
             for w, bias, k, d in convs]
+    fits = [set(K1.configs(x, k, p, 4096, code)) for (_, _, k, _), p in zip(convs, pads)]
+    units = [k * K1._tap_units(K1._padded(x.shape[1]), code) for _, _, k, _ in convs]
+
+    def per_conv(config, u):
+        t, g, ring, chunk = config
+        chunk = min(chunk, u)
+        return t, g, min(ring, -(-u // chunk)), chunk
+
     rows = []
-    for nt, t, m in ((nt, t, m) for nt in K1._N_TILES[code] for t in K1._MMA_TILES
-                     for m in K1._M_TILES[code]):
-        warps = K1._mma_warps(c, t, m, nt)
-        if (-(-c // 16)) % m or t % (8 * nt) or not 0 < warps <= 16 or any(
-                K1.mma_smem_bytes(c, k, t, p, code) > limit
-                for (_, _, k, _), p in zip(convs, pads)):
-            continue
+    for config in sorted(set().union(*fits)):
+        cfgs = [per_conv(config, u) for u in units]
+        if (cfgs[-1] != config or config[3] not in (1, 2, units[-1])
+                or not all(c in f for c, f in zip(cfgs, fits))):
+            continue  # each config once, as the level's widest conv takes it
 
         def run():
-            return [K1._launch(x, w, k, bias, None, d, 0.1, code, t, m, nt)
-                    for w, bias, k, d in convs]
+            return [K1._launch(x, w, k, bias, None, d, 0.1, code, c)
+                    for (w, bias, k, d), c in zip(convs, cfgs)]
 
         if not all(torch.equal(g, h) for g, h in zip(run(), want)):
-            raise AssertionError(f"conv1d_same {tier} C={c} tile {t} m_tiles {m} n_tiles "
-                                 f"{nt}: differs from the wrapper's choice")
-        rows.append({"tile": t, "m_tiles": m, "n_tiles": nt, "warps": warps,
+            raise AssertionError(f"conv1d_same {tier} C={x.shape[1]} {config}: differs from "
+                                 f"the wrapper's choice")
+        rows.append({"tile": config[0], "warpgroups": config[1], "ring": config[2],
+                     "chunk": config[3],
                      "kernel_ms": device_ms(run, reps=reps, name="conv1d_same",
                                             expected=len(convs))})
-    return {"rows": rows, "chosen": [list(K1._mma_config(x, k, p, 4096, code))
+    return {"rows": rows, "chosen": [list(K1.pick_config(x, k, p, 4096, code))
                                      for (_, _, k, _), p in zip(convs, pads)]}
 
 
-def _yardsticks(torch, K1, x, convs, reps: int) -> dict:
-    """At "highest": the library route's device time for the level's six
-    convs (leaky_relu then F.conv1d, TF32 off), the host tf32 layout's for
-    their weights, and both the kernel's and the library route's at a
-    batch of 32 (the rows copies of x)."""
+def _library(x, convs):
+    """The level's six convs by the library route: leaky_relu, then F.conv1d."""
     import torch.nn.functional as F
 
+    return [F.conv1d(F.leaky_relu(x, 0.1), w, b, padding=(k - 1) // 2 * d, dilation=d)
+            for w, b, k, d in convs]
+
+
+def _yardsticks(torch, x, x32, convs, reps: int) -> dict:
+    """At "highest": the library route's device time for the level's six
+    convs (TF32 off), at B=1 and at B=32, and the host tf32 layout's for
+    their weights (as K2-K4 lay theirs out on every call)."""
     from piper_tpu_torch.ops.kernels.resblock import wgmma_tf32_weights
     from piper_tpu_torch.tools.timing import call_kernels, device_ms
-
-    def library(xx):
-        return [F.conv1d(F.leaky_relu(xx, 0.1), w, b, padding=(k - 1) // 2 * d, dilation=d)
-                for w, b, k, d in convs]
-
-    def kernel(xx):
-        return [K1.conv1d_same(xx, w, b, dilation=d, act_slope=0.1, precision="highest")
-                for w, b, k, d in convs]
 
     def layout():
         return [wgmma_tf32_weights(w[None]) for w, _, _, _ in convs]
 
-    x32 = x.expand(32, -1, -1).contiguous()
-    return {"library_ms": device_ms(lambda: library(x), reps=reps),
+    return {"library_ms": device_ms(lambda: _library(x, convs), reps=reps),
             "host_tf32_layout_ms": device_ms(layout, reps=reps),
             "host_tf32_layout_kernels": call_kernels(layout)[0],
-            "b32": {"kernel_ms": device_ms(lambda: kernel(x32), reps=reps, name="conv1d_same",
-                                           expected=len(convs)),
-                    "library_ms": device_ms(lambda: library(x32), reps=reps)}}
+            "b32_library_ms": device_ms(lambda: _library(x32, convs), reps=reps)}
 
 
 def _library_bf16_ms(torch, x, convs, reps: int) -> float:
@@ -205,31 +211,37 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
         convs = [((torch.randn(c, c, k, generator=gen) * (c * k) ** -0.5).cuda(),
                   (torch.randn(c, generator=gen) * 0.02).cuda(), k, d) for k, d in X_LOW_CONVS]
         x = (torch.randn(1, c, per_frame * args.frames, generator=gen) * 0.3).cuda()
-        levels.append((level, x, convs))
+        x32 = (torch.randn(32, c, per_frame * args.b32_frames, generator=gen) * 0.3).cuda()
+        levels.append((level, x, x32, convs))
     rows, sums = [], {}
     with torch.inference_mode(), fp32_exact():
         for tier in args.precision.split(","):
-            total = {"wrapper_ms": 0.0, "kernel_ms": 0.0}
-            for level, x, convs in levels:
+            total = {"wrapper_ms": 0.0, "kernel_ms": 0.0, "b32_kernel_ms": 0.0}
+            for level, x, x32, convs in levels:
 
-                def call():
-                    return [K1.conv1d_same(x, w, b, dilation=d, act_slope=0.1, precision=tier)
+                def call(xx=x, convs=convs):
+                    return [K1.conv1d_same(xx, w, b, dilation=d, act_slope=0.1, precision=tier)
                             for w, b, k, d in convs]
 
                 row = {"precision": tier, "level": level, "channels": x.shape[1],
                        "samples": x.shape[2], "wrapper_ms": device_ms(call, reps=args.reps),
                        "kernel_ms": device_ms(call, reps=args.reps, name="conv1d_same",
-                                              expected=len(convs))}
+                                              expected=len(convs)),
+                       "b32_samples": x32.shape[2],
+                       "b32_kernel_ms": device_ms(lambda: call(x32), reps=args.reps,
+                                                  name="conv1d_same", expected=len(convs))}
                 if tier == "highest":
-                    row.update(_yardsticks(torch, K1, x, convs, args.reps))
-                    total["library_ms"] = total.get("library_ms", 0.0) + row["library_ms"]
+                    row.update(_yardsticks(torch, x, x32, convs, args.reps))
+                    for key in ("library_ms", "b32_library_ms"):
+                        total[key] = total.get(key, 0.0) + row[key]
                 elif tier == "default":
                     row["library_bf16_ms"] = _library_bf16_ms(torch, x, convs, args.reps)
                     total["library_bf16_ms"] = (total.get("library_bf16_ms", 0.0)
                                                 + row["library_bf16_ms"])
                 if args.sweep:
                     row["sweep"] = _sweep(torch, K1, x, convs, tier, args.reps)
-                for key in ("wrapper_ms", "kernel_ms"):
+                    row["b32_sweep"] = _sweep(torch, K1, x32, convs, tier, args.reps)
+                for key in ("wrapper_ms", "kernel_ms", "b32_kernel_ms"):
                     total[key] += row[key]
                 print(json.dumps(row), flush=True)
                 rows.append(row)
@@ -237,7 +249,8 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
         if args.utterances:
             rows += _utterances(torch, args.reps)
     summary = {"package": piper_tpu_torch.__file__, "device": torch.cuda.get_device_name(0),
-               "frames": args.frames, "launches_per_tier": 6 * len(levels), "sums": sums}
+               "frames": args.frames, "b32_frames": args.b32_frames,
+               "launches_per_tier": 6 * len(levels), "sums": sums}
     print(json.dumps(summary), flush=True)
     return rows + [summary]
 

@@ -11,8 +11,12 @@ JAX platform override has no counterpart here, `--device` takes its place).
 | PIPER_TPU_VOCODER_PRECISION | vocoder-only tier or comma-list per upsample level |
 | PIPER_TPU_FLOW_PRECISION | decode-flow-only tier (encoder stays fp32)         |
 | PIPER_TPU_MODE          | override execution mode: split | fused              |
+| PIPER_TPU_NO_PALLAS     | =1 runs no kernel: PyTorch's convs, as use_pallas=False |
+| PIPER_TPU_FUSE_MRF      | =1/=0 force whole-MRF fusion on/off (default: ch<=32 levels only) |
 
-`RuntimeOptions.from_env()` reads the precision and mode flags.
+`RuntimeOptions.from_env()` reads the precision and mode flags; `PiperRuntime`
+reads PIPER_TPU_NO_PALLAS when it is made, and the vocoder's `_level`
+(models/vits/hifigan.py) PIPER_TPU_FUSE_MRF at every level.
 """
 
 from __future__ import annotations

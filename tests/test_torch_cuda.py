@@ -13,8 +13,8 @@ where one bf16 rounding of a conv's input may flip between the two versions
 and the chain carries the flip on (measured up to 2.2e-3 for K2 at C=64,
 k=11 on the H100; chip_smoke.py says more). K2/K3/K4 run every tier on the
 tensor cores (wgmma), whose fp32 sums run in yet another order: the same
-bars. K1 runs "high" and "default" there too; one conv carries no flip, so
-its x_low tests hold every tier to 1e-4 (K1_ATOL). K1-K3 on bf16
+bars. K1 runs every tier on wgmma too; one conv carries no flip, so its
+x_low tests hold every tier to 1e-4 (K1_ATOL). K1-K3 on bf16
 activations (the "bfloat16" mode, "default" only) are held within one bf16
 ulp of the fp32-input "default" kernel on the same values, and within the
 bar plus one ulp of their plain versions.
@@ -122,15 +122,29 @@ def test_conv1d_same_kernel_matches_plain(cuda, c, k, d, n, slope, with_bias):
 
 
 def test_conv1d_same_kernel_refuses_bad_arguments(cuda):
-    x = torch.zeros(1, 12, 64, device=cuda)  # C=12 is not a multiple of 8
-    with pytest.raises(ValueError, match="multiple of 8"):
-        K1.conv1d_same(x, torch.zeros(12, 12, 3, device=cuda))
+    """K1 takes every square C up to 128 (C=12 runs as 16 zero-padded
+    channels; C=120 at k=11, 633 KB of weights, streams them an atom of a
+    tap at a time), each against its plain version; it refuses another
+    dtype, C past 128 and a window no tile fits beside a weight slot."""
+    gen = torch.Generator().manual_seed(12)
+    for c, k, d in ((12, 3, 1), (120, 11, 5)):
+        x = (torch.randn(2, c, 1000, generator=gen) * 0.3).to(cuda)
+        w = (torch.randn(c, c, k, generator=gen) * (c * k) ** -0.5).to(cuda)
+        b = (torch.randn(c, generator=gen) * 0.02).to(cuda)
+        for tier in TIERS:
+            got = K1.conv1d_same(x, w, b, dilation=d, act_slope=0.1, precision=tier)
+            torch.cuda.synchronize()
+            want = K1.conv1d_same_plain(x, w, b, dilation=d, act_slope=0.1, precision=tier)
+            assert _max_err(got, want) <= K1_ATOL, (c, tier)
     x = torch.zeros(1, 16, 64, device=cuda)
     with pytest.raises(ValueError, match="float32"):
         K1.conv1d_same(x, torch.zeros(16, 16, 3, device=cuda, dtype=torch.float64))
-    x = torch.zeros(1, 120, 64, device=cuda)  # 633 KB of weights at k=11
+    x = torch.zeros(1, 129, 64, device=cuda)
+    with pytest.raises(ValueError, match="C <= 128"):
+        K1.conv1d_same(x, torch.zeros(129, 129, 3, device=cuda))
+    x = torch.zeros(1, 128, 64, device=cuda)  # pad 150: 324 KB of tf32 window planes
     with pytest.raises(ValueError, match="shared memory"):
-        K1.conv1d_same(x, torch.zeros(120, 120, 11, device=cuda))
+        K1.conv1d_same(x, torch.zeros(128, 128, 11, device=cuda), dilation=30)
 
 
 def _max_err(got, want):
@@ -153,16 +167,19 @@ def _k1_bounds(n, dev):
 
 
 @pytest.mark.parametrize("tier", TIERS)
-@pytest.mark.parametrize("c", [16, 24, 32, 64])  # 24: padded to 32 zero channels
+@pytest.mark.parametrize("c", [16, 24, 32, 48, 64, 120])  # 24, 120: zero-padded to 32, 128
 def test_conv1d_same_kernel_x_low_convs_with_bounds(cuda, tier, c):
     """K1 against its plain version at every (k, d) of x_low's ResBlock2
-    convs, B=2 at a ragged N, every bounds case, one launch counted per
-    call; bit-equal when the time tile (and with it the warps' m-tiles)
-    changes. Every tier runs on the tensor cores ("highest" as 3xTF32)."""
+    convs (and k=11, the ResBlock1 branch's widest, at C=64 and 120), B=2
+    at a ragged N, every bounds case (one- and two-sided, empty and full
+    rows), one launch counted per call; bit-equal when the time tile
+    changes (each output's sum runs in the same order whatever the tile).
+    Every tier on wgmma ("highest" as 3xTF32), within 1e-4."""
     gen = torch.Generator().manual_seed(c)
     n = 3001
     x = (torch.randn(2, c, n, generator=gen) * 0.3).to(cuda)
-    for k, d in X_LOW_CONVS:
+    convs = X_LOW_CONVS + (((11, 5),) if c in (64, 120) else ())
+    for k, d in convs:
         w = (torch.randn(c, c, k, generator=gen) * (c * k) ** -0.5).to(cuda)
         b = (torch.randn(c, generator=gen) * 0.02).to(cuda)
         for case, bnd in _k1_bounds(n, cuda).items():
@@ -173,7 +190,7 @@ def test_conv1d_same_kernel_x_low_convs_with_bounds(cuda, tier, c):
             want = K1.conv1d_same_plain(x, w, b, dilation=d, act_slope=0.1, bounds=bnd,
                                         precision=tier)
             assert _max_err(got, want) <= K1_ATOL, (k, d, case)
-            for cap in ((64, 32) if tier == "highest" else (32, 16)):  # a warp's lanes: 32 / 16
+            for cap in (128, 64, 32):  # two and one warpgroups, and half of one
                 again = K1.conv1d_same(x, w, b, dilation=d, act_slope=0.1, bounds=bnd,
                                        precision=tier, tile=cap)
                 assert torch.equal(again, got), (k, d, case, cap)
@@ -1023,6 +1040,8 @@ def test_bf16_kernels_match_plain_and_the_fp32_input_kernel(cuda, kernel):
     assert fn.launches == before + 1 and got.dtype == torch.bfloat16
     ref = fn(*_fp32(args), precision="default", **kw).to(torch.bfloat16)
     assert bf16_ulps(got, ref) <= 1.0
+    if kernel == "conv1d":  # one conv, the same fp32 sum rounded once: bit-equal
+        assert torch.equal(got, ref)
     want = plain(*args, precision="default", **kw)
     assert want.dtype == torch.bfloat16
     atol = K1_ATOL if kernel == "conv1d" else TIER_ATOL["default"]
@@ -1040,6 +1059,77 @@ def test_bf16_kernels_refuse_other_tiers_on_the_card(cuda, kernel, tier):
     with pytest.raises(ValueError, match="'default' tier only"):
         fn(*args, precision=tier, **kw)
     assert fn.launches == before
+
+
+# A voice whose ResBlock1 levels are C=48 and C=24 (the `test` voice's
+# shape at upsample_initial_channel 96): widths the K2/K3 stage refuses at
+# "high" and "default" (C=24 at every tier), which hifigan._level runs conv
+# by conv through K1. In bf16 every conv's output and every residual sum is
+# rounded to bf16 (2^-8 relative; the level activations reach ~4, an ulp
+# of 2^-6), and the kernel and its plain version sum in other orders, so a
+# rounding may land one ulp apart and the two levels carry it on: the bar
+# is a few such ulps at the waveform, 5e-2; at "high" the lowered tiers'
+# gate, 1e-3.
+REFUSED_ATOL = {"high": 1e-3, "bfloat16": 5e-2}
+
+
+@pytest.mark.parametrize("mode", ["high", "bfloat16"])
+def test_refused_widths_run_k1_on_the_card(cuda, monkeypatch, mode):
+    """The vocoder of the 48/24-channel voice on the card, at "high" and in
+    the "bfloat16" mode (bf16 weights and activations, the kernels at
+    "default"), masked with bounds: K1 launches once a conv (two convs at
+    two dilations a level: 8), K2 and K3 never, and the waveform is finite
+    and within REFUSED_ATOL of its plain version (the same vocoder with
+    every kernel wrapper's plain version, on the card)."""
+    from dataclasses import replace
+
+    from piper_tpu_torch.models.vits import hifigan
+    from piper_tpu_torch.models.vits.hparams import PRESETS
+    from piper_tpu_torch.models.vits.params import params_to_torch
+    from piper_tpu_torch.models.vits.synthetic import synthetic_params
+
+    hp = replace(PRESETS["test"], upsample_initial_channel=96)
+    dtype = torch.bfloat16 if mode == "bfloat16" else torch.float32
+    params = params_to_torch(synthetic_params(hp, seed=21), cuda, dtype)
+    gen = torch.Generator().manual_seed(21)
+    frames = 64
+    z = torch.randn(2, hp.inter_channels, frames, generator=gen).to(cuda, dtype)
+    lengths = torch.tensor([frames, 41], dtype=torch.int32, device=cuda)
+    mask = (torch.arange(frames, device=cuda)[None] < lengths[:, None]).to(dtype)[:, None]
+
+    def run():
+        return hifigan.hifigan_generator(z * mask, params, hp, t_mask=mask, t_bounds=lengths,
+                                         level_precisions=None if mode == "bfloat16" else mode)
+
+    counters = (K1.conv1d_same, R.resblock1_branch, R.resblock1_mrf)
+    before = [fn.launches for fn in counters]
+    got = run()
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [8, 0, 0]
+    assert bool(torch.isfinite(got).all()) and got.dtype == dtype
+    monkeypatch.setattr(K1, "conv1d_same", K1.conv1d_same_plain)
+    monkeypatch.setattr(hifigan, "resblock1_branch", R.resblock1_branch_plain)
+    monkeypatch.setattr(hifigan, "resblock1_mrf", R.resblock1_mrf_plain)
+    want = run()
+    assert _max_err(got.float(), want.float()) <= REFUSED_ATOL[mode]
+
+
+def test_no_pallas_flag_launches_no_kernel_on_the_card(card_voices, monkeypatch):
+    """PIPER_TPU_NO_PALLAS=1 (read when the runtime is made) is
+    use_pallas=False: a synthesize of the medium voice (K2, K3) and of
+    x_low (K1) launches none of K1-K3."""
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.engine.runtime import PiperRuntime
+
+    monkeypatch.setenv("PIPER_TPU_NO_PALLAS", "1")
+    counters = (K1.conv1d_same, R.resblock1_branch, R.resblock1_mrf)
+    for quality in ("medium", "x_low"):
+        rt = PiperRuntime(*card_voices[quality], device="cuda")
+        before = [fn.launches for fn in counters]
+        audio = torch.as_tensor(rt.synthesize(FIXTURE_PHONEME_IDS, seed=1))
+        torch.cuda.synchronize()
+        assert [fn.launches for fn in counters] == before, quality
+        assert audio.numel() > 0 and bool(torch.isfinite(audio).all())
 
 
 # -- the multi-slot layer (parallel/) on virtual slots of the card --------

@@ -149,7 +149,9 @@ def test_bisects_injected_perturbation(weight, expected_first):
 def test_tracing_keeps_the_per_branch_kernels(monkeypatch):
     """With bounds, a level of at most 32 channels takes the whole-MRF
     kernel; while a trace collects it takes one branch kernel per branch,
-    so each branch's output is recorded (the JAX package's rule)."""
+    so each branch's output is recorded (the JAX package's rule). HP's
+    second level (C=8, a width the K2/K3 stage refuses) runs its two
+    dilations' four convs through K1 either way."""
     weights = synthetic_params(HP, seed=7)
     params = {k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in weights.items()}
     z = torch.randn(1, HP.inter_channels, 10, generator=torch.Generator().manual_seed(0))
@@ -158,14 +160,17 @@ def test_tracing_keeps_the_per_branch_kernels(monkeypatch):
                         lambda *a, **k: calls.append("mrf") or R.resblock1_mrf(*a, **k))
     monkeypatch.setattr(hifigan, "resblock1_branch",
                         lambda *a, **k: calls.append("branch") or R.resblock1_branch(*a, **k))
+    conv = hifigan.K1.conv1d_same
+    monkeypatch.setattr(hifigan.K1, "conv1d_same",
+                        lambda *a, **k: calls.append("k1") or conv(*a, **k))
     bounds = torch.tensor([10])
     plain = hifigan.hifigan_generator(z, params, HP, t_bounds=bounds)
-    assert calls == ["mrf", "mrf"]
+    assert calls == ["mrf"] + ["k1"] * 4
     calls.clear()
     trace = {}
     with debug_trace.collecting(trace):
         traced = hifigan.hifigan_generator(z, params, HP, t_bounds=bounds)
-    assert calls == ["branch", "branch"]
+    assert calls == ["branch"] + ["k1"] * 4
     assert ["dec.resblocks.0", "dec.resblocks.1"] == [k for k in trace if "resblocks" in k]
     torch.testing.assert_close(traced, plain, atol=ATOL, rtol=0)
 

@@ -293,58 +293,150 @@ def test_conv1d_same_kernel_bounds_layout():
         K1._kernel_bounds(torch.zeros(3, 2), 2, one.device)
 
 
-def test_mma_shared_memory_figures():
-    """The tensor-core kernel's shared memory at x_low's widest convs: the
-    weight planes [tap][C_out][C_in + 8] (two at "high") and the window's
-    planes or the output stage over them; C=24 is padded to 32 channels.
-    At "highest" one fp32 plane of each, rows of C + 4 words."""
-    # C=64, k=7, d=12 (pad 36), tile 64, "high": 2*7*64*72*2 + 2*136*72*2
-    assert K1.mma_smem_bytes(64, 7, 64, 36, 1) == 129024 + 39168
-    # "default": one plane each; the stage (64 x 72 fp32) is the larger
-    assert K1.mma_smem_bytes(64, 7, 64, 36, 2) == 64512 + max(19584, 18432)
-    assert K1.mma_smem_bytes(64, 3, 256, 1, 2) == 27648 + max(37152, 67584)
-    assert K1.mma_smem_bytes(24, 3, 32, 1, 1) == 2 * 3 * 32 * 40 * 2 + 2 * 34 * 40 * 2
-    # "highest", C=64, k=7, d=12, tile 128: one weight plane 7*64*68*4 and
-    # the window's big and small planes 2*(128+72)*68*4
-    assert K1.mma_smem_bytes(64, 7, 128, 36, 0) == 121856 + 108800 == 230656
-    assert K1.mma_smem_bytes(32, 7, 256, 36, 0) == 7 * 32 * 144 + 2 * 328 * 144
-    # tf32 planes of the split weights (big and small) would not fit: 243,712
-    assert 2 * 7 * 64 * 68 * 4 == 243712 > 232448
+def test_k1_shared_memory_figures():
+    """K1's shared memory (csrc/conv1d.cuh::smem_bytes): 1024 bytes to align
+    the ring, min(ring, chunks) slots of `chunk` taps' images (rounded to
+    1024) and their barriers (128), then the window's act(x) planes of C
+    rounded up to 16 channels by tile + 2*pad + 1 lanes and a guard of 16
+    bytes for each row of the last warpgroup past the tile, or the fp32
+    output stage (C rows of the tile rounded to 16k + 4) where that is
+    larger. "highest": tf32 big and small planes (fp32 words) and a 32 KB
+    tap at C=64; "high" bf16 hi and lo; "default" one bf16 plane; past 32
+    KB a tap the ring's unit is one swizzle atom of it."""
+    # x_low level 1's widest conv (C=64, k=7, d=12: pad 36), tile 64
+    assert K1.smem_bytes(64, 7, 36, 64, 0, 2, 2) == (
+        1024 + 2 * 2 * 32768 + 128 + 2 * 4 * 64 * (64 + 72 + 1)) == 202368
+    assert K1.smem_bytes(64, 7, 36, 64, 1, 1, 7) == (
+        1024 + 7 * 16384 + 128 + 2 * 2 * 64 * 137) == 150912
+    # level 2 (C=32), tile 256 at "default": the stage (32 x 260 floats) is the larger
+    assert K1._stage_stride(256) == 260 and K1._stage_stride(64) == 68
+    assert K1.smem_bytes(32, 7, 36, 256, 2, 3, 7) == (
+        1024 + 14336 + 128 + max(2 * 32 * 329, 4 * 32 * 260)) == 48768
+    # C=24 runs as 32 zero-padded channels; the stage keeps its 24 rows
+    assert K1.smem_bytes(24, 3, 1, 64, 1, 2, 3) == (
+        1024 + 12288 + 128 + max(2 * 2 * 32 * 67, 4 * 24 * 68)) == 22016
+    # C=120 at "highest" (128 padded channels, 128 KB a tap): a unit is one
+    # 32 KB atom; at tile 32 the last warpgroup's 32 rows past it read the guard
+    assert [R._tap_units(128, t) for t in (0, 1, 2)] == [4, 2, 1]
+    assert K1.smem_bytes(120, 11, 25, 32, 0, 2, 2) == (
+        1024 + 2 * 65536 + 128 + 2 * 4 * 128 * 83 + 16 * 32) == 217728
+    assert K1.smem_bytes(120, 11, 25, 64, 0, 2, 2) > 232448
 
 
-def test_highest_tile_rule_at_x_low_shapes(monkeypatch):
-    """At x_low's levels (B=1, 128 frames) "high" takes 16-warp blocks:
-    level 1 (C=64, N=8192) in tiles of 64 with one m-tile a warp, level 2
-    (C=32, N=32768) in tiles of 256 with two. "highest" (32 lanes a warp)
-    takes the fewest window lanes per SM first, then the most warps: level
-    1 in 16-warp blocks of 64 samples, 2 n-tiles a warp (4 would need a
-    tile of 128 and leave half the SMs idle), level 2 in 16-warp blocks of
-    256 with one m-tile and 4 n-tiles; at B=32 level 1 in tiles of 256
-    where the window's two planes fit (k=3), else 128, never the 32-sample
-    tiles whose halo the staging would repeat. C=120 at k=11 fits no tile
-    at any tier."""
+class _K1Props:
+    shared_memory_per_block_optin = 232448
+    multi_processor_count = 132
 
-    class Props:
-        shared_memory_per_block_optin = 232448
-        multi_processor_count = 132
 
-    monkeypatch.setattr(K1, "_props", lambda device: Props())
-    for k, d in ((3, 1), (5, 6), (7, 12)):
-        pad = (k - 1) // 2 * d
-        assert K1._mma_config(torch.zeros(1, 64, 8192), k, pad, 4096, 1) == (64, 1, 2)
-        assert K1._mma_config(torch.zeros(1, 32, 32768), k, pad, 4096, 1) == (256, 2, 2)
-        assert K1._mma_config(torch.zeros(1, 64, 8192), k, pad, 4096, 0) == (64, 1, 2)
-        assert K1._mma_config(torch.zeros(1, 32, 32768), k, pad, 4096, 0) == (256, 1, 4)
-        assert K1._mma_config(torch.zeros(32, 64, 8192), k, pad, 4096, 0) == \
-            ((256, 2, 4) if k == 3 else (128, 1, 4))
-    # C=64 at k=11 (the unfused narrow ResBlock1 convs): the window's two
-    # planes fit no 32-lane tile beside the weights (236,096 bytes at 32),
-    # so "highest" takes 2 n-tiles a warp and tiles of 16
-    assert K1.mma_smem_bytes(64, 11, 32, 25, 0) == 236096
-    assert K1._mma_config(torch.zeros(2, 64, 1001), 11, 25, 4096, 0) == (16, 1, 2)
+def test_k1_configs_fit_every_square_width(monkeypatch):
+    """Every square C from 1 to 128 has a (tile, warpgroups, ring, chunk) at
+    every tier for x_low's widest conv (k=7, d=12) and the ResBlock1
+    branch's widest (k=11, d=5), each within 232,448 bytes, a tile of at
+    most 256 samples in a block of its own warpgroups or four, and a ring
+    of one slot for a conv of one chunk, else 2-3 slots but at most the
+    conv's chunks (one slot for two chunks would wait on itself); a window
+    no tile fits raises."""
+    monkeypatch.setattr(K1, "_props", lambda device: _K1Props())
     for tier in (0, 1, 2):
-        with pytest.raises(ValueError, match="shared memory"):
-            K1._mma_config(torch.zeros(1, 120, 64), 11, 5, 4096, tier)
+        for c in range(1, 129):
+            for k, d in ((7, 12), (11, 5)):
+                pad = (k - 1) // 2 * d
+                x = torch.empty((1, c, 4096), device="meta")
+                found = K1.configs(x, k, pad, 4096, tier)
+                units = k * R._tap_units(K1._padded(c), tier)
+                assert found and all(
+                    t <= 256 and g in (-(-t // 64), 4) and (r == 1) == (ch == units)
+                    and r <= -(-units // ch) and K1.smem_bytes(c, k, pad, t, tier, r, ch) <= 232448
+                    for t, g, r, ch in found), (tier, c, k)
+                assert K1.pick_config(x, k, pad, 4096, tier) in found
+    with pytest.raises(ValueError, match="shared memory"):
+        K1.pick_config(torch.empty((1, 128, 4096), device="meta"), 11, 150, 4096, 0)
+
+
+def test_k1_tile_rule_at_x_low_shapes(monkeypatch):
+    """The tile rule at x_low's levels, as the H100 sweep ranked them. At
+    B=1 (128 frames) blocks of four warpgroups: level 1 (C=64, N=8192) in
+    128 blocks of 64 samples, level 2 (C=32, N=32768) in 256 of 128, each
+    conv in one chunk where it fits ("highest" at C=64: 32 KB a tap, so k=7
+    takes chunks of two taps in two slots). At the serving batch (B=32,
+    T=384) tiles of 128 in blocks of two warpgroups, then the most blocks
+    an SM holds: the whole conv in one slot at "default", slots of one tap
+    at "highest" C=32 (three blocks an SM where the whole conv allows two);
+    at "highest" C=64, where no 128-sample block shares its SM, the fewest
+    window lanes an SM (tiles of 192-256). A tile cap takes the nearest
+    tile under it."""
+    monkeypatch.setattr(K1, "_props", lambda device: _K1Props())
+
+    def pick(b, c, n, k, d, tier, tile=4096):
+        return K1.pick_config(torch.empty((b, c, n), device="meta"), k, (k - 1) // 2 * d, tile,
+                              tier)
+
+    for tier in (0, 1, 2):
+        assert pick(1, 64, 8192, 3, 1, tier) == (64, 4, 1, 3)
+        assert pick(1, 32, 32768, 7, 12, tier) == (128, 4, 1, 7)
+    assert pick(1, 64, 8192, 7, 12, 1) == (64, 4, 1, 7)
+    assert pick(1, 64, 8192, 7, 12, 0) == (64, 4, 2, 2)
+    assert pick(32, 64, 384 * 64, 7, 12, 2) == (128, 2, 1, 7)
+    assert pick(32, 32, 384 * 256, 7, 12, 1) == (128, 2, 1, 7)
+    assert pick(32, 32, 384 * 256, 7, 12, 0) == (128, 2, 2, 1)
+    assert pick(32, 64, 384 * 64, 7, 12, 0) == (192, 3, 2, 1)
+    assert pick(32, 64, 384 * 64, 7, 3, 0) == (256, 4, 2, 1)
+    assert K1._resident(32, 69 * 1024, 2, 233472) == 3
+    assert K1._resident(64, 40 * 1024, 2, 233472) == 2  # registers: 128 a thread
+    assert pick(1, 32, 32768, 7, 12, 1, tile=64) == (64, 4, 1, 7)
+    assert pick(2, 16, 1000, 3, 1, 2, tile=32) == (32, 4, 1, 3)
+
+
+def test_k1_weight_image_is_laid_out_once():
+    """K1's weights: wgmma_tier_image of the weights zero-padded to C
+    rounded up to 16, laid out once per (weight tensor, tier) and reused;
+    an in-place update lays it out again; an inference tensor, which keeps
+    no version counter, is cached against its identity; the cache drops an
+    entry with its tensor."""
+    rng = np.random.default_rng(5)
+    w = torch.from_numpy((rng.standard_normal((24, 24, 5)) * 0.1).astype(np.float32))
+    img = K1.weight_image(w, 1)
+    padded = torch.nn.functional.pad(w, (0, 0, 0, 8, 0, 8))
+    assert img.shape == (1, 5, 2, 32, 32)
+    assert torch.equal(img, R.wgmma_tier_image(padded[None], 1))
+    assert K1.weight_image(w, 1) is img
+    assert K1.weight_image(w, 0) is not img and K1.weight_image(w, 0).dtype == torch.float32
+    w.mul_(2)
+    again = K1.weight_image(w, 1)
+    assert again is not img and torch.equal(again, R.wgmma_tier_image(2 * padded[None], 1))
+    with torch.inference_mode():
+        v = torch.ones(16, 16, 3)
+    assert K1.weight_image(v, 2) is K1.weight_image(v, 2)
+    n = len(K1._IMAGES)
+    del w, v  # w's images at two tiers, v's at one
+    assert len(K1._IMAGES) == n - 3
+
+
+@pytest.mark.parametrize("tier,c", [(1, 48), (1, 96), (1, 112), (1, 128), (2, 128), (0, 128)])
+def test_tier_image_at_k1_widths_is_the_split_in_the_swizzled_image(tier, c):
+    """K1's widths past K2-K4's at the bf16 tiers, and C=128 at "highest":
+    the image inverts to the tier's split of w by the card's own address
+    rule; where a tap passes 32 KB ("high" from C=96, "highest" past 64) it
+    is atom by atom, each atom's planes one contiguous unit."""
+    k = 3
+    rng = np.random.default_rng(c + tier)
+    w = torch.from_numpy((rng.standard_normal((1, c, c, k)) / np.sqrt(c * k)).astype(np.float32))
+    img = R.wgmma_tier_image(w, tier)
+    elem = 4 if tier == 0 else 2
+    planes = 1 if tier == 2 else 2
+    units = R._tap_units(c, tier)
+    per = R._atom_row(c, elem) // elem
+    assert units == (c // per if planes * elem * c * c > 32768 else 1)
+    if units > 1:
+        assert img.shape == (1, k, units, planes, c, per)
+        img = img.transpose(2, 3).reshape(1, k, planes, c, c)
+    assert img.shape == (1, k, planes, c, c) and img.is_contiguous()
+    parts = split_tf32(w) if tier == 0 else split_bf16(w) if tier == 1 else (w,)
+    view = torch.int32 if tier == 0 else torch.int16
+    for plane in range(planes):
+        want = parts[plane].to(torch.float32 if tier == 0 else torch.bfloat16)
+        got = _unswizzle(img[:, :, plane], elem=elem)
+        assert torch.equal(got.contiguous().view(view), want.contiguous().view(view))
 
 
 def _k1_tf32x3(x, w, b, d, slope, mask):
@@ -1040,6 +1132,25 @@ def test_chip_smoke_resblock_sass_check_reads_each_tier():
     assert tiers == {0, 1, 2}
     assert list(wrong) == [next(k for k in sass if "__nv_bfloat16" in k)]
     assert chip_smoke.resblock_sass_check({}) == (set(), {})
+
+
+def test_chip_smoke_conv1d_sass_check_reads_each_variant():
+    """chip_smoke's conv1d_ptxas check: the (padded C, tier, I/O type) of
+    each K1 instantiation, demangled either way, and every instantiation
+    with an HMMA or without an HGMMA; the library must hold every variant."""
+    import chip_smoke
+
+    wg, mma = {"HGMMA": 9, "HMMA": 0}, {"HGMMA": 0, "HMMA": 96}
+    sass = {
+        "void piper_k1::conv1d_same_kernel<(int)128, (int)0, float>(piper_k1::Args)": wg,
+        "void piper_k1::conv1d_same_kernel<48, 1, float>(piper_k1::Args)": wg,
+        "void piper_k1::conv1d_same_kernel<(int)16, (int)2, __nv_bfloat16>(piper_k1::Args)": mma,
+    }
+    variants, wrong = chip_smoke.conv1d_sass_check(sass)
+    assert variants == {(128, 0, "float"), (48, 1, "float"), (16, 2, "bf16")}
+    assert list(wrong) == [next(k for k in sass if "__nv_bfloat16" in k)]
+    assert chip_smoke.conv1d_sass_check({}) == (set(), {})
+    assert len(chip_smoke.K1_VARIANTS) == 32 and variants < chip_smoke.K1_VARIANTS
 
 
 class _Counter:
