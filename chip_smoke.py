@@ -24,6 +24,13 @@ paths give it, and drives the main paths, counting each kernel's launches:
 - each voice, fp32 and mixed, against the committed JAX goldens
   (piper_tpu_torch/golden/, f=1 and f=8): w_ceil equal, the waveform within
   1e-4 (1e-3 mixed);
+- seeded synthesis (`seeded`, medium fp32): the card's own noise, JAX's
+  threefry draws (the threefry kernel), against the committed seeded
+  goldens (the JAX package's synthesize and incremental stream at their
+  seed): w_ceil equal, within 1e-4; the port's CPU run against its card run
+  at one seed (durations equal, the waveform and a stream within 1e-4);
+  and the device kernels of one seeded call (medium mixed: fused 1x1 and a
+  224-id stream, tools/noise_probe.py), the threefry kernels among them;
 - batches: 32 identical f=8 rows of synthesize_batch against one
   synthesize (medium, both configurations), four injected rows of f =
   1/2/4/8 against their one-row runs (every voice and configuration: the
@@ -149,7 +156,11 @@ fails unless every tier's instantiations of both (K1's at every padded
 width and with bf16 I/O) hold wgmma and none holds mma.sync. The kernel
 phase also drives the route of the ResBlock1 widths the K2/K3 stage
 refuses (a voice with C=48 and C=24 levels, at "highest", "high" and in
-the "bfloat16" mode): K1 launched its count, against its plain version.
+the "bfloat16" mode): K1 launched its count, against its plain version;
+and it holds the seeded draw's kernel (threefry_normal, which replaces no
+TPU kernel) against its plain version in its three layouts (bits and
+uniforms bit-equal, normals within 2e-6), timed beside its plain version
+and torch.randn.
 
 Each voice's result on the card is checked against the same port on the
 CPU. Each phase prints one JSON line; any failure raises and the exit code
@@ -189,6 +200,10 @@ RESBLOCK1_PATHS = ("medium", "medium_mixed", "medium_golden", "medium_mixed_gold
 CONV1D_PATHS = ("x_low", "x_low_mixed", "x_low_golden", "x_low_mixed_golden", "x_low_batch",
                 "x_low_mixed_batch", "x_low_stream", "x_low_mixed_stream", "serve",
                 "x_low_mixed_stream_serve", "unified", "http", "x_low_bf16", "debug_trace")
+# The paths that draw seeded noise (the threefry kernel): synthesize() at
+# the default seed, the seeded streams, the seeded goldens.
+SEEDED_PATHS = ("medium", "medium_mixed", "x_low", "x_low_mixed", "medium_stream",
+                "medium_mixed_stream", "x_low_stream", "x_low_mixed_stream", "seeded")
 # kernel -> (its source, the TPU kernel it replaces, the paths that run it)
 KERNELS = {
     "resblock1_branch": ("piper_tpu_torch/csrc/resblock1.cu",
@@ -205,6 +220,10 @@ KERNELS = {
                              "piper_tpu/ops/pallas/folded.py:220", ("probe",)),
     "interleave": ("piper_tpu_torch/csrc/interleave.cu", "tools/ct_probe.py:151",
                    ("ct_probe",)),
+    # No TPU kernel: the JAX package leaves jax.random's threefry to XLA.
+    "threefry_normal": ("piper_tpu_torch/csrc/threefry.cu",
+                        "none (jax.random.normal under XLA, piper_tpu/engine/runtime.py:600)",
+                        SEEDED_PATHS),
 }
 # Why no single PyTorch call computes a kernel's function (library_ms null).
 NO_LIBRARY_CALL = {
@@ -212,6 +231,8 @@ NO_LIBRARY_CALL = {
     "resblock1_mrf": "three masked chains of six convs and their mean",
     "conv1d_same": "leaky_relu then a conv: two calls",
     "resblock1_mrf_folded": "the MRF's chains on a folded layout",
+    "threefry_normal": "no PyTorch call draws JAX's threefry numbers; torch.randn (Philox, "
+                       "other numbers) is timed beside it as randn_ms",
 }
 TIERS = ("highest", "high", "default")
 # "high": C*k <= 704-term sums of exact products chained over 6 convs, in
@@ -577,6 +598,7 @@ def phase_kernels(torch) -> dict:
         _bf16_kernel_rows(torch, gen, results)
         results["resblock1_mrf_folded"] = _folded_check(torch, gen, K4, R)
         results["interleave"] = _interleave_check(torch, gen)
+        results["threefry_normal"] = _threefry_check(torch)
         # K2-K4's outputs at the bf16 tiers, to hold against another
         # checkout's on the same card (tools/tier_checksums.py).
         emit(phase="checksums", checksums=tier_checksums.checksums())
@@ -950,15 +972,77 @@ def _interleave_check(torch, gen) -> dict:
     return {"highest": row}
 
 
+# The seeded draw's normals against its plain version on the card: CUDA's
+# log1pf and the kernel's fused Horner steps against PyTorch's log1p and
+# the plain version's once-rounded float64 steps, an ulp or two of values
+# up to ~5.5. Its bits and uniforms are held bit-equal.
+THREEFRY_ATOL = 2e-6
+THREEFRY_FRAMES = 256  # the prior row's frame bucket (medium at f=8)
+
+
+def _threefry_check(torch) -> dict:
+    """The seeded draw (`ops/kernels/prng.py::threefry_normal`) against
+    its plain version on the card in its three layouts: a (192, F) prior
+    row (one seed), per_frame_noise (2, 192, 126: one seed, a stream
+    window's frames from -47) and per_row_frame_noise (4, 192, 256: per-row
+    seeds and frames on the card); bits and uniforms bit-equal, normals
+    within THREEFRY_ATOL; and the kernel against the plain version run on
+    the CPU. Timed by tools/noise_probe.py at the prior row and the
+    per-row windows, beside torch.randn of the same shape."""
+    from piper_tpu_torch.ops.kernels import prng
+    from piper_tpu_torch.tools import noise_probe
+    from piper_tpu_torch.tools.timing import event_ms
+
+    dev = torch.device("cuda")
+    cases = noise_probe.draw_cases(torch, THREEFRY_FRAMES)
+    cases["per_frame"] = (7, 1, 2, 192, torch.arange(-47, 79, device=dev))
+    errs = {}
+    for case, (seed, stream, rows, n, fr) in cases.items():
+        for output in ("bits", "uniform", "normal"):
+            got = prng.threefry_normal(seed, stream, rows, n, fr, device=dev, output=output)
+            torch.cuda.synchronize()
+            want = prng.threefry_normal_plain(seed, stream, rows, n, fr, device=dev,
+                                              output=output)
+            if got.shape != want.shape:
+                raise AssertionError(f"threefry_normal {case} {output}: {tuple(got.shape)} "
+                                     f"vs {tuple(want.shape)}")
+            if output != "normal" and not torch.equal(got, want):
+                raise AssertionError(f"threefry_normal {case}: its {output} differ from the "
+                                     f"plain version's")
+        errs[case] = float((got - want).abs().max())
+        cpu = prng.threefry_normal_plain(seed.cpu() if isinstance(seed, torch.Tensor) else seed,
+                                         stream, rows, n, None if fr is None else fr.cpu())
+        errs[f"{case}_vs_cpu"] = float((got.cpu() - cpu).abs().max())
+    worst = max(errs.values())
+    if not worst <= THREEFRY_ATOL:
+        raise AssertionError(f"threefry_normal: max-abs {worst} > {THREEFRY_ATOL} ({errs})")
+    draws = noise_probe.time_draws(torch, THREEFRY_FRAMES, REPS)
+    seed, stream, rows, n, _ = cases["prior"]
+    prior = draws["prior"]
+    row = {"max_abs_err": worst, "device_ms": prior["kernel_ms"],
+           "plain_device_ms": prior["plain_ms"], "randn_ms": prior["randn_ms"],
+           "bound_ms": prior["bound_ms"], "bound_by": prior["bound_by"],
+           "ms": event_ms(lambda: prng.threefry_normal(seed, stream, rows, n, device=dev)),
+           "plain_ms": event_ms(lambda: prng.threefry_normal_plain(seed, stream, rows, n,
+                                                                   device=dev)),
+           "draws": draws}
+    emit(phase="kernel", name="threefry_normal", errs=errs, atol=THREEFRY_ATOL, **row,
+         note="ms covers one (192, 256) prior draw; draws also times the (4, 192, 256) "
+              "per-row windows")
+    return {"highest": row}
+
+
 def _counters():
     from piper_tpu_torch.ops.kernels import conv as K1
     from piper_tpu_torch.ops.kernels import folded as K4
     from piper_tpu_torch.ops.kernels import interleave as K5
     from piper_tpu_torch.ops.kernels import resblock as R
 
+    from piper_tpu_torch.ops.kernels import prng
+
     return {"resblock1_branch": R.resblock1_branch, "resblock1_mrf": R.resblock1_mrf,
             "conv1d_same": K1.conv1d_same, "resblock1_mrf_folded": K4.resblock1_mrf_folded,
-            "interleave": K5.interleave}
+            "interleave": K5.interleave, "threefry_normal": prng.threefry_normal}
 
 
 def _zero_counts() -> dict:
@@ -1120,6 +1204,53 @@ def phase_golden(path: str, rt, speakers: bool = False) -> dict:
         _note_mixed(path, f"golden f={r['factor']} {r['speaker'] or ''}".strip(),
                     r["max_abs_err"], r["atol"])
     emit(phase="golden", path=path, rows=rows, launches=launches)
+    return launches
+
+
+SEEDED_CPU_SEED = 2 ** 32 - 5  # the seed of the card-against-CPU check
+
+
+def phase_seeded(torch, rt, model, config) -> dict:
+    """Seeded synthesis draws JAX's noise (`seeded`; medium, fp32): the
+    card's own threefry draws against the committed seeded goldens (the JAX
+    package's synthesize and incremental stream at their seed: `w_ceil`
+    equal, within 1e-4), with every launch count set to 0 just before and
+    read just after; then the port's CPU run against its card run at one
+    seed (durations equal, the waveform and a stream within 1e-4); then the
+    device kernels of one seeded call (tools/noise_probe.py: medium mixed,
+    fused 1x1, and one 224-id stream), the threefry kernels among them."""
+    from piper_tpu_torch import golden
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.engine.runtime import PiperRuntime
+    from piper_tpu_torch.tools import noise_probe
+
+    t0 = time.perf_counter()
+    counters = _zero_counts()
+    rows = [golden.check_seeded(rt, q, f) for q, f in golden.SEEDED_GOLDENS]
+    rows.append(golden.check_seeded(rt, *golden.STREAM_GOLDEN[:2], stream=True))
+    launches = _require_launches("seeded", counters)
+    cpu = PiperRuntime(model, config, device="cpu")
+    ids, seed = FIXTURE_PHONEME_IDS * 2, SEEDED_CPU_SEED
+    plans = [np.asarray(r.phoneme_durations([ids], seed=seed)[0]) for r in (rt, cpu)]
+    if not np.array_equal(*plans):
+        raise AssertionError(f"seeded: card durations {plans[0]} vs cpu {plans[1]}")
+    a, b = rt.synthesize(ids, seed=seed), cpu.synthesize(ids, seed=seed)
+    if a.shape != b.shape:
+        raise AssertionError(f"seeded: card {a.shape} vs cpu {b.shape}")
+    wave_err = float(np.abs(a - b).max())
+    sa, sb = (np.concatenate([c.samples for c in r.synthesize_stream_incremental(
+        ids, seed=seed, chunk_frames=16)]) for r in (rt, cpu))
+    stream_err = float(np.abs(sa - sb).max()) if sa.shape == sb.shape else None
+    if not (wave_err <= WAVE_ATOL and stream_err is not None and stream_err <= WAVE_ATOL):
+        raise AssertionError(f"seeded: card vs cpu max-abs {wave_err} (stream {stream_err}) "
+                             f"> {WAVE_ATOL}")
+    per_call = noise_probe.kernels_per_call((model, config))
+    for key, r in per_call.items():
+        if r["threefry_kernels"] <= 0:
+            raise AssertionError(f"seeded: {key} launched no threefry kernel")
+    emit(phase="seeded", goldens=rows, launches=launches, cpu_seed=seed,
+         cpu_w_ceil_equal=True, cpu_max_abs_err=wave_err, cpu_stream_max_abs_err=stream_err,
+         kernels_per_call=per_call, wall_s=time.perf_counter() - t0)
     return launches
 
 
@@ -3046,6 +3177,8 @@ def main() -> None:
         count(phase_stream(torch, mixed, rt_mixed, MIXED_ATOL))
         count(phase_golden(quality, rt))
         count(phase_golden(mixed, rt_mixed))
+        if quality == "medium":
+            count(phase_seeded(torch, rt, model, config))
         serving = quality == "medium"
         count(phase_batch(quality, rt, WAVE_ATOL, serving))
         count(phase_batch(mixed, rt_mixed, MIXED_ATOL, serving))

@@ -71,18 +71,20 @@ audibly: for capacity, never for fidelity. The tiers are
 process-wide flags, so every piece of a runtime's device work runs under
 its lock (`_lock`, reentrant); a fetch only waits for its copy.
 
-Seeded noise comes from a torch.Generator seeded from (seed, 0) for the
-duration predictor and (seed, 1) for the prior; each is one per-row draw
-broadcast over the rows, so a row's noise does not depend on what is
-batched beside it. The prior's draw has the frame bucket's width, so fused
-and split runs of one utterance share a realization only where their
-buckets agree (the JAX package's caveat too); a forced plan decodes at the
-bucket split mode picks for the same total, so forcing the predicted plan
-reproduces split mode's audio. A stream's prior noise is per_frame_noise's
-instead, a function of (seed, absolute frame): a seeded stream is
-deterministic but not synthesize()'s realization (as in the JAX package).
-The numbers differ from the JAX package's threefry by design; parity
-checks inject the noise instead.
+Seeded noise is the JAX package's: JAX's threefry-2x32 draws
+(`ops/kernels/prng.py`; on the card one kernel launch a draw), normal(
+fold_in(PRNGKey(seed), 0), (2, P)) for the duration predictor and normal(
+fold_in(PRNGKey(seed), 1), (C, F)) for the prior, so a seed gives JAX's
+durations and audio. Each is one per-row draw broadcast over the rows, so
+a row's noise does not depend on what is batched beside it. The prior's
+draw has the frame bucket's width, so fused and split runs of one
+utterance share a realization only where their buckets agree (the JAX
+package's caveat too); a forced plan decodes at the bucket split mode
+picks for the same total, so forcing the predicted plan reproduces split
+mode's audio. A stream's prior noise is per_frame_noise's instead, a
+function of (seed, absolute frame): a seeded stream is deterministic but
+not synthesize()'s realization (as in the JAX package); a streaming head's
+rows draw their duration noise each from its own seed.
 
 Eager PyTorch compiles nothing. `RunTimings.compiled` marks the first run
 of a (kind, rows, bucket, speaker kind) key, as the JAX package marks a
@@ -121,6 +123,7 @@ from piper_tpu_torch.models.vits.hparams import (VitsHParams, derive_hparams,
                                                   receptive_field_frames)
 from piper_tpu_torch.models.vits.params import host_arrays_from_graph, params_to_torch
 from piper_tpu_torch.onnx.loader import load_model
+from piper_tpu_torch.ops.kernels import prng
 from piper_tpu_torch.ops.kernels.precision import TIERS, kernel_tier, tier_scope
 from piper_tpu_torch.parallel.mesh import cat_rows, slice_rows
 from piper_tpu_torch.utils.env import flag_bool, profile_enabled
@@ -237,12 +240,11 @@ class RunTimings:
 
 def seeded_noise(seed: int, stream: int, shape: Tuple[int, ...], rows: int,
                  device) -> torch.Tensor:
-    """One standard-normal draw of `shape` from the generator of
-    (seed, stream), broadcast to (rows, *shape)."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(((int(seed) & 0xFFFFFFFF) << 8) | stream)
-    draw = torch.randn(shape, generator=gen, device=device, dtype=torch.float32)
-    return draw.expand(rows, *shape)
+    """JAX's normal(fold_in(PRNGKey(seed), stream), shape) in fp32,
+    broadcast to (rows, *shape): one draw (one kernel launch on the card)."""
+    draw = prng.threefry_normal(_seed_u32(seed), stream, 1, math.prod(shape),
+                                device=torch.device(device))
+    return draw.view(shape).expand(rows, *shape)
 
 
 def _seed_u32(seed) -> int:
@@ -842,8 +844,9 @@ class PiperRuntime:
         """ids (B, P) through the text encoder and duration predictor, with
         the injected dp_noise (zero-padded to P) or the seeded draw, for the
         speakers of `sid` (_sid_array's). `seed` is one seed, whose draw
-        every row shares, or a list of one seed per row, each row drawing
-        its own (a streaming head's rows, each equal to its solo draw);
+        every row shares, or a (B,) int64 tensor of one seed per row, each
+        row drawing its own (a streaming head's rows, each equal to its
+        solo draw);
         `ls` and `nw` are floats or (B, 1, 1) tensors. On a mesh the rows
         split over dp unless `shard` is False or the noise is injected."""
         b, p = ids.shape
@@ -855,8 +858,8 @@ class PiperRuntime:
             dev = grp.device
             if src is not None:
                 dpn = self._to_device(src[lo:hi], dev)
-            elif isinstance(seed, (list, tuple)):
-                dpn = torch.cat([seeded_noise(s, 0, (2, p), 1, dev) for s in seed[lo:hi]])
+            elif isinstance(seed, torch.Tensor):  # row r: normal(fold_in(PRNGKey(seed[r]), 0))
+                dpn = prng.threefry_normal(seed[lo:hi].to(dev), 0, hi - lo, 2 * p).view(-1, 2, p)
             else:
                 dpn = seeded_noise(seed, 0, (2, p), hi - lo, dev)
             return vits.encode(grp.params, self.hparams, self._to_device(ids[lo:hi], dev),
@@ -1567,8 +1570,8 @@ class PiperRuntime:
         output dtype, each row's frame count clamped to >= 1, the seeds),
         all on the device."""
         ns, ls, nw = scales
-        enc = self._encode(ids, lengths, ls, nw, list(seeds), sid=sid, shard=False)
         seeds_d = self._to_device(np.asarray([_seed_u32(s) for s in seeds], np.int64))
+        enc = self._encode(ids, lengths, ls, nw, seeds_d, sid=sid, shard=False)
         totals = torch.clamp(enc.y_total, min=1).to(torch.int64)
         t_off = torch.full((ids.shape[0],), -halo, dtype=torch.int64, device=self.device)
         return enc, self._window_keyed(enc, seeds_d, t_off, totals, ns, window), totals, seeds_d

@@ -18,6 +18,16 @@ for one speaker id (`speaker_id`) and one mix (`mix_ids`, `mix_weights`).
 `compare` runs a runtime on a golden's ids, noise and speaker: `w_ceil` must
 be equal and the waveform within FP32_ATOL at fp32, or LOWERED_ATOL when any
 tier of the runtime is lowered.
+
+The seeded goldens (`SEEDED_GOLDENS`, `{quality}_seed{SEEDED_SEED}_f{factor}.npz`)
+draw no injected noise: the JAX package's runtime on the CPU at "highest"
+in split mode made them from `seed=SEEDED_SEED`, its threefry noise, so they
+hold the port's own seeded draws (`ops/kernels/prng.py`) to JAX's: `ids`,
+`seed`, `w_ceil` (phoneme_durations) and `audio` (synthesize). The stream
+golden (`STREAM_GOLDEN`, `..._stream_f{factor}.npz`) is
+synthesize_stream_incremental at the same seed and a fixed `chunk_frames`:
+the chunks' `starts` and their concatenated `audio`. `compare_seeded` runs
+a runtime on one.
 """
 
 from __future__ import annotations
@@ -33,6 +43,11 @@ GOLDENS = (("medium", 1), ("medium", 8), ("x_low", 1), ("x_low", 8))
 N_SPEAKERS, GIN_CHANNELS = 904, 512
 SPEAKERS = {"id903": {"speaker_id": 903}, "mix0_903": {"speaker_mix": {0: 0.6, 903: 0.4}}}
 SPEAKER_GOLDENS = (("medium", 1, "id903"), ("medium", 1, "mix0_903"))
+# The seeded goldens: (quality, factor) at SEEDED_SEED, and the stream
+# golden (quality, factor, chunk_frames) at the same seed.
+SEEDED_SEED = 5
+SEEDED_GOLDENS = (("medium", 1),)
+STREAM_GOLDEN = ("medium", 2, 16)
 FP32_ATOL = 1e-4     # the fp32 waveform bar the JAX package is held to
 LOWERED_ATOL = 1e-3  # the lowered-precision waveform gate (BASELINE.md)
 
@@ -42,13 +57,19 @@ def path(quality: str, factor: int, speaker: Optional[str] = None) -> Path:
     return Path(__file__).resolve().parent / f"{quality}{ms}_f{factor}.npz"
 
 
+def seeded_path(quality: str, factor: int, stream: bool = False) -> Path:
+    kind = "_stream" if stream else ""
+    return Path(__file__).resolve().parent / f"{quality}_seed{SEEDED_SEED}{kind}_f{factor}.npz"
+
+
 def factors(quality: str):
     """The factors with a golden for `quality` (none for other voices)."""
     return tuple(f for q, f in GOLDENS if q == quality)
 
 
-def load(quality: str, factor: int, speaker: Optional[str] = None) -> Dict[str, np.ndarray]:
-    with np.load(path(quality, factor, speaker)) as z:
+def load(quality: str, factor: int, speaker: Optional[str] = None,
+         file: Optional[Path] = None) -> Dict[str, np.ndarray]:
+    with np.load(file or path(quality, factor, speaker)) as z:
         return {k: z[k] for k in z.files}
 
 
@@ -124,4 +145,47 @@ def check(rt, quality: str, factor: int, speaker: Optional[str] = None) -> dict:
     row = compare(rt, quality, factor, speaker)
     if not row["ok"]:
         raise AssertionError(f"golden {quality} f={factor} {speaker or ''}: {row}")
+    return row
+
+
+def compare_seeded(rt, quality: str, factor: int, stream: bool = False) -> dict:
+    """Run runtime `rt` (float32 output) on one seeded golden at its seed,
+    drawing its own noise. Returns its row: `w_ceil_equal` (the durations
+    of phoneme_durations), `max_abs_err` of the waveform (with `stream`:
+    of synthesize_stream_incremental's chunks, whose starts must equal the
+    golden's) beside `atol`, and `ok`."""
+    if rt.options.output_dtype != "float32":
+        raise ValueError("golden.compare_seeded needs a runtime with output_dtype='float32'")
+    g = load(quality, factor, file=seeded_path(quality, factor, stream))
+    ids, seed = g["ids"].tolist(), int(g["seed"])
+    atol = atol_for(rt.options)
+    row = {"quality": quality, "factor": factor, "seed": seed, "stream": stream,
+           "phonemes": len(ids), "atol": atol, "precision": rt.options.precision}
+    w_ceil = np.asarray(rt.phoneme_durations([ids], seed=seed)[0])
+    if not np.array_equal(w_ceil, g["w_ceil"]):
+        return {**row, "w_ceil_equal": False, "max_abs_err": None, "ok": False,
+                "w_ceil_differs_at": np.nonzero(w_ceil != g["w_ceil"])[0].tolist()}
+    if stream:
+        chunks = list(rt.synthesize_stream_incremental(
+            ids, seed=seed, chunk_frames=int(g["chunk_frames"])))
+        starts = [c.start_sample_index for c in chunks]
+        row["chunks"] = len(chunks)
+        if starts != g["starts"].tolist():
+            return {**row, "w_ceil_equal": True, "max_abs_err": None, "ok": False,
+                    "starts": starts}
+        audio = np.concatenate([c.samples for c in chunks])
+    else:
+        audio = rt.synthesize(ids, seed=seed)
+    want = g["audio"]
+    err = float(np.abs(audio - want).max()) if audio.shape == want.shape else None
+    return {**row, "w_ceil_equal": True, "frames": int(g["w_ceil"].sum()),
+            "samples": int(want.shape[0]), "max_abs_err": err,
+            "ok": err is not None and err <= atol}
+
+
+def check_seeded(rt, quality: str, factor: int, stream: bool = False) -> dict:
+    """compare_seeded(), raising AssertionError unless the row is ok."""
+    row = compare_seeded(rt, quality, factor, stream)
+    if not row["ok"]:
+        raise AssertionError(f"seeded golden {quality} f={factor} stream={stream}: {row}")
     return row

@@ -20,7 +20,8 @@ them; ROADMAP §3).
 Streaming decodes frame windows: `decode_window` decodes frames
 [t_offset, t_offset + window) of each row, whose prior noise comes from
 `per_frame_noise` / `per_row_frame_noise`, a function of (seed, absolute
-frame) so that overlapping windows agree.
+frame) so that overlapping windows agree: the JAX package's threefry
+draws, value for value (`ops/kernels/prng.py`).
 
 `decode`, `decode_window` and `debug_infer` take `stages`: the reverse
 flows and the vocoder they run and the weights those read. By default they
@@ -31,7 +32,6 @@ are this package's own over `params`; a tensor-parallel group's
 from __future__ import annotations
 
 import contextlib
-import math
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Sequence, Tuple, Union
 
@@ -43,6 +43,7 @@ from piper_tpu_torch.models.vits.hifigan import hifigan_generator
 from piper_tpu_torch.models.vits.hparams import VitsHParams
 from piper_tpu_torch.models.vits.params import Params
 from piper_tpu_torch.models.vits.text_encoder import text_encoder
+from piper_tpu_torch.ops.kernels import prng
 from piper_tpu_torch.ops.kernels.precision import tier_scope
 from piper_tpu_torch.ops.masking import generate_path, sequence_mask
 from piper_tpu_torch.utils.debug_trace import collecting
@@ -189,67 +190,34 @@ def decode(
     return audio[:, 0, :], y_lengths
 
 
-_M32 = 0xFFFFFFFF
-_GOLDEN = 0x9E3779B9  # 2^32 / golden ratio: spreads the lane counter over the word
-
-
-def _hash32(x: torch.Tensor) -> torch.Tensor:
-    """A 32-bit integer hash (two multiply-xorshift rounds, multiplier
-    0x45D9F3B) on int64 tensors holding values in [0, 2^32): every product
-    stays below 2^59, so the bits are the same on every device."""
-    x = (((x >> 16) ^ x) * 0x45D9F3B) & _M32
-    x = (((x >> 16) ^ x) * 0x45D9F3B) & _M32
-    return (x >> 16) ^ x
-
-
-def _counter_normals(seeds: torch.Tensor, t_idx: torch.Tensor, n: int) -> torch.Tensor:
-    """(B,) int64 seeds, (B, W) int64 absolute frames -> (B, n, W) standard
-    normals, value q of frame t a pure function of (seed, t, q)."""
-    key = _hash32((_hash32(seeds & _M32)[:, None] + t_idx) & _M32)  # (B, W)
-    lane = torch.arange(2 * n, device=t_idx.device, dtype=torch.int64) * _GOLDEN
-    bits = _hash32((key[:, None, :] + lane[None, :, None]) & _M32)  # (B, 2n, W)
-    bits = bits.view(bits.shape[0], n, 2, bits.shape[-1])
-    # 24-bit uniforms (exact in fp32): u1 in (0, 1], u2 in [0, 1).
-    u1 = ((bits[:, :, 0] >> 8) + 1).to(torch.float32) * 2.0 ** -24
-    u2 = (bits[:, :, 1] >> 8).to(torch.float32) * 2.0 ** -24
-    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos((2.0 * math.pi) * u2)
+PRIOR_STREAM = 1  # the prior's fold_in stream (the duration noise's is 0)
 
 
 def per_frame_noise(seed, t_idx: torch.Tensor, b: int, ch: int) -> torch.Tensor:
     """Prior noise derived per ABSOLUTE frame index -> (b, ch, len(t_idx)).
 
-    Counterpart of the JAX package's per_frame_noise, which folds each frame
-    into a threefry key: threefry cannot be reproduced without JAX, so the
-    values differ from it (parity checks inject the noise). Here a frame's
-    values are a counter-based hash of (seed, frame, lane) turned into
-    normals by Box-Muller, in one vectorized pass of int64 ops:
-
-        key  = h(h(seed) + t)                  per frame t
-        bits = h(key + lane * 0x9E3779B9)      lane = 2 * q + j, j in {0, 1}
-        u1 = ((bits_0 >> 8) + 1) / 2^24, u2 = (bits_1 >> 8) / 2^24
-        z[q] = sqrt(-2 ln u1) * cos(2 pi u2)
-
-    with h = _hash32, sums taken mod 2^32 and value q = r * ch + c for row r,
-    channel c. The integer part is bit-equal on every device; the normals
-    differ between the CPU and the card only by the rounding of log, sqrt
-    and cos. Overlapping windows see the same values at the same frames,
-    and row r equals per_row_frame_noise at that row's (seed, frames) only
-    for r = 0 (the rows of one stream's draw differ from each other, as in
-    JAX). `seed` is an int or a 0-d tensor; t_idx (W,) integer, any sign."""
-    t = t_idx.to(torch.int64).reshape(1, -1)
-    z = _counter_normals(_rows(seed, 1, t.device, torch.int64), t, b * ch)  # (1, b*ch, W)
-    return z.view(b, ch, -1)
+    The JAX package's per_frame_noise at base key fold_in(PRNGKey(seed), 1):
+    frame t's values are normal(fold_in(base, t), (b, ch)), value r * ch + c
+    at row r, channel c (JAX's threefry, `ops/kernels/prng.py`; one kernel
+    launch on the card). Overlapping windows see the same values at the same
+    frames, and row r equals per_row_frame_noise at that row's (seed,
+    frames) only for r = 0 (the rows of one draw differ from each other).
+    `seed` is an int or a 0-d integer tensor, taken mod 2^32; t_idx (W,)
+    integer, any sign (folded mod 2^32, as JAX folds a negative int32)."""
+    if not isinstance(seed, torch.Tensor):
+        seed = int(seed) & 0xFFFFFFFF
+    return prng.threefry_normal(seed, PRIOR_STREAM, b, ch, t_idx.reshape(-1))
 
 
 def per_row_frame_noise(seeds, t_idx: torch.Tensor, ch: int) -> torch.Tensor:
     """Per-row per-frame prior noise -> (B, C, W): seeds (B,) (a tensor,
-    or ints), t_idx (B, W) absolute frames. Row r equals
-    per_frame_noise(seeds[r], t_idx[r], 1, ch) bit for bit, so a stream
-    batched with others sees exactly the noise it sees decoding alone."""
-    t = t_idx.to(torch.int64)
+    or ints), t_idx (B, W) absolute frames. The JAX package's
+    per_row_frame_noise: row r equals per_frame_noise(seeds[r], t_idx[r],
+    1, ch), so a stream batched with others sees exactly the noise it sees
+    decoding alone; all rows are one draw (one launch on the card)."""
     if not isinstance(seeds, torch.Tensor):
-        seeds = torch.tensor([int(s) & _M32 for s in seeds], dtype=torch.int64)
-    return _counter_normals(_rows(seeds, t.shape[0], t.device, torch.int64), t, ch)
+        seeds = torch.tensor([int(s) & 0xFFFFFFFF for s in seeds], dtype=torch.int64)
+    return prng.threefry_normal(seeds.to(t_idx.device), PRIOR_STREAM, t_idx.shape[0], ch, t_idx)
 
 
 def _rows(v, b: int, device, dtype) -> torch.Tensor:

@@ -103,8 +103,13 @@ def load() -> ctypes.CDLL:
                                       p]
     # (y, out, B, r, c, q, device, stream): no tier, a permutation.
     lib.piper_interleave.argtypes = [p, p, i, i, i, i, i, p]
+    # (out, rows, n, width, seeds, host seed, per_row, stream, frames, kind,
+    # device, cuda stream): the seeded draw (ops/kernels/prng.py).
+    u = ctypes.c_uint
+    lib.piper_threefry_normal.argtypes = [p, i, i, i, p, u, i, u, p, i, i, p]
     for fn in (lib.piper_resblock1_branch, lib.piper_resblock1_mrf,
-               lib.piper_resblock1_mrf_folded, lib.piper_conv1d_same, lib.piper_interleave):
+               lib.piper_resblock1_mrf_folded, lib.piper_conv1d_same, lib.piper_interleave,
+               lib.piper_threefry_normal):
         fn.restype = i
     _lib = lib
     return lib

@@ -14,10 +14,10 @@ programs hold the built per-shape callables instead, and `builds` counts
 how many were built (a repeated serving call builds none).
 
 `synthesize_batch` and `synthesize_pipelined` draw their noise with
-np.random.default_rng(seed) exactly as the JAX package does, so their audio
-can be held against its directly. `synthesize_long`'s keyed noise is the
-port's own (the runtime's seeded_noise for the durations, per_frame_noise
-for the prior): JAX's threefry cannot be reproduced without JAX.
+np.random.default_rng(seed) exactly as the JAX package does, and
+`synthesize_long` its keyed noise from JAX's threefry (the runtime's
+seeded_noise for the durations, per_frame_noise for the prior), so the
+audio of each can be held against the JAX package's directly.
 """
 
 from __future__ import annotations

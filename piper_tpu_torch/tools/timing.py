@@ -10,6 +10,10 @@ from typing import Callable, Iterable, Optional, Sequence, Tuple
 # limit): HBM3 bytes/s, and FLOP/s by the type the products run in.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12}
+# 32-bit integer operations a second: 64 INT32 lanes an SM a clock (the
+# Hopper architecture white paper), 132 SMs, the 1.98 GHz boost clock the
+# fp32 peak above assumes (128 fp32 lanes: 67 TFLOP/s counting an FMA as 2).
+PEAK_INT32_OPS = 132 * 64 * 1.98e9
 # A kernel tier's products (precision.py) at the card's fastest rate for
 # them: fp32-class products as 3 passes of TF32 ("highest", as K2-K4 form
 # them; CUDA-core fp32 is 67 TFLOP/s), 3 passes ("high") or 1 pass

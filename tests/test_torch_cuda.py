@@ -1214,3 +1214,68 @@ def test_mesh_runtime_on_the_card_matches_one_device(card_voices):
     for got, want in zip(rt.synthesize_batch(batch, seed=1), one.synthesize_batch(batch, seed=1)):
         assert got.shape == want.shape and np.abs(got - want).max() <= ATOL
     assert all(c["resblock1_mrf"] == 1 for c in rt.mesh.slot_launches)
+
+
+# -- the seeded draw: JAX's threefry-2x32 normals (ops/kernels/prng.py) ----------
+
+# The kernel's bits and uniforms equal the plain version's bit for bit; its
+# normals differ only where CUDA's log1pf or a fused Horner step rounds
+# otherwise than PyTorch's log1p and the plain version's once-rounded
+# float64 step: an ulp or two of values up to ~5.5.
+THREEFRY_ATOL = 2e-6
+
+
+def _threefry_layouts(dev):
+    """(seed, stream, rows, n, frames) of the three layouts at the main
+    path's shapes: noise_probe's (192, 256) prior row (one seed) and (4,
+    192, 256) per-row windows (per-row seeds and frames on the card), and
+    per_frame_noise's (2, 192, 128) from frame -47 (one seed)."""
+    from piper_tpu_torch.tools.noise_probe import draw_cases
+
+    cases = draw_cases(torch, 256)
+    return {"rows": cases["prior"], "per_row_frame": cases["stream_rows"],
+            "per_frame": (7, 1, 2, 192, torch.arange(-47, 81, device=dev))}
+
+
+@pytest.mark.parametrize("layout", ["rows", "per_frame", "per_row_frame"])
+def test_threefry_kernel_matches_plain(cuda, layout):
+    from piper_tpu_torch.ops.kernels import prng
+
+    seed, stream, rows, n, frames = _threefry_layouts(cuda)[layout]
+    for output in ("bits", "uniform", "normal"):
+        before = prng.threefry_normal.launches
+        got = prng.threefry_normal(seed, stream, rows, n, frames, device=cuda, output=output)
+        torch.cuda.synchronize()
+        assert prng.threefry_normal.launches == before + 1
+        want = prng.threefry_normal_plain(seed, stream, rows, n, frames, device=cuda,
+                                          output=output)
+        assert got.shape == want.shape and got.device.type == "cuda"
+        if output == "normal":
+            assert float((got - want).abs().max()) <= THREEFRY_ATOL
+        else:
+            assert torch.equal(got, want), output
+    cpu = prng.threefry_normal_plain(
+        seed.cpu() if isinstance(seed, torch.Tensor) else seed, stream, rows, n,
+        None if frames is None else frames.cpu())
+    assert float((got.cpu() - cpu).abs().max()) <= THREEFRY_ATOL
+
+
+def test_seeded_synthesis_on_the_card_matches_the_cpu(card_voices):
+    """The same seed on the card and on the CPU: the durations equal and
+    the waveform within the fp32 bar (both draw JAX's threefry noise)."""
+    import numpy as np
+
+    from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
+    from piper_tpu_torch.engine.runtime import PiperRuntime
+    from piper_tpu_torch.ops.kernels import prng
+
+    card = PiperRuntime(*card_voices["medium"], device="cuda")
+    cpu = PiperRuntime(*card_voices["medium"], device="cpu")
+    ids = FIXTURE_PHONEME_IDS * 2
+    before = prng.threefry_normal.launches
+    a = card.synthesize(ids, seed=2 ** 32 - 5)
+    assert prng.threefry_normal.launches == before + 2  # the duration and prior draws
+    b = cpu.synthesize(ids, seed=2 ** 32 - 5)
+    np.testing.assert_array_equal(card._durations([ids], seed=2 ** 32 - 5)[1],
+                                  cpu._durations([ids], seed=2 ** 32 - 5)[1])
+    assert a.shape == b.shape and float(np.abs(a - b).max()) <= 1e-4

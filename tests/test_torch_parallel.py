@@ -7,10 +7,9 @@ CPU devices (conftest.py). Bars: the waveform within 1e-4 of JAX's at the
 same seed (w_ceil and y_len equal), the encoder's tensors within 2e-5; the
 port's own sharded paths within 2e-5 of its one-slot runs (JAX's bar for
 its tp and pp tests: the row-parallel sums and the microbatch split change
-only the order of fp32 sums). sp is held to JAX at zero noise (the prior
-and duration noise of synthesize_long are the port's own: JAX's threefry
-cannot be reproduced without JAX) and to the port's one-slot windows with
-noise.
+only the order of fp32 sums). sp is held to JAX at zero noise and to the
+port's one-slot windows with noise; its seeded noise (JAX's threefry) is
+held to JAX's in tests/test_torch_prng.py.
 """
 
 import dataclasses

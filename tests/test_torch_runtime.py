@@ -1,7 +1,8 @@
 """The port's weight loading and PiperRuntime against the JAX package.
 
-Synthesis is compared with injected noise (the port's seeded noise differs
-from JAX's threefry by design) at the fp32 waveform bar, 1e-4 max-abs; in
+Synthesis is compared with injected noise (seeded synthesis, which draws
+JAX's threefry noise, is held to JAX's in tests/test_torch_prng.py) at the
+fp32 waveform bar, 1e-4 max-abs; in
 int16 that bar is 1e-4 * 32767 plus one truncation step, 4 LSB. The bench's
 mixed-precision configuration is held to the same fp32 bar: its kernel
 tiers change only the order of exact products' sums (test_torch_kernels.py).
