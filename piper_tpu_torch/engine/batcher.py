@@ -25,6 +25,14 @@ runs under the runtime's lock, torch.inference_mode (per thread: the worker
 is not the thread that built the runtime) and its precision tiers; the
 worker never moves work to the CPU, and a group whose dispatch or fetch
 fails fails its requests' futures.
+
+Spans (utils/profiling.py, each also a row of the runtime's profiler, or
+of the process-wide one for a stub runtime): `batcher.group` around a
+group's whole dispatch (its rows, padded rows and oldest row's wait),
+`batcher.dispatch` around the runtime's call, `batcher.fetch` around the
+fetch, under the group's batch id. `metrics()` counts `overflow_rows`, the
+rows a fused group redid at fetch because their durations overflowed its
+frame budget, and `overflow_split_rows`, those a blocking split call redid.
 """
 
 from __future__ import annotations
@@ -42,6 +50,7 @@ import numpy as np
 from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
 from piper_tpu_torch.engine.bucketing import BucketOverflowError, bucket_for
 from piper_tpu_torch.engine.runtime import PiperRuntime, validate_scales, validate_speaker_mix
+from piper_tpu_torch.utils import profiling
 
 
 def _deliver(fut: "Future", result=None,
@@ -182,7 +191,12 @@ class BatchingServer:
             "groups": 0, "rows": 0, "padded_rows": 0,
             "wait_ms_sum": 0.0, "wait_ms_max": 0.0,
             "cache_hits": 0, "cache_bytes": 0,
+            "overflow_rows": 0, "overflow_split_rows": 0,
         }
+        # The runtime's profiler takes the batcher's spans (rows
+        # batcher.group/dispatch/fetch); a stub runtime's go to the
+        # process-wide one.
+        self._prof = getattr(runtime, "profiler", None) or profiling.PROCESS
         # Response cache: key -> read-only np.ndarray, LRU by insertion
         # order (dict move_to_end semantics via re-insert), byte-bounded.
         self.cache_bytes_max = int(cache_mb * (1 << 20))
@@ -268,12 +282,15 @@ class BatchingServer:
             # error lands on every co-batched future).
             validate_speaker_mix(speaker_mix, n_spk or 1,
                                  speaker_id=speaker_id)
+        return ids, self._p_bucket(len(ids))
+
+    def _p_bucket(self, n: int):
+        """The phoneme bucket of n ids: the queue key's, 'overflow' past
+        the ladder."""
         try:
-            p_bucket = bucket_for(len(ids), self.rt.options.phoneme_buckets,
-                                  "phoneme")
+            return bucket_for(n, self.rt.options.phoneme_buckets, "phoneme")
         except BucketOverflowError:
-            p_bucket = "overflow"
-        return ids, p_bucket
+            return "overflow"
 
     def submit_durations(
         self,
@@ -414,7 +431,8 @@ class BatchingServer:
     def metrics(self) -> dict:
         """Snapshot of serving counters: queue depth, shed counts, dispatch
         wait stats, achieved grouping (rows per group, batch-ladder padding),
-        response-cache hits and resident bytes."""
+        overflow redos (rows, and those redone in split mode), response-cache
+        hits and resident bytes."""
         with self._cond:
             m = dict(self._metrics)
             m["queue_depth"] = self._pending
@@ -670,25 +688,29 @@ class BatchingServer:
         m = self._metrics
         m["groups"] += 1
         m["rows"] += len(group)
-        if group[0].kind == "dur" and isinstance(key[1], int):
-            m["padded_rows"] += self._dur_rows(key[1]) - len(group)
-        elif isinstance(key[1], int) and (group[0].kind == "forced"
-                                          or self.fused):
-            # Forced groups pin rows to the same <=3-rung grid as fused
-            # groups (see _dispatch_group) — count their padding the same.
-            bp = self._pad_rows_for(key[1], len(group))
-            m["padded_rows"] += bp - len(group)
-        elif len(group) > 1:
-            ladder = getattr(self.rt, "batch_ladder",
-                             self.rt.options.batch_buckets)
-            bp = next((x for x in ladder if x >= len(group)),
-                      len(group))
-            m["padded_rows"] += bp - len(group)
+        m["padded_rows"] += self._padded_rows(key[1], group)
         for r in group:
             w = (now - r.t_submit) * 1e3
             m["wait_ms_sum"] += w
             m["wait_ms_max"] = max(m["wait_ms_max"], w)
         return group
+
+    def _padded_rows(self, p_bucket, group: List[_Request]) -> int:
+        """The dummy rows a group of the phoneme bucket `p_bucket` is
+        padded with at dispatch."""
+        if group[0].kind == "dur" and isinstance(p_bucket, int):
+            return self._dur_rows(p_bucket) - len(group)
+        if isinstance(p_bucket, int) and (group[0].kind == "forced"
+                                          or self.fused):
+            # Forced groups pin rows to the same <=3-rung grid as fused
+            # groups (see _dispatch_group) — count their padding the same.
+            return self._pad_rows_for(p_bucket, len(group)) - len(group)
+        if len(group) > 1:
+            ladder = getattr(self.rt, "batch_ladder",
+                             self.rt.options.batch_buckets)
+            return next((x for x in ladder if x >= len(group)),
+                        len(group)) - len(group)
+        return 0
 
     def _take_group(self, block: bool) -> Optional[List[_Request]]:
         """Pop up to the key's group limit of same-key requests, oldest key
@@ -744,7 +766,18 @@ class BatchingServer:
 
         Durations groups (kind "dur") are encoder-only — cheap enough to run
         synchronously here (one dispatch + one small fetch); their futures
-        resolve immediately and nothing is returned for a later fetch."""
+        resolve immediately and nothing is returned for a later fetch.
+
+        The batcher.group span (the group's rows, padded rows and its
+        oldest row's wait) holds the whole of it; batcher.dispatch the
+        runtime's call."""
+        p_bucket = self._p_bucket(max(len(r.ids) for r in group))
+        with self._prof.span("batcher.group", rows=len(group),
+                             padded_rows=self._padded_rows(p_bucket, group),
+                             wait_ms=(time.perf_counter() - group[0].t_submit) * 1e3):
+            return self._dispatch_group_spanned(group)
+
+    def _dispatch_group_spanned(self, group: List[_Request]):
         # All rows of a group share the mix flag (it is part of the queue
         # key), so a group is either all-mix or all-id/none.
         mixes = ([r.speaker_mix for r in group]
@@ -758,10 +791,11 @@ class BatchingServer:
                 p_bucket = bucket_for(max(len(r.ids) for r in group),
                                       self.rt.options.phoneme_buckets,
                                       "phoneme")
-                durs = self.rt.phoneme_durations(
-                    [r.ids for r in group], length_scale=ls, noise_w=nw,
-                    speaker_ids=speaker_ids, speaker_mixes=mixes,
-                    pad_rows_to=self._dur_rows(p_bucket))
+                with self._prof.span("batcher.dispatch"):
+                    durs = self.rt.phoneme_durations(
+                        [r.ids for r in group], length_scale=ls, noise_w=nw,
+                        speaker_ids=speaker_ids, speaker_mixes=mixes,
+                        pad_rows_to=self._dur_rows(p_bucket))
                 with self._cond:
                     self._metrics["completed"] += len(group)
                 for r, d in zip(group, durs):
@@ -787,11 +821,12 @@ class BatchingServer:
                 p_bucket = bucket_for(max(len(r.ids) for r in group),
                                       self.rt.options.phoneme_buckets,
                                       "phoneme")
-                audios = self.rt.synthesize_batch_forced(
-                    [r.ids for r in group], [r.durations for r in group],
-                    noise_scale=ns, speaker_ids=speaker_ids,
-                    speaker_mixes=mixes,
-                    pad_rows_to=self._pad_rows_for(p_bucket, len(group)))
+                with self._prof.span("batcher.dispatch"):
+                    audios = self.rt.synthesize_batch_forced(
+                        [r.ids for r in group], [r.durations for r in group],
+                        noise_scale=ns, speaker_ids=speaker_ids,
+                        speaker_mixes=mixes,
+                        pad_rows_to=self._pad_rows_for(p_bucket, len(group)))
                 with self._cond:
                     self._metrics["completed"] += len(group)
                 for r, a in zip(group, audios):
@@ -820,12 +855,13 @@ class BatchingServer:
                     "overflow_budget_frames": 2 * self._budget_frames(p_bucket),
                     "overflow_pad_rows": self._rungs(p_bucket)[0],
                 }
-            outs, meta = self.rt.dispatch_batch(
-                [r.ids for r in group],
-                noise_scale=ns, length_scale=ls, noise_w=nw,
-                speaker_ids=speaker_ids, speaker_mixes=mixes,
-                fused=self.fused, **kwargs,
-            )
+            with self._prof.span("batcher.dispatch"):
+                outs, meta = self.rt.dispatch_batch(
+                    [r.ids for r in group],
+                    noise_scale=ns, length_scale=ls, noise_w=nw,
+                    speaker_ids=speaker_ids, speaker_mixes=mixes,
+                    fused=self.fused, **kwargs,
+                )
             return group, outs, meta
         except Exception as e:  # noqa: BLE001 — per-request surfacing
             with self._cond:
@@ -836,9 +872,14 @@ class BatchingServer:
 
     def _finish_group(self, group: List[_Request], outs, meta) -> None:
         try:
-            audios = self.rt.fetch_batch(outs, meta)
+            with self._prof.span("batcher.fetch", batch=meta.get("batch")):
+                audios = self.rt.fetch_batch(outs, meta)
             with self._cond:
                 self._metrics["completed"] += len(group)
+                # The runtime's fetch counts the rows it redid (fused
+                # groups whose durations overflowed the frame budget).
+                self._metrics["overflow_rows"] += meta.get("overflow_rows", 0)
+                self._metrics["overflow_split_rows"] += meta.get("overflow_split_rows", 0)
             for r, a in zip(group, audios):
                 self._finish_value(r, a)
         except Exception as e:  # noqa: BLE001

@@ -18,6 +18,13 @@ with the runtime's blocking synthesize, which takes the runtime's lock.
 
 Every thread is named piper-torch-pipeline-*; close() (or leaving the
 context) joins them.
+
+Spans (utils/profiling.py, each also a row of the runtime's profiler):
+`pipeline.wait` while the batch worker waits on its queue,
+`pipeline.dispatch` around a dispatch (batch i+1's; a fused submit's, on
+the caller's thread) and `pipeline.fetch` around a fetch (batch i's, on
+the worker; a fused submit's, on a fetcher), the fetch under the batch id
+its dispatch took.
 """
 
 from __future__ import annotations
@@ -82,7 +89,7 @@ class ServingPipeline:
         fut: "Future[np.ndarray]" = Future()
         self._inflight.acquire()
         try:
-            with self._dispatch_lock:
+            with self._dispatch_lock, self.rt.profiler.span("pipeline.dispatch"):
                 outs, meta = self.rt.dispatch_fused(
                     phoneme_ids,
                     noise_scale=noise_scale,
@@ -139,9 +146,11 @@ class ServingPipeline:
 
     def _batch_loop(self) -> None:
         pending = None  # (future, device_outs, meta) awaiting its fetch
+        span = self.rt.profiler.span
         while True:
             try:
-                item = self._batch_queue.get(block=pending is None)
+                with span("pipeline.wait"):
+                    item = self._batch_queue.get(block=pending is None)
             except queue.Empty:
                 item = None  # nothing new: just complete the pending fetch
             if item is None and pending is None:
@@ -154,7 +163,7 @@ class ServingPipeline:
             if item is not None:
                 fut, ids_batch, kwargs = item
                 try:
-                    with self._dispatch_lock:
+                    with self._dispatch_lock, span("pipeline.dispatch"):
                         outs, meta = self.rt.dispatch_batch(ids_batch, **kwargs)
                     nxt = (fut, outs, meta)
                 except Exception as e:  # noqa: BLE001
@@ -169,7 +178,8 @@ class ServingPipeline:
         if not _claim(fut):
             return  # caller cancelled: skip the fetch, keep the worker alive
         try:
-            fut.set_result(self.rt.fetch_batch(outs, meta))
+            with self.rt.profiler.span("pipeline.fetch", batch=meta.get("batch")):
+                fut.set_result(self.rt.fetch_batch(outs, meta))
         except Exception as e:  # noqa: BLE001
             fut.set_exception(e)
 
@@ -183,7 +193,8 @@ class ServingPipeline:
                 if not _claim(fut):
                     continue  # caller cancelled; the fetcher must survive
                 try:
-                    fut.set_result(self.rt.fetch_fused(outs, meta))
+                    with self.rt.profiler.span("pipeline.fetch", batch=meta.get("batch")):
+                        fut.set_result(self.rt.fetch_fused(outs, meta))
                 except Exception as e:  # noqa: BLE001
                     fut.set_exception(e)
             finally:

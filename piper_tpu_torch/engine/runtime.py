@@ -25,8 +25,22 @@ voices on one device: the CUDA card unless the caller asks for the CPU
   (pay first-run costs ahead of traffic), `RuntimeOptions.from_env()` and
   `load_voice(voice_id)` (a voice of the bundled index, fetched and cached
   by `core/voices.py`), and `profiler` (utils/profiling.py: host wall ms per
-  (stage, bucket) where the JAX runtime records them; PIPER_TPU_PROFILE=1
+  (stage, bucket) under the JAX runtime's row names; PIPER_TPU_PROFILE=1
   prints the table at exit).
+- Spans (utils/profiling.py; on the timeline while it is open, with CUDA
+  events on the card): split mode's `runtime.encode` (the encode's enqueue),
+  `runtime.read` (the host's wait for the frame counts), `runtime.decode`
+  (the decode's enqueue and its copy's: its start event, on the stream the
+  read left idle, marks the host beginning the decode, its first launch
+  still to prepare; its rows, padded rows, f_bucket and the real rows'
+  live frames) and `runtime.fetch` (the copy's wait and the
+  slicing); fused mode's `runtime.fused`, `runtime.fetch` and `runtime.redo`
+  (the overflowing rows, redone on the grid or by a split call). The rows
+  they feed time what their names say: "encode" the encode's enqueue and
+  the read, "decode" the decode's enqueue (booked at fetch in a
+  dispatch/fetch pair; a blocking call adds the fetch), "fused" the fused
+  enqueue (a blocking call adds the fetch). PIPER_TPU_TRACE=1 prints one
+  stderr line a run, the JAX runtime's.
 - Duration controls: `phoneme_durations` runs the encoder only and returns
   each phoneme's frames; `synthesize_with_alignment` adds their sample
   spans to the audio (`core/alignment.py`); `synthesize_forced` and
@@ -560,6 +574,20 @@ class PiperRuntime:
             print(f"\n[piper-tpu profile] {self.model_path.name}:", file=sys.stderr)
             self.profiler.dump()
 
+    def _span(self, name: str, bucket=None, **kwargs):
+        """A runtime span: on the timeline, no row of its own (the caller
+        records the JAX runtime's row from its `ms`)."""
+        return self.profiler.span(name, bucket, row=None, **kwargs)
+
+    def _trace_run(self, b: int, p_bucket: int, f_bucket: int, fused: bool, t_start: float,
+                   compiled: bool) -> None:
+        """PIPER_TPU_TRACE=1: one stderr line a run, the JAX runtime's."""
+        if self.profiler.trace:
+            print(f"[piper-tpu] B={b} P={p_bucket} T={f_bucket} "
+                  f"{'fused' if fused else 'split'} "
+                  f"wall={(time.perf_counter() - t_start) * 1e3:.1f}ms compiled={compiled}",
+                  file=sys.stderr)
+
     @classmethod
     def load_voice(
         cls,
@@ -908,15 +936,21 @@ class PiperRuntime:
     def _run_split(self, ids, lengths, b: int, scales, seed, sid, dp_noise=None,
                    main_noise=None):
         """Encode, the one host read (the frame counts pick the decode
-        bucket), decode. Returns (audio on the device, y_len of the b real
-        rows, f_bucket, compiled, the host clock after the read)."""
+        bucket), decode, and the audio's copy to the host queued behind it.
+        Returns (audio on the device, meta): the copy, y_len of the b real
+        rows, f_bucket, compiled, the host clock after the read, the batch
+        id and the ms of the "encode" row (the encode's enqueue and the
+        read) and of the decode's enqueue (with the copy's)."""
         ns, ls, nw = scales
         rows, p_bucket = ids.shape
         kind = self._sid_kind(sid)
         compiled = self._mark("enc_inj" if dp_noise is not None else "enc_key",
                               (rows, p_bucket, kind))
-        enc = self._encode(ids, lengths, ls, nw, seed, dp_noise, sid)
-        y_lengths = enc.y_total.cpu().numpy().astype(np.int64)
+        with self._span("runtime.encode", p_bucket, device=self.device) as enc_span:
+            enc = self._encode(ids, lengths, ls, nw, seed, dp_noise, sid)
+        batch = enc_span.batch  # the parent's, or new: the read and decode share it
+        with self._span("runtime.read", p_bucket, batch=batch) as read_span:
+            y_lengths = enc.y_total.cpu().numpy().astype(np.int64)
         t_encode = time.perf_counter()
         # Degenerate durations (extreme length_scale) clamp to the largest
         # bucket and truncate the tail rather than failing the request.
@@ -927,8 +961,15 @@ class PiperRuntime:
             f_bucket = self._frame_bucket(max(int(y_lengths.max()), src.shape[-1]))
         compiled |= self._mark("dec_inj" if src is not None else "dec_key",
                                (rows, f_bucket, kind))
-        audio, _ = self._decode(enc, f_bucket, ns, seed, src)
-        return audio, np.clip(y_lengths, 1, f_bucket)[:b], f_bucket, compiled, t_encode
+        y_len = np.clip(y_lengths, 1, f_bucket)[:b]
+        with self._span("runtime.decode", f_bucket, device=self.device, batch=batch, rows=b,
+                        padded_rows=rows - b, f_bucket=f_bucket,
+                        frames=int(y_len.sum())) as dec_span:
+            audio, _ = self._decode(enc, f_bucket, ns, seed, src)
+            copy = _HostCopy((audio,))
+        return audio, {"copy": copy, "y_len": y_len, "p_bucket": p_bucket, "f_bucket": f_bucket,
+                       "compiled": compiled, "t_encode": t_encode, "batch": batch,
+                       "encode_ms": enc_span.ms + read_span.ms, "decode_ms": dec_span.ms}
 
     # -- blocking synthesis ----------------------------------------------------
 
@@ -1041,26 +1082,36 @@ class PiperRuntime:
         use_fused = self.options.mode == "fused" and b == 1 and not injected
         compiled = False
         if use_fused:
-            outs, f_bucket, compiled = self._run_fused(ids, lengths, scales, base_seed, sid)
-            audio, y_len, y_total = _HostCopy(outs).wait()
+            with self._span("runtime.fused", device=self.device) as run:
+                outs, f_bucket, compiled = self._run_fused(ids, lengths, scales, base_seed, sid)
+                copy = _HostCopy(outs)
+                run.bucket = f_bucket
+            with self._span("runtime.fetch", f_bucket, batch=run.batch) as fetch:
+                audio, y_len, y_total = copy.wait()
+                use_fused = int(y_total.max()) <= f_bucket  # else redo exactly, split
+                if use_fused:
+                    out = self._rows(audio, y_len, b)
             t_encode = t_end = time.perf_counter()
-            use_fused = int(y_total.max()) <= f_bucket  # else redo exactly, split
+            if use_fused:
+                self.profiler.record("fused", f_bucket, run.ms + fetch.ms, compiled)
         if not use_fused:
-            audio_d, y_len, f_bucket, split_compiled, t_encode = self._run_split(
-                ids, lengths, b, scales, base_seed, sid, dp_noise, main_noise)
-            compiled |= split_compiled
-            (audio,) = _HostCopy((audio_d,)).wait()
+            _, m = self._run_split(ids, lengths, b, scales, base_seed, sid, dp_noise, main_noise)
+            y_len, f_bucket, t_encode = m["y_len"], m["f_bucket"], m["t_encode"]
+            compiled |= m["compiled"]
+            with self._span("runtime.fetch", f_bucket, batch=m["batch"]) as fetch:
+                (audio,) = m["copy"].wait()
+                out = self._rows(audio, y_len, b)
             t_end = time.perf_counter()
-
-        hop = self.hparams.hop_length
-        out = [audio[i, : int(y_len[i]) * hop].copy() for i in range(b)]
-        if use_fused:
-            self.profiler.record("fused", f_bucket, (t_end - t_start) * 1e3, compiled)
-        else:
-            self.profiler.record("encode", p_bucket, (t_encode - t_start) * 1e3, compiled)
-            self.profiler.record("decode", f_bucket, (t_end - t_encode) * 1e3, compiled)
+            self.profiler.record("encode", p_bucket, m["encode_ms"], compiled)
+            self.profiler.record("decode", f_bucket, m["decode_ms"] + fetch.ms, compiled)
+        self._trace_run(b, p_bucket, f_bucket, use_fused, t_start, compiled)
         return out, self._timings(t_start, t_encode, t_end, p_bucket, f_bucket,
                                   int(np.sum(y_len[:b])), out, compiled)
+
+    def _rows(self, audio: np.ndarray, y_len, b: int) -> List[np.ndarray]:
+        """The first b rows of host audio, each cut to its y_len frames."""
+        hop = self.hparams.hop_length
+        return [audio[i, : int(y_len[i]) * hop].copy() for i in range(b)]
 
     def _timings(self, t_start, t_encode, t_end, p_bucket, f_bucket, frames, out,
                  compiled) -> RunTimings:
@@ -1359,14 +1410,20 @@ class PiperRuntime:
         sid = self._sid_array([speaker_id] if speaker_id is not None else None, 1,
                               mixes=[speaker_mix] if speaker_mix is not None else None)
         base_seed = self.options.seed if seed is None else seed
+        t_dispatch = time.perf_counter()
         with self._device_work():
-            outs, f_bucket, _ = self._run_fused(ids_np, lengths, scales, base_seed, sid)
-            copy = _HostCopy(outs)
+            with self._span("runtime.fused", device=self.device) as run:
+                outs, f_bucket, compiled = self._run_fused(ids_np, lengths, scales, base_seed,
+                                                           sid)
+                copy = _HostCopy(outs)
+                run.bucket = f_bucket
+        self.profiler.record("fused", f_bucket, run.ms, compiled)
         # The mix is copied: meta outlives this call (fetch_fused's overflow
         # redo) and the caller may change the dict meanwhile.
         meta = {"ids": ids, "f_bucket": f_bucket, "scales": scales, "speaker_id": speaker_id,
                 "speaker_mix": dict(speaker_mix) if speaker_mix is not None else None,
-                "seed": seed, "copy": copy}
+                "seed": seed, "copy": copy, "batch": run.batch, "t_dispatch": t_dispatch,
+                "p_bucket": ids_np.shape[1], "compiled": compiled}
         return outs, meta
 
     def fetch_fused(self, outs, meta) -> np.ndarray:
@@ -1376,13 +1433,21 @@ class PiperRuntime:
         with a blocking split-mode synthesis."""
         if meta.get("fused_batch"):  # a mesh runtime's batched fused path
             return self._fetch_batch_fused(meta)[0]
-        audio, y_len, y_total = meta["copy"].wait()
-        if int(y_total.max()) > meta["f_bucket"]:
+        with self._span("runtime.fetch", meta["f_bucket"], batch=meta["batch"]):
+            audio, y_len, y_total = meta["copy"].wait()
+            overflow = int(y_total.max()) > meta["f_bucket"]
+            if not overflow:
+                out = self._rows(audio, y_len, 1)[0]
+        meta["overflow_rows"] = meta["overflow_split_rows"] = int(overflow)
+        if overflow:
             ns, ls, nw = meta["scales"]
-            return self.synthesize(meta["ids"], noise_scale=ns, length_scale=ls, noise_w=nw,
-                                   speaker_id=meta["speaker_id"], seed=meta["seed"],
-                                   speaker_mix=meta["speaker_mix"])
-        return audio[0, : int(y_len[0]) * self.hparams.hop_length].copy()
+            with self._span("runtime.redo", batch=meta["batch"], rows=1, how="split"):
+                out = self.synthesize(meta["ids"], noise_scale=ns, length_scale=ls, noise_w=nw,
+                                      speaker_id=meta["speaker_id"], seed=meta["seed"],
+                                      speaker_mix=meta["speaker_mix"])
+        self._trace_run(1, meta["p_bucket"], meta["f_bucket"], True, meta["t_dispatch"],
+                        meta["compiled"])
+        return out
 
     def dispatch_batch(
         self,
@@ -1445,14 +1510,12 @@ class PiperRuntime:
         scales = self._scales(noise_scale, length_scale, noise_w)
         sid = self._row_sids(speaker_ids, speaker_mixes, b, ids.shape[0])
         base_seed = self.options.seed if seed is None else seed
+        t_dispatch = time.perf_counter()
         with self._device_work():
-            t_start = time.perf_counter()
-            audio, y_len, f_bucket, compiled, t_dispatch = self._run_split(
-                ids, lengths, b, scales, base_seed, sid)
-            copy = _HostCopy((audio,))
-        self.profiler.record("encode", ids.shape[1], (t_dispatch - t_start) * 1e3, compiled)
-        return audio, {"y_len": y_len, "f_bucket": f_bucket, "b": b, "copy": copy,
-                       "t_dispatch": t_dispatch, "compiled": compiled}
+            audio, meta = self._run_split(ids, lengths, b, scales, base_seed, sid)
+        self.profiler.record("encode", meta["p_bucket"], meta["encode_ms"], meta["compiled"])
+        meta.update(b=b, t_dispatch=t_dispatch)
+        return audio, meta
 
     def _dispatch_batch_fused(self, ids_batch: List[List[int]], *, noise_scale, length_scale,
                               noise_w, speaker_ids, seed, pad_rows_to: Optional[int] = None,
@@ -1472,11 +1535,16 @@ class PiperRuntime:
         pinned = None if budget_frames is None else self._frame_bucket(max(32, int(budget_frames)))
         t_dispatch = time.perf_counter()
         with self._device_work():
-            outs, f_bucket, compiled = self._run_fused(ids, lengths, scales, base_seed, sid,
-                                                       f_bucket=pinned)
-            copy = _HostCopy(outs)
+            with self._span("runtime.fused", device=self.device, rows=b,
+                            padded_rows=ids.shape[0] - b) as run:
+                outs, f_bucket, compiled = self._run_fused(ids, lengths, scales, base_seed, sid,
+                                                           f_bucket=pinned)
+                copy = _HostCopy(outs)
+                run.bucket = f_bucket
+        self.profiler.record("fused", f_bucket, run.ms, compiled)
         meta = {"fused_batch": True, "b": b, "f_bucket": f_bucket, "compiled": compiled,
-                "copy": copy, "t_dispatch": t_dispatch,
+                "copy": copy, "t_dispatch": t_dispatch, "batch": run.batch,
+                "p_bucket": ids.shape[1],
                 # For the overflow redo; the mixes are copied, as dispatch_fused's.
                 "ids_batch": ids_batch, "scales": scales,
                 "speaker_ids": list(speaker_ids) if speaker_ids is not None else None,
@@ -1488,15 +1556,29 @@ class PiperRuntime:
 
     def _fetch_batch_fused(self, meta) -> List[np.ndarray]:
         """Complete a fused group: one wait for its copy, then the rows that
-        overflowed the budget redone (dispatch_batch(fused=True))."""
-        audio, y_len, y_total = meta["copy"].wait()
-        self.profiler.record("fused", meta["f_bucket"],
-                             (time.perf_counter() - meta["t_dispatch"]) * 1e3, meta["compiled"])
-        b, hop = meta["b"], self.hparams.hop_length
-        out = [audio[i, : int(y_len[i]) * hop].copy() for i in range(b)]
-        overflow = [i for i in range(b) if int(y_total[i]) > meta["f_bucket"]]
-        if not overflow:
-            return out
+        overflowed the budget redone (dispatch_batch(fused=True)). Sets
+        meta's `overflow_rows` (rows redone) and `overflow_split_rows`
+        (those a blocking split call redid, at once or after the taller
+        grid shape overflowed too)."""
+        b = meta["b"]
+        with self._span("runtime.fetch", meta["f_bucket"], batch=meta["batch"]):
+            audio, y_len, y_total = meta["copy"].wait()
+            out = self._rows(audio, y_len, b)
+            overflow = [i for i in range(b) if int(y_total[i]) > meta["f_bucket"]]
+        meta["overflow_rows"] = len(overflow)
+        meta["overflow_split_rows"] = 0
+        if overflow:
+            with self._span("runtime.redo", batch=meta["batch"], rows=len(overflow)) as redo:
+                self._redo(meta, overflow, out, redo)
+        self._trace_run(b, meta["p_bucket"], meta["f_bucket"], True, meta["t_dispatch"],
+                        meta["compiled"])
+        return out
+
+    def _redo(self, meta, overflow: List[int], out: List[np.ndarray], redo) -> None:
+        """Redo a fused group's overflowing rows into `out`: on the taller
+        grid shape where the caller gave one and the rows fit, else with a
+        blocking split synthesize_batch; `redo` (the runtime.redo span)
+        takes which as its `how`."""
         ns, ls, nw = meta["scales"]
         sids, mixes = meta["speaker_ids"], meta["speaker_mixes"]
         kw = dict(noise_scale=ns, length_scale=ls, noise_w=nw, seed=meta["seed"],
@@ -1507,14 +1589,17 @@ class PiperRuntime:
         if budget and rows and len(overflow) <= rows:
             # The taller grid shape; a row that overflows even this budget
             # is redone in split mode by the inner fetch (no redo keys).
+            redo.attrs["how"] = "grid"
             _, meta2 = self._dispatch_batch_fused(o_ids, pad_rows_to=rows, budget_frames=budget,
                                                   **kw)
             redone = self._fetch_batch_fused(meta2)
+            meta["overflow_split_rows"] = meta2["overflow_split_rows"]
         else:
+            redo.attrs["how"] = "split"
             redone = self.synthesize_batch(o_ids, **kw)
+            meta["overflow_split_rows"] = len(overflow)
         for k, i in enumerate(overflow):
             out[i] = redone[k]
-        return out
 
     def fetch_batch(self, outs, meta) -> List[np.ndarray]:
         """Complete a dispatch_batch: wait for the audio's copy (meta's copy
@@ -1524,11 +1609,15 @@ class PiperRuntime:
             return [self.fetch_fused(outs, meta)]
         if meta.get("fused_batch"):
             return self._fetch_batch_fused(meta)
-        (audio,) = meta["copy"].wait()
-        self.profiler.record("decode", meta["f_bucket"],
-                             (time.perf_counter() - meta["t_dispatch"]) * 1e3, meta["compiled"])
-        y_len, hop = meta["y_len"], self.hparams.hop_length
-        return [audio[i, : int(y_len[i]) * hop].copy() for i in range(meta["b"])]
+        with self._span("runtime.fetch", meta["f_bucket"], batch=meta["batch"]):
+            (audio,) = meta["copy"].wait()
+            out = self._rows(audio, meta["y_len"], meta["b"])
+        # The decode's enqueue, timed at dispatch, booked with its batch's
+        # completion.
+        self.profiler.record("decode", meta["f_bucket"], meta["decode_ms"], meta["compiled"])
+        self._trace_run(meta["b"], meta["p_bucket"], meta["f_bucket"], False,
+                        meta["t_dispatch"], meta["compiled"])
+        return out
 
     # -- streaming -------------------------------------------------------------
 

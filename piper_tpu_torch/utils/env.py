@@ -6,7 +6,7 @@ JAX platform override has no counterpart here, `--device` takes its place).
 |-------------------------|-----------------------------------------------------|
 | PIPER_TPU_CACHE         | cache root for voices/synthetic checkpoints         |
 | PIPER_TPU_PROFILE       | =1 dumps a per-stage timing table to stderr at exit |
-| PIPER_TPU_TRACE         | =1 logs each synthesis stage (bucket, ms) to stderr |
+| PIPER_TPU_TRACE         | =1 prints one line a run to stderr (B, P, T, mode, wall ms, compiled: the JAX runtime's) and keeps the timeline of spans (utils/profiling.py) |
 | PIPER_TPU_PRECISION     | override the default precision tier                 |
 | PIPER_TPU_VOCODER_PRECISION | vocoder-only tier or comma-list per upsample level |
 | PIPER_TPU_FLOW_PRECISION | decode-flow-only tier (encoder stays fp32)         |
@@ -15,7 +15,7 @@ JAX platform override has no counterpart here, `--device` takes its place).
 | PIPER_TPU_FUSE_MRF      | =1/=0 force whole-MRF fusion on/off (default: ch<=32 levels only) |
 
 `RuntimeOptions.from_env()` reads the precision and mode flags; `PiperRuntime`
-reads PIPER_TPU_NO_PALLAS when it is made, and the vocoder's `_level`
+reads PIPER_TPU_NO_PALLAS, and its profiler PIPER_TPU_TRACE, when it is made, and the vocoder's `_level`
 (models/vits/hifigan.py) PIPER_TPU_FUSE_MRF at every level.
 """
 

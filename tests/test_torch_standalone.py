@@ -324,8 +324,27 @@ def test_audio_module_is_a_copy():
                                  "utils/playback.py", "version.py", "utils/debug_trace.py"])
 def test_jax_free_module_is_a_byte_copy(rel):
     """The JAX package's jax-free modules the CLI and the package surface
-    need, copied byte for byte."""
-    assert (ROOT / "piper_tpu_torch" / rel).read_bytes() == (ROOT / "piper_tpu" / rel).read_bytes()
+    need, copied byte for byte. utils/profiling.py has since grown the
+    port's timeline (spans, the ring, CUDA events) around the copy: its
+    StageStats is still the JAX package's byte for byte, and its Profiler
+    books the same records into the same rows."""
+    ours = (ROOT / "piper_tpu_torch" / rel).read_bytes()
+    theirs = (ROOT / "piper_tpu" / rel).read_bytes()
+    if rel != "utils/profiling.py":
+        assert ours == theirs
+        return
+    assert theirs[theirs.index(b"@dataclass\nclass StageStats"):
+                  theirs.index(b"class Profiler")].rstrip() in ours
+    from piper_tpu.utils.profiling import Profiler as JaxProfiler
+    from piper_tpu_torch.utils.profiling import Profiler
+
+    rows = []
+    for prof in (Profiler(), JaxProfiler()):
+        for stage, bucket, ms, compiled in (("encode", 16, 5.0, True), ("encode", 16, 3.0, False),
+                                            ("decode", 128, 9.5, False)):
+            prof.record(stage, bucket, ms, compiled)
+        rows.append([(s, b, dataclasses.asdict(st)) for s, b, st in prof.rows()])
+    assert rows[0] == rows[1]
 
 
 @pytest.mark.parametrize("rel", ["client.py", "testing.py"])
