@@ -154,9 +154,15 @@ each K1 instantiation's registers, spills, ptxas notes and its products in
 the machine code (cuobjdump -sass: HGMMA is wgmma, HMMA mma.sync); the run
 fails unless every tier's instantiations of both (K1's at every padded
 width and with bf16 I/O) hold wgmma and none holds mma.sync. The kernel
-phase also drives the route of the ResBlock1 widths the K2/K3 stage
-refuses (a voice with C=48 and C=24 levels, at "highest", "high" and in
-the "bfloat16" mode): K1 launched its count, against its plain version;
+phase holds K1's wide design (`conv1d_same_wide`, csrc/conv1d_wide.cu) at
+a high voice's wide levels (C=256 and 128 at the 320-frame bucket) against
+its plain version at "highest" and "high", and times it beside the
+library route it replaced (leaky_relu, F.conv1d, the residual; TF32 off);
+its launches are its own counter's, and conv1d_same's entry counts the
+narrow design's alone. It also drives the route of the ResBlock1 widths
+the K2/K3 stage refuses (a voice with C=48 and C=24 levels, at "highest",
+"high" and in the "bfloat16" mode): K1 launched its count, against its
+plain version;
 and it holds the seeded draw's kernel (threefry_normal, which replaces no
 TPU kernel) against its plain version in its three layouts (bits and
 uniforms bit-equal, normals within 2e-6), timed beside its plain version
@@ -216,6 +222,12 @@ KERNELS = {
                                          "level_probe", "cli")),
     "conv1d_same": ("piper_tpu_torch/csrc/conv1d.cu",
                     "piper_tpu/ops/pallas/conv.py:107", CONV1D_PATHS + ("roofline_x_low",)),
+    # K1's wide design: no TPU kernel, the JAX package leaves the wide
+    # levels' convs to XLA.
+    "conv1d_same_wide": ("piper_tpu_torch/csrc/conv1d_wide.cu",
+                         "none (XLA's conv, piper_tpu/models/vits/hifigan.py:53)",
+                         ("medium", "medium_mixed", "x_low", "x_low_mixed", "high",
+                          "high_mixed")),
     "resblock1_mrf_folded": ("piper_tpu_torch/csrc/resblock1.cu",
                              "piper_tpu/ops/pallas/folded.py:220", ("probe",)),
     "interleave": ("piper_tpu_torch/csrc/interleave.cu", "tools/ct_probe.py:151",
@@ -230,6 +242,8 @@ NO_LIBRARY_CALL = {
     "resblock1_branch": "a masked chain of six convs, each after a leaky_relu",
     "resblock1_mrf": "three masked chains of six convs and their mean",
     "conv1d_same": "leaky_relu then a conv: two calls",
+    "conv1d_same_wide": "leaky_relu, a conv, the residual added: three calls (their "
+                        "time is library_ms)",
     "resblock1_mrf_folded": "the MRF's chains on a folded layout",
     "threefry_normal": "no PyTorch call draws JAX's threefry numbers; torch.randn (Philox, "
                        "other numbers) is timed beside it as randn_ms",
@@ -278,10 +292,20 @@ VOCODER_KERNELS = {"medium": (RESBLOCK_SYMBOL, ("resblock1_branch", "resblock1_m
 # A voice's vocoder kernel launches per synthesis call or stream window,
 # whatever its rows:
 # medium's level 2 (C=64) runs three K2 branches and level 3 (C=32) one K3;
-# high adds a K3 level at C=16; x_low's two levels run six K1 convs each.
+# high adds a K3 level at C=16; x_low's two narrow levels run six K1 convs
+# each.
 LAUNCHES_PER_CALL = {"medium": {"resblock1_branch": 3, "resblock1_mrf": 1},
                      "high": {"resblock1_branch": 3, "resblock1_mrf": 2},
                      "x_low": {"conv1d_same": 12}}
+# And the wide levels' convs, through K1's wide design on fp32 activations
+# (the bf16 paths keep them PyTorch convs): 18 a level at medium's and
+# high's C=256 and 128, six at x_low's C=128. conv1d_same's counter counts
+# them too; conv1d_same_wide's counts them alone.
+WIDE_LAUNCHES_PER_CALL = {"medium": 36, "high": 36, "x_low": 6}
+# The wide check: a high voice's wide levels, (level, C, samples a frame),
+# at the f=8 batches' 320-frame bucket; timed at the serving batch's rows.
+WIDE_LEVELS = ((0, 256, 8), (1, 128, 64))
+WIDE_FRAMES = 320
 WAVE_ATOL = 1e-4     # the fp32 waveform bar the JAX package is held to
 MIXED_ATOL = 1e-3    # the lowered-precision waveform gate (BASELINE.md)
 # Half the gate: where every mixed comparison must land (the margin phase
@@ -594,6 +618,7 @@ def phase_kernels(torch) -> dict:
                 note="ms covers the 3 branch launches of one level" if c == 64 else
                 "ms covers one launch (3 branches + mean)") for tier in TIERS}
         results["conv1d_same"] = _conv1d_same_check(torch, gen)
+        results["conv1d_same_wide"] = _conv1d_wide_check(torch, gen)
         _refused_widths_check(torch)
         _bf16_kernel_rows(torch, gen, results)
         results["resblock1_mrf_folded"] = _folded_check(torch, gen, K4, R)
@@ -846,6 +871,102 @@ def _conv1d_same_check(torch, gen) -> dict:
     return total
 
 
+def _conv1d_wide_check(torch, gen) -> dict:
+    """K1's wide design (csrc/conv1d_wide.cu) at a high voice's wide
+    levels, C=256 (2,560 samples a row) and C=128 (20,480), at "highest"
+    and "high": each of a level's 18 convs (k 3/7/11 at dilations 1/3/5,
+    then each branch's dense conv adding the running sum,
+    `conv1d_probe.WIDE_CONVS`) at B=2 with act_slope 0.1 under each bounds
+    case and at a ragged N with no bounds, within K1_ATOL of its plain
+    version, an empty row exactly its bias (plus the residual). Then the 18
+    convs timed at SERVING_BATCH rows, no bounds: the wrapper (`ms`,
+    `device_ms`), its 18 kernels alone by symbol (`kernel_device_ms`), the
+    plain version, and `library_ms`, the route before the wide design
+    (leaky_relu, F.conv1d, the residual added; TF32 off); `bound_ms` from
+    those inputs (`conv1d_probe._wide_bound`). Returns {tier: the two
+    levels' worst error and summed times}."""
+    import torch.nn.functional as F
+
+    from piper_tpu_torch.ops.kernels import conv as K1
+    from piper_tpu_torch.tools.conv1d_probe import WIDE_CONVS, _wide_bound
+    from piper_tpu_torch.tools.timing import device_ms, event_ms
+
+    symbol = "conv1d_same_wide"
+    keys = ("ms", "plain_ms", "device_ms", "kernel_device_ms", "plain_device_ms", "bound_ms",
+            "library_ms")
+    total = {t: {"max_abs_err": 0.0, **{k: 0.0 for k in keys}, "design": K1_DESIGN[t]}
+             for t in ("highest", "high")}
+    for level, c, per_frame in WIDE_LEVELS:
+        n = per_frame * WIDE_FRAMES
+        convs = [(_rand(torch, gen, c, c, k, scale=(c * k) ** -0.5),
+                  _rand(torch, gen, c, scale=0.02), k, d, r) for k, d, r in WIDE_CONVS]
+        x2, res2 = _rand(torch, gen, 2, c, n, scale=0.3), _rand(torch, gen, 2, c, n, scale=0.5)
+        bounds = {"none": None,
+                  "one_sided": torch.tensor([n, n - n // 5], dtype=torch.int32, device="cuda"),
+                  "two_sided": torch.tensor([[37, n - 401], [0, n // 3]], dtype=torch.int32,
+                                            device="cuda"),
+                  "empty": torch.tensor([[0, 0], [0, n]], dtype=torch.int32, device="cuda")}
+        inputs = [(case, x2, res2, bnd) for case, bnd in bounds.items()]
+        ragged = n - 77
+        inputs.append(("ragged", _rand(torch, gen, 2, c, ragged, scale=0.3),
+                       _rand(torch, gen, 2, c, ragged, scale=0.5), None))
+        xb = _rand(torch, gen, SERVING_BATCH, c, n, scale=0.3)
+        resb = _rand(torch, gen, SERVING_BATCH, c, n, scale=0.5)
+
+        def library():
+            return [F.conv1d(F.leaky_relu(xb, 0.1), w, b, padding=(k - 1) // 2 * d,
+                             dilation=d) + (resb if r else 0) for w, b, k, d, r in convs]
+
+        library_ms = device_ms(library)
+        for tier in ("highest", "high"):
+            errs = {}
+            for case, xin, res, bnd in inputs:
+                for w, b, k, d, r in convs:
+                    kw = dict(dilation=d, act_slope=0.1, bounds=bnd,
+                              residual=res if r else None, precision=tier)
+                    launched = K1.conv1d_same.wide_launches
+                    got = K1.conv1d_same(xin, w, b, **kw)
+                    torch.cuda.synchronize()
+                    if K1.conv1d_same.wide_launches != launched + 1:
+                        raise AssertionError(f"conv1d_same C={c} {tier}: not the wide design")
+                    want = K1.conv1d_same_plain(xin, w, b, **kw)
+                    key = f"{case}_k{k}_d{d}" + ("_res" if r else "")
+                    errs[key] = max(errs.get(key, 0.0), float((got - want).abs().max()))
+                    if case == "empty" and not r:
+                        _check_k1_empty(torch, K1, xin, w, b, d, bnd, got, tier)
+                    elif case == "empty" and not torch.equal(got[0], res[0] + b[:, None]):
+                        raise AssertionError(f"conv1d_same C={c} {tier} k={k}: the empty "
+                                             f"row is not its residual plus its bias")
+            worst = max(errs.values())
+            if not worst <= K1_ATOL:
+                raise AssertionError(f"conv1d_same wide C={c} {tier}: max-abs {worst} > "
+                                     f"{K1_ATOL} ({errs})")
+
+            def run(fn, tier=tier):
+                return [fn(xb, w, b, dilation=d, act_slope=0.1, residual=resb if r else None,
+                           precision=tier) for w, b, k, d, r in convs]
+
+            row = {"max_abs_err": worst, "ms": event_ms(lambda: run(K1.conv1d_same)),
+                   "plain_ms": event_ms(lambda: run(K1.conv1d_same_plain)),
+                   **_whole_call_ms(lambda: run(K1.conv1d_same), K1_SYMBOL, K1.conv1d_same),
+                   "kernel_device_ms": device_ms(lambda: run(K1.conv1d_same), name=symbol,
+                                                 expected=len(convs)),
+                   **_whole_call_ms(lambda: run(K1.conv1d_same_plain), prefix="plain_"),
+                   "library_ms": library_ms}
+            row["bound_ms"], row["bound_by"] = _wide_bound(c, SERVING_BATCH, n, tier)
+            emit(phase="kernel", name="conv1d_same_wide", precision=tier, level=level,
+                 channels=c, samples=n, batch_timed=SERVING_BATCH, errs=errs, atol=K1_ATOL,
+                 design=K1_DESIGN[tier], **row,
+                 note="ms covers the level's 18 launches; library_ms is leaky_relu, F.conv1d "
+                      "and the residual added, TF32 off")
+            t = total[tier]
+            t["max_abs_err"] = max(t["max_abs_err"], worst)
+            t["bound_by"] = row["bound_by"]
+            for key in keys:
+                t[key] += row[key]
+    return total
+
+
 # The vocoder of a voice whose ResBlock1 levels are C=48 and C=24 (the
 # `test` voice's shape at upsample_initial_channel 96), against itself with
 # every kernel wrapper's plain version: the fp32 waveform bar at "highest",
@@ -1041,8 +1162,26 @@ def _counters():
     from piper_tpu_torch.ops.kernels import prng
 
     return {"resblock1_branch": R.resblock1_branch, "resblock1_mrf": R.resblock1_mrf,
-            "conv1d_same": K1.conv1d_same, "resblock1_mrf_folded": K4.resblock1_mrf_folded,
+            "conv1d_same": K1.conv1d_same, "conv1d_same_wide": _WideCounter(),
+            "resblock1_mrf_folded": K4.resblock1_mrf_folded,
             "interleave": K5.interleave, "threefry_normal": prng.threefry_normal}
+
+
+class _WideCounter:
+    """K1's wide launches (`conv1d_same.wide_launches`) behind the
+    `launches` attribute every other counter has."""
+
+    @property
+    def launches(self) -> int:
+        from piper_tpu_torch.ops.kernels import conv as K1
+
+        return K1.conv1d_same.wide_launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        from piper_tpu_torch.ops.kernels import conv as K1
+
+        K1.conv1d_same.wide_launches = n
 
 
 def _zero_counts() -> dict:
@@ -1068,8 +1207,12 @@ def _voice(path: str) -> str:
 
 def _require_per_call(path: str, launches: dict, calls: int) -> None:
     """Each vocoder kernel of the path's voice launched exactly its count
-    per synthesis call, `calls` times."""
-    for name, n in LAUNCHES_PER_CALL[_voice(path)].items():
+    per synthesis call, `calls` times: K1's with the wide levels' convs,
+    and K1's wide design those alone, outside the bf16 paths (none there)."""
+    want = dict(LAUNCHES_PER_CALL[_voice(path)])
+    want["conv1d_same_wide"] = 0 if "bf16" in path else WIDE_LAUNCHES_PER_CALL[_voice(path)]
+    want["conv1d_same"] = want.get("conv1d_same", 0) + want["conv1d_same_wide"]
+    for name, n in want.items():
         if launches[name] != n * calls:
             raise AssertionError(f"{path}: {launches[name]} {name} launches for {calls} calls, "
                                  f"expected {n} each")
@@ -2834,8 +2977,9 @@ def phase_mesh(torch, voices: dict) -> dict:
     pp=2 (synthesize_pipelined) against synthesize_batch at the same seed.
     Each path against the same call on the port's CPU slots (sp at zero
     noise: the card's and the CPU's torch generators draw different
-    duration noise). dp and sp slots must launch K2 and K3 their count
-    per call each (counted per slot); tp and pp launch no kernel."""
+    duration noise). dp and sp slots must launch K2, K3 and K1's wide
+    design their count per call each (counted per slot); tp and pp launch
+    no kernel."""
     from piper_tpu_torch.core.test_vector import FIXTURE_PHONEME_IDS
     from piper_tpu_torch.models.vits import model as vits
     from piper_tpu_torch.models.vits.hparams import receptive_field_frames
@@ -2845,7 +2989,7 @@ def phase_mesh(torch, voices: dict) -> dict:
     from piper_tpu_torch.parallel.serving import ShardedVits
 
     hp, params = _medium_weights(torch, voices["medium"][0])
-    per_call = LAUNCHES_PER_CALL["medium"]
+    per_call = {**LAUNCHES_PER_CALL["medium"], "conv1d_same": WIDE_LAUNCHES_PER_CALL["medium"]}
 
     def mesh(n, dev="cuda", **kw):
         return make_mesh(n, devices=[torch.device(dev)] * n, **kw)
@@ -3120,8 +3264,10 @@ def _kernel_entry(name: str, tiers: dict, launches: int) -> dict:
              "max_abs_err": row["max_abs_err"], "ms": row["device_ms"],
              "plain_ms": row["plain_device_ms"], "bound_ms": row["bound_ms"],
              "bound_by": row["bound_by"],
-             # K5's plain version is the one PyTorch call that computes it.
-             "library_ms": None if name in NO_LIBRARY_CALL else row["plain_device_ms"],
+             # K5's plain version is the one PyTorch call that computes it;
+             # K1's wide rows time the library route they replaced.
+             "library_ms": row["library_ms"] if "library_ms" in row else
+             None if name in NO_LIBRARY_CALL else row["plain_device_ms"],
              "event_ms": row["ms"], "plain_event_ms": row["plain_ms"]}
     if name in NO_LIBRARY_CALL:
         entry["no_library_call"] = NO_LIBRARY_CALL[name]
@@ -3210,6 +3356,9 @@ def main() -> None:
     phase_mixed_margin()
     from piper_tpu_torch.tools.timing import SENTINELS, WINDOWS
     emit(phase="profiler_windows", sentinels=SENTINELS, **WINDOWS)
+    # conv1d_same's counter counts both of K1's designs: its entry is the
+    # narrow one's.
+    launches["conv1d_same"] -= launches["conv1d_same_wide"]
     emit(kernels=[_kernel_entry(name, tiers, launches[name]) for name, tiers in kernels.items()])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,9 @@
 // (C, C, k) weights, zero padding on both sides. Optional per-row bounds
 // [lo, hi): act(v) is then also zero outside them, on the input only (for a
 // 0/1 mask lrelu(x * m) = lrelu(x) * m, so this is the TPU kernel on
-// x * mask). The output is not masked.
+// x * mask). The output is not masked. An optional residual is added to
+// the output last: out = residual + (conv + bias), each sum rounded as
+// PyTorch rounds x + xt.
 //
 // What bounds it on the H100: the ResBlock2 convs of Piper's x_low voices
 // (and the narrow ResBlock1 convs the ResBlock1 kernels do not take) are
@@ -45,7 +47,8 @@
 // slots completed on mbarriers, so the next chunk's copy runs under the
 // current chunk's products. C not a multiple of 16 runs as the next
 // multiple: zero channels in the planes and the image, never stored, so
-// any square C from 1 to 128 runs. The epilogue adds the bias and stores
+// any square C from 1 to 128 runs (wider ones, to 256, run the wide design
+// of conv1d_wide.cu). The epilogue adds the bias and stores
 // the raw sums (no act(), the output unmasked) through an fp32 stage over
 // the planes as coalesced rows, rounded to bf16 once for bf16 I/O. Tiles
 // whose window lies wholly outside [lo, hi) (all zeros) store the bias and
@@ -66,16 +69,18 @@ extern "C" {
 // x, out (B, C, N); w the tier's image of the (C_out, C_in, K) weights
 // zero-padded to Cp = C rounded up to 16 (16-byte aligned); bias (C,) or
 // null; bounds a device (B, bounds_cols) int32 array (bounds_cols 2: [lo,
-// hi); 1: [0, hi)) or null with bounds_cols 0. 1 <= C <= 128. tier 0
+// hi); 1: [0, hi)) or null with bounds_cols 0; residual (B, C, N), added
+// to the conv's output, or null. 1 <= C <= 128. tier 0
 // "highest", 1 "high", 2 "default"; tile (1-256) the output samples a
 // block, warpgroups (ceil(tile / 64) to 4) the block's, ring (1-3) the
 // weight slots (1 only for a conv of one chunk) and chunk the units a slot
 // holds. x,
-// bias and out are float, or bf16 when bf16_io is 1 (tier 2 only: bf16
+// bias, residual and out are float, or bf16 when bf16_io is 1 (tier 2 only: bf16
 // activations are the "bfloat16" mode's, which runs at "default"). Returns
 // a cudaError_t code (0 on success).
 int piper_conv1d_same(const void* x, const void* w, const void* bias, const int* bounds,
-                      int bounds_cols, void* out, int B, int C, int N, int k, int dil,
+                      int bounds_cols, const void* residual, void* out, int B, int C, int N,
+                      int k, int dil,
                       int tile, float slope, int tier, int warpgroups, int ring, int chunk,
                       int bf16_io, int device, void* stream) {
   if (C < 1 || C > 128 || k < 1 || k % 2 == 0 || dil < 1 || tile < 1 || tile > 256 ||
@@ -90,8 +95,8 @@ int piper_conv1d_same(const void* x, const void* w, const void* bias, const int*
   if (ring == 1 && total > 1) return (int)cudaErrorInvalidValue;  // the slot would wait on itself
   const size_t smem = smem_bytes(cp, C, tier, tile, (k - 1) / 2 * dil,
                                  ring < total ? ring : total, chunk);
-  const Args a{x,    w,   bias, bounds, out,  bounds_cols, B,          C,
-               N,    k,   dil,  tile,   ring, chunk,       warpgroups, slope};
+  const Args a{x, w,    bias, bounds, residual, out,   bounds_cols, B,    C,
+               N, k,    dil,  tile,   ring,     chunk, warpgroups,  slope};
   if (bf16_io) return start_tier<2, bf16>(a, cp, smem, device, stream);
   switch (tier) {
     case 0: return start_highest(a, cp, smem, device, stream);

@@ -26,6 +26,7 @@ struct Args {
   const void* w;       // the tier's B image of the (Cp, Cp, k) zero-padded weights
   const void* bias;    // (C,) TIO, or null
   const int* bounds;   // (B, bounds_cols) int32, or null with bounds_cols 0
+  const void* residual;  // (B, C, N) TIO, or null
   void* out;           // (B, C, N), TIO
   int bounds_cols, B, C, N, k, dil, tile, ring, chunk;
   int warpgroups;      // the block's: ceil(tile / 64) of them run the products
@@ -88,13 +89,17 @@ __global__ void __launch_bounds__(kMaxThreads) conv1d_same_kernel(const Args p) 
   const int W = p.tile + 2 * pad;  // window lane l is input sample t0 - pad + l
   const TIO* bias = static_cast<const TIO*>(p.bias);
   TIO* out = static_cast<TIO*>(p.out) + (size_t)b * p.C * p.N + t0;
+  const TIO* res =
+      p.residual ? static_cast<const TIO*>(p.residual) + (size_t)b * p.C * p.N + t0 : nullptr;
   int lo, hi;
   row_bounds(p, b, lo, hi);
   if (max(t0 - pad, lo) >= min(t0 + p.tile + pad, hi)) {
-    // An all-zero window: the output is the bias, and no product runs.
+    // An all-zero window: the conv is the bias, and no product runs.
     for (int i = threadIdx.x; i < p.C * n_out; i += blockDim.x) {
       const int c = i / n_out;
-      piper::store_f(out + (size_t)c * p.N + (i - c * n_out), bias ? load_f(bias + c) : 0.f);
+      const size_t at = (size_t)c * p.N + (i - c * n_out);
+      const float v = bias ? load_f(bias + c) : 0.f;
+      piper::store_f(out + at, res ? load_f(res + at) + v : v);
     }
     return;
   }
@@ -219,8 +224,10 @@ __global__ void __launch_bounds__(kMaxThreads) conv1d_same_kernel(const Args p) 
 
   // The epilogue: the bias added, the raw sums through an fp32 stage over
   // the planes (C rows of stage_stride(tile)), then coalesced rows out,
-  // rounded to TIO once. D's element 4jj + 2rr + e is output lane row0 +
-  // 16 * warp + gid + 8rr, channel 8jj + 2tig + e.
+  // rounded to TIO once; with a residual, the residual plus (conv + bias)
+  // rounded to TIO, as PyTorch adds the conv's output to it. D's element
+  // 4jj + 2rr + e is output lane row0 + 16 * warp + gid + 8rr, channel
+  // 8jj + 2tig + e.
   float* stage = reinterpret_cast<float*>(act_bytes);
   const int ts = stage_stride(p.tile);
   const int row = row0 + 16 * ((threadIdx.x >> 5) & 3) + gid;
@@ -239,8 +246,11 @@ __global__ void __launch_bounds__(kMaxThreads) conv1d_same_kernel(const Args p) 
   }
   __syncthreads();
   for (int c = threadIdx.x >> 5; c < p.C; c += warps) {
-    for (int l = lane; l < n_out; l += 32)
-      piper::store_f(out + (size_t)c * p.N + l, stage[c * ts + l]);
+    for (int l = lane; l < n_out; l += 32) {
+      const size_t at = (size_t)c * p.N + l;
+      const float v = stage[c * ts + l];
+      piper::store_f(out + at, res ? load_f(res + at) + piper::round_as(out, v) : v);
+    }
   }
 }
 

@@ -54,6 +54,11 @@ __device__ __forceinline__ float load_f(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_f(const bf16* p) { return __bfloat162float(__ldg(p)); }
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+// v as a store of the type of `p` and a load back would give it.
+__device__ __forceinline__ float round_as(const float*, float v) { return v; }
+__device__ __forceinline__ float round_as(const bf16*, float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
 
 // v rounded to tf32 (10 mantissa bits), to nearest with ties away from
 // zero, as fp32 bits with the low 13 mantissa bits zero.

@@ -2,7 +2,8 @@
 // ResBlock1 chain (sm_90a only):
 // warpgroup products (wgmma.mma_async), bulk copies from global to shared
 // memory (cp.async.bulk) and the shared-memory barriers (mbarrier) that
-// report their completion.
+// report their completion, and element copies (cp.async) for K1's wide
+// design's windows.
 //
 // wgmma here takes A (64 rows x K) and B (K x N) from shared memory
 // through descriptors; one product is 32 bytes of K: 16 bf16 values
@@ -112,6 +113,28 @@ __device__ __forceinline__ void bulk_copy_if(bool pred, uint32_t dst, const void
       "}\n" ::"r"(dst),
       "l"(src), "r"(bytes), "r"(bar), "r"((uint32_t)pred)
       : "memory");
+}
+
+// --- element copies ----------------------------------------------------
+
+// Copy 4 bytes from global `src` to shared `dst` asynchronously (cp.async),
+// or, where `bytes` is 0, write 4 zero bytes there without reading `src`.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// Close this thread's group of cp.async copies (an empty group where it
+// issued none).
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's groups are still in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // --- warpgroup products ----------------------------------------------

@@ -19,7 +19,18 @@ taking JAX's use_pallas=True throughout:
   ResBlock1 convs of a masked run without bounds) goes through the
   conv1d_same kernel: given the level's per-row bounds it masks its own
   input; without them it gets the mask applied to its input;
-- wider levels, the upsampling and the pre/post convs are PyTorch convs.
+- the square resblock convs of the wide levels, 128 to 256 channels (levels
+  0 and 1 of the `medium` preset, Piper's high class; level 0 of `x_low`,
+  Piper's medium class), go through the
+  conv1d_same kernel's wide design on a CUDA tensor of float32 at a level
+  tier of "highest" (or None) or "high", masked as the narrow convs are
+  (`k1_takes`). At "default" and on bf16 activations they stay PyTorch
+  convs (cuDNN on TF32 or bf16 tensor cores, which are that tier's
+  products or finer), and on a CPU tensor too, as the JAX reference leaves
+  them to XLA, which ignores the tier on the CPU;
+- every conv through conv1d_same adds its block's running sum in its
+  epilogue (`residual`), bit-equal to adding it after;
+- the upsampling and the pre/post convs are PyTorch convs.
 
 On a CPU tensor the kernel wrappers run their plain versions, so the CPU
 path is the unfused reference with the kernels' semantics.
@@ -46,7 +57,7 @@ from piper_tpu_torch.models.vits.hparams import VitsHParams
 from piper_tpu_torch.models.vits.params import Params, Prefix
 from piper_tpu_torch.ops.conv import conv1d, conv1d_same, conv_transpose1d
 from piper_tpu_torch.ops.kernels import conv as K1
-from piper_tpu_torch.ops.kernels.precision import tier_code, tier_scope
+from piper_tpu_torch.ops.kernels.precision import kernel_tier, tier_code, tier_scope
 from piper_tpu_torch.ops.kernels.resblock import (_bounds_array, _mask, branch_halo,
                                                   resblock1_branch, resblock1_mrf, stage_takes)
 from piper_tpu_torch.ops.nn import leaky_relu
@@ -56,22 +67,51 @@ from piper_tpu_torch.utils.env import flag
 LRELU_SLOPE = 0.1
 
 
-def _lrelu_conv(x, w, b, *, dilation=1, t_mask=None, bounds=None, precision=None,
-                kernels=True):
-    """leaky_relu -> (mask ->) same-conv; through the K1 kernel at
-    `precision` for a square conv narrower than 128 channels. For a 0/1 mask
-    lrelu(x * m) equals lrelu(x) * m, so the kernel masks its input: by
-    `bounds` (B, 2), the rows' [lo, hi) of the same mask, inside the kernel,
-    or else by a multiply by `t_mask` before it. kernels=False keeps every
-    conv a PyTorch conv (JAX's use_pallas=False: its pipeline stages)."""
-    if kernels and w.shape[0] == w.shape[1] and w.shape[0] < 128:
+def k1_takes(c_out: int, c_in: int, precision: Optional[str], dtype: torch.dtype,
+             device) -> bool:
+    """Whether `_lrelu_conv` runs a resblock conv of (c_out, c_in) channels
+    through the conv1d_same kernel (K1) at the level tier `precision`: a
+    square conv narrower than 128 channels on any device and dtype (the CPU
+    runs K1's plain version, bf16 its "default" tier); a square conv of 128
+    to 256 channels (K1's wide design) only on a CUDA tensor of float32 at
+    "highest" (or None) or "high"."""
+    if c_out != c_in:
+        return False
+    if c_out < 128:
+        return True
+    return (c_out <= K1.MAX_C and torch.device(device).type == "cuda"
+            and dtype == torch.float32 and kernel_tier(precision) != "default")
+
+
+def _lrelu_conv(x, w, b, *, dilation=1, t_mask=None, bounds=None, residual=None,
+                precision=None, kernels=True):
+    """(residual +) leaky_relu -> (mask ->) same-conv; through the K1 kernel
+    at `precision` where `k1_takes`, the residual added in its epilogue. For
+    a 0/1 mask lrelu(x * m) equals lrelu(x) * m, so the kernel masks its
+    input: by `bounds` (B, 2), the rows' [lo, hi) of the same mask, inside
+    the kernel, or else by a multiply by `t_mask` before it. kernels=False
+    keeps every conv a PyTorch conv (JAX's use_pallas=False: its pipeline
+    stages)."""
+    if kernels and k1_takes(w.shape[0], w.shape[1], precision, x.dtype, x.device):
         xin = x if t_mask is None or bounds is not None else x * t_mask
         return K1.conv1d_same(xin, w, b, dilation=dilation, act_slope=LRELU_SLOPE,
-                              bounds=bounds, precision=precision)
+                              bounds=bounds, residual=residual, precision=precision)
     xt = leaky_relu(x, LRELU_SLOPE)
     if t_mask is not None:
         xt = xt * t_mask
-    return conv1d_same(xt, w, b, dilation=dilation)
+    xt = conv1d_same(xt, w, b, dilation=dilation)
+    return xt if residual is None else residual + xt
+
+
+def _add_conv(acc, name: str, record: bool, **conv):
+    """acc + _lrelu_conv(**conv), the sum in the conv's epilogue; while a
+    per-layer trace collects (and `record`), the conv's own output is
+    recorded under `name` and added after."""
+    if record and tracing():
+        xt = _lrelu_conv(**conv)
+        trace_put(name, xt)
+        return acc + xt
+    return _lrelu_conv(residual=acc, **conv)
 
 
 def _resblock1(x, p: Prefix, dilations, t_mask=None, precision=None, kernels=True,
@@ -79,17 +119,13 @@ def _resblock1(x, p: Prefix, dilations, t_mask=None, precision=None, kernels=Tru
     """Multi-receptive-field residual block (HiFi-GAN ResBlock1), unfused;
     with `bounds` the K1 convs mask their inputs by them. `record` False
     keeps its convs out of a per-layer trace, as a fused branch's are."""
+    same = dict(t_mask=t_mask, bounds=bounds, precision=precision, kernels=kernels)
     for m, d in enumerate(dilations):
-        xt = _lrelu_conv(x, p[f"convs1.{m}.weight"], p[f"convs1.{m}.bias"],
-                         dilation=d, t_mask=t_mask, bounds=bounds, precision=precision,
-                         kernels=kernels)
+        xt = _lrelu_conv(x, p[f"convs1.{m}.weight"], p[f"convs1.{m}.bias"], dilation=d, **same)
         if record:
             trace_put(f"{p.prefix}.convs1.{m}", xt)
-        xt = _lrelu_conv(xt, p[f"convs2.{m}.weight"], p[f"convs2.{m}.bias"], t_mask=t_mask,
-                         bounds=bounds, precision=precision, kernels=kernels)
-        if record:
-            trace_put(f"{p.prefix}.convs2.{m}", xt)
-        x = x + xt
+        x = _add_conv(x, f"{p.prefix}.convs2.{m}", record, x=xt, w=p[f"convs2.{m}.weight"],
+                      b=p[f"convs2.{m}.bias"], **same)
     return x
 
 
@@ -97,11 +133,9 @@ def _resblock2(x, p: Prefix, dilations, t_mask=None, bounds=None, precision=None
                kernels=True):
     """Single-conv residual block (HiFi-GAN ResBlock2, Piper's x_low voices)."""
     for m, d in enumerate(dilations):
-        xt = _lrelu_conv(x, p[f"convs.{m}.weight"], p[f"convs.{m}.bias"],
-                         dilation=d, t_mask=t_mask, bounds=bounds, precision=precision,
-                         kernels=kernels)
-        trace_put(f"{p.prefix}.convs.{m}", xt)
-        x = x + xt
+        x = _add_conv(x, f"{p.prefix}.convs.{m}", True, x=x, w=p[f"convs.{m}.weight"],
+                      b=p[f"convs.{m}.bias"], dilation=d, t_mask=t_mask, bounds=bounds,
+                      precision=precision, kernels=kernels)
     return x
 
 
@@ -228,7 +262,8 @@ def _level(x, m, bounds, i: int, p: Prefix, hp: VitsHParams, use_resblock2: bool
                 b, _, n = x.shape
                 y = y * _mask(_bounds_array(bounds, b, n, x.device), n).to(y.dtype)
         else:
-            y = _resblock1(x, rb, dils, t_mask=m, precision=precision)
+            y = _resblock1(x, rb, dils, t_mask=m, precision=precision,
+                           bounds=None if m is None else bounds)
         trace_put(rb.prefix, y)
         acc = y if acc is None else acc + y
     return acc / num_kernels, m, bounds

@@ -92,15 +92,16 @@ def load() -> ctypes.CDLL:
     lib.piper_cuda_error_string.restype = ctypes.c_char_p
     # Each entry ends in (..., tier, [bf16_io,] device, stream); the
     # ResBlock1 entries take (tile, ring, group) before the slope, K1's
-    # (warpgroups, ring, chunk) after the tier.
+    # (warpgroups, ring, chunk) after the tier, K1's wide design its ring.
     lib.piper_resblock1_branch.argtypes = [
         p, p, p, p, p, i, i, p, p, p, i, i, i, i, i, i, f, i, i, i, p]
     lib.piper_resblock1_mrf.argtypes = [
         p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, f, i, i, i, p]
     lib.piper_resblock1_mrf_folded.argtypes = [
         p, i, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, f, i, i, p]
-    lib.piper_conv1d_same.argtypes = [p, p, p, p, i, p, i, i, i, i, i, i, f, i, i, i, i, i, i,
-                                      p]
+    lib.piper_conv1d_same.argtypes = [p, p, p, p, i, p, p, i, i, i, i, i, i, f, i, i, i, i, i,
+                                      i, p]
+    lib.piper_conv1d_same_wide.argtypes = [p, p, p, p, i, p, p, i, i, i, i, i, i, f, i, i, i, p]
     # (y, out, B, r, c, q, device, stream): no tier, a permutation.
     lib.piper_interleave.argtypes = [p, p, i, i, i, i, i, p]
     # (out, rows, n, width, seeds, host seed, per_row, stream, frames, kind,
@@ -108,8 +109,8 @@ def load() -> ctypes.CDLL:
     u = ctypes.c_uint
     lib.piper_threefry_normal.argtypes = [p, i, i, i, p, u, i, u, p, i, i, p]
     for fn in (lib.piper_resblock1_branch, lib.piper_resblock1_mrf,
-               lib.piper_resblock1_mrf_folded, lib.piper_conv1d_same, lib.piper_interleave,
-               lib.piper_threefry_normal):
+               lib.piper_resblock1_mrf_folded, lib.piper_conv1d_same,
+               lib.piper_conv1d_same_wide, lib.piper_interleave, lib.piper_threefry_normal):
         fn.restype = i
     _lib = lib
     return lib

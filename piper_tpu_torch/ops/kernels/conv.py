@@ -1,28 +1,40 @@
 """Same-padded dilated conv1d with a fused leaky-ReLU input (K1).
 
 Counterpart of piper_tpu.ops.pallas.conv.pallas_conv1d_same: the ResBlock2
-convs, the unfused narrow ResBlock1 convs, and the ResBlock1 levels whose
-width or halo the ResBlock1 kernels do not take. The kernel is CUDA C++ for
-Hopper (`csrc/conv1d.cu`, whose header says what bounds it on the H100 and
-how the design answers it): warpgroup products (wgmma) at every tier,
-3xTF32 at "highest" and bf16 at "high" and "default", on K2-K4's stage
-(`csrc/resblock1.cuh`) for one conv. Its weights are the stage's
-bulk-copied, swizzled image (`resblock.wgmma_tier_image` of the weights
-zero-padded to C rounded up to 16), laid out once per weight tensor and
-tier (`weight_image`), so a call is one launch. Any square C from 1 to 128
-runs. It sits beside its plain PyTorch version.
+convs, the unfused ResBlock1 convs, and the ResBlock1 levels whose width or
+halo the ResBlock1 kernels do not take. The kernel is CUDA C++ for Hopper,
+on warpgroup products (wgmma), in two designs, each source's header saying
+what bounds it on the H100 and how the design answers it:
+
+- below 128 channels (`csrc/conv1d.cu`), every tier, 3xTF32 at "highest"
+  and bf16 at "high" and "default", on K2-K4's stage (`csrc/resblock1.cuh`)
+  for one conv, the whole window staged at once. Its weights are the
+  stage's bulk-copied, swizzled image (`resblock.wgmma_tier_image` of the
+  weights zero-padded to C rounded up to 16);
+- from 128 to 256 channels, the wide design (`csrc/conv1d_wide.cu`), at
+  "highest" and "high" on fp32 activations: blocks of 128 output channels,
+  the input channels in chunks whose window is staged while the products
+  run on the chunk before, the weights streamed through a ring of 16 KB
+  (chunk, tap) units (`wide_image`, C zero-padded to a multiple of 128).
+
+Each design's image is laid out once per weight tensor and tier
+(`weight_image`, `wide_weight_image`), so a call is one launch. It sits
+beside its plain PyTorch version.
 
 Contract, as on the TPU: out = conv1d_same(leaky_relu(x, act_slope), w, b,
-dilation=d), zero padding on both sides, odd k, square weights (C, C, k);
-act_slope 0 is the identity. `bounds`, where given, is (B,) meaning
-[0, hi) or (B, 2) meaning [lo, hi), clamped to [0, N], as the ResBlock1
-kernels take it: the activated input is also zero outside it, which is the
-TPU kernel on x * mask for the 0/1 mask of those bounds. The output is not
-masked. `precision` is the tier of the conv's products (`precision.py`), as
-mxu_dot gives it on the TPU. At "high" and "default" the kernel differs
-from its plain version only in the order of its fp32 sums; at "highest" it
-forms each product as 3xTF32 (`precision.split_tf32`), about 2^-21 from
-the plain version's fp32 product.
+dilation=d), zero padding on both sides, odd k, square weights (C, C, k),
+C at most 256; act_slope 0 is the identity. `bounds`, where given, is (B,)
+meaning [0, hi) or (B, 2) meaning [lo, hi), clamped to [0, N], as the
+ResBlock1 kernels take it: the activated input is also zero outside it,
+which is the TPU kernel on x * mask for the 0/1 mask of those bounds. The
+output is not masked. `residual`, where given (x's shape and dtype), is
+added last: out = residual + (conv + bias), bit-equal to `residual +
+conv1d_same(...)` of the same kernel, as the ResBlocks add each conv's
+output to their running sum. `precision` is the tier of the conv's products
+(`precision.py`), as mxu_dot gives it on the TPU. At "high" and "default"
+the kernel differs from its plain version only in the order of its fp32
+sums; at "highest" it forms each product as 3xTF32
+(`precision.split_tf32`), about 2^-21 from the plain version's fp32 product.
 
 bf16 activations (the runtime's "bfloat16" mode): x, weight and bias may
 all be bfloat16 at "default", the tier that mode maps to, and nowhere else
@@ -32,7 +44,10 @@ stores the output rounded to bf16; the plain version is the fp32 plain
 version at "default" on their fp32 values, rounded to bf16.
 
 Dispatch: a CPU tensor runs the plain version; a CUDA tensor launches the
-kernel or raises. `conv1d_same.launches` counts the kernel launches.
+kernel or raises (past 128 channels at "default" or on bf16 activations,
+which the wide design does not run). `conv1d_same.launches` counts the
+kernel launches of both designs, `conv1d_same.wide_launches` the wide
+design's alone.
 """
 
 from __future__ import annotations
@@ -43,13 +58,15 @@ from typing import Optional, Tuple
 
 import torch
 
-from piper_tpu_torch.ops.kernels.precision import tier_code, tiered_conv1d
+from piper_tpu_torch.ops.kernels.precision import split_tf32, tier_code, tiered_conv1d
 from piper_tpu_torch.ops.kernels.resblock import (_SMEM_LIMIT, _SMS, _bounds_array, _mask,
-                                                  _stream, _tap_units, check_io_dtype,
-                                                  wgmma_tier_image)
+                                                  _stream, _swizzle_on, _tap_units,
+                                                  check_io_dtype, wgmma_tier_image)
 from piper_tpu_torch.ops.nn import leaky_relu
 
-_MAX_C = 128
+MAX_C = 256  # the widest square conv K1 takes
+WIDE_FROM = 128  # C from which the wide design runs ("highest" and "high")
+NARROW_MAX = 128  # the widest conv the narrow design takes (every tier)
 _TILES = (256, 192, 128, 64, 32, 16)  # output samples a block: 64 a warpgroup
 _RINGS = (1, 2, 3)  # the weight slots (at most the conv's chunks)
 _CHUNKS = (1, 2, 3, 4, 5, 6, 7, 11)  # units a slot may hold (and a whole conv's)
@@ -58,26 +75,29 @@ _props = functools.lru_cache(maxsize=None)(torch.cuda.get_device_properties)
 
 
 def conv1d_same_plain(x, weight, bias=None, *, dilation: int = 1, act_slope: float = 0.0,
-                      bounds=None, tile: int = 4096,
+                      bounds=None, residual=None, tile: int = 4096,
                       precision: str = "highest") -> torch.Tensor:
     """Plain PyTorch K1 (bf16 activations: on their fp32 values at
-    "default", rounded after). `tile` is accepted for signature parity and
-    has no effect."""
-    if check_io_dtype("conv1d_same", x, tier_code(precision), (weight, bias)):
-        return conv1d_same_plain(
+    "default", rounded after), `residual` added to the conv's output.
+    `tile` is accepted for signature parity and has no effect."""
+    if check_io_dtype("conv1d_same", x, tier_code(precision), (weight, bias, residual)):
+        out = conv1d_same_plain(
             x.float(), weight.float(), None if bias is None else bias.float(),
             dilation=dilation, act_slope=act_slope, bounds=bounds,
             precision=precision).to(torch.bfloat16)
-    k = weight.shape[-1]
-    xin = leaky_relu(x, act_slope) if act_slope else x
-    if bounds is not None:
-        b, _, n = x.shape
-        xin = xin * _mask(_bounds_array(bounds, b, n, x.device), n)
-    return tiered_conv1d(xin, weight, bias, padding=(k - 1) // 2 * dilation,
-                         dilation=dilation, precision=precision)
+    else:
+        k = weight.shape[-1]
+        xin = leaky_relu(x, act_slope) if act_slope else x
+        if bounds is not None:
+            b, _, n = x.shape
+            xin = xin * _mask(_bounds_array(bounds, b, n, x.device), n)
+        out = tiered_conv1d(xin, weight, bias, padding=(k - 1) // 2 * dilation,
+                            dilation=dilation, precision=precision)
+    return out if residual is None else residual + out
 
 
-def _check_args(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> None:
+def _check_args(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor],
+                residual: Optional[torch.Tensor] = None) -> None:
     """The contract's shapes, checked on every device."""
     if x.ndim != 3 or weight.ndim != 3:
         raise ValueError(f"x must be (B, C, N) and weight (C, C, k), got "
@@ -86,10 +106,15 @@ def _check_args(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tens
     c = x.shape[1]
     if c_out != c_in or c_in != c:
         raise ValueError(f"square-channel convs only: weight {tuple(weight.shape)}, C={c}")
+    if c > MAX_C:
+        raise ValueError(f"C={c}: K1 takes square convs of at most {MAX_C} channels")
     if k % 2 == 0:
         raise ValueError(f"kernel size {k} must be odd")
     if bias is not None and tuple(bias.shape) != (c,):
         raise ValueError(f"bias must be ({c},), got {tuple(bias.shape)}")
+    if residual is not None and residual.shape != x.shape:
+        raise ValueError(f"residual must be x's shape {tuple(x.shape)}, got "
+                         f"{tuple(residual.shape)}")
 
 
 def _kernel_bounds(bounds, b: int, device: torch.device) -> Tuple[Optional[torch.Tensor], int]:
@@ -240,7 +265,7 @@ def _pick(b: int, c: int, n: int, k: int, pad: int, tile_max: int, tier: int, li
     return min(found, key=cost)
 
 
-_IMAGES: dict = {}  # (id(weight), tier) -> (weakref to weight, version, image, made)
+_IMAGES: dict = {}  # (id(weight), layout) -> (weakref to weight, version, image, made)
 
 
 def weight_image(w: torch.Tensor, tier: int) -> torch.Tensor:
@@ -252,8 +277,16 @@ def weight_image(w: torch.Tensor, tier: int) -> torch.Tensor:
     dropped when the tensor is freed. On the card the layout runs on the
     caller's stream; a caller on another stream (a mesh's virtual slots
     share their device's weights) waits for it first, with no host sync."""
+    p = _padded(w.shape[0]) - w.shape[0]
+    return _cached_image(w, tier, lambda: wgmma_tier_image(
+        torch.nn.functional.pad(w, (0, 0, 0, p, 0, p))[None], tier))
+
+
+def _cached_image(w: torch.Tensor, layout, make) -> torch.Tensor:
+    """make()'s image of w, cached under (id(w), layout) as `weight_image`
+    says."""
     version = None if w.is_inference() else w._version
-    key = (id(w), tier)
+    key = (id(w), layout)
     hit = _IMAGES.get(key)
     if hit is not None and hit[0]() is w and hit[1] == version:
         _, _, img, made = hit
@@ -263,9 +296,7 @@ def weight_image(w: torch.Tensor, tier: int) -> torch.Tensor:
                 stream.wait_event(made[1])
                 img.record_stream(stream)
         return img
-    c = w.shape[0]
-    p = _padded(c) - c
-    img = wgmma_tier_image(torch.nn.functional.pad(w, (0, 0, 0, p, 0, p))[None], tier)
+    img = make()
     made = None
     if img.is_cuda:
         stream = torch.cuda.current_stream(img.device)
@@ -274,41 +305,174 @@ def weight_image(w: torch.Tensor, tier: int) -> torch.Tensor:
     return img
 
 
+# -- the wide design (csrc/conv1d_wide.cu): C from WIDE_FROM to MAX_C ------
+
+_WIDE_NT = 128  # output channels a block
+_WIDE_UNIT = 16384  # one (chunk, tap) unit of the image: 2 planes x 128 rows x 64 bytes
+_WIDE_TILES = (256, 192, 128, 64)  # output samples a block: 64 a warpgroup
+_WIDE_RINGS = (4, 3, 2)  # the weight slots
+
+
+def _wide_cp(c: int) -> int:
+    """C rounded up to a multiple of the wide design's 128 output channels."""
+    return -(-c // _WIDE_NT) * _WIDE_NT
+
+
+def _wide_chunk(tier: int) -> int:
+    """The input channels of one 64-byte chunk a plane: 16 tf32 values at
+    "highest", 32 bf16 values at "high"."""
+    return 16 if tier == 0 else 32
+
+
+def wide_image(w: torch.Tensor, tier: int) -> torch.Tensor:
+    """The wide design's weights at tier code `tier` (0 or 1): (C, C, k)
+    zero-padded to Cp = C rounded up to 128 -> (Cp / 128, Cp / kc, k, 2,
+    128, kc), per block of 128 output channels, per chunk of kc input
+    channels (64 bytes: 16 at "highest", 32 at "high") and per tap, one 16
+    KB unit: both planes (split_tf32's big and small in fp32, split_bf16's
+    hi and lo in bf16) of the block's 128 rows of the chunk, each row's
+    16-byte groups stored with wgmma's 64-byte swizzle (group q of row r at
+    q ^ (r / 2 % 4), `resblock._swizzle_columns` of a 64-byte row)."""
+    c, _, k = w.shape
+    cp, kc = _wide_cp(c), _wide_chunk(tier)
+    w = torch.nn.functional.pad(w, (0, 0, 0, cp - c, 0, cp - c))
+    if tier == 0:
+        parts, elem = torch.stack(split_tf32(w)), 4
+    else:
+        hi = w.to(torch.bfloat16)
+        parts, elem = torch.stack((hi, (w - hi.float()).to(torch.bfloat16))), 2
+    units = parts.reshape(2, cp // _WIDE_NT, _WIDE_NT, cp // kc, kc, k).permute(1, 3, 5, 0, 2, 4)
+    # The swizzle's rows repeat every 8: kc rows of it serve all 128.
+    cols = _swizzle_on(kc, elem, w.device).repeat(_WIDE_NT // kc, 1)
+    return torch.gather(units, 5, cols.expand(units.shape)).contiguous()
+
+
+def wide_smem_bytes(tile: int, pad: int, ring: int, tier: int) -> int:
+    """The wide kernel's shared memory (csrc/conv1d_wide.cuh::smem_bytes)
+    at tier code `tier`: up to 1024 bytes to align the ring; `ring` 16 KB
+    slots, two window buffers (both planes of a 64-byte chunk, tile + 2*pad
+    + 1 lanes) and two raw buffers (a chunk's fp32 rows, `_wide_chunk`
+    channels of `_stage_stride(tile + 2*pad)` floats), or the fp32 output
+    stage over them (128 rows of `_stage_stride(tile)`), whichever is
+    larger, rounded up to 128; then the slots' mbarriers."""
+    w = tile + 2 * pad
+    body = (ring * _WIDE_UNIT + 2 * 2 * 64 * (w + 1)
+            + 2 * 4 * _wide_chunk(tier) * _stage_stride(w))
+    stage = 4 * _WIDE_NT * _stage_stride(tile)
+    return 1024 + -(-max(body, stage) // 128) * 128 + -(-16 * ring // 128) * 128
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_configs(c: int, k: int, pad: int, tile_max: int, tier: int, limit: int) -> tuple:
+    units = _wide_cp(c) // _wide_chunk(tier) * k
+    return tuple((t, r) for t in _WIDE_TILES if t <= max(tile_max, 64) for r in _WIDE_RINGS
+                 if r <= units and wide_smem_bytes(t, pad, r, tier) <= limit)
+
+
+def wide_configs(x: torch.Tensor, k: int, pad: int, tile_max: int, tier: int) -> list:
+    """Every (tile, ring) the wide kernel can launch for x (B, C, N) and a
+    conv of k taps reaching `pad` samples a side: a tile of 64-256 samples
+    (tile / 64 warpgroups, each running products), at most `tile_max` (or
+    64), and 2-4 weight slots, at most the conv's units, that fit in shared
+    memory. Largest tile first, then the most slots."""
+    limit = getattr(_props(x.device), "shared_memory_per_block_optin", _SMEM_LIMIT)
+    return list(_wide_configs(x.shape[1], k, pad, tile_max, tier, limit))
+
+
+def pick_wide(x: torch.Tensor, k: int, pad: int, tile_max: int, tier: int) -> Tuple[int, int]:
+    """(tile, weight slots) of the wide kernel; the output depends on
+    neither. Each block streams all of its 128 output channels' weights
+    whatever its tile, so the largest tile whose blocks still fill every SM
+    once (a weight byte then serves the most samples), else the smallest
+    (the most blocks where a level has few: serving groups of a few rows);
+    then 4 slots where they fit beside it, else the most that do. Measured
+    on the H100 at a 128-row batch of a high voice's wide levels
+    (`tools/conv1d_probe.py --wide --sweep`): at "high" tiles of 256 with 4
+    slots within 5% of the fastest config at every conv ("highest": 15%),
+    two blocks of 128 an SM up to 4% faster where they fit and up to 48%
+    slower elsewhere, 2 slots up to 16% slower than 3 or 4."""
+    props = _props(x.device)
+    return _pick_wide(*x.shape, k, pad, tile_max, tier,
+                      getattr(props, "shared_memory_per_block_optin", _SMEM_LIMIT),
+                      getattr(props, "multi_processor_count", _SMS))
+
+
+@functools.lru_cache(maxsize=4096)
+def _pick_wide(b: int, c: int, n: int, k: int, pad: int, tile_max: int, tier: int, limit: int,
+               sms: int) -> Tuple[int, int]:
+    found = _wide_configs(c, k, pad, tile_max, tier, limit)
+    if not found:
+        raise ValueError(f"no time tile <= {max(tile_max, 64)} fits C={c}, k={k}, pad={pad}: "
+                         f"the window's buffers and two weight slots exceed the shared memory")
+    tiles = sorted({t for t, _ in found}, reverse=True)
+    full = [t for t in tiles if _wide_cp(c) // _WIDE_NT * -(-n // t) * b >= sms]
+    tile = full[0] if full else tiles[-1]
+    rings = [r for t, r in found if t == tile]
+    return tile, 4 if 4 in rings else rings[0]
+
+
+def wide_design(c: int, tier: int) -> bool:
+    """Whether a C-channel conv at tier code `tier` launches the wide
+    design: from WIDE_FROM channels at "highest" and "high"; past
+    NARROW_MAX at every tier (the wrapper then refuses "default"). C=128
+    at "default" (bf16 activations too) keeps the narrow design."""
+    return c > NARROW_MAX or (c >= WIDE_FROM and tier != 2)
+
+
+def wide_weight_image(w: torch.Tensor, tier: int) -> torch.Tensor:
+    """`wide_image(w, tier)`, laid out once per weight tensor and tier and
+    cached as `weight_image` caches its own."""
+    return _cached_image(w, ("wide", tier), lambda: wide_image(w, tier))
+
+
 def conv1d_same(x, weight, bias=None, *, dilation: int = 1, act_slope: float = 0.0,
-                bounds=None, tile: int = 4096, precision: str = "highest") -> torch.Tensor:
-    """conv1d_same(leaky_relu(x, act_slope) [zero outside bounds], weight,
-    bias, dilation=dilation).
+                bounds=None, residual=None, tile: int = 4096,
+                precision: str = "highest") -> torch.Tensor:
+    """residual + conv1d_same(leaky_relu(x, act_slope) [zero outside
+    bounds], weight, bias, dilation=dilation).
 
     x (B, C, N) float32, or bfloat16 at "default"; weight (C, C, k), k odd,
-    and bias (C,) or None, of x's dtype; bounds (B,) or (B, 2) or None.
-    `tile` caps the kernel's time tile (the result does not depend on it)."""
+    C <= 256, and bias (C,) or None, of x's dtype; bounds (B,) or (B, 2) or
+    None; residual of x's shape and dtype, or None. `tile` caps the
+    kernel's time tile (the result does not depend on it)."""
     tier = tier_code(precision)
-    _check_args(x, weight, bias)
-    bf16 = check_io_dtype("conv1d_same", x, tier, (weight, bias))
+    _check_args(x, weight, bias, residual)
+    bf16 = check_io_dtype("conv1d_same", x, tier, (weight, bias, residual))
     if x.device.type == "cpu":
         return conv1d_same_plain(x, weight, bias, dilation=dilation, act_slope=act_slope,
-                                 bounds=bounds, tile=tile, precision=precision)
+                                 bounds=bounds, residual=residual, tile=tile,
+                                 precision=precision)
     if x.device.type != "cuda":
         raise ValueError(f"conv1d_same runs on cpu or cuda, not {x.device}")
-    for name, t in (("x", x), ("weight", weight), ("bias", bias)):
+    for name, t in (("x", x), ("weight", weight), ("bias", bias), ("residual", residual)):
         if t is not None and t.device != x.device:
             raise ValueError(f"{name} must be on {x.device}, got {t.device}")
-    if not x.is_contiguous() or x.shape[1] > _MAX_C:
-        raise ValueError(f"x must be contiguous with C <= {_MAX_C}, got C={x.shape[1]} "
-                         f"contiguous={x.is_contiguous()}")
+    if not x.is_contiguous() or (residual is not None and not residual.is_contiguous()):
+        raise ValueError("x and the residual must be contiguous")
     k = weight.shape[-1]
-    config = pick_config(x, k, (k - 1) // 2 * dilation, tile, tier)
-    out = _launch(x, weight, k, bias, bounds, dilation, act_slope, tier, config, bf16)
+    pad = (k - 1) // 2 * dilation
+    if wide_design(x.shape[1], tier):
+        if tier == 2:
+            raise ValueError(f"C={x.shape[1]}: K1's wide design runs 'highest' and 'high' "
+                             f"on float32 activations, not 'default'")
+        out = _launch_wide(x, weight, k, bias, bounds, residual, dilation, act_slope, tier,
+                           pick_wide(x, k, pad, tile, tier))
+        conv1d_same.wide_launches += 1
+    else:
+        config = pick_config(x, k, pad, tile, tier)
+        out = _launch(x, weight, k, bias, bounds, dilation, act_slope, tier, config, bf16,
+                      residual)
     conv1d_same.launches += 1
     return out
 
 
 def _launch(x, w, k: int, bias, bounds, dilation: int, act_slope: float, tier: int,
-            config: Tuple[int, int, int, int], bf16: bool = False) -> torch.Tensor:
+            config: Tuple[int, int, int, int], bf16: bool = False,
+            residual=None) -> torch.Tensor:
     """One launch of the kernel on checked arguments, (C, C, k) weights `w`
     (laid out by `weight_image`) and `config` = (tile, warpgroups, weight
     slots, units a slot holds) as `pick_config` gives it; `bf16` for bf16
-    x, w, bias and output."""
+    x, w, bias, residual and output."""
     from piper_tpu_torch.ops.kernels import build
 
     lib = build.load()
@@ -322,11 +486,38 @@ def _launch(x, w, k: int, bias, bounds, dilation: int, act_slope: float, tier: i
     # slope 1 is the identity: act_slope 0 means no activation, as on the TPU.
     code = lib.piper_conv1d_same(
         x.data_ptr(), img.data_ptr(), None if bc is None else bc.data_ptr(),
-        None if bnd is None else bnd.data_ptr(), cols, out.data_ptr(), b, c, n, k, dilation,
-        config[0], act_slope if act_slope else 1.0, tier, *config[1:], int(bf16),
+        None if bnd is None else bnd.data_ptr(), cols,
+        None if residual is None else residual.data_ptr(), out.data_ptr(), b, c, n, k,
+        dilation, config[0], act_slope if act_slope else 1.0, tier, *config[1:], int(bf16),
         x.device.index or 0, _stream(x))
     build.check(lib, code, "piper_conv1d_same")
     return out
 
 
+def _launch_wide(x, w, k: int, bias, bounds, residual, dilation: int, act_slope: float,
+                 tier: int, config: Tuple[int, int]) -> torch.Tensor:
+    """One launch of the wide kernel on checked fp32 arguments, (C, C, k)
+    weights `w` (laid out by `wide_weight_image`) and `config` = (tile,
+    weight slots) as `pick_wide` gives it."""
+    from piper_tpu_torch.ops.kernels import build
+
+    lib = build.load()
+    b, c, n = x.shape
+    img = wide_weight_image(w, tier)
+    if img.data_ptr() % 16:
+        raise ValueError("the kernel's weight image must be 16-byte aligned")
+    bnd, cols = _kernel_bounds(bounds, b, x.device)
+    bc = None if bias is None else bias.contiguous()
+    out = torch.empty_like(x)
+    code = lib.piper_conv1d_same_wide(
+        x.data_ptr(), img.data_ptr(), None if bc is None else bc.data_ptr(),
+        None if bnd is None else bnd.data_ptr(), cols,
+        None if residual is None else residual.data_ptr(), out.data_ptr(), b, c, n, k,
+        dilation, config[0], act_slope if act_slope else 1.0, tier, config[1],
+        x.device.index or 0, _stream(x))
+    build.check(lib, code, "piper_conv1d_same_wide")
+    return out
+
+
 conv1d_same.launches = 0
+conv1d_same.wide_launches = 0

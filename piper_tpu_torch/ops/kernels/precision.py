@@ -27,8 +27,13 @@ is full fp32, "high" fp32 convs and TF32 matmuls, "default" TF32 for cuDNN
 3-pass bf16 split, about 16 mantissa bits, where TF32 keeps 10: on the
 H100 each decode stage's convs alone in TF32 land 2.5e-4 to 4.2e-4 from
 fp32, about 7.6e-4 together, against the mixed tiers' 1e-3 gate
-(`tools/calibrate_precision.py`, PERF.md). On the CPU a scope changes
-nothing, as JAX's does not there.
+(`tools/calibrate_precision.py`, PERF.md). cuDNN has no bf16x3 mode, so
+the vocoder's square ResBlock convs of 128 to 256 channels (a high voice's
+levels 0 and 1) do not go to it on the card: at "highest" and "high" they
+run K1's wide design (`conv.py`, `csrc/conv1d_wide.cu`), at the tier's own
+products like every other ResBlock conv; what stays with cuDNN in fp32 at
+"high" is the flows, conv_pre, the conv-transposes and conv_post. On the
+CPU a scope changes nothing, as JAX's does not there.
 """
 
 from __future__ import annotations

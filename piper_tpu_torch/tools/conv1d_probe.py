@@ -44,8 +44,27 @@ cast once, outside the timed calls; bf16 products summed in fp32 as K1's
 "default" forms them), the one PyTorch route with that tier's arithmetic.
 "high" (bf16x3) has no single-call counterpart.
 
+`--wide` times K1's wide design instead, at a high voice's wide levels in
+a 128-row batch of the 320-frame bucket (the benchmark's f=8 batches):
+level 0 (C=256, 2,560 samples a row) and level 1 (C=128, 20,480), each
+level's 18 convs (k 3/7/11 at dilations 1/3/5, then the dense k-tap conv
+with the residual added), act_slope 0.1, no bounds, at "highest" and
+"high" (of `--precision`). Per tier and level: `kernel_ms` (the 18 K1
+kernels, by the symbol "conv1d_same_wide"), `bound_ms` and `bound_by` (the
+convs' 2 C^2 k flops a sample at the tier's rate, or their bytes: x and
+the output once, the residual and the weights once, at 3.35 TB/s),
+`plain_ms` (`conv1d_same_plain` at the tier) and the library yardsticks,
+which the port never calls: `library_ms` (leaky_relu then F.conv1d, plus
+the residual, under `fp32_exact()`: cuDNN's fp32 conv, the route the wide
+levels took before K1's wide design) and `library_tf32_ms` (the same with
+TF32 convs). With `--sweep`, each distinct conv's time at every (tile,
+ring) of `conv.wide_configs`, each held bit-equal to the wrapper's choice,
+and the choice (`conv.pick_wide`).
+
     python -m piper_tpu_torch.tools.conv1d_probe [--precision highest,high,default]
         [--frames 128] [--b32-frames 384] [--reps 10] [--sweep] [--utterances]
+    python -m piper_tpu_torch.tools.conv1d_probe --wide [--precision highest,high]
+        [--reps 3] [--sweep]
 """
 
 from __future__ import annotations
@@ -58,6 +77,12 @@ from typing import Callable, List, Optional, Sequence
 
 X_LOW_CONVS = ((3, 1), (3, 2), (5, 2), (5, 6), (7, 3), (7, 12))
 LEVELS = ((1, 64, 64), (2, 32, 256))  # (level, C, samples per frame)
+WIDE_LEVELS = ((0, 256, 8), (1, 128, 64))  # a high voice's wide levels
+WIDE_ROWS, WIDE_FRAMES = 128, 320  # the batch: rows, frame bucket
+# A wide level's convs: (k, dilation, residual), each branch's dilated conv
+# at every dilation, then its dense conv with the block's running sum.
+WIDE_CONVS = tuple((k, d, False) for k in (3, 7, 11) for d in (1, 3, 5)) + tuple(
+    (k, 1, True) for k in (3, 7, 11) for _ in range(3))
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -68,6 +93,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--utterances", action="store_true")
+    ap.add_argument("--wide", action="store_true")
     return ap
 
 
@@ -192,6 +218,98 @@ def _library_bf16_ms(torch, x, convs, reps: int) -> float:
                                        dilation=d) for w, b, k, d in cb], reps=reps)
 
 
+def _wide_bound(c: int, b: int, n: int, tier: str) -> tuple:
+    """(ms, "operations" or "bytes") of a wide level's 18 convs at the
+    tier's rate (`timing.bound_ms`): 2 C^2 k flops a sample a conv; x and
+    the output once a conv, the residual once a dense conv, the weights
+    once."""
+    from piper_tpu_torch.tools.timing import TIER_FLOPS, bound_ms
+
+    flops = sum(2.0 * c * c * k * b * n for k, _, _ in WIDE_CONVS)
+    nbytes = sum(4.0 * (b * c * n * (2 + res) + c * c * k + c) for k, _, res in WIDE_CONVS)
+    return bound_ms(nbytes, flops, TIER_FLOPS[tier])
+
+
+def _wide_sweep(torch, K1, x, res, convs, tier: str, reps: int) -> list:
+    """Each distinct conv of the level at every (tile, ring) the wide
+    kernel can launch, held bit-equal to the wrapper's choice."""
+    from piper_tpu_torch.ops.kernels.precision import tier_code
+    from piper_tpu_torch.tools.timing import device_ms
+
+    code = tier_code(tier)
+    rows = []
+    for w, bias, k, d, with_res in convs[:9]:  # the dilated convs: every (k, d) once
+        r = res if with_res else None
+        want = K1.conv1d_same(x, w, bias, dilation=d, act_slope=0.1, residual=r, precision=tier)
+        pad = (k - 1) // 2 * d
+        times = {}
+        for config in K1.wide_configs(x, k, pad, 4096, code):
+            def run(config=config):
+                return K1._launch_wide(x, w, k, bias, None, r, d, 0.1, code, config)
+
+            if not torch.equal(run(), want):
+                raise AssertionError(f"conv1d_same wide {tier} k={k} d={d} {config}: differs "
+                                     f"from the wrapper's choice")
+            times[f"{config[0]}x{config[1]}"] = device_ms(run, reps=reps,
+                                                          name="conv1d_same_wide", expected=1)
+        rows.append({"k": k, "d": d, "chosen": list(K1.pick_wide(x, k, pad, 4096, code)),
+                     "kernel_ms": times})
+    return rows
+
+
+def _wide(torch, args) -> List[dict]:
+    """K1's wide design at a high voice's wide levels in a serving batch."""
+    import torch.nn.functional as F
+
+    from piper_tpu_torch.ops.kernels import conv as K1
+    from piper_tpu_torch.ops.kernels.precision import fp32_exact, tier_scope
+    from piper_tpu_torch.tools.timing import device_ms
+
+    gen = torch.Generator().manual_seed(0)
+    rows = []
+    for level, c, per_frame in WIDE_LEVELS:
+        n, b = per_frame * WIDE_FRAMES, WIDE_ROWS
+        x = (torch.randn(b, c, n, generator=gen) * 0.3).cuda()
+        res = (torch.randn(b, c, n, generator=gen) * 0.3).cuda()
+        convs = [((torch.randn(c, c, k, generator=gen) * (c * k) ** -0.5).cuda(),
+                  (torch.randn(c, generator=gen) * 0.02).cuda(), k, d, r)
+                 for k, d, r in WIDE_CONVS]
+
+        def call(fn, tier):
+            return [fn(x, w, bias, dilation=d, act_slope=0.1, residual=res if r else None,
+                       precision=tier) for w, bias, k, d, r in convs]
+
+        def library():
+            return [F.conv1d(F.leaky_relu(x, 0.1), w, bias, padding=(k - 1) // 2 * d,
+                             dilation=d) + (res if r else 0) for w, bias, k, d, r in convs]
+
+        with torch.inference_mode():
+            with fp32_exact():
+                library_ms = device_ms(library, reps=args.reps)
+            with tier_scope("default", "cuda"):
+                library_tf32_ms = device_ms(library, reps=args.reps)
+            for tier in args.precision.split(","):
+                if tier not in ("highest", "high"):
+                    continue
+                with fp32_exact():
+                    bound, by = _wide_bound(c, b, n, tier)
+                    row = {"precision": tier, "level": level, "channels": c, "rows": b,
+                           "samples": n, "convs": len(convs),
+                           "kernel_ms": device_ms(lambda: call(K1.conv1d_same, tier),
+                                                  reps=args.reps, name="conv1d_same_wide",
+                                                  expected=len(convs)),
+                           "bound_ms": bound, "bound_by": by,
+                           "plain_ms": device_ms(lambda: call(K1.conv1d_same_plain, tier),
+                                                 reps=args.reps),
+                           "library_ms": library_ms, "library_tf32_ms": library_tf32_ms}
+                    if args.sweep:
+                        row["sweep"] = _wide_sweep(torch, K1, x, res, convs, tier, args.reps)
+                row["roofline_share"] = row["bound_ms"] / row["kernel_ms"]
+                print(json.dumps(row), flush=True)
+                rows.append(row)
+    return rows
+
+
 def main(argv: Optional[List[str]] = None) -> List[dict]:
     """Run the probe; print and return one row per (tier, level) and the sums."""
     args = _parser().parse_args(argv)
@@ -200,6 +318,12 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
     if not torch.cuda.is_available():
         raise SystemExit("conv1d_probe: no CUDA device; this probe times the kernel on a "
                          "card and has no CPU path")
+    if args.wide:
+        rows = _wide(torch, args)
+        summary = {"device": torch.cuda.get_device_name(0), "rows": WIDE_ROWS,
+                   "frames": WIDE_FRAMES}
+        print(json.dumps(summary), flush=True)
+        return rows + [summary]
     import piper_tpu_torch
     from piper_tpu_torch.ops.kernels import conv as K1
     from piper_tpu_torch.ops.kernels.precision import fp32_exact

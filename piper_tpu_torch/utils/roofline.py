@@ -14,7 +14,8 @@ and a streaming op on the device (each GEMM tier's TFLOP/s, HBM GB/s), and
 (`PiperRuntime._encode`, `flow_reverse`, `hifigan_generator` and each
 upsample level through `hifigan._level`, so each level runs the kernel
 production routes it to: K3 at C <= 32, K2 at C = 64, K1 on a ResBlock2
-voice). On a CUDA card a stage's time is its device time (torch.profiler,
+voice, K1's wide design at C = 128 to 256 on fp32 activations at "highest"
+and "high"). On a CUDA card a stage's time is its device time (torch.profiler,
 `tools/timing.py::device_ms`) with its kernels per call required and
 reported; on the CPU it is the wall clock. `mfu` and `hbm_frac` are taken
 against the H100's published peaks of `tools/timing.py` (the stage tier's

@@ -32,7 +32,7 @@ from piper_tpu_torch.ops.kernels import folded as K4
 from piper_tpu_torch.ops.kernels import interleave as K5
 from piper_tpu_torch.ops.kernels import resblock as R
 from piper_tpu_torch.ops.kernels.precision import fp32_exact, tier_scope
-from piper_tpu_torch.tools.timing import device_ms
+from piper_tpu_torch.tools.timing import device_kernels, device_ms, profiled
 
 pytestmark = pytest.mark.cuda
 ATOL = 1e-4
@@ -122,10 +122,11 @@ def test_conv1d_same_kernel_matches_plain(cuda, c, k, d, n, slope, with_bias):
 
 
 def test_conv1d_same_kernel_refuses_bad_arguments(cuda):
-    """K1 takes every square C up to 128 (C=12 runs as 16 zero-padded
-    channels; C=120 at k=11, 633 KB of weights, streams them an atom of a
-    tap at a time), each against its plain version; it refuses another
-    dtype, C past 128 and a window no tile fits beside a weight slot."""
+    """K1 takes every square C up to 128 in its narrow design (C=12 runs as
+    16 zero-padded channels; C=120 at k=11, 633 KB of weights, streams them
+    an atom of a tap at a time), each against its plain version; it refuses
+    another dtype, C past 256 (C=129 runs the wide design), "default" in
+    the wide design, and a window no tile fits beside a weight slot."""
     gen = torch.Generator().manual_seed(12)
     for c, k, d in ((12, 3, 1), (120, 11, 5)):
         x = (torch.randn(2, c, 1000, generator=gen) * 0.3).to(cuda)
@@ -139,12 +140,18 @@ def test_conv1d_same_kernel_refuses_bad_arguments(cuda):
     x = torch.zeros(1, 16, 64, device=cuda)
     with pytest.raises(ValueError, match="float32"):
         K1.conv1d_same(x, torch.zeros(16, 16, 3, device=cuda, dtype=torch.float64))
+    x = torch.zeros(1, 257, 64, device=cuda)
+    with pytest.raises(ValueError, match="at most 256"):
+        K1.conv1d_same(x, torch.zeros(257, 257, 3, device=cuda))
     x = torch.zeros(1, 129, 64, device=cuda)
-    with pytest.raises(ValueError, match="C <= 128"):
-        K1.conv1d_same(x, torch.zeros(129, 129, 3, device=cuda))
-    x = torch.zeros(1, 128, 64, device=cuda)  # pad 150: 324 KB of tf32 window planes
+    with pytest.raises(ValueError, match="'default'"):
+        K1.conv1d_same(x, torch.zeros(129, 129, 3, device=cuda), precision="default")
+    x = torch.zeros(1, 120, 64, device=cuda)  # pad 150: 374 KB of tf32 window planes
     with pytest.raises(ValueError, match="shared memory"):
-        K1.conv1d_same(x, torch.zeros(128, 128, 11, device=cuda), dilation=30)
+        K1.conv1d_same(x, torch.zeros(120, 120, 11, device=cuda), dilation=30)
+    x = torch.zeros(1, 128, 64, device=cuda)  # pad 300: 170 KB of window buffers
+    with pytest.raises(ValueError, match="shared memory"):
+        K1.conv1d_same(x, torch.zeros(128, 128, 11, device=cuda), dilation=60)
 
 
 def _max_err(got, want):
@@ -229,11 +236,14 @@ def test_conv1d_same_kernel_tiers_match_plain(cuda, tier, c, k, d, n):
 
 
 # At "high" the card's PyTorch convs around the kernels (the flows,
-# conv_pre, each level's conv-transpose and wide ResBlock convs, conv_post)
-# run in fp32: tier_scope keeps cuDNN's TF32 off, since the reference's
-# "high" keeps about 16 mantissa bits and TF32 10. Against the fp64 conv an
-# fp32 sum of up to 2,816 products of outputs up to ~5 lands within a few
-# 1e-6; TF32 alone lands near 1e-3 (its 2^-11 of each product).
+# conv_pre, each level's conv-transpose, conv_post) run in fp32:
+# tier_scope keeps cuDNN's TF32 off, since the reference's "high" keeps
+# about 16 mantissa bits and TF32 10. The wide levels' ResBlock convs no
+# longer go to cuDNN at "high" (K1's wide design runs them, below); their
+# shapes stay here for the PyTorch conv wrapper, which a "default" level
+# and the CPU still run them through. Against the fp64 conv an fp32 sum of
+# up to 2,816 products of outputs up to ~5 lands within a few 1e-6; TF32
+# alone lands near 1e-3 (its 2^-11 of each product).
 HIGH_CONV_ATOL = 5e-5
 
 
@@ -265,6 +275,137 @@ def test_high_conv_is_fp32_at_the_decode_stage_shapes(cuda, what, b, c_in, c_out
     want = conv(x.double(), w.double(), bias.double(), **kw)
     assert got.shape == want.shape
     assert _max_err(got.double(), want) <= HIGH_CONV_ATOL
+
+
+# -- K1's wide design (C = 128 to 256: a high voice's levels 0 and 1) ----
+
+# (C, k, d) of the wide levels: a high voice's three branches at every
+# dilation, and x_low's level 0 (ResBlock2 at C=128, halo up to 36).
+WIDE_CONVS = [(c, k, d) for c in (256, 128) for k in (3, 7, 11) for d in (1, 3, 5)]
+X_LOW_WIDE = [(128, k, d) for k, d in X_LOW_CONVS]
+
+
+def _wide_case(c, k, b, n, dev, seed):
+    gen = torch.Generator().manual_seed(seed)
+    x = (torch.randn(b, c, n, generator=gen) * 0.3).to(dev)
+    w = (torch.randn(c, c, k, generator=gen) * (c * k) ** -0.5).to(dev)
+    bias = (torch.randn(c, generator=gen) * 0.02).to(dev)
+    res = (torch.randn(b, c, n, generator=gen) * 0.5).to(dev)
+    lo = torch.randint(0, n // 4, (b,), generator=gen)
+    hi = torch.randint(n // 2, n + 1, (b,), generator=gen)
+    return x, w, bias, res, torch.stack([lo, hi], 1).to(dev, torch.int32)
+
+
+@pytest.mark.parametrize("tier", ["highest", "high"])
+@pytest.mark.parametrize("b,n", [(1, 1001), (8, 2561), (128, 777)])
+@pytest.mark.parametrize("c,k,d", WIDE_CONVS + X_LOW_WIDE)
+def test_wide_conv_matches_plain(cuda, tier, b, n, c, k, d):
+    """K1's wide design against its plain version at the wide levels'
+    shapes, ragged N, with and without bounds and residual: TIER_ATOL, the
+    residual added bit-equal to adding it after, a launch counted in both
+    counters."""
+    x, w, bias, res, bnd = _wide_case(c, k, b, n, cuda, c + k + d + b)
+    for bounds in (None, bnd):
+        for r in (None, res):
+            before = (K1.conv1d_same.launches, K1.conv1d_same.wide_launches)
+            got = K1.conv1d_same(x, w, bias, dilation=d, act_slope=0.1, bounds=bounds,
+                                 residual=r, precision=tier)
+            torch.cuda.synchronize()
+            assert (K1.conv1d_same.launches, K1.conv1d_same.wide_launches) == (
+                before[0] + 1, before[1] + 1)
+            want = K1.conv1d_same_plain(x, w, bias, dilation=d, act_slope=0.1, bounds=bounds,
+                                        residual=r, precision=tier)
+            assert _max_err(got, want) <= TIER_ATOL[tier], (bounds is None, r is None)
+            if r is not None:
+                alone = K1.conv1d_same(x, w, bias, dilation=d, act_slope=0.1, bounds=bounds,
+                                       precision=tier)
+                assert torch.equal(got, r + alone)
+
+
+@pytest.mark.parametrize("tier", ["highest", "high"])
+@pytest.mark.parametrize("c,k,d", [(256, 11, 5), (128, 3, 1), (200, 7, 12)])
+def test_wide_conv_does_not_depend_on_tile_or_ring(cuda, tier, c, k, d):
+    """Every (tile, ring) the wide kernel can launch gives the wrapper's
+    output bit for bit (C=200 runs as 256 zero-padded channels)."""
+    x, w, bias, res, bnd = _wide_case(c, k, 3, 1500, cuda, c * k)
+    code = 0 if tier == "highest" else 1
+    want = K1.conv1d_same(x, w, bias, dilation=d, act_slope=0.1, bounds=bnd, residual=res,
+                          precision=tier)
+    configs = K1.wide_configs(x, k, (k - 1) // 2 * d, 4096, code)
+    assert len(configs) > 3
+    for config in configs:
+        got = K1._launch_wide(x, w, k, bias, bnd, res, d, 0.1, code, config)
+        assert torch.equal(got, want), config
+
+
+@pytest.mark.parametrize("c,dtype,tier", [(64, torch.float32, "high"),
+                                          (120, torch.float32, "highest"),
+                                          (32, torch.bfloat16, "default"),
+                                          (128, torch.float32, "default"),
+                                          (128, torch.bfloat16, "default")])
+def test_narrow_conv_residual_is_bit_equal_to_adding_after(cuda, c, dtype, tier):
+    """K1's narrow design adds the residual in its epilogue as PyTorch adds
+    it after the conv, in bf16 too (the conv's output rounded first); C=128
+    at "default" runs on it, no wide launch."""
+    x, w, bias, res, bnd = (t if t.dtype == torch.int32 else t.to(dtype)
+                            for t in _wide_case(c, 7, 2, 3001, cuda, c))
+    for bounds in (None, bnd):
+        wide = K1.conv1d_same.wide_launches
+        got = K1.conv1d_same(x, w, bias, dilation=3, act_slope=0.1, bounds=bounds, residual=res,
+                             precision=tier)
+        assert K1.conv1d_same.wide_launches == wide
+        alone = K1.conv1d_same(x, w, bias, dilation=3, act_slope=0.1, bounds=bounds,
+                               precision=tier)
+        assert got.dtype == dtype and torch.equal(got, res + alone)
+
+
+def test_a_high_decode_runs_its_wide_levels_on_k1(card_voices):
+    """One decode of the piper_high-width (medium preset) vocoder at "high"
+    launches 36 wide K1 kernels, 18 a wide level, and levels 0-1 launch no
+    cuDNN fprop kernel: the level's convs are K1's, its conv-transpose
+    cuDNN's dgrad."""
+    import numpy as np
+
+    from piper_tpu_torch.engine.runtime import PiperRuntime
+    from piper_tpu_torch.models.vits import hifigan
+    from piper_tpu_torch.models.vits.params import Prefix
+
+    rt = PiperRuntime(*card_voices["medium"], device="cuda")
+    hp, params = rt.hparams, rt.params
+    gen = torch.Generator().manual_seed(5)
+    frames = 96
+    z = torch.randn(2, hp.inter_channels, frames, generator=gen).cuda()
+    lengths = torch.tensor([frames, 61], dtype=torch.int32, device="cuda")
+    mask = (torch.arange(frames, device="cuda")[None] < lengths[:, None]).float()[:, None]
+    with torch.inference_mode():
+        before = K1.conv1d_same.wide_launches
+        out = hifigan.hifigan_generator(z * mask, params, hp, t_mask=mask, t_bounds=lengths,
+                                        level_precisions="high")
+        torch.cuda.synchronize()
+        assert K1.conv1d_same.wide_launches - before == 36
+        assert bool(torch.isfinite(out).all())
+        p = Prefix(params, "dec")
+        x0 = hifigan.conv1d(z * mask, p["conv_pre.weight"], p["conv_pre.bias"], padding=3)
+        bounds0 = torch.stack([torch.zeros_like(lengths), lengths], 1)
+        got = {}
+
+        def levels():
+            x, m, bounds = x0, mask, bounds0
+            for i in (0, 1):
+                with tier_scope("high", "cuda"):
+                    x, m, bounds = hifigan._level(x, m, bounds, i, p, hp, False, "high")
+            got["x"] = x
+
+        events = None
+        for _ in range(5):  # a window that lost its head is profiled again
+            events = profiled(levels)
+            if events is not None:
+                break
+    assert events is not None
+    names = [e.key for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert device_kernels(events, "conv1d_same_wide_kernel")[0] == 36
+    assert not [n for n in names if "fprop" in n], sorted(set(names))
+    assert np.isfinite(got["x"].float().cpu().numpy()).all()
 
 
 # The mixed tiers (the JAX bench's default: encoder "highest", flows and
@@ -1159,8 +1300,8 @@ def _slots(n, **kw):
 
 def test_mesh_dp_and_sp_slots_launch_the_kernels(card_voices):
     """dp=2 and sp=2 on two virtual slots of the card: each slot launches
-    K2 three times and K3 once per call (medium), and the dp audio is the
-    one-slot call's within 1e-4."""
+    K2 three times, K3 once and K1's wide design 36 times per call
+    (medium), and the dp audio is the one-slot call's within 1e-4."""
     import numpy as np
 
     from piper_tpu_torch.parallel.serving import ShardedVits
@@ -1168,7 +1309,7 @@ def test_mesh_dp_and_sp_slots_launch_the_kernels(card_voices):
     hp, params, ids, lengths = _mesh_case(card_voices)
     ref, _ = ShardedVits.create(_slots(1), params, hp).synthesize_batch(
         ids, lengths, max_frames=64, seed=3)
-    want = {"resblock1_branch": 3, "resblock1_mrf": 1}
+    want = {"resblock1_branch": 3, "resblock1_mrf": 1, "conv1d_same": 36}
     for shape, call in ((dict(), "synthesize_batch"), (dict(seq_parallel=2), "synthesize_long")):
         sv = ShardedVits.create(_slots(2, **shape), params, hp)
         kw = dict(max_frames=64, seed=3) if call == "synthesize_batch" else dict(span=32, seed=3)
